@@ -21,30 +21,62 @@ Phases, one JSON line each:
   5. shipped: one forward of the shipped inference backbone (decoder
      windows of 48, ragged at every stage) at 65,536 points;
   6. agree: fp32 forward with the kernel against the same forward with the
-     plain attention at 49,152 points.
+     plain attention at 49,152 points;
+  7. kernel_bwd: the attention backward kernel (through the autograd
+     Function) against autograd through the plain version at every
+     signature of phase 2, fp32 and bf16, with zero gradients in padded
+     windows;
+  8. train: scenesplat_tpu_torch.train's trainer on the flagship config
+     (configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py, read
+     through the port's Config) over a synthetic 3DGS dataset written to a
+     temporary directory: flagship widths, losses, optimizer, schedule,
+     transforms, Mix3D and 196,608 points, batch 2, epoch 1 so the
+     contrastive term is live; 1 + 5 steps with K1 and K2 launches counted,
+     step times, loader waits, peak memory and one profiled step;
+  9. timing_bwd: at the train step's stage shapes, the forward with
+     log-sum-exp and the backward kernel against the plain version (bf16
+     noise-floor rule, zeros in padded windows), then their times against
+     the plain version, scaled_dot_product_attention's forward and backward
+     (the library yardstick, used nowhere in the port) and the least time
+     the card could take;
+ 10. train_agree: one fp32 train step of the flagship config file's model at
+     49,152 points with the kernels and one with the plain attention, same
+     weights and generator seeds.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import gc
+import inspect
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from scenesplat_tpu_torch.engines.eval import load_text_embeddings, zero_shot_predict
+from scenesplat_tpu_torch.engines.hooks import HookBase
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
+from scenesplat_tpu_torch.engines.train import build_trainer
+from scenesplat_tpu_torch.engines.train_step import lang_loss
 from scenesplat_tpu_torch.entry import (
     FLAGSHIP_BACKBONE,
     SHIPPED_INFERENCE_BACKBONE,
     build_lang_model,
 )
-from scenesplat_tpu_torch.models import PointBatch, build_model
+from scenesplat_tpu_torch.models import PointBatch, build_criteria, build_model
+from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa
+from scenesplat_tpu_torch.utils.config import Config
+
+FLAGSHIP_CONFIG = "configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py"
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
@@ -56,6 +88,21 @@ BF16_NOISE_FACTOR = 2.5
 # of LayerNorm'd residual updates carry that far below this bound
 AGREE_ATOL = 1e-3
 AGREE_ARGMAX = 0.99
+# backward, fp32: each gradient within 1e-4 of the plain gradient's largest
+# magnitude (the kernel and autograd sum in other orders)
+BWD_FP32_RTOL = 1e-4
+# one fp32 train step, kernels vs plain attention: losses to 1e-5 relative,
+# each parameter gradient to 1e-4 relative L2 of its own norm. A gradient
+# that is zero in exact arithmetic (the bias of a linear layer whose every
+# consumer is a BatchNorm, which the batch mean cancels) is rounding noise on
+# both sides, below ZERO_GRAD of the global gradient norm; the other tensors
+# lie above 1e-6 of it
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+ZERO_GRAD = 1e-7
+TRAIN_POINTS = 196608
+TRAIN_CLASSES = 20
+LANG_DIM = 768
 
 
 def emit(obj):
@@ -67,13 +114,15 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def room_scene(rng, n, size_m):
+def room_scene(rng, n, size_m, thickness=1):
     """n unique 2 cm voxels on the floor and the four walls of a room of
-    ``size_m`` metres, with 11 Gaussian features (colour, opacity, unit
-    quaternion, scale) -> (coord, feat, grid_coord)."""
+    ``size_m`` metres, surfaces ``thickness`` voxels thick, with 11 Gaussian
+    features (colour, opacity, unit quaternion, scale) -> (coord, feat,
+    grid_coord)."""
     ex, ey, ez = (int(round(s / GRID)) for s in size_m)
     x, y, z = np.meshgrid(np.arange(ex), np.arange(ey), np.arange(ez), indexing="ij")
-    surface = (z == 0) | (x == 0) | (x == ex - 1) | (y == 0) | (y == ey - 1)
+    t = thickness
+    surface = (z < t) | (x < t) | (x >= ex - t) | (y < t) | (y >= ey - t)
     vox = np.stack([x[surface], y[surface], z[surface]], -1)
     check(len(vox) >= n, f"room {size_m} holds {len(vox)} voxels < {n}")
     grid = vox[rng.choice(len(vox), n, replace=False)].astype(np.int64)
@@ -117,22 +166,30 @@ def phase_device():
     return smi
 
 
-def check_bf16(x16, valid, k, h):
-    """The kernel's relative error on bf16 input against the plain version
-    run in fp32 may be at most BF16_NOISE_FACTOR times the plain bf16
-    version's own (the noise-floor rule of tests/test_attention.py).
-    Returns both errors."""
-    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
-
-    def rel(out):
-        return ((out[valid].float() - truth).norm() / truth.norm()).item()
-
-    err = rel(fwa.flash_window_attention(x16, valid, k, h))
-    floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h))
-    shape = (x16.shape[1], k, x16.shape[3], h)
-    check(floor > 1e-4, f"bf16 path not exercised at N, K, C, H = {shape}")
+def check_noise_floor(err, floor, what, shape):
+    """The noise-floor rule of tests/test_attention.py: the kernel's relative
+    error on bf16 input against the plain version run in fp32 may be at
+    most BF16_NOISE_FACTOR times the plain bf16 version's own."""
+    check(floor > 1e-4, f"bf16 path not exercised ({what}) at {shape}")
     check(err <= BF16_NOISE_FACTOR * floor,
-          f"bf16 error {err} > {BF16_NOISE_FACTOR} x {floor} at N, K, C, H = {shape}")
+          f"bf16 {what} error {err} > {BF16_NOISE_FACTOR} x {floor} at {shape}")
+
+
+def check_bf16(x16, valid, k, h, out=None):
+    """The kernel's bf16 output (``out``, else the inference launch's) under
+    the noise-floor rule. Returns both errors."""
+    chunk = max(8, 16384 // k)  # windows per plain chunk: the result is the same
+    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h,
+                                             patch_chunk=chunk)[valid]
+
+    def rel(o):
+        return ((o[valid].float() - truth).norm() / truth.norm()).item()
+
+    if out is None:
+        out = fwa.flash_window_attention(x16, valid, k, h)
+    err = rel(out)
+    floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h, patch_chunk=chunk))
+    check_noise_floor(err, floor, "output", ("N, K, C, H", x16.shape[1], k, x16.shape[3], h))
     return err, floor
 
 
@@ -172,11 +229,15 @@ def phase_kernel():
     return worst32
 
 
-def stage_shapes(backbone, n0, plans):
+def stage_shapes(backbone, sizes):
     """(N, valid, K, C, H, launches) of every attention call of one forward,
-    grouped by stage, from the pooling plans of that forward."""
+    grouped by stage, from each stage's (slots, valid count) in ``sizes``;
+    what the config leaves out (the flagship file's ``dec_patch_size``)
+    takes the backbone's default."""
+    params = inspect.signature(PointTransformerV3.__init__).parameters.values()
+    backbone = {**{p.name: p.default for p in params if p.default is not p.empty},
+                **backbone}
     enc_c, enc_h = backbone["enc_channels"], backbone["enc_num_head"]
-    sizes = [(n0, n0)] + [(p.out_mask.shape[1], int(p.out_mask.sum())) for p in plans]
     shapes = [(n, v, backbone["enc_patch_size"][s], enc_c[s], enc_h[s],
                backbone["enc_depths"][s]) for s, (n, v) in enumerate(sizes)]
     for s in reversed(range(len(sizes) - 1)):
@@ -276,7 +337,8 @@ def phase_serve(text):
               classes_predicted=len(uniq),
               class_histogram=dict(zip(uniq.tolist(), counts.tolist())),
               profile=profile))
-    return stage_shapes(backbone, n, plans), launches
+    sizes = [(n, n)] + [(p.out_mask.shape[1], int(p.out_mask.sum())) for p in plans]
+    return stage_shapes(backbone, sizes), launches
 
 
 def bound_ms(n, n_valid, k, c):
@@ -379,6 +441,471 @@ def phase_agree(text):
     check(same >= AGREE_ARGMAX, f"argmax agreement {same}")
 
 
+def grads_of(fn, qkv, valid, k, h, dout):
+    """(output, d output / d qkv) of ``fn`` for output gradient ``dout``."""
+    x = qkv.detach().clone().requires_grad_(True)
+    out = fn(x, valid, k, h)
+    out.backward(dout)
+    return out.detach(), x.grad
+
+
+def phase_kernel_bwd():
+    """Backward kernel vs autograd through the plain version at every
+    signature; returns the fp32 max abs gradient error and that of the
+    forward with log-sum-exp (the Function's forward)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, worst_fwd, rows = 0.0, 0.0, []
+    for k, c, h in SIGNATURES:
+        n = 3 * k + k // 2 + 5  # ragged last window
+        valid = torch.zeros(2, n, dtype=torch.bool, device="cuda")
+        valid[0, : int(0.8 * n)] = True
+        valid[1, : k + 7] = True
+        qkv = torch.randn(2, n, 3, c, generator=gen, device="cuda")
+        dout = torch.randn(2, n, c, generator=gen, device="cuda")
+        out32, g32 = grads_of(fwa.flash_window_attention, qkv, valid, k, h, dout)
+        ref_out, ref32 = grads_of(fwa.flash_window_attention_plain, qkv, valid, k, h, dout)
+        torch.cuda.synchronize()
+        check(torch.isfinite(g32).all().item(), f"non-finite gradient at {k, c, h}")
+        err_fwd = (out32 - ref_out)[valid].abs().max().item()
+        check(err_fwd <= FP32_ATOL, f"fp32 forward-with-lse error {err_fwd} at {k, c, h}")
+        worst_fwd = max(worst_fwd, err_fwd)
+        errs = [(g32[:, :, i] - ref32[:, :, i]).abs().max().item() for i in range(3)]
+        scale = [ref32[:, :, i].abs().max().item() for i in range(3)]
+        dead = torch.zeros_like(valid)
+        dead[1, -(-(k + 7) // k) * k:] = True
+        check((g32[dead] == 0).all().item(), f"padded windows' gradients not zero at {k, c, h}")
+
+        x16, d16 = qkv.bfloat16(), dout.bfloat16()
+        _, truth = grads_of(fwa.flash_window_attention_plain, x16.float(), valid, k, h,
+                            d16.float())
+
+        def rel(g):
+            return ((g.float() - truth).norm() / truth.norm()).item()
+
+        err16 = rel(grads_of(fwa.flash_window_attention, x16, valid, k, h, d16)[1])
+        floor16 = rel(grads_of(fwa.flash_window_attention_plain, x16, valid, k, h, d16)[1])
+        rows.append(dict(K=k, C=c, H=h, N=n, fp32_max_abs_err_dq_dk_dv=errs,
+                         fp32_max_abs_grad=scale, fp32_fwd_lse_max_abs_err=err_fwd,
+                         bf16_rel_err=err16, bf16_plain_rel_err=floor16))
+        for name, e, m in zip(("dq", "dk", "dv"), errs, scale):
+            check(e <= BWD_FP32_RTOL * m, f"fp32 {name} error {e} > {BWD_FP32_RTOL} x {m} "
+                  f"at {k, c, h}")
+        check_noise_floor(err16, floor16, "gradient", ("K, C, H", k, c, h))
+        worst = max(worst, *errs)
+    emit(dict(phase="kernel_bwd", fp32_rtol=BWD_FP32_RTOL,
+              bf16_noise_factor=BF16_NOISE_FACTOR, cases=rows))
+    return worst, worst_fwd
+
+
+def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6)):
+    """``n_scenes`` synthetic 3DGS scenes of ``n`` unique 2 cm voxels on the
+    4 cm thick floor and walls of a room of ``size_m`` metres (81% of its
+    247,072 surface voxels at the default size), in the GS datasets'
+    layout (root/scene/<asset>.npy): colour, opacity, quaternion, scale, 20
+    classes by angle around the room's centre and height, 768-d fp16
+    lang_feat (the class's unit embedding plus noise) and valid_feat_mask.
+    Dense shells keep the pooled stages inside their capacities after
+    Mix3D merges two rooms and halves each one's density."""
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    noise = (0.05 * rng.standard_normal((n, LANG_DIM), dtype=np.float32))
+    dirs = []
+    for i in range(n_scenes):
+        coord, _, _ = room_scene(rng, n, size_m, thickness=2)
+        angle = np.arctan2(coord[:, 1] - size_m[1] / 2, coord[:, 0] - size_m[0] / 2)
+        seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
+        seg = (seg + 10 * (coord[:, 2] > 1.0)).astype(np.int16)
+        scene = os.path.join(root, f"scene{i:04d}")
+        os.makedirs(scene)
+        assets = dict(
+            coord=coord, color=rng.uniform(0, 255, (n, 3)).astype(np.float32),
+            opacity=rng.uniform(0, 1, n).astype(np.float32),
+            quat=rng.normal(size=(n, 4)).astype(np.float32),
+            scale=rng.uniform(0, 0.05, (n, 3)).astype(np.float32),
+            segment=seg, segment200=seg,
+            lang_feat=(emb[seg] + np.roll(noise, i, axis=0)).astype(np.float16),
+            valid_feat_mask=rng.random(n) > 0.1)
+        for key, value in assets.items():
+            np.save(os.path.join(scene, f"{key}.npy"), value)
+        dirs.append(scene)
+    return dirs
+
+
+class StepProbe(HookBase):
+    """CUDA-event time of every step, and a torch.profiler trace of step
+    ``profile_step``."""
+
+    def __init__(self, profile_step):
+        self.profile_step = profile_step
+        self.events, self.prof, self.profile = [], None, None
+
+    def before_step(self):
+        if self.trainer.storage.iter == self.profile_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.events.append([start, None])
+
+    def after_step(self):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.events[-1][1] = end
+        if self.prof is not None:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+            kernels = [e for e in self.prof.key_averages()
+                       if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
+            self.profile = dict(step=self.profile_step, wall_ms=wall_ms, device_busy_ms=busy,
+                                idle_share=1 - busy / wall_ms,
+                                top_kernels=[dict(name=e.key[:90], calls=e.count,
+                                                  ms=e.self_device_time_total / 1e3)
+                                             for e in top])
+            self.prof = None
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def flagship_train_config(root, exp, batch_size):
+    """The flagship config file as it is, with the data roots, epoch 1 (so
+    the contrastive term's last_75 gate is open), the batch size and the
+    ported hooks set."""
+    cfg = Config.fromfile(FLAGSHIP_CONFIG)
+    cfg.merge_from_options(dict(
+        save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size,
+        hooks=[dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+               dict(type="InformationWriter", log_interval=1),
+               dict(type="CheckpointSaver", save_freq=None)]))
+    for ds in cfg.data.train.datasets:
+        ds["data_root"] = root[ds["type"]]
+    return cfg
+
+
+def run_training(cfg):
+    """Trains the config's epoch; returns the trainer, its probe and the
+    per-step records of the forward (pooling overflow, stage sizes and
+    valid counts)."""
+    trainer = build_trainer(cfg, device="cuda")
+    steps = len(trainer.train_loader)
+    probe = StepProbe(profile_step=steps - 1)
+    probe.trainer = trainer
+    trainer.hooks.append(probe)
+    records = []
+    forward = trainer.model.forward
+
+    def recording_forward(point, generator=None):
+        out = forward(point, generator=generator)
+        records.append(dict(
+            overflow=[p.n_overflow for p in out.plans],
+            sizes=[(point.mask.shape[1], point.mask.sum(1))]
+            + [(p.out_mask.shape[1], p.out_mask.sum(1)) for p in out.plans]))
+        return out
+
+    trainer.model.forward = recording_forward
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train()
+    return trainer, probe, records
+
+
+def phase_train(scene_points=200000, room=(3.6, 3.6, 2.6)):
+    """The flagship trainer for 1 + 5 steps; returns the train-step stage
+    shapes and the K1 / K2 launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scenes = write_gs_scenes(os.path.join(tmp, "scenes"), 4, scene_points, seed=4,
+                                 size_m=room)
+        # Matterport (loop 3): 4 scenes -> 3 batches; ScanNet++ (loop 2): 4
+        # -> 2; ScanNet200 (loop 2): 2 -> 1 (Mix3D: 4 samples a batch)
+        root, splits = {}, {"Matterport3D_160_GSDataset": (
+            "train_grid1.0cm_chunk6x6_stride3x3_filtered", 4),
+            "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 4),
+            "ScanNet200GSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 2)}
+        for name, (split, count) in splits.items():
+            root[name] = os.path.join(tmp, name)
+            os.makedirs(os.path.join(root[name], split))
+            for scene in scenes[:count]:
+                os.symlink(scene, os.path.join(root[name], split, os.path.basename(scene)))
+        data_s = time.perf_counter() - t0
+
+        fwa.flash_window_attention.launches = 0
+        fwa.flash_window_attention_bwd.launches = 0
+        batch, oom, result = 2, None, None
+        try:
+            result = run_training(flagship_train_config(root, os.path.join(tmp, "exp"), batch))
+        except torch.cuda.OutOfMemoryError as e:
+            oom = dict(batch_size=batch, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       error=str(e)[:600])
+        if result is None:  # the reference's 2 per card did not fit: 1 per card
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch = 1
+            fwa.flash_window_attention.launches = 0
+            fwa.flash_window_attention_bwd.launches = 0
+            result = run_training(flagship_train_config(root, os.path.join(tmp, "exp1"), batch))
+        trainer, probe, records = result
+        k1, k2 = fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = probe.step_ms()
+        hist = trainer.storage.history
+        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+        steps = len(losses)
+        check(steps >= 6, f"{steps} train steps, expected at least 1 + 5")
+        check(all(math.isfinite(v) for v in losses + grad_norms),
+              f"non-finite loss or grad_norm: {losses} {grad_norms}")
+        backbone = trainer.cfg.model.backbone
+        blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])  # 18
+        check(k1 == blocks * steps and k2 == blocks * steps,
+              f"{k1} forward and {k2} backward kernel launches in {steps} steps, "
+              f"expected {blocks} each per step")
+        overflow = [int(max(int(o.max()) for o in r["overflow"])) for r in records]
+        check(all(o == 0 for o in overflow), f"pooling overflow {overflow}")
+        check(os.path.exists(os.path.join(trainer.cfg.save_path, "model", "model_last.pth")),
+              "no checkpoint written")
+        sizes = [[(n, v.tolist()) for n, v in r["sizes"]] for r in records]
+        emit(dict(phase="train", batch_size=batch, points=TRAIN_POINTS, oom=oom,
+                  steps=steps, loss=losses, grad_norm=grad_norms, lr=hist("lr").values(),
+                  cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  k1_launches=k1, k2_launches=k2, peak_mem_gib=peak_gib,
+                  n_overflow=overflow, stage_slots_valid=sizes[-1],
+                  dataset_write_s=data_s, profile=probe.profile))
+        del trainer
+    torch.cuda.empty_cache()
+    shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
+    return shapes, k1, k2
+
+
+def bwd_bound_ms(n, valids, k, c, h):
+    """Least time of one bf16 backward call, as (ops_ms, bytes_ms,
+    design_bytes_ms): 10 v^2 C operations per window of v valid slots (the
+    five products, the recompute of S included) at the bf16 peak; the bytes
+    of the function K2 replaces (qkv and dO of live windows and the mask
+    read once, dqkv written once) at the memory rate; and those bytes plus
+    the O and lse of live windows that this design's backward also reads."""
+    ops, rows_live = 0, 0
+    for nv in valids:
+        for w0 in range(0, n, k):
+            v = max(0, min(nv, w0 + k) - w0)
+            ops += 10 * v * v * c
+            rows_live += min(k, n - w0) if v else 0
+    nbytes = rows_live * (2 * 3 * c + 2 * c) + len(valids) * n * (2 * 3 * c + 1)
+    design = nbytes + rows_live * (2 * c + 4 * h)
+    return (ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
+            design / PEAK_BYTES * 1e3)
+
+
+def fwd_lse_bound_ms(n, valids, k, c, h):
+    """Least time of one bf16 forward with log-sum-exp, as (ops_ms,
+    bytes_ms): ``bound_ms`` of each batch row, plus the fp32 lse written."""
+    ops_ms, bytes_ms = (sum(x) for x in zip(*(bound_ms(n, nv, k, c) for nv in valids)))
+    return ops_ms, bytes_ms + len(valids) * n * 4 * h / PEAK_BYTES * 1e3
+
+
+def backward_ms(make_out, x_list, dout, reps):
+    """Device time of the backward alone: a fresh forward per rep outside the
+    timed span, CUDA events around torch.autograd.grad. Returns the time and
+    the last rep's gradients."""
+    total = 0.0
+    for i in range(reps + 1):
+        out = make_out()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        grads = torch.autograd.grad(out, x_list, dout)
+        end.record()
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            total += start.elapsed_time(end)
+        del out
+    return total / reps, grads
+
+
+def phase_timing_bwd(shapes):
+    """At the train step's shapes: the forward with log-sum-exp and the
+    backward kernel against the plain version under the bf16 noise-floor
+    rule (gradients against autograd through the plain version run in
+    fp32), with zero output and gradients in windows whose slot 0 is
+    padding; then each kernel's time per call and per step against the
+    plain version, the library call and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+               design_bytes_ms=0.0, fwd_lse_ms=0.0, fwd_plain_ms=0.0,
+               fwd_library_ms=0.0, fwd_ops_ms=0.0, fwd_bytes_ms=0.0)
+    # what the autograd Function keeps beyond the JAX package's residuals
+    # (qkv, valid): the bf16 output and the fp32 log-sum-exp of every call
+    saved_gib = sum(count * len(valids) * n * (2 * c + 4 * h)
+                    for n, valids, k, c, h, count in shapes) / 2 ** 30
+    for n, valids, k, c, h, count in shapes:
+        b, d, scale = len(valids), c // h, (c // h) ** -0.5
+        shape = ("N, valid, K, C, H", n, valids, k, c, h)
+        qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
+        dout = torch.randn(b, n, c, generator=gen, device="cuda").bfloat16()
+        valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+        dead = torch.zeros_like(valid)
+        for i, nv in enumerate(valids):
+            valid[i, :nv] = True
+            dead[i, -(-nv // k) * k:] = True
+        out, lse = fwa._launch_fwd(qkv, valid, k, h, scale, True)
+        dqkv = fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h, scale)
+        torch.cuda.synchronize()
+        check(torch.isfinite(dqkv).all().item(), f"non-finite gradient at {shape}")
+        check((out[dead] == 0).all().item() and (dqkv[dead] == 0).all().item(),
+              f"padded windows' output or gradients not zero at {shape}")
+        fwd_err, fwd_floor = check_bf16(qkv, valid, k, h, out=out)
+
+        fwd_ms = cuda_ms(lambda: fwa._launch_fwd(qkv, valid, k, h, scale, True), reps=10)
+        fwd_plain_ms = cuda_ms(lambda: fwa.flash_window_attention_plain(qkv, valid, k, h),
+                               reps=2, warmup=1)
+        ms = cuda_ms(lambda: fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h,
+                                                            scale), reps=10)
+        x = qkv.detach().clone().requires_grad_(True)
+        plain_ms, (g_plain,) = backward_ms(
+            lambda: fwa.flash_window_attention_plain(x, valid, k, h), [x], dout, reps=2)
+        chunk = max(8, 16384 // k)  # windows per plain chunk: the result is the same
+        _, truth = grads_of(
+            lambda t, m, kk, hh: fwa.flash_window_attention_plain(t, m, kk, hh,
+                                                                  patch_chunk=chunk),
+            qkv.float(), valid, k, h, dout.float())
+
+        def rel(g):
+            return ((g.float() - truth).norm() / truth.norm()).item()
+
+        err16, floor16 = rel(dqkv), rel(g_plain)
+        check_noise_floor(err16, floor16, "gradient", shape)
+        del truth, g_plain, x
+
+        p = -(-n // k)
+        pad = p * k - n
+        qkv_w = torch.cat([qkv, qkv.new_zeros(b, pad, 3, c)], 1) if pad else qkv
+        valid_w = torch.cat([valid, valid.new_zeros(b, pad)], 1) if pad else valid
+        q, kk, v = [t.detach().requires_grad_(True) for t in
+                    qkv_w.view(b * p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()]
+        mask = valid_w.view(b * p, 1, 1, k)
+        dout_w = (torch.cat([dout, dout.new_zeros(b, pad, c)], 1) if pad else dout)
+        dout_w = dout_w.view(b * p, k, h, d).transpose(1, 2).contiguous()
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(q, kk, v, attn_mask=mask)
+
+        with torch.no_grad():
+            fwd_lib_ms = cuda_ms(library, reps=10)
+        lib_ms, _ = backward_ms(library, [q, kk, v], dout_w, reps=5)
+        ops_ms, bytes_ms, design_bytes_ms = bwd_bound_ms(n, valids, k, c, h)
+        fwd_ops_ms, fwd_bytes_ms = fwd_lse_bound_ms(n, valids, k, c, h)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms,
+                   bytes_ms=bytes_ms, design_bytes_ms=design_bytes_ms, fwd_lse_ms=fwd_ms,
+                   fwd_plain_ms=fwd_plain_ms, fwd_library_ms=fwd_lib_ms,
+                   fwd_ops_ms=fwd_ops_ms, fwd_bytes_ms=fwd_bytes_ms)
+        rows.append(dict(N=n, B=b, valid=valids, K=k, C=c, H=h, launches=count, **row,
+                         bound_ms=max(ops_ms, bytes_ms),
+                         fwd_bound_ms=max(fwd_ops_ms, fwd_bytes_ms),
+                         bf16_grad_rel_err=err16, bf16_grad_plain_rel_err=floor16,
+                         bf16_fwd_lse_rel_err=fwd_err, bf16_fwd_plain_rel_err=fwd_floor))
+        for key, val in row.items():
+            tot[key] += count * val
+        del qkv, dout, out, lse, dqkv, q, kk, v, qkv_w, dout_w
+        torch.cuda.empty_cache()
+    for pre in ("", "fwd_"):
+        ops_ms, bytes_ms = tot[pre + "ops_ms"], tot[pre + "bytes_ms"]
+        tot[pre + "bound_ms"] = max(ops_ms, bytes_ms)
+        tot[pre + "bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    tot["design_bound_ms"] = max(tot["ops_ms"], tot["design_bytes_ms"])
+    emit(dict(phase="timing_bwd", dtype="bfloat16", bf16_noise_factor=BF16_NOISE_FACTOR,
+              per_call=rows, per_step=tot, saved_out_lse_gib=saved_gib,
+              worst_bf16_grad_ratio=max(r["bf16_grad_rel_err"] / r["bf16_grad_plain_rel_err"]
+                                        for r in rows),
+              worst_bf16_fwd_lse_ratio=max(r["bf16_fwd_lse_rel_err"]
+                                           / r["bf16_fwd_plain_rel_err"] for r in rows)))
+    return tot
+
+
+def phase_train_agree(n=49152):
+    """One fp32 train step of the flagship config file's model (decoder
+    windows of 48, ragged) at ``n`` points with the kernels and one with the
+    plain attention, from the same weights and generator seeds."""
+    cfg = Config.fromfile(FLAGSHIP_CONFIG)
+    backbone = dict(cfg.model.backbone)
+    rng = np.random.default_rng(7)
+    # a room small enough that its 4 cm cells fit the first pooling's
+    # capacity (a 3 m room's 24,891 would overflow 0.5 x 49,152)
+    coord, feat_in, grid = room_scene(rng, n, (2.4, 2.4, 2.4))
+    angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
+    seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
+    seg = seg + 10 * (coord[:, 2] > 1.0)
+    emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)  # SigLIP2 features are unit rows
+    lang = emb[seg] + 0.05 * rng.normal(size=(n, LANG_DIM)).astype(np.float32)
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x))[None].cuda()
+
+    batch = dict(coord=dev(coord), feat=dev(feat_in), grid_coord=dev(grid),
+                 mask=torch.ones(1, n, dtype=torch.bool, device="cuda"),
+                 segment=dev(seg), lang_feat=dev(lang.astype(np.float16)),
+                 valid_feat_mask=dev(rng.random(n) > 0.1))
+    criteria = build_criteria(cfg.model.criteria)
+
+    def step(use_kernel):
+        model = build_model(dict(type="LangPretrainer", backbone=dict(
+            backbone, dtype="float32", seed=1, use_kernel=use_kernel)))
+        model = model.cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        loss, out = lang_loss(model, criteria, batch, gen, epoch_progress=1.0)
+        loss.backward()
+        overflow.append([int(p.n_overflow.max()) for p in out.plans])
+        return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+
+    blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])
+    overflow = []
+    before = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
+    loss_k, grads_k = step(None)
+    after = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
+    check(after == (before[0] + blocks, before[1] + blocks),
+          f"kernel path not taken: {before} {after}")
+    loss_p, grads_p = step(False)
+    check((fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
+          == after, "plain path launched a kernel")
+    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_p.values()])).item()
+    worst, zero, by_share = 0.0, [], {}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        check(torch.isfinite(gk).all().item(), f"non-finite gradient {name}")
+        norm, diff = gp.norm().item(), (gk - gp).norm().item()
+        # per decade of the tensor's share of the global norm: how many
+        # tensors, and their worst error relative to their own norm
+        decade = f"1e{math.floor(math.log10(norm / total))}" if norm else "0"
+        count, own = by_share.get(decade, (0, 0.0))
+        by_share[decade] = (count + 1, max(own, diff / norm if norm else diff))
+        if norm < ZERO_GRAD * total:
+            zero.append(name)
+            check(gk.norm().item() < ZERO_GRAD * total,
+                  f"gradient of {name} is zero on the plain path only")
+            continue
+        worst = max(worst, diff / norm)
+        check(diff / norm <= TRAIN_GRAD_RTOL,
+              f"gradient of {name} differs by {diff / norm} (relative L2)")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit(dict(phase="train_agree", points=n, dtype="float32",
+              dec_patch_size=backbone.get("dec_patch_size", "default (48)"),
+              n_overflow=overflow, loss_kernel=loss_k,
+              loss_plain=loss_p, loss_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+              grad_tensors=len(grads_p), worst_grad_rel_l2=worst, grad_rtol=TRAIN_GRAD_RTOL,
+              zero_grad_tensors=zero, global_grad_norm=total,
+              worst_own_rel_l2_by_share=dict(sorted(by_share.items()))))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"losses differ by {loss_rel} relative")
+    check(not any(map(any, overflow)), f"pooling overflow {overflow}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -393,15 +920,33 @@ def main() -> int:
     tot = phase_timing(shapes)
     phase_shipped(text)
     phase_agree(text)
+    worst_bwd, worst_fwd_lse = phase_kernel_bwd()
+    train_shapes, k1_train, k2_train = phase_train()
+    tot_bwd = phase_timing_bwd(train_shapes)
+    phase_train_agree()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
-    emit({"kernels": [dict(
-        name="flash_window_attention_fwd", route="cuda",
-        source="scenesplat_tpu_torch/csrc/flash_window_attn.cu",
-        replaces="scenesplat_tpu/ops/pallas_attn.py:68",
-        launches=launches, max_abs_err=worst32, ms=tot["ms"],
-        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
-        library_ms=tot["library_ms"])]})
+    source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
+    # launches: the count of the path's run (4 serve forwards, 6 train
+    # steps); ms and the other times: per forward or per step (18 launches)
+    emit({"kernels": [
+        dict(name="flash_window_attention_fwd", route="cuda", source=source,
+             replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
+             launches=launches, ms_per="serve forward", max_abs_err=worst32, ms=tot["ms"],
+             plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
+             library_ms=tot["library_ms"]),
+        dict(name="flash_window_attention_fwd_lse", route="cuda", source=source,
+             replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
+             launches=k1_train, ms_per="train step", max_abs_err=worst_fwd_lse,
+             ms=tot_bwd["fwd_lse_ms"], plain_ms=tot_bwd["fwd_plain_ms"],
+             bound_ms=tot_bwd["fwd_bound_ms"], bound_by=tot_bwd["fwd_bound_by"],
+             library_ms=tot_bwd["fwd_library_ms"]),
+        dict(name="flash_window_attention_bwd", route="cuda", source=source,
+             replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
+             launches=k2_train, ms_per="train step", max_abs_err=worst_bwd,
+             ms=tot_bwd["ms"], plain_ms=tot_bwd["plain_ms"], bound_ms=tot_bwd["bound_ms"],
+             bound_by=tot_bwd["bound_by"], library_ms=tot_bwd["library_ms"],
+             design_bound_ms=tot_bwd["design_bound_ms"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,145 @@
+"""Training hooks (counterpart of ``scenesplat_tpu/engines/hooks/misc.py``):
+the iteration timer, the metrics writer, and checkpoint save and load as
+torch state dicts (model, optimizer, scheduler, the training generator's
+state, step and epoch)."""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from scenesplat_tpu_torch.utils.events import JSONWriter
+
+from .default import HOOKS, HookBase
+
+
+@HOOKS.register_module()
+class IterationTimer(HookBase):
+    """``data_time``: host seconds waiting for the batch; ``batch_time``:
+    host seconds of the whole iteration. ``warmup_iter`` is accepted for
+    the configs' sake and unused, as in the JAX package."""
+
+    def __init__(self, warmup_iter: int = 2):
+        self._iter_start = time.perf_counter()
+
+    def before_epoch(self):
+        self._iter_start = time.perf_counter()
+
+    def before_step(self):
+        self.trainer.storage.put_scalar("data_time", time.perf_counter() - self._iter_start)
+
+    def after_step(self):
+        now = time.perf_counter()
+        self.trainer.storage.put_scalar("batch_time", now - self._iter_start)
+        self._iter_start = now
+
+
+@HOOKS.register_module()
+class InformationWriter(HookBase):
+    """Logs loss, grad_norm, timings and lr every ``log_interval`` steps and
+    appends them to ``<save_path>/metrics.json``."""
+
+    def __init__(self, log_interval: int = 10):
+        self.log_interval = log_interval
+        self.json_writer = None
+
+    def before_train(self):
+        save_path = self.trainer.cfg.get("save_path", "exp/default")
+        self.json_writer = JSONWriter(os.path.join(save_path, "metrics.json"))
+
+    def after_step(self):
+        storage = self.trainer.storage
+        if storage.iter % self.log_interval:
+            return
+        msgs = [f"epoch {self.trainer.epoch + 1}/{self.trainer.max_epoch}",
+                f"iter {storage.iter}"]
+        for key in ("loss", "grad_norm", "data_time", "batch_time"):
+            if key in storage.latest:
+                msgs.append(f"{key}: {storage.latest[key]:.4g}")
+        if "lr" in storage.latest:
+            msgs.append(f"lr: {storage.latest['lr']:.3e}")
+        self.trainer.logger.info("  ".join(msgs))
+        self.json_writer.write(storage)
+
+    def after_epoch(self):
+        self.json_writer.write(self.trainer.storage)
+
+    def after_train(self):
+        self.json_writer.close()
+
+
+def training_state(trainer, epoch: int) -> dict:
+    """What a checkpoint holds: the trainer's state after ``epoch`` epochs."""
+    return dict(
+        state_dict=trainer.model.state_dict(),
+        optimizer=trainer.optimizer.state_dict(),
+        scheduler=None if trainer.scheduler is None else trainer.scheduler.state_dict(),
+        generator=trainer.generator.get_state(),
+        step=trainer.storage.iter,
+        epoch=epoch,
+    )
+
+
+@HOOKS.register_module()
+class CheckpointSaver(HookBase):
+    """Writes ``model/model_last.pth`` after every epoch (atomically) and,
+    with ``save_freq``, keeps ``epoch_<n>.pth`` every ``save_freq`` epochs.
+    (``model_best.pth`` comes with the evaluator hooks, which the port does
+    not have yet.)"""
+
+    def __init__(self, save_freq=None):
+        self.save_freq = save_freq
+
+    def before_train(self):
+        self.ckpt_dir = os.path.abspath(
+            os.path.join(self.trainer.cfg.get("save_path", "exp/default"), "model"))
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    def _save(self, name: str):
+        path = os.path.join(self.ckpt_dir, name)
+        torch.save(training_state(self.trainer, self.trainer.epoch + 1), path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    def after_epoch(self):
+        self._save("model_last.pth")
+        if self.save_freq and (self.trainer.epoch + 1) % self.save_freq == 0:
+            self._save(f"epoch_{self.trainer.epoch + 1}.pth")
+
+
+@HOOKS.register_module()
+class CheckpointLoader(HookBase):
+    """Loads ``cfg.weight`` before training: the model's state dict (a
+    Pointcept ``module.`` prefix dropped, ``keywords`` in names replaced by
+    ``replacement``), and with ``cfg.resume`` also the optimizer, the
+    schedule, the generator, the step and the epoch to continue from."""
+
+    def __init__(self, keywords: str = "", replacement=None, strict: bool = True):
+        self.keywords = keywords
+        self.replacement = replacement if replacement is not None else keywords
+        self.strict = strict
+
+    def before_train(self):
+        trainer = self.trainer
+        weight = trainer.cfg.get("weight")
+        if not weight:
+            return
+        if not os.path.exists(weight):
+            raise FileNotFoundError(f"checkpoint not found: {weight}")
+        trainer.logger.info(f"loading checkpoint: {weight}")
+        ckpt = torch.load(weight, map_location="cpu", weights_only=False)
+        state = ckpt.get("state_dict", ckpt)
+        state = {k.removeprefix("module.").replace(self.keywords, self.replacement)
+                 if self.keywords else k.removeprefix("module."): v for k, v in state.items()}
+        trainer.model.load_state_dict(state, strict=self.strict)
+        resume = trainer.cfg.get("resume", False)
+        if resume:
+            trainer.optimizer.load_state_dict(ckpt["optimizer"])
+            if trainer.scheduler is not None:
+                trainer.scheduler.load_state_dict(ckpt["scheduler"])
+            trainer.generator.set_state(ckpt["generator"])
+            trainer.start_epoch = int(ckpt["epoch"])
+            trainer.storage.iter = int(ckpt["step"])
+        trainer.logger.info(f"checkpoint loaded (resume={resume}, "
+                            f"epoch={trainer.start_epoch})")

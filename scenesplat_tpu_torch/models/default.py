@@ -1,5 +1,6 @@
-"""LangPretrainer: backbone + L2-normalized per-Gaussian language features
-(counterpart of ``scenesplat_tpu/models/default.py:LangPretrainer``)."""
+"""LangPretrainer: backbone + L2-normalized per-Gaussian language features,
+in eval and in training (counterpart of
+``scenesplat_tpu/models/default.py:LangPretrainer``)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ class LangPretrainer(nn.Module):
         super().__init__()
         self.backbone = build_model(dict(backbone))
 
-    def forward(self, point: PointBatch) -> PointBatch:
-        out = self.backbone(point)
+    def forward(self, point: PointBatch, generator=None) -> PointBatch:
+        """``generator`` draws the backbone's training randomness."""
+        out = self.backbone(point, generator=generator)
         return out.replace(feat=l2_normalize(out.feat))

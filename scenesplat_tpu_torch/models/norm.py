@@ -3,12 +3,16 @@
 
 Both compute in fp32 whatever the input dtype and return the module's
 compute dtype. Parameter and buffer names follow torch's BatchNorm1d and
-LayerNorm so reference checkpoints load as they are.
+LayerNorm so reference checkpoints load as they are. Both go through
+torch's fused norms, which keep one fp32 copy of the input for the
+backward (a norm written out op by op keeps three to five, several GB per
+norm at the flagship dec0).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -33,19 +37,18 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            w = mask.unsqueeze(-1).float()
-            count = w.sum().clamp(min=1.0)
-            mean = (xf * w).sum((0, 1)) / count
-            var = (((xf - mean) ** 2) * w).sum((0, 1)) / count
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * count / (count - 1.0).clamp(min=1.0)
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * unbiased)
-                self.num_batches_tracked.add_(1)
+            # batch moments of the valid points; padding rows come out as
+            # zeros (every consumer masks them: attention keys, conv
+            # neighbours, pooling's discard bin, the losses)
+            valid = F.batch_norm(xf[mask], self.running_mean, self.running_var,
+                                 self.weight, self.bias, training=True,
+                                 momentum=self.momentum, eps=self.eps)
+            self.num_batches_tracked.add_(1)
+            y = xf.new_zeros(xf.shape).index_put((mask,), valid)
         else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+            y = F.batch_norm(xf.reshape(-1, xf.shape[-1]), self.running_mean,
+                             self.running_var, self.weight, self.bias, training=False,
+                             eps=self.eps).view(xf.shape)
         return y.to(self.dtype)
 
 
@@ -60,8 +63,5 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
         return y.to(self.dtype)

@@ -1,4 +1,4 @@
-"""Point Transformer V3 backbone, eval forward (counterpart of
+"""Point Transformer V3 backbone, eval and train forward (counterpart of
 ``scenesplat_tpu/models/ptv3.py``).
 
 Fixed-shape padded batches as in the JAX package: serialized attention is
@@ -13,8 +13,14 @@ Submodule names follow the Pointcept PTv3 state-dict layout
 checkpoint, or the JAX package's weights carried by utils/weights.py, loads
 with ``load_state_dict(strict=True)``. Parameters are fp32 and cast to the
 compute dtype at each linear and conv, which accumulate in fp32; norms
-compute in fp32. GELU is the exact (erf) form. Dropout and drop-path are
-identity at eval.
+compute in fp32. GELU is the exact (erf) form.
+
+In training (``self.training``) the forward takes a ``torch.Generator``
+for its random draws, as the JAX package takes its ``shuffle`` and
+``dropout`` keys: the logical curve order is shuffled (``shuffle_orders``),
+drop-path drops whole points of the attention and of the MLP branch with
+independent draws, and MLP and projection dropout act at ``proj_drop``.
+All of them are identity at eval.
 """
 
 from __future__ import annotations
@@ -50,6 +56,24 @@ from .structure import PointBatch
 
 def as_dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            per_point: bool = False) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - p and scale kept
+    values by 1 / (1 - p). ``per_point`` draws one value per point and
+    broadcasts it over channels (drop-path, flax ``broadcast_dims=(2,)``)."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("a training forward with dropout or drop-path needs a "
+                         "torch.Generator")
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    shape = x.shape[:-1] + (1,) if per_point else x.shape
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
 
 
 @dataclass(frozen=True)
@@ -112,15 +136,18 @@ class SubMConv(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, channels: int, mlp_ratio: float = 4.0,
+    def __init__(self, channels: int, mlp_ratio: float = 4.0, drop: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = int(channels * mlp_ratio)
+        self.drop = drop
         self.fc1 = Linear(channels, hidden, dtype=dtype)
         self.fc2 = Linear(hidden, channels, dtype=dtype)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, generator=None):
+        p = self.drop if self.training else 0.0
+        x = dropout(F.gelu(self.fc1(x)), p, generator)
+        return dropout(self.fc2(x), p, generator)
 
 
 class SerializedAttention(nn.Module):
@@ -128,17 +155,18 @@ class SerializedAttention(nn.Module):
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int = 0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None,
+                 qk_scale: Optional[float] = None, proj_drop: float = 0.0,
                  use_kernel: Optional[bool] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.channels, self.num_heads, self.patch_size = channels, num_heads, patch_size
         self.order_index, self.use_kernel = order_index, use_kernel
+        self.proj_drop = proj_drop
         self.scale = qk_scale or (channels // num_heads) ** -0.5
         self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, dtype=dtype)
         self.proj = Linear(channels, channels, dtype=dtype)
 
-    def forward(self, feat, state: StageState):
+    def forward(self, feat, state: StageState, generator=None):
         c = self.channels
         order = state.ser.curve_order(self.order_index)
         inverse = state.ser.curve_inverse(self.order_index)
@@ -149,20 +177,24 @@ class SerializedAttention(nn.Module):
         out_sorted = window_attention(
             qkv_sorted, valid_sorted, self.patch_size, self.num_heads,
             scale=self.scale, use_kernel=self.use_kernel)
-        return self.proj(take_along_points(out_sorted, inverse))
+        out = self.proj(take_along_points(out_sorted, inverse))
+        return dropout(out, self.proj_drop if self.training else 0.0, generator)
 
 
 class Block(nn.Module):
-    """xCPE + pre-norm attention + pre-norm MLP."""
+    """xCPE + pre-norm attention + pre-norm MLP; in training, drop-path on
+    the attention and the MLP branch (independent draws)."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, pre_norm: bool = True,
+                 qk_scale: Optional[float] = None, proj_drop: float = 0.0,
+                 drop_path: float = 0.0, pre_norm: bool = True,
                  order_index: int = 0, use_kernel: Optional[bool] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
+        self.drop_path = drop_path
         self.cpe = nn.ModuleList([
             SubMConv(c, c, kernel_size=3, dtype=dtype),
             Linear(c, c, dtype=dtype),
@@ -171,28 +203,31 @@ class Block(nn.Module):
         self.norm1 = nn.ModuleList([LayerNorm(c, dtype=dtype)])
         self.attn = SerializedAttention(
             c, num_heads, patch_size, order_index=order_index, qkv_bias=qkv_bias,
-            qk_scale=qk_scale, use_kernel=use_kernel, dtype=dtype)
+            qk_scale=qk_scale, proj_drop=proj_drop, use_kernel=use_kernel, dtype=dtype)
         self.norm2 = nn.ModuleList([LayerNorm(c, dtype=dtype)])
-        self.mlp = nn.ModuleList([MLP(c, mlp_ratio, dtype=dtype)])
+        self.mlp = nn.ModuleList([MLP(c, mlp_ratio, drop=proj_drop, dtype=dtype)])
 
-    def forward(self, feat, state: StageState, cpe_feat=None):
+    def forward(self, feat, state: StageState, cpe_feat=None, generator=None):
         # cpe_feat: the first block after unpooling convolves the proj_skip
         # features (see SerializedUnpooling)
         conv, linear, norm = self.cpe
         x = conv(feat if cpe_feat is None else cpe_feat, state.conv_plan)
         feat = feat + norm(linear(x))
 
+        dp = self.drop_path if self.training else 0.0
         shortcut = feat
         if self.pre_norm:
             feat = self.norm1[0](feat)
-        feat = shortcut + self.attn(feat, state)
+        feat = shortcut + dropout(self.attn(feat, state, generator), dp, generator,
+                                  per_point=True)
         if not self.pre_norm:
             feat = self.norm1[0](feat)
 
         shortcut = feat
         if self.pre_norm:
             feat = self.norm2[0](feat)
-        feat = shortcut + self.mlp[0](feat)
+        feat = shortcut + dropout(self.mlp[0](feat, generator), dp, generator,
+                                  per_point=True)
         if not self.pre_norm:
             feat = self.norm2[0](feat)
         return feat
@@ -280,11 +315,12 @@ class _Stage(nn.Module):
 
 @MODELS.register_module("PT-v3m1")
 class PointTransformerV3(nn.Module):
-    """Flagship backbone. ``drop_path``, ``attn_drop``, ``proj_drop`` and
-    ``shuffle_orders`` act only in training, which this eval forward does
-    not run; ``upcast_softmax`` is accepted for config compatibility, the
-    softmax always runs in fp32. ``use_kernel`` is passed to
-    ops.window_attention. Parameters are drawn from ``seed``."""
+    """Flagship backbone. ``drop_path``, ``proj_drop`` and
+    ``shuffle_orders`` act only in training. ``attn_drop`` is accepted and,
+    as in the JAX package, never applied (neither attention kernel drops
+    probabilities); ``upcast_softmax`` is accepted for config
+    compatibility, the softmax always runs in fp32. ``use_kernel`` is
+    passed to ops.window_attention. Parameters are drawn from ``seed``."""
 
     def __init__(
         self,
@@ -323,16 +359,22 @@ class PointTransformerV3(nn.Module):
         self.enc_patch_size = tuple(enc_patch_size)
         self.serialization_depth = serialization_depth
         self.num_stages = len(enc_depths)
+        self.shuffle_orders = shuffle_orders
         self.stage_capacity = tuple(
             stage_capacity or (0.5 ** s for s in range(1, self.num_stages)))
         if len(self.stage_capacity) != self.num_stages - 1:
             raise ValueError("stage_capacity needs one fraction per pooling")
 
-        def block(c, heads, patch, i):
+        def block(c, heads, patch, i, rate):
             return Block(c, heads, patch, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                         qk_scale=qk_scale, pre_norm=pre_norm,
-                         order_index=i % len(self.order), use_kernel=use_kernel,
-                         dtype=dtype)
+                         qk_scale=qk_scale, proj_drop=proj_drop, drop_path=rate,
+                         pre_norm=pre_norm, order_index=i % len(self.order),
+                         use_kernel=use_kernel, dtype=dtype)
+
+        # drop-path rates: one linspace over the encoder's blocks; the
+        # decoder's per-stage slices of a second linspace, reversed
+        enc_dp = torch.linspace(0, drop_path, sum(enc_depths), dtype=torch.float64).tolist()
+        dec_dp = torch.linspace(0, drop_path, sum(dec_depths), dtype=torch.float64).tolist()
 
         self.embedding = Embedding(in_channels, enc_channels[0], dtype=dtype)
         self.enc = nn.ModuleDict()
@@ -342,15 +384,17 @@ class PointTransformerV3(nn.Module):
                 down["down"] = SerializedPooling(
                     enc_channels[s - 1], enc_channels[s], stride=stride[s - 1],
                     reduce=pool_reduce, dtype=dtype)
-            blocks = [block(enc_channels[s], enc_num_head[s], enc_patch_size[s], i)
-                      for i in range(enc_depths[s])]
+            first = sum(enc_depths[:s])
+            blocks = [block(enc_channels[s], enc_num_head[s], enc_patch_size[s], i,
+                            enc_dp[first + i]) for i in range(enc_depths[s])]
             self.enc[f"enc{s}"] = _Stage(blocks, **down)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         self.dec = nn.ModuleDict()
         for s in reversed(range(self.num_stages - 1)):
             up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s],
                                      dtype=dtype)
-            blocks = [block(dec_ch[s], dec_num_head[s], dec_patch_size[s], i)
+            rates = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
+            blocks = [block(dec_ch[s], dec_num_head[s], dec_patch_size[s], i, rates[i])
                       for i in range(dec_depths[s])]
             self.dec[f"dec{s}"] = _Stage(blocks, up=up)
         self.reset_parameters(seed)
@@ -361,13 +405,21 @@ class PointTransformerV3(nn.Module):
             if isinstance(mod, (Linear, SubMConv)):
                 mod.reset_parameters(gen)
 
-    def forward(self, point: PointBatch) -> PointBatch:
+    def forward(self, point: PointBatch,
+                generator: Optional[torch.Generator] = None) -> PointBatch:
         """Returns the decoder output at the input points; ``plans`` holds
         the pooling plans (their ``n_overflow`` counts clusters lost to the
-        stage capacities)."""
+        stage capacities). In training, ``generator`` (on the points'
+        device) draws the curve shuffle and the dropout masks; a point that
+        arrives serialized keeps its serialization."""
         depth = self.serialization_depth
         if point.ser is None:
-            point = point.serialized(self.order, depth=depth)
+            shuffle = self.training and self.shuffle_orders and len(self.order) > 1
+            if shuffle and generator is None:
+                raise ValueError("a training forward with shuffle_orders needs a "
+                                 "torch.Generator")
+            point = point.serialized(self.order, depth=depth,
+                                     generator=generator if shuffle else None)
         n0 = point.num_points
         stem_plan = build_subm_conv_plan(point.grid_coord, point.mask, 5, depth)
         state = StageState(point.coord, point.grid_coord, point.mask, point.ser,
@@ -387,7 +439,7 @@ class PointTransformerV3(nn.Module):
                 state = StageState(coord, grid_coord, mask, ser,
                                    build_subm_conv_plan(grid_coord, mask, 3, depth))
             for blk in stage.blocks():
-                feat = blk(feat, state)
+                feat = blk(feat, state, generator=generator)
 
         for s in reversed(range(self.num_stages - 1)):
             parent_feat, parent_state, plan = skips.pop()
@@ -396,7 +448,8 @@ class PointTransformerV3(nn.Module):
                                        state.mask, plan)
             state = parent_state
             for i, blk in enumerate(stage.blocks()):
-                feat = blk(feat, state, cpe_feat=skip_feat if i == 0 else None)
+                feat = blk(feat, state, cpe_feat=skip_feat if i == 0 else None,
+                           generator=generator)
 
         return point.replace(feat=feat, coord=state.coord,
                              grid_coord=state.grid_coord, mask=state.mask,

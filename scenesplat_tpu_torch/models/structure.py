@@ -10,7 +10,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from scenesplat_tpu_torch.ops.serialization import Serialization, serialize
+from scenesplat_tpu_torch.ops.serialization import Serialization, serialize, shuffle_orders
 
 
 @dataclass(frozen=True)
@@ -38,6 +38,11 @@ class PointBatch:
     def replace(self, **changes) -> "PointBatch":
         return dataclasses.replace(self, **changes)
 
-    def serialized(self, orders: Sequence[str], depth: int = 16) -> "PointBatch":
-        return self.replace(
-            ser=serialize(self.grid_coord, self.mask, orders=orders, depth=depth))
+    def serialized(self, orders: Sequence[str], depth: int = 16,
+                   generator: Optional[torch.Generator] = None) -> "PointBatch":
+        """Attach the serialization; with ``generator`` and more than one
+        order, the logical curve order is shuffled (training)."""
+        ser = serialize(self.grid_coord, self.mask, orders=orders, depth=depth)
+        if generator is not None and len(orders) > 1:
+            ser = shuffle_orders(ser, generator)
+        return self.replace(ser=ser)

@@ -1,23 +1,31 @@
-"""Flash-window attention forward: the hand-written Hopper kernel and its
-plain PyTorch version.
+"""Flash-window attention, forward and backward: the hand-written Hopper
+kernels and their plain PyTorch version.
 
-The kernel (``csrc/flash_window_attn.cu``) replaces the TPU kernel
-``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered through
-``_fwa_fwd``). On this card its work, 4*N*K*C operations against about
-4*N*C elements moved per call, makes it bound by operations. The TPU kernel
-holds a whole [K, K] fp32 score tile in VMEM (4 MB at K = 1024); a Hopper
-block has at most 227 KB of shared memory, so the kernel gives each block
-a tile of query rows of one (batch, window, head), streams key and value
-tiles through shared memory and keeps an online softmax in fp32 registers.
-It masks keys past the end of a ragged last window, and a window whose slot
-0 is padding writes zeros. bf16 runs its products on the tensor cores
-(mma.sync); fp32 runs scalar FMAs, which keeps it exact to the plain
-version.
+The forward kernel K1 (``csrc/flash_window_attn.cu``) replaces the TPU
+kernel ``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered through
+``_fwa_fwd``), the backward K2 replaces ``_bwd_kernel`` (through
+``_fwa_bwd``). Their work, 4*N*K*C (forward) and 10*N*K*C (backward)
+operations against about 4*N*C and 9*N*C elements moved per call, makes
+both bound by operations at windows of 1024 and by bytes at windows of 48
+(the flagship config's decoder) on this card. The TPU kernels hold a whole [K, K]
+fp32 score tile in VMEM (4 MB at K = 1024); a Hopper block has at most
+227 KB of shared memory, so each block owns a tile of query (or key) rows
+of one (batch, window, head) and streams the other side's rows through
+shared memory: the forward keeps an online softmax in fp32 registers and,
+when training, writes each row's log-sum-exp; the backward recomputes the
+probabilities from it. Keys past the end of a ragged last window are
+masked, and a window whose slot 0 is padding writes zeros. bf16 runs its
+products on the tensor cores (mma.sync); fp32 runs scalar FMAs, which keeps
+it exact to the plain version.
 
-It is built at first use with ``nvcc`` into ``build/kernels/`` at the root
-of the checkout, from this package's sources only, and bound through a
-plain C function with ``ctypes``. The wrapper launches it for CUDA tensors
-and uses the plain version for CPU tensors; nothing falls back.
+``flash_window_attention`` is differentiable: while grad is enabled and qkv
+requires grad it runs as a ``torch.autograd.Function`` whose forward
+launches K1 (with the log-sum-exp) and whose backward launches K2; otherwise
+it launches K1 alone. The kernels are built at first use with ``nvcc`` into
+``build/kernels/`` at the root of the checkout, from this package's sources
+only, and bound through plain C functions with ``ctypes``. The wrappers
+launch them for CUDA tensors and use the plain version (and autograd
+through it) for CPU tensors; nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "flash_window_attn.cu"
@@ -84,21 +93,18 @@ def _library():
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(library_path()))
-        lib.fwa_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        lib.fwa_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         lib.fwa_fwd.restype = ctypes.c_int
+        lib.fwa_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.fwa_bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
-                           patch_size: int, num_heads: int,
-                           scale: float | None = None) -> torch.Tensor:
-    """qkv [B, N, 3, C] (float32 or bfloat16), valid [B, N] bool ->
-    [B, N, C]. Launches the kernel for CUDA tensors; CPU tensors take the
-    plain version. ``flash_window_attention.launches`` counts launches."""
-    if not qkv.is_cuda:
-        return flash_window_attention_plain(qkv, valid, patch_size, num_heads, scale)
+def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int,
+           num_heads: int):
     if qkv.dim() != 4 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be [B, N, 3, C], got {tuple(qkv.shape)}")
     b, n, _, c = qkv.shape
@@ -117,21 +123,111 @@ def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
                          f"of {HEAD_DIMS}")
     if patch_size <= 0:
         raise ValueError(f"patch_size must be positive, got {patch_size}")
-    if scale is None:
-        scale = (c // num_heads) ** -0.5
+    return b, n, c
+
+
+def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
+    """K1: out [B, N, C] and, with ``with_lse``, lse [B, N, H] fp32."""
+    b, n, c = _check(qkv, valid, patch_size, num_heads)
     out = torch.empty(b, n, c, dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         rc = _library().fwa_fwd(
-            qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), _DTYPES[qkv.dtype],
+            qkv.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPES[qkv.dtype],
             b, n, c, num_heads, patch_size, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash-window attention launch failed: CUDA error {rc}")
     flash_window_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor,
+                               dout: torch.Tensor, patch_size: int, num_heads: int,
+                               scale: float) -> torch.Tensor:
+    """K2: dqkv [B, N, 3, C] from the forward's inputs, its ``out`` and
+    ``lse`` and the output gradient ``dout`` [B, N, C], all on one card.
+    ``flash_window_attention_bwd.launches`` counts launches."""
+    b, n, c = _check(qkv, valid, patch_size, num_heads)
+    for name, t, shape, dtype in (("out", out, (b, n, c), qkv.dtype),
+                                  ("dout", dout, (b, n, c), qkv.dtype),
+                                  ("lse", lse, (b, n, num_heads), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be {dtype} {shape} on {qkv.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        rc = _library().fwa_bwd(
+            qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), _DTYPES[qkv.dtype],
+            b, n, c, num_heads, patch_size, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash-window attention backward launch failed: CUDA error {rc}")
+    flash_window_attention_bwd.launches += 1
+    return dqkv
+
+
+flash_window_attention_bwd.launches = 0
+
+
+class _FlashWindowAttention(torch.autograd.Function):
+    """K1 forward, K2 backward. Saves qkv, valid, the output and the
+    log-sum-exp (the TPU kernel's custom_vjp saves qkv and valid only and
+    recomputes the row maxima and sums)."""
+
+    @staticmethod
+    def forward(ctx, qkv, valid, patch_size, num_heads, scale):
+        out, lse = _launch_fwd(qkv, valid, patch_size, num_heads, scale, True)
+        ctx.save_for_backward(qkv, valid, out, lse)
+        ctx.args = (patch_size, num_heads, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, valid, out, lse = ctx.saved_tensors
+        dout = dout.to(qkv.dtype).contiguous()
+        dqkv = flash_window_attention_bwd(qkv, valid, out, lse, dout, *ctx.args)
+        return dqkv, None, None, None, None
+
+
+def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
+                           patch_size: int, num_heads: int,
+                           scale: float | None = None) -> torch.Tensor:
+    """qkv [B, N, 3, C] (float32 or bfloat16), valid [B, N] bool ->
+    [B, N, C]. Launches the kernels for CUDA tensors (K1, and K2 in the
+    backward when qkv requires grad); CPU tensors take the plain version.
+    ``flash_window_attention.launches`` counts K1 launches."""
+    if not qkv.is_cuda:
+        return flash_window_attention_plain(qkv, valid, patch_size, num_heads, scale)
+    if scale is None:
+        scale = (qkv.shape[-1] // num_heads) ** -0.5
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FlashWindowAttention.apply(qkv, valid, patch_size, num_heads, float(scale))
+    return _launch_fwd(qkv, valid, patch_size, num_heads, scale, False)[0]
 
 
 flash_window_attention.launches = 0
+
+
+def _plain_chunk(qkv, valid, scale):
+    """Masked-exp attention of whole windows: qkv [B, P, K, 3, H, D], valid
+    [B, P, 1, 1, K] -> [B, P, K, H, D]."""
+    blk = qkv.permute(3, 0, 1, 4, 2, 5)  # [3, B, P, H, K, D]
+    q = (blk[0] * scale).float()  # the product rounds to the storage dtype
+    kk, v = blk[1].float(), blk[2].float()
+    scores = q @ kk.transpose(-1, -2)
+    mx = torch.where(valid, scores, float("-inf")).amax(-1, keepdim=True)
+    mx = mx.clamp(min=-1e30)  # rows without valid keys: finite shift
+    e = torch.where(valid, torch.exp((scores - mx).clamp(max=0.0)), 0.0)
+    attn = e / e.sum(-1, keepdim=True).clamp(min=1e-30)
+    o = attn.to(qkv.dtype).float() @ v
+    return o.to(qkv.dtype).transpose(2, 3)
 
 
 def flash_window_attention_plain(qkv: torch.Tensor, valid: torch.Tensor,
@@ -148,6 +244,10 @@ def flash_window_attention_plain(qkv: torch.Tensor, valid: torch.Tensor,
     in fp32. When N % patch_size != 0 the last window is ragged: its missing
     slots are invalid keys whose rows are not returned, which equals the
     JAX function on the input padded with invalid slots to a whole window.
+    It is differentiable; when it records a graph, each chunk is recomputed
+    in the backward (``torch.utils.checkpoint``) instead of keeping its
+    [K, K] score tensors, which at a window of 1024 would hold gigabytes per
+    block.
     """
     b, n, three, c = qkv.shape
     if three != 3 or c % num_heads:
@@ -162,17 +262,10 @@ def flash_window_attention_plain(qkv: torch.Tensor, valid: torch.Tensor,
         valid = torch.cat([valid, valid.new_zeros(b, pad)], dim=1)
     qkv = qkv.view(b, p, k, 3, h, d)
     valid = valid.view(b, p, 1, 1, k)
-    out = torch.empty(b, p, k, h, d, dtype=qkv.dtype, device=qkv.device)
+    recompute = torch.is_grad_enabled() and qkv.requires_grad
+    outs = []
     for s in range(0, p, patch_chunk):
-        blk = qkv[:, s:s + patch_chunk].permute(3, 0, 1, 4, 2, 5)  # [3,B,pc,H,K,D]
-        q = (blk[0] * scale).float()  # the product rounds to the storage dtype
-        kk, v = blk[1].float(), blk[2].float()
-        key_valid = valid[:, s:s + patch_chunk]
-        scores = q @ kk.transpose(-1, -2)
-        mx = torch.where(key_valid, scores, float("-inf")).amax(-1, keepdim=True)
-        mx = mx.clamp(min=-1e30)  # rows without valid keys: finite shift
-        e = torch.where(key_valid, torch.exp((scores - mx).clamp(max=0.0)), 0.0)
-        attn = e / e.sum(-1, keepdim=True).clamp(min=1e-30)
-        o = attn.to(qkv.dtype).float() @ v
-        out[:, s:s + patch_chunk] = o.to(qkv.dtype).transpose(2, 3)
-    return out.view(b, p * k, c)[:, :n]
+        args = (qkv[:, s:s + patch_chunk], valid[:, s:s + patch_chunk], scale)
+        outs.append(checkpoint(_plain_chunk, *args, use_reentrant=False)
+                    if recompute else _plain_chunk(*args))
+    return torch.cat(outs, dim=1).reshape(b, p * k, c)[:, :n]

@@ -9,6 +9,7 @@ here).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -29,8 +30,9 @@ class Serialization:
     ``order[s, b, j]`` is the source index of the j-th point along curve s;
     ``inverse`` is the inverse permutation; ``code`` holds the unsorted
     per-point int64 codes (``SENTINEL`` at padding). ``perm`` maps a
-    logical curve index to a physical one, so curve 0 stays "z"; eval never
-    shuffles it.
+    logical curve index to a physical one, so the physical curve 0 stays
+    "z" for pooling while training shuffles which curve each block reads
+    (``shuffle_orders``); eval never shuffles.
     """
 
     code: torch.Tensor  # [S, B, N] int64
@@ -74,6 +76,16 @@ def serialize(grid_coord: torch.Tensor, mask: torch.Tensor,
     order, inverse = sort_codes(code)
     return Serialization(code=code, order=order, inverse=inverse,
                          perm=tuple(range(len(orders))))
+
+
+def shuffle_orders(ser: Serialization, generator: torch.Generator) -> Serialization:
+    """Randomly permute the logical curve order through the ``perm``
+    indirection, with no data movement: new perm[i] = perm[draw[i]] for a
+    permutation ``draw`` from ``generator`` (counterpart of
+    ``scenesplat_tpu/ops/serialization.py:shuffle_orders``)."""
+    s = len(ser.perm)
+    draw = torch.randperm(s, generator=generator, device=generator.device).tolist()
+    return dataclasses.replace(ser, perm=tuple(ser.perm[i] for i in draw))
 
 
 def take_along_points(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

@@ -96,6 +96,60 @@ def build_subm_conv_plan(grid_coord: torch.Tensor, mask: torch.Tensor,
 _COLS_PER_CHUNK = 1 << 27
 
 
+class _SubMConv(torch.autograd.Function):
+    """Chunked im2col + matmul. The backward recomputes each chunk's im2col
+    instead of saving it (at the flagship dec0, batch 2, the im2col of one
+    conv would be 27 x 768 x 393,216 bf16 values, about 16 GB): dW is the
+    sum over chunks of cols^T . dY, and dX the scatter-add of (dY . W^T),
+    reshaped to [rows, K3, Cin], into the neighbour rows, invalid neighbours
+    dropped. Both accumulate in fp32 and round to their dtype once."""
+
+    @staticmethod
+    def forward(ctx, feat, weight, bias, idx):
+        bn, cin = feat.shape
+        k3, _, cout = weight.shape
+        flat = torch.cat([feat, feat.new_zeros(1, cin)])
+        w = weight.reshape(k3 * cin, cout)
+        rows = max(1, _COLS_PER_CHUNK // (k3 * cin))
+        out = torch.empty(bn, cout, dtype=feat.dtype, device=feat.device)
+        for s in range(0, bn, rows):
+            cols = flat[idx[s:s + rows]].reshape(-1, k3 * cin)
+            if bias is None:
+                torch.mm(cols, w, out=out[s:s + rows])
+            else:
+                torch.addmm(bias, cols, w, out=out[s:s + rows])
+        ctx.save_for_backward(feat, weight, idx)
+        ctx.has_bias = bias is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        feat, weight, idx = ctx.saved_tensors
+        bn, cin = feat.shape
+        k3, _, cout = weight.shape
+        dout = dout.to(feat.dtype).contiguous()
+        need_x, need_w = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        flat = torch.cat([feat, feat.new_zeros(1, cin)])
+        w = weight.reshape(k3 * cin, cout)
+        rows = max(1, _COLS_PER_CHUNK // (k3 * cin))
+        dw = torch.zeros(k3 * cin, cout, dtype=torch.float32, device=feat.device)
+        dx = (torch.zeros(bn + 1, cin, dtype=torch.float32, device=feat.device)
+              if need_x else None)
+        for s in range(0, bn, rows):
+            dy = dout[s:s + rows]
+            if need_w:
+                cols = flat[idx[s:s + rows]].reshape(-1, k3 * cin)
+                dw += torch.mm(cols.t(), dy).float()
+            if need_x:
+                dcols = torch.mm(dy, w.t()).reshape(-1, cin).float()
+                dx.index_add_(0, idx[s:s + rows].reshape(-1), dcols)
+        dx = dx[:bn].to(feat.dtype) if need_x else None
+        dw = dw.view(k3, cin, cout).to(weight.dtype) if need_w else None
+        need_b = ctx.has_bias and ctx.needs_input_grad[2]
+        db = dout.float().sum(0).to(weight.dtype) if need_b else None
+        return dx, dw, db, None
+
+
 def subm_conv_apply(feat: torch.Tensor, plan: SubMConvPlan, weight: torch.Tensor,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """feat [B, N, Cin], weight [K3, Cin, Cout] -> [B, N, Cout].
@@ -104,23 +158,15 @@ def subm_conv_apply(feat: torch.Tensor, plan: SubMConvPlan, weight: torch.Tensor
     contracts them with the flattened weight in one matmul per chunk of
     points, so the K3 * Cin products accumulate in fp32 inside the matmul
     and round to the feature dtype once, as the JAX package's fp32-
-    accumulated per-offset sum does."""
+    accumulated per-offset sum does. Differentiable in feat, weight and
+    bias (see ``_SubMConv``)."""
     b, n, cin = feat.shape
     k3, _, cout = weight.shape
     if k3 != plan.neighbor_index.shape[1]:
         raise ValueError(f"weight has {k3} offsets, plan has "
                          f"{plan.neighbor_index.shape[1]}")
-    flat = torch.cat([feat.reshape(b * n, cin), feat.new_zeros(1, cin)])
     base = torch.arange(b, device=feat.device).view(b, 1, 1) * n
     idx = torch.where(plan.neighbor_valid, plan.neighbor_index + base, b * n)
     idx = idx.transpose(1, 2).reshape(b * n, k3)  # point-major
-    w = weight.reshape(k3 * cin, cout)
-    rows = max(1, _COLS_PER_CHUNK // (k3 * cin))
-    out = torch.empty(b * n, cout, dtype=feat.dtype, device=feat.device)
-    for s in range(0, b * n, rows):
-        cols = flat[idx[s:s + rows]].reshape(-1, k3 * cin)
-        if bias is None:
-            torch.mm(cols, w, out=out[s:s + rows])
-        else:
-            torch.addmm(bias, cols, w, out=out[s:s + rows])
+    out = _SubMConv.apply(feat.reshape(b * n, cin), weight, bias, idx)
     return out.view(b, n, cout)

@@ -209,6 +209,8 @@ def test_masked_batchnorm(train):
     tbn.train(train)
     got = tbn(_t(x), _t(mask)).detach().numpy()
     np.testing.assert_allclose(got[mask], np.asarray(ref)[mask], rtol=1e-5, atol=1e-5)
+    if train:  # padding rows, which every consumer masks, come out as zeros
+        assert not got[~mask].any()
     new = upd["batch_stats"] if train else stats
     np.testing.assert_allclose(tbn.running_mean.numpy(), np.asarray(new["mean"]),
                                rtol=1e-5, atol=1e-6)
