@@ -4,7 +4,8 @@ NVIDIA H100.
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. device: the card, and the kernel build from this checkout's sources;
+  1. device: the card, and the kernels' build from this checkout's sources
+     (one nvcc per source, started together);
   2. kernel: the flash-window attention kernel against its plain version at
      every (window, channels, heads) signature of the flagship backbone and
      of configs/test_lang_inference.py, fp32 and bf16, with partial and fully
@@ -31,8 +32,11 @@ Phases, one JSON line each:
      through the port's Config) over a synthetic 3DGS dataset written to a
      temporary directory: flagship widths, losses, optimizer, schedule,
      transforms, Mix3D and 196,608 points, batch 2, epoch 1 so the
-     contrastive term is live; 1 + 5 steps with K1 and K2 launches counted,
-     step times, loader waits, peak memory and one profiled step;
+     contrastive term is live, and the file's own hooks (the evaluator
+     over one small validation scene per dataset logs val*/fg_mIoU, the
+     saver writes model_best.pth, PreciseEvaluator finds no tester); 1 + 5
+     steps with K1 and K2 launches counted, step times, loader waits, peak
+     memory and one profiled step;
   9. timing_bwd: at the train step's stage shapes, the forward with
      log-sum-exp and the backward kernel against the plain version (bf16
      noise-floor rule, zeros in padded windows), then their times against
@@ -41,7 +45,24 @@ Phases, one JSON line each:
      the card could take;
  10. train_agree: one fp32 train step of the flagship config file's model at
      49,152 points with the kernels and one with the plain attention, same
-     weights and generator seeds.
+     weights and generator seeds;
+ 11. kernel_sort: the bitonic row sort K3 against its plain version, exact,
+     at 2 and 3 operands, 1 to 3 keys, rows of 1000 to 2^20, 1 to 12 rows,
+     random and heavily tied keys, and against torch.sort (equal keys;
+     with the index as last key, the stable order); int64 codes with a
+     sentinel tail through sort_int64 with the switch off and on;
+ 12. test: scenesplat_tpu_torch.test's main on the flagship config file
+     plus test= and data.test= (the fragment test pipeline of
+     configs/_base_/gs_pipelines.py), bf16, the train phase's checkpoint,
+     over two synthetic ScanNet200-layout scenes of 320,001 Gaussians at
+     1 cm spacing (2 fragments of 160,001 points each); once with
+     torch.sort and once with SCENESPLAT_BITONIC_SORT=1, both under
+     torch.use_deterministic_algorithms: equal predictions and metrics, K3
+     launches 0 then as reckoned, K1 18 per fragment; then once more with
+     torch.sort and without the deterministic mode, as a user runs it, for
+     the times per scene;
+ 13. timing_sort: K3, torch.sort and the plain version by CUDA events at
+     the eight sort shapes of one fragment forward.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 """
@@ -53,17 +74,22 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from scenesplat_tpu_torch.engines.eval import load_text_embeddings, zero_shot_predict
+from scenesplat_tpu_torch import test as test_entry
+from scenesplat_tpu_torch.data import metadata
 from scenesplat_tpu_torch.engines.hooks import HookBase
-from scenesplat_tpu_torch.engines.infer import FeatureExtractor
+from scenesplat_tpu_torch.engines.hooks.misc import PreciseEvaluator
+from scenesplat_tpu_torch.engines.infer import FeatureExtractor, bucket_size
 from scenesplat_tpu_torch.engines.train import build_trainer
 from scenesplat_tpu_torch.engines.train_step import lang_loss
 from scenesplat_tpu_torch.entry import (
@@ -72,11 +98,15 @@ from scenesplat_tpu_torch.entry import (
     build_lang_model,
 )
 from scenesplat_tpu_torch.models import PointBatch, build_criteria, build_model
-from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3
+from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3, _round_capacity
+from scenesplat_tpu_torch.ops import bitonic_sort as bs
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa
+from scenesplat_tpu_torch.ops.knn import knn
+from scenesplat_tpu_torch.ops.serialization import SENTINEL
 from scenesplat_tpu_torch.utils.config import Config
 
 FLAGSHIP_CONFIG = "configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py"
+PIPELINES = "configs/_base_/gs_pipelines.py"
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
@@ -155,14 +185,22 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    build_s = fwa.build()
-    fwa._library()
-    log = fwa.library_path().with_suffix(".log").read_text()
-    ptxas = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    libraries = (fwa.LIBRARY, bs.LIBRARY)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
+        build_s = dict(zip((lib.source.name for lib in libraries),
+                           pool.map(lambda lib: lib.build(), libraries)))
+    wall_s = time.perf_counter() - t0
+    ptxas = {}
+    for lib in libraries:
+        lib.load()
+        ptxas[lib.source.name] = [
+            ln.split("ptxas info    : ")[-1] for ln in lib.log_path().read_text().splitlines()
+            if "registers" in ln or "spill" in ln][:24]
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
-              build_s=build_s, ptxas=ptxas[:24]))
+              cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+              build_s=build_s, build_wall_s=wall_s, ptxas=ptxas))
     return smi
 
 
@@ -497,7 +535,7 @@ def phase_kernel_bwd():
     return worst, worst_fwd
 
 
-def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6)):
+def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0):
     """``n_scenes`` synthetic 3DGS scenes of ``n`` unique 2 cm voxels on the
     4 cm thick floor and walls of a room of ``size_m`` metres (81% of its
     247,072 surface voxels at the default size), in the GS datasets'
@@ -505,7 +543,9 @@ def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6)):
     classes by angle around the room's centre and height, 768-d fp16
     lang_feat (the class's unit embedding plus noise) and valid_feat_mask.
     Dense shells keep the pooled stages inside their capacities after
-    Mix3D merges two rooms and halves each one's density."""
+    Mix3D merges two rooms and halves each one's density. With
+    ``pc_points`` a scene also gets an evaluation point cloud (that many of
+    its points, moved by a few millimetres, with their labels)."""
     rng = np.random.default_rng(seed)
     emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
@@ -526,10 +566,33 @@ def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6)):
             segment=seg, segment200=seg,
             lang_feat=(emb[seg] + np.roll(noise, i, axis=0)).astype(np.float16),
             valid_feat_mask=rng.random(n) > 0.1)
+        if pc_points:
+            pick = rng.choice(n, pc_points, replace=False)
+            assets["pc_coord"] = (coord[pick] + rng.normal(0, 0.003, (pc_points, 3))
+                                  ).astype(np.float32)
+            assets["pc_segment"] = assets["pc_segment200"] = seg[pick].astype(np.int32)
         for key, value in assets.items():
             np.save(os.path.join(scene, f"{key}.npy"), value)
         dirs.append(scene)
     return dirs
+
+
+def write_meta(meta_root):
+    """The label files and torch ``.pt`` text tables the flagship config's
+    evaluator hook and the test config name under SCENESPLAT_META_ROOT, cut
+    from the port's built-in ScanNet200 table (its first 100 and 160 rows
+    stand in for the ScanNet++ and Matterport tables)."""
+    os.makedirs(meta_root)
+    names = metadata.class_labels("scannet200")
+    table = torch.from_numpy(metadata.text_embeddings("scannet200"))
+    for labels, emb, rows in (
+            ("scannetpp_top100_labels.txt", "scannetpp_top100_text_embeddings_siglip2.pt", 100),
+            ("scannet200_labels.txt", "scannet200_text_embeddings_siglip2.pt", 200),
+            ("matterport_nyu160_labels.txt", "matterport-nyu160_text_embeddings_siglip2.pt",
+             160)):
+        with open(os.path.join(meta_root, labels), "w") as f:
+            f.write("\n".join(names[:rows]) + "\n")
+        torch.save(table[:rows].clone(), os.path.join(meta_root, emb))
 
 
 class StepProbe(HookBase):
@@ -577,34 +640,40 @@ class StepProbe(HookBase):
 
 
 def flagship_train_config(root, exp, batch_size):
-    """The flagship config file as it is, with the data roots, epoch 1 (so
-    the contrastive term's last_75 gate is open), the batch size and the
-    ported hooks set."""
+    """The flagship config file as it is, its hooks included (the label and
+    text-table files come from SCENESPLAT_META_ROOT), with the data roots,
+    epoch 1 (so the contrastive term's last_75 gate is open) and the batch
+    size set."""
     cfg = Config.fromfile(FLAGSHIP_CONFIG)
-    cfg.merge_from_options(dict(
-        save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size,
-        hooks=[dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
-               dict(type="InformationWriter", log_interval=1),
-               dict(type="CheckpointSaver", save_freq=None)]))
-    for ds in cfg.data.train.datasets:
+    cfg.merge_from_options(dict(save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size))
+    for ds in list(cfg.data.train.datasets) + list(cfg.data.val):
         ds["data_root"] = root[ds["type"]]
     return cfg
 
 
 def run_training(cfg):
-    """Trains the config's epoch; returns the trainer, its probe and the
-    per-step records of the forward (pooling overflow, stage sizes and
-    valid counts)."""
+    """Trains the config's epoch; returns the trainer, its probe, the
+    per-step records of the training forward (pooling overflow, stage sizes
+    and valid counts) and, read from K1's counter around every forward, the
+    forwards and K1 launches of the train steps and of the hooks'
+    validation."""
     trainer = build_trainer(cfg, device="cuda")
     steps = len(trainer.train_loader)
     probe = StepProbe(profile_step=steps - 1)
     probe.trainer = trainer
     trainer.hooks.append(probe)
     records = []
+    k1 = dict(train_forwards=0, train_launches=0, val_forwards=0, val_launches=0)
     forward = trainer.model.forward
 
     def recording_forward(point, generator=None):
+        before = fwa.flash_window_attention.launches
         out = forward(point, generator=generator)
+        mode = "train" if trainer.model.training else "val"
+        k1[mode + "_forwards"] += 1
+        k1[mode + "_launches"] += fwa.flash_window_attention.launches - before
+        if mode == "val":
+            return out
         records.append(dict(
             overflow=[p.n_overflow for p in out.plans],
             sizes=[(point.mask.shape[1], point.mask.sum(1))]
@@ -614,27 +683,34 @@ def run_training(cfg):
     trainer.model.forward = recording_forward
     torch.cuda.reset_peak_memory_stats()
     trainer.train()
-    return trainer, probe, records
+    return trainer, probe, records, k1
 
 
-def phase_train(scene_points=200000, room=(3.6, 3.6, 2.6)):
-    """The flagship trainer for 1 + 5 steps; returns the train-step stage
-    shapes and the K1 / K2 launch counts."""
+def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000):
+    """The flagship trainer, its own hooks included, for 1 + 5 steps and one
+    validation; returns the train-step stage shapes, the K1 / K2 launch
+    counts and the best checkpoint, copied into ``work``."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         scenes = write_gs_scenes(os.path.join(tmp, "scenes"), 4, scene_points, seed=4,
                                  size_m=room)
+        (val_scene,) = write_gs_scenes(os.path.join(tmp, "val_scenes"), 1, val_points, seed=9,
+                                       size_m=(2.4, 2.4, 2.0), pc_points=val_points // 4)
         # Matterport (loop 3): 4 scenes -> 3 batches; ScanNet++ (loop 2): 4
-        # -> 2; ScanNet200 (loop 2): 2 -> 1 (Mix3D: 4 samples a batch)
+        # -> 2; ScanNet200 (loop 2): 2 -> 1 (Mix3D: 4 samples a batch). One
+        # validation scene per dataset.
         root, splits = {}, {"Matterport3D_160_GSDataset": (
-            "train_grid1.0cm_chunk6x6_stride3x3_filtered", 4),
-            "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 4),
-            "ScanNet200GSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 2)}
-        for name, (split, count) in splits.items():
+            "train_grid1.0cm_chunk6x6_stride3x3_filtered", 4,
+            "test_grid1.0cm_chunk6x6_stride3x3_filtered"),
+            "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 4, "val"),
+            "ScanNet200GSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 2, "val")}
+        for name, (split, count, val_split) in splits.items():
             root[name] = os.path.join(tmp, name)
             os.makedirs(os.path.join(root[name], split))
             for scene in scenes[:count]:
                 os.symlink(scene, os.path.join(root[name], split, os.path.basename(scene)))
+            os.makedirs(os.path.join(root[name], val_split))
+            os.symlink(val_scene, os.path.join(root[name], val_split, "scene_val"))
         data_s = time.perf_counter() - t0
 
         fwa.flash_window_attention.launches = 0
@@ -652,8 +728,14 @@ def phase_train(scene_points=200000, room=(3.6, 3.6, 2.6)):
             fwa.flash_window_attention.launches = 0
             fwa.flash_window_attention_bwd.launches = 0
             result = run_training(flagship_train_config(root, os.path.join(tmp, "exp1"), batch))
-        trainer, probe, records = result
-        k1, k2 = fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches
+        trainer, probe, records, k1_counts = result
+        backbone = trainer.cfg.model.backbone
+        blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])  # 18
+        # K1 with lse: the launches counted inside the train steps' forwards;
+        # the evaluator hook's validation forwards launch K1 without lse
+        k1, k1_val = k1_counts["train_launches"], k1_counts["val_launches"]
+        val_forwards = k1_counts["val_forwards"]
+        k2 = fwa.flash_window_attention_bwd.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         step_ms = probe.step_ms()
         hist = trainer.storage.history
@@ -662,27 +744,51 @@ def phase_train(scene_points=200000, room=(3.6, 3.6, 2.6)):
         check(steps >= 6, f"{steps} train steps, expected at least 1 + 5")
         check(all(math.isfinite(v) for v in losses + grad_norms),
               f"non-finite loss or grad_norm: {losses} {grad_norms}")
-        backbone = trainer.cfg.model.backbone
-        blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])  # 18
-        check(k1 == blocks * steps and k2 == blocks * steps,
-              f"{k1} forward and {k2} backward kernel launches in {steps} steps, "
-              f"expected {blocks} each per step")
+        check(k1_counts["train_forwards"] == steps and k1 == blocks * steps
+              and k2 == blocks * steps,
+              f"{k1} forward and {k2} backward kernel launches in {steps} steps "
+              f"({k1_counts['train_forwards']} forwards), expected {blocks} each per step")
+        check(val_forwards == len(trainer.cfg.data.val) and k1_val == blocks * val_forwards,
+              f"{k1_val} kernel launches in {val_forwards} validation forwards, expected "
+              f"{blocks} each, one forward per validation set")
+        check(fwa.flash_window_attention.launches == k1 + k1_val,
+              f"K1 launched {fwa.flash_window_attention.launches} times, {k1} + {k1_val} "
+              "of them inside a forward")
         overflow = [int(max(int(o.max()) for o in r["overflow"])) for r in records]
         check(all(o == 0 for o in overflow), f"pooling overflow {overflow}")
-        check(os.path.exists(os.path.join(trainer.cfg.save_path, "model", "model_last.pth")),
+        model_dir = os.path.join(trainer.cfg.save_path, "model")
+        check(os.path.exists(os.path.join(model_dir, "model_last.pth")),
               "no checkpoint written")
+        # the file's own hooks: the evaluator logged each validation set's
+        # fg_mIoU, the saver kept the best epoch, PreciseEvaluator had no tester
+        val = {f"val{i}/{m}": hist(f"val{i}/{m}").values()
+               for i in range(len(trainer.cfg.data.val)) for m in ("mIoU", "fg_mIoU")}
+        check(all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in val.values()),
+              f"validation metrics not logged once per set: {val}")
+        check(trainer.comm_info.get("current_metric_name") == "fg_mIoU",
+              "the evaluator hook set no checkpoint metric")
+        check(os.path.exists(os.path.join(model_dir, "model_best.pth")), "no model_best.pth")
+        precise = [h for h in trainer.hooks if isinstance(h, PreciseEvaluator)]
+        check(len(precise) == 1 and precise[0].results == [],
+              "PreciseEvaluator ran a tester the config does not name")
+        checkpoint = shutil.copy(os.path.join(model_dir, "model_best.pth"),
+                                 os.path.join(work, "model_best.pth"))
         sizes = [[(n, v.tolist()) for n, v in r["sizes"]] for r in records]
         emit(dict(phase="train", batch_size=batch, points=TRAIN_POINTS, oom=oom,
                   steps=steps, loss=losses, grad_norm=grad_norms, lr=hist("lr").values(),
                   cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
                   profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
-                  k1_launches=k1, k2_launches=k2, peak_mem_gib=peak_gib,
+                  k1_launches=k1, k2_launches=k2, validation_forwards=val_forwards,
+                  validation_k1_launches=k1_val,
+                  peak_mem_gib=peak_gib,
                   n_overflow=overflow, stage_slots_valid=sizes[-1],
-                  dataset_write_s=data_s, profile=probe.profile))
+                  dataset_write_s=data_s, validation={k: v[0] for k, v in val.items()},
+                  best_metric=trainer.comm_info.get("best_metric_value"),
+                  profile=probe.profile))
         del trainer
     torch.cuda.empty_cache()
     shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
-    return shapes, k1, k2
+    return shapes, k1, k1_val, k2, checkpoint
 
 
 def bwd_bound_ms(n, valids, k, c, h):
@@ -905,6 +1011,334 @@ def phase_train_agree(n=49152):
     check(loss_rel <= TRAIN_LOSS_RTOL, f"losses differ by {loss_rel} relative")
     check(not any(map(any, overflow)), f"pooling overflow {overflow}")
 
+SORT_ROWS = (1000, 1024, 5000, 4095, 4097, 24576, 196608, 1 << 20)
+# (operands, keys, heavy ties): the last operand is the element index
+SORT_SIGNATURES = ((2, 1, False), (2, 2, True), (3, 1, True), (3, 2, False), (3, 3, True))
+
+
+def combined_key(keys):
+    """int64 whose signed order is the unsigned lexicographic order of one
+    or two int32 bit patterns."""
+    out = torch.zeros_like(keys[0], dtype=torch.int64)
+    for k in keys:
+        out = (out << 32) | (k.to(torch.int64) & 0xFFFFFFFF)
+    return out ^ -(1 << 63) if len(keys) == 2 else out
+
+
+def sort_max_abs_diff(got, ref):
+    """The largest |got - ref| over every operand, keys and payloads."""
+    return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+
+
+def sort_switch(on):
+    """Sets the sort switch as the entry points' bitonic_sort option does."""
+    bs.apply_sort_switch(dict(bitonic_sort=on))
+
+
+def phase_kernel_sort():
+    """K3 against its plain version, exact, payloads included (both run one
+    network on identically padded rows), and against torch.sort."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases, checked, worst = [], 0, 0
+    for n in SORT_ROWS:
+        for b in (1, 4, 12):
+            if b * n > (1 << 20) and b > (4 if n < (1 << 20) else 1):
+                continue  # long rows: fewer of them
+            for num_ops, num_keys, ties in SORT_SIGNATURES:
+                lo, hi = (0, 8) if ties else (-2 ** 31, 2 ** 31 - 1)
+                ops = [torch.randint(lo, hi, (b, n), generator=gen, device="cuda",
+                                     dtype=torch.int32) for _ in range(num_ops - 1)]
+                ops.append(torch.arange(n, dtype=torch.int32, device="cuda").expand(b, n))
+                kept = [o.clone() for o in ops]
+                got = bs.bitonic_sort(ops, num_keys)
+                ref = bs.bitonic_sort_reference(ops, num_keys)
+                torch.cuda.synchronize()
+                what = f"B={b} n={n} operands={num_ops} keys={num_keys} ties={ties}"
+                worst = max(worst, sort_max_abs_diff(got, ref))
+                check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                      f"K3 differs from its plain version at {what}")
+                check(all(torch.equal(o, k) for o, k in zip(ops, kept)),
+                      f"K3 changed its inputs at {what}")
+                data_keys = num_keys - (num_keys == num_ops)  # without the index
+                if data_keys <= 2:
+                    want = torch.sort(combined_key(ops[:data_keys]), dim=-1, stable=True)
+                    check(torch.equal(combined_key(got[:data_keys]), want.values),
+                          f"K3 keys differ from torch.sort at {what}")
+                    if num_keys == num_ops:  # the index as last key: the stable order
+                        check(torch.equal(got[-1].long(), want.indices),
+                              f"K3 order differs from the stable torch.sort at {what}")
+                checked += 1
+            cases.append(dict(B=b, n=n, padded=bs.padded_length(n),
+                              kernel_launches=bs.kernel_launches(n)))
+    # int64 codes with duplicates and a sentinel tail, as the sort sites see them
+    for shape in ((4, 1, 196608), (3, 2, 24576), (393216,)):
+        code = torch.randint(0, 1 << 28, shape, generator=gen, device="cuda")
+        code[..., -(shape[-1] // 7):] = SENTINEL
+        sort_switch(False)
+        values, order = bs.sort_int64(code)
+        sort_switch(True)
+        values_on, order_on = bs.sort_int64(code)
+        sort_switch(False)
+        check(torch.equal(values, values_on) and torch.equal(order, order_on),
+              f"sort_int64 with the switch on differs from torch.sort at {shape}")
+    emit(dict(phase="kernel_sort", exact=True, signatures=checked, max_abs_err=worst,
+              rows=cases))
+    return worst
+
+
+def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000):
+    """``n_scenes`` ScanNet200-layout scenes under root/val: ``n_voxels``
+    unique 2 cm voxels on the floor and walls of a 6 x 6 x 3 m room, each
+    holding two Gaussians 1 cm apart on its diagonal, plus one Gaussian at
+    height 0 in a voxel of its own, so that the 1 cm deduplication keeps all
+    2 n + 1 and the 2 cm test voxelisation, whose cells line up with the
+    voxels after CenterShift, gives 2 fragments of n + 1 points. With 200
+    classes by position, valid_feat_mask and an evaluation point cloud of
+    ``pc_points`` of the Gaussians moved by a few millimetres."""
+    rng = np.random.default_rng(seed)
+    ex, ey, ez = (int(round(m / GRID)) for m in (6.0, 6.0, 3.0))
+    x, y, z = np.meshgrid(np.arange(ex), np.arange(ey), np.arange(ez), indexing="ij")
+    surface = (z < 1) | (x < 1) | (x >= ex - 1) | (y < 1) | (y >= ey - 1)
+    vox = np.stack([x[surface], y[surface], z[surface]], -1)
+    for i in range(n_scenes):
+        perm = rng.permutation(len(vox))
+        grid = vox[perm[:n_voxels]]
+        rest = vox[perm[n_voxels:]]
+        anchor = rest[np.flatnonzero((rest[:, 2] == 0) & (rest[:, 0] > 0) & (rest[:, 0] < ex - 1)
+                                     & (rest[:, 1] > 0) & (rest[:, 1] < ey - 1))[0]]
+        coord = np.concatenate([(grid + 0.25) * GRID, (grid + 0.75) * GRID,
+                                [[(anchor[0] + 0.5) * GRID, (anchor[1] + 0.5) * GRID, 0.0]]]
+                               ).astype(np.float32)
+        n = len(coord)
+        angle = np.arctan2(coord[:, 1] - 3.0, coord[:, 0] - 3.0)
+        seg = ((angle + np.pi) / (2 * np.pi) * 20).astype(np.int64).clip(0, 19)
+        seg = (seg * 10 + (coord[:, 2] / 3.0 * 10).astype(np.int64).clip(0, 9)).astype(np.int16)
+        pick = rng.choice(n, pc_points, replace=False)
+        assets = dict(
+            coord=coord, color=rng.uniform(0, 255, (n, 3)).astype(np.float32),
+            opacity=rng.uniform(0, 1, n).astype(np.float32),
+            quat=rng.normal(size=(n, 4)).astype(np.float32),
+            scale=rng.uniform(0, 0.05, (n, 3)).astype(np.float32), segment200=seg,
+            valid_feat_mask=rng.random(n) > 0.1,
+            pc_coord=(coord[pick] + rng.normal(0, 0.002, (pc_points, 3))).astype(np.float32),
+            pc_segment200=seg[pick].astype(np.int32))
+        scene = os.path.join(root, "val", f"scene{i:04d}_00")
+        os.makedirs(scene)
+        for key, value in assets.items():
+            np.save(os.path.join(scene, f"{key}.npy"), value)
+    return 2 * n_voxels + 1
+
+
+TEST_CONFIG = """# The flagship config file plus the tester and its data: test= and
+# data.test= of configs/scannet/lang-pretrain-scannet-mcmc-wo-normal-contrastive.py
+# with the fragment test pipeline of configs/_base_/gs_pipelines.py (loaded
+# by path). is_train=False, as the flagship file's validation sets have it,
+# loads the evaluation point cloud, so the tester votes onto it.
+import importlib.util
+
+_base_ = [{flagship!r}]
+_spec = importlib.util.spec_from_file_location("gs_pipelines", {pipelines!r})
+_gp = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_gp)
+del _spec
+
+_gs_keys = ("coord", "color", "opacity", "quat", "scale", "segment",
+            "lang_feat", "valid_feat_mask")
+_test_transform, _test_cfg = _gp.lang_test_transform_and_cfg(_gs_keys)
+
+data = dict(
+    test=dict(
+        type="ScanNet200GSDataset",
+        split="val",
+        data_root={data_root!r},
+        is_train=False,
+        transform=_test_transform,
+        test_mode=True,
+        test_cfg=_test_cfg,
+    ),
+)
+
+test = dict(
+    type="ZeroShotSemSegTester",
+    class_names={meta_root!r} + "/scannet200_labels.txt",
+    text_embeddings={meta_root!r} + "/scannet200_text_embeddings_siglip2.pt",
+    excluded_classes=["wall", "floor", "ceiling"],
+    enable_voting=True,
+    vote_k=25,
+    confidence_threshold=0.1,
+)
+"""
+
+
+def forward_sort_sizes(backbone, n_points):
+    """Row lengths of the 8 sorts of one forward of ``n_points`` through the
+    FeatureExtractor: the bucket (4 curves, then the stem's conv plan) and
+    each pooled stage's capacity (its 3 re-sorted curves, then its conv
+    plan). Returns [(rows, length), ...]."""
+    n0 = bucket_size(n_points, max(backbone["enc_patch_size"]))
+    curves = len(backbone["order"])
+    sizes = [(curves, n0), (1, n0)]
+    for s, frac in enumerate(backbone["stage_capacity"]):
+        cap = _round_capacity(n0, frac, backbone["enc_patch_size"][s + 1])
+        sizes += [(curves - 1, cap), (1, cap)]
+    return sizes
+
+
+def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
+    """The test entry point's main three times: switch off and switch on
+    under deterministic algorithms, whose predictions and metrics must be
+    equal, then switch off as a user runs it (no deterministic mode), whose
+    times are the ones to quote per scene. Returns the K3 counts of the run
+    with the switch on, its fragment forwards and the sort sizes of one."""
+    t0 = time.perf_counter()
+    data_root = os.path.join(work, "scannet_test")
+    n_points = write_test_scenes(data_root, n_scenes, n_voxels, seed=12)
+    cfg_file = os.path.join(work, "flagship_test.py")
+    with open(cfg_file, "w") as f:
+        f.write(TEST_CONFIG.format(flagship=os.path.abspath(FLAGSHIP_CONFIG),
+                                   pipelines=os.path.abspath(PIPELINES),
+                                   data_root=data_root, meta_root=meta_root))
+    write_s = time.perf_counter() - t0
+    backbone = Config.fromfile(cfg_file).model.backbone
+    blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])
+    sizes = forward_sort_sizes(backbone, n_voxels + 1)
+
+    runs = {}
+    try:
+        for name, switch, deterministic in (("off", False, True), ("on", True, True),
+                                            ("timed", False, False)):
+            # scatter-adds of the pooling sum in an order that changes from
+            # run to run, and a last-bit difference can flip an argmax: the
+            # two runs that are compared use the deterministic forms
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            save = os.path.join(work, f"test_{name}")
+            bs.bitonic_sort.launches = bs.bitonic_sort.kernel_launches = 0
+            fwa.flash_window_attention.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (res,) = test_entry.main([
+                "--config-file", cfg_file, "--options", f"weight={checkpoint}",
+                f"test.save_path={save}", f"bitonic_sort={switch}"])
+            seconds = time.perf_counter() - t1
+            with open(os.path.join(save, "scene_log.json")) as f:
+                scenes = json.load(f)
+            preds = {name: np.load(os.path.join(save, name)) for name in sorted(os.listdir(save))
+                     if name.endswith("_pred.npy")}
+            runs[name] = dict(
+                res=res, scenes=scenes, preds=preds, seconds=seconds,
+                sort_calls=bs.bitonic_sort.launches,
+                sort_kernels=bs.bitonic_sort.kernel_launches,
+                k1=fwa.flash_window_attention.launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        sort_switch(False)
+
+    off, on, timed = runs["off"], runs["on"], runs["timed"]
+    fragments = sum(s["fragments"] for s in on["scenes"])
+    check(len(on["preds"]) == n_scenes and sorted(off["preds"]) == sorted(on["preds"]),
+          f"prediction files: {sorted(off['preds'])} and {sorted(on['preds'])}")
+    for s in on["scenes"]:
+        check(s["fragments"] >= 2 and min(s["fragment_points"]) >= 150000
+              and s["points"] == n_points,
+              f"scene {s['name']}: {s['fragments']} fragments of {s['fragment_points']}")
+    for name, pred in off["preds"].items():
+        check(np.array_equal(pred, on["preds"][name]),
+              f"{name}: predictions differ with the sort switch on")
+        check(pred.ndim == 1 and len(pred) > 50000, f"{name}: shape {pred.shape}")
+    for key, value in off["res"].items():
+        check(np.array_equal(value, on["res"][key]), f"metric {key} differs with the switch on")
+    check(all(np.isfinite(off["res"][k]) for k in ("mIoU", "fg_mIoU", "mAcc", "allAcc")),
+          "non-finite metrics")
+    want_calls = fragments * len(sizes)
+    want_kernels = fragments * sum(bs.kernel_launches(n) for _, n in sizes)
+    check(off["sort_calls"] == 0 and off["sort_kernels"] == 0,
+          f"K3 launched {off['sort_calls']} times with the switch off")
+    check(on["sort_calls"] == want_calls and on["sort_kernels"] == want_kernels,
+          f"K3: {on['sort_calls']} sorts and {on['sort_kernels']} kernels, reckoned "
+          f"{want_calls} and {want_kernels}")
+    check(off["k1"] == on["k1"] == timed["k1"] == blocks * fragments,
+          f"K1 launches {off['k1']} / {on['k1']} / {timed['k1']}, expected {blocks} per "
+          "fragment")
+    check(timed["sort_calls"] == 0 and len(timed["preds"]) == n_scenes,
+          "the run without deterministic algorithms launched K3 or lost a scene")
+    agreement = float(np.mean([np.mean(pred == timed["preds"][name])
+                               for name, pred in off["preds"].items()]))
+
+    # the voting's neighbour search alone, at the last scene's sizes
+    rng = np.random.default_rng(3)
+    data = rng.uniform(0, 6, (int(0.9 * n_points), 3)).astype(np.float32)
+    query = rng.uniform(0, 6, (100000, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    knn(data, query, 25, device="cuda")
+    knn_s = time.perf_counter() - t1
+
+    def split(run):
+        keys = ("fetch_s", "extract_s", "score_s", "vote_s", "total_s")
+        return [dict(name=s["name"], points=s["points"], fragments=s["fragments"],
+                     fragment_points=s["fragment_points"], **{k: s[k] for k in keys})
+                for s in run["scenes"]]
+
+    record = dict(
+        phase="test", dtype="bfloat16", scenes=n_scenes, points_per_scene=n_points,
+        fragments=fragments, dataset_write_s=write_s, sort_sizes=sizes,
+        switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
+                        per_scene=split(off), k1_launches=off["k1"],
+                        sort_calls=off["sort_calls"]),
+        switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
+                       per_scene=split(on), k1_launches=on["k1"],
+                       sort_calls=on["sort_calls"], sort_kernel_launches=on["sort_kernels"]),
+        as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
+                               seconds=timed["seconds"], per_scene=split(timed),
+                               k1_launches=timed["k1"],
+                               predictions_equal_to_deterministic_run=agreement,
+                               metrics={k: timed["res"][k]
+                                        for k in ("mIoU", "fg_mIoU", "mAcc", "allAcc")}),
+        predictions_equal=True, metrics_equal=True,
+        metrics={k: off["res"][k] for k in ("mIoU", "fg_mIoU", "mAcc", "fg_mAcc", "allAcc")},
+        classes_predicted=int(len(np.unique(np.concatenate(list(off["preds"].values()))))),
+        knn_s=knn_s, knn_data=len(data), knn_queries=len(query))
+    emit(record)
+    return on["sort_calls"], on["sort_kernels"], fragments, sizes
+
+
+def phase_timing_sort(sizes):
+    """At the 8 sort shapes of one fragment forward: K3 (the wrapper on a
+    code's halves and the index, padding copies included), the plain version
+    and torch.sort(stable=True) on the int64 codes, by CUDA events; the bound
+    is every operand read once and written once at the memory rate."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, worst = [], 0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, kernel_launches=0)
+    for b, n in sizes:
+        code = torch.randint(0, 1 << 30, (b, n), generator=gen, device="cuda")
+        code[:, -(n // 5):] = SENTINEL  # padding slots
+        halves = code.view(torch.int32).view(b, n, 2)
+        ops = (halves[..., 1].contiguous(), halves[..., 0].contiguous(),
+               torch.arange(n, dtype=torch.int32, device="cuda").expand(b, n).contiguous())
+        got = bs.bitonic_sort(ops, 3)
+        ref = bs.bitonic_sort_reference(ops, 3)
+        want = torch.sort(code, dim=-1, stable=True)
+        torch.cuda.synchronize()
+        worst = max(worst, sort_max_abs_diff(got, ref))
+        check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+              f"K3 differs from its plain version at {(b, n)}")
+        check(torch.equal(got[2].long(), want.indices),
+              f"K3 order differs from the stable torch.sort at {(b, n)}")
+        row = dict(
+            ms=cuda_ms(lambda: bs.bitonic_sort(ops, 3), reps=20),
+            plain_ms=cuda_ms(lambda: bs.bitonic_sort_reference(ops, 3), reps=2, warmup=1),
+            library_ms=cuda_ms(lambda: torch.sort(code, dim=-1, stable=True), reps=20),
+            bound_ms=2 * 3 * 4 * b * n / PEAK_BYTES * 1e3)
+        rows.append(dict(B=b, n=n, padded=bs.padded_length(n),
+                         kernel_launches=bs.kernel_launches(n), **row))
+        for key, val in row.items():
+            tot[key] += val
+        tot["kernel_launches"] += bs.kernel_launches(n)
+    tot["max_abs_err"] = worst
+    emit(dict(phase="timing_sort", operands=3, num_keys=3, per_call=rows, per_forward=tot))
+    return tot
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -912,23 +1346,36 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS's deterministic workspace, for the test phase's two compared
+    # runs; cuBLAS reads it when its handle is made, so it holds for every
+    # phase (the device phase's record says so)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t0 = time.perf_counter()
-    smi = phase_device()
-    worst32 = phase_kernel()
-    text = load_text_embeddings("builtin:scannet200")
-    shapes, launches = phase_serve(text)
-    tot = phase_timing(shapes)
-    phase_shipped(text)
-    phase_agree(text)
-    worst_bwd, worst_fwd_lse = phase_kernel_bwd()
-    train_shapes, k1_train, k2_train = phase_train()
-    tot_bwd = phase_timing_bwd(train_shapes)
-    phase_train_agree()
+    with tempfile.TemporaryDirectory() as work:
+        meta_root = os.path.join(work, "metadata")
+        write_meta(meta_root)
+        os.environ["SCENESPLAT_META_ROOT"] = meta_root  # the flagship config reads it
+        smi = phase_device()
+        worst32 = phase_kernel()
+        text = load_text_embeddings("builtin:scannet200")
+        shapes, launches = phase_serve(text)
+        tot = phase_timing(shapes)
+        phase_shipped(text)
+        phase_agree(text)
+        worst_bwd, worst_fwd_lse = phase_kernel_bwd()
+        train_shapes, k1_train, k1_val, k2_train, checkpoint = phase_train(work)
+        tot_bwd = phase_timing_bwd(train_shapes)
+        phase_train_agree()
+        worst_sort = phase_kernel_sort()
+        sort_calls, sort_kernels, fragments, sort_sizes = phase_test(work, checkpoint, meta_root)
+        tot_sort = phase_timing_sort(sort_sizes)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
     # launches: the count of the path's run (4 serve forwards, 6 train
-    # steps); ms and the other times: per forward or per step (18 launches)
+    # steps, the test run's fragment forwards with the sort switch on); ms
+    # and the other times: per forward or per step (18 attention launches, 8
+    # sorts)
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
@@ -937,7 +1384,8 @@ def main() -> int:
              library_ms=tot["library_ms"]),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
-             launches=k1_train, ms_per="train step", max_abs_err=worst_fwd_lse,
+             launches=k1_train, validation_launches=k1_val, ms_per="train step",
+             max_abs_err=worst_fwd_lse,
              ms=tot_bwd["fwd_lse_ms"], plain_ms=tot_bwd["fwd_plain_ms"],
              bound_ms=tot_bwd["fwd_bound_ms"], bound_by=tot_bwd["fwd_bound_by"],
              library_ms=tot_bwd["fwd_library_ms"]),
@@ -946,7 +1394,15 @@ def main() -> int:
              launches=k2_train, ms_per="train step", max_abs_err=worst_bwd,
              ms=tot_bwd["ms"], plain_ms=tot_bwd["plain_ms"], bound_ms=tot_bwd["bound_ms"],
              bound_by=tot_bwd["bound_by"], library_ms=tot_bwd["library_ms"],
-             design_bound_ms=tot_bwd["design_bound_ms"])]})
+             design_bound_ms=tot_bwd["design_bound_ms"]),
+        dict(name="bitonic_sort", route="cuda",
+             source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
+             replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
+             launches=sort_calls, kernel_launches=sort_kernels, fragment_forwards=fragments,
+             ms_per="fragment forward",
+             max_abs_err=max(worst_sort, tot_sort["max_abs_err"]), ms=tot_sort["ms"],
+             plain_ms=tot_sort["plain_ms"], bound_ms=tot_sort["bound_ms"], bound_by="bytes",
+             library_ms=tot_sort["library_ms"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,8 @@
-"""Host-side (numpy) data transforms of the flagship training pipeline (the
-port's copy of the part of ``scenesplat_tpu/data/transforms.py`` that
-``configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py`` uses).
+"""Host-side (numpy) data transforms of the flagship training, validation
+and test pipelines (the port's copy of the part of
+``scenesplat_tpu/data/transforms.py`` that
+``configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py`` and the
+fragment test pipeline of ``configs/_base_/gs_pipelines.py`` use).
 
 All transforms run in numpy on the host and draw from a per-thread
 generator that the loader seeds per sample (``seed_transforms``), so
@@ -12,6 +14,7 @@ voxel hash, SphereCrop crops every per-point key including ``lang_feat``.
 
 from __future__ import annotations
 
+import copy
 import threading
 from collections.abc import Sequence
 
@@ -178,6 +181,19 @@ class Collect:
         return data
 
 @TRANSFORMS.register_module()
+class Copy:
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or dict(coord="origin_coord", segment="origin_segment")
+
+    def __call__(self, data_dict):
+        for key, value in self.keys_dict.items():
+            if key in data_dict:
+                v = data_dict[key]
+                data_dict[value] = v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class HostConvPlan:
     """Accepted and does nothing. In the JAX package it builds the stem's
     k=5 conv plan on the host, because the TPU's on-device builders hit
@@ -252,6 +268,22 @@ class RandomRotate:
         if trng().random() > self.p:
             return data_dict
         angle = trng().uniform(self.angle[0], self.angle[1]) * np.pi
+        return _apply_rotation(data_dict, self.axis, angle, self.center)
+
+
+@TRANSFORMS.register_module()
+class RandomRotateTargetAngle:
+    def __init__(self, angle=(1 / 2, 1, 3 / 2), center=None, axis="z",
+                 always_apply=False, p=0.75):
+        self.angle = angle
+        self.axis = axis
+        self.p = 1 if always_apply else p
+        self.center = center
+
+    def __call__(self, data_dict):
+        if trng().random() > self.p:
+            return data_dict
+        angle = trng().choice(self.angle) * np.pi
         return _apply_rotation(data_dict, self.axis, angle, self.center)
 
 
@@ -487,25 +519,32 @@ def fnv_hash_vec(arr: np.ndarray) -> np.ndarray:
 
 @TRANSFORMS.register_module()
 class GridSample:
-    """Voxel grid sampling, train mode: one uniformly random point per
-    occupied cell, cells grouped by the FNV-1a hash of their integer
-    coordinates. This is the JAX package's numpy path of GridSample; its
+    """Voxel grid sampling. Cells are grouped by the FNV-1a hash of their
+    integer coordinates. Train mode: one uniformly random point per occupied
+    cell. Test mode: as many complementary fragments as the fullest cell has
+    points, each covering every occupied cell once. A full-resolution
+    evaluation point cloud (``pc_coord``) is subsampled to one point per
+    cell, labeled points first, unless ``apply_to_pc`` is off.
+
+    This is the JAX package's numpy path of GridSample; in train mode its
     host C++ reservoir sampler (``scenesplat_tpu/native``) draws from
     another random stream, so the two pick different, equally distributed
-    points. Test mode (fragments) waits for the tester slice."""
+    points."""
 
     def __init__(self, grid_size=0.05, hash_type="fnv", mode="train",
                  keys=("coord", "color", "normal", "segment"), return_inverse=False,
-                 return_grid_coord=False, return_min_coord=False):
-        if mode != "train":
-            raise NotImplementedError("GridSample test mode is not ported")
+                 return_grid_coord=False, return_min_coord=False, apply_to_pc=True):
+        if mode not in ("train", "test"):
+            raise ValueError(f"GridSample mode {mode!r}")
         if hash_type != "fnv":
             raise NotImplementedError(f"GridSample hash {hash_type} is not ported")
         self.grid_size = grid_size
+        self.mode = mode
         self.keys = keys
         self.return_inverse = return_inverse
         self.return_grid_coord = return_grid_coord
         self.return_min_coord = return_min_coord
+        self.apply_to_pc = apply_to_pc
 
     def __call__(self, data_dict):
         assert "coord" in data_dict
@@ -513,8 +552,12 @@ class GridSample:
         cell = np.floor(scaled).astype(int)
         origin = cell.min(0)
         cell = cell - origin
+        origin_world = origin * np.asarray(self.grid_size)
+        if "pc_coord" in data_dict and self.apply_to_pc:
+            self._sample_pc(data_dict)
         # group points into cells: sort by hashed cell id (numpy's default
-        # sort kind, as the JAX package), mark the head of each run
+        # sort kind, as the JAX package: test-mode fragment membership
+        # follows its tie order), mark the head of each run
         n = cell.shape[0]
         cell_hash = fnv_hash_vec(cell)
         order = np.argsort(cell_hash)
@@ -523,17 +566,68 @@ class GridSample:
         run_head[1:] = sorted_hash[1:] != sorted_hash[:-1]
         starts = np.flatnonzero(run_head)
         sizes = np.diff(np.append(starts, n))
-        jitter = trng().integers(0, sizes.max(), sizes.shape[0]) % sizes
-        picked = order[starts + jitter]
-        if self.return_inverse:
-            inverse = np.empty(n, dtype=np.int64)
-            inverse[order] = np.cumsum(run_head) - 1
-            data_dict["inverse"] = inverse
-        if self.return_grid_coord:
-            data_dict["grid_coord"] = cell[picked]
-        if self.return_min_coord:
-            data_dict["min_coord"] = (origin * np.asarray(self.grid_size)).reshape([1, 3])
-        for k in self.keys:
-            if k in data_dict:
-                data_dict[k] = data_dict[k][picked]
-        return data_dict
+
+        def point_to_cell():
+            out = np.empty(n, dtype=np.int64)
+            out[order] = np.cumsum(run_head) - 1
+            return out
+
+        if self.mode == "train":
+            jitter = trng().integers(0, sizes.max(), sizes.shape[0]) % sizes
+            picked = order[starts + jitter]
+            if self.return_inverse:
+                data_dict["inverse"] = point_to_cell()
+            if self.return_grid_coord:
+                data_dict["grid_coord"] = cell[picked]
+            if self.return_min_coord:
+                data_dict["min_coord"] = origin_world.reshape([1, 3])
+            for k in self.keys:
+                if k in data_dict:
+                    data_dict[k] = data_dict[k][picked]
+            return data_dict
+
+        # test mode: fragment p takes the (p mod size)-th member of every
+        # cell. Each key is gathered into sorted order once and the
+        # fragments slice it with increasing positions.
+        num_frags = int(sizes.max())
+        gathered = {k: data_dict[k][order] for k in data_dict
+                    if k in self.keys and num_frags > 1}
+        cell_sorted = cell[order] if (self.return_grid_coord and num_frags > 1) else None
+        fragments = []
+        for p in range(num_frags):
+            pos = starts + p % sizes
+            member = order[pos]
+            frag = dict(index=member)
+            if self.return_inverse:
+                data_dict["inverse"] = point_to_cell()
+            if self.return_grid_coord:
+                frag["grid_coord"] = cell_sorted[pos] if cell_sorted is not None else cell[member]
+            if self.return_min_coord:
+                frag["min_coord"] = origin_world.reshape([1, 3])
+            for k in data_dict:
+                if k in self.keys:
+                    frag[k] = gathered[k][pos] if k in gathered else data_dict[k][member]
+                else:
+                    frag[k] = data_dict[k]
+            fragments.append(frag)
+        return fragments
+
+    def _sample_pc(self, data_dict):
+        """Subsample the evaluation point cloud to one point per cell, the
+        cell's first labeled point where it has one."""
+        pc_grid = np.floor(data_dict["pc_coord"] / np.asarray(self.grid_size)).astype(int)
+        pc_grid -= pc_grid.min(0)
+        pc_key = fnv_hash_vec(pc_grid)
+        pc_segment = data_dict.get("pc_segment", None)
+        if pc_segment is not None:
+            unlabeled = (np.asarray(pc_segment) == -1).astype(np.uint8)
+            pc_idx_sort = np.lexsort((unlabeled, pc_key))
+        else:
+            pc_idx_sort = np.argsort(pc_key, kind="stable")
+        pc_key_sorted = pc_key[pc_idx_sort]
+        first_idx = np.nonzero(
+            np.concatenate(([True], pc_key_sorted[1:] != pc_key_sorted[:-1])))[0]
+        chosen = np.asarray(pc_idx_sort[first_idx], dtype=np.int64)
+        data_dict["pc_coord"] = data_dict["pc_coord"][chosen]
+        if "pc_segment" in data_dict:
+            data_dict["pc_segment"] = data_dict["pc_segment"][chosen]

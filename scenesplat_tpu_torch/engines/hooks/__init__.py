@@ -1,4 +1,4 @@
 from .default import HOOKS, HookBase, build_hooks
-from . import misc  # noqa: F401 (registers the hooks)
+from . import evaluator, misc  # noqa: F401 (register the hooks)
 
 __all__ = ["HOOKS", "HookBase", "build_hooks"]

@@ -30,6 +30,10 @@ class HookBase:
     def after_train(self):
         pass
 
+    def _seed(self) -> int:
+        """The config's seed, for the per-scene seeding of the transforms."""
+        return int(self.trainer.cfg.get("seed", 0))
+
 
 def build_hooks(cfg_list):
     return [HOOKS.build(dict(c)) for c in (cfg_list or [])]

@@ -1,15 +1,18 @@
 """Training hooks (counterpart of ``scenesplat_tpu/engines/hooks/misc.py``):
-the iteration timer, the metrics writer, and checkpoint save and load as
-torch state dicts (model, optimizer, scheduler, the training generator's
-state, step and epoch)."""
+the iteration timer, the metrics writer, checkpoint save and load as torch
+state dicts (model, optimizer, scheduler, the training generator's state,
+step, epoch and best metric), and the testers' run after training."""
 
 from __future__ import annotations
 
+import math
 import os
+import shutil
 import time
 
 import torch
 
+from scenesplat_tpu_torch.engines.test import build_tester
 from scenesplat_tpu_torch.utils.events import JSONWriter
 
 from .default import HOOKS, HookBase
@@ -79,15 +82,16 @@ def training_state(trainer, epoch: int) -> dict:
         generator=trainer.generator.get_state(),
         step=trainer.storage.iter,
         epoch=epoch,
+        best_metric=trainer.comm_info.get("best_metric_value", -1.0),
     )
 
 
 @HOOKS.register_module()
 class CheckpointSaver(HookBase):
-    """Writes ``model/model_last.pth`` after every epoch (atomically) and,
-    with ``save_freq``, keeps ``epoch_<n>.pth`` every ``save_freq`` epochs.
-    (``model_best.pth`` comes with the evaluator hooks, which the port does
-    not have yet.)"""
+    """Writes ``model/model_last.pth`` after every epoch (atomically),
+    copies it to ``model_best.pth`` when an evaluator hook's
+    ``current_metric_value`` improves and, with ``save_freq``, keeps
+    ``epoch_<n>.pth`` every ``save_freq`` epochs."""
 
     def __init__(self, save_freq=None):
         self.save_freq = save_freq
@@ -103,7 +107,18 @@ class CheckpointSaver(HookBase):
         os.replace(path + ".tmp", path)
 
     def after_epoch(self):
+        comm = self.trainer.comm_info
+        metric = comm.get("current_metric_value")
+        is_best = metric is not None and metric > comm.get("best_metric_value", -math.inf)
+        if is_best:
+            comm["best_metric_value"] = metric
+            self.trainer.logger.info(f"new best {comm.get('current_metric_name', 'metric')}: "
+                                     f"{metric:.4f} (epoch {self.trainer.epoch + 1})")
         self._save("model_last.pth")
+        if is_best:
+            best = os.path.join(self.ckpt_dir, "model_best.pth")
+            shutil.copyfile(os.path.join(self.ckpt_dir, "model_last.pth"), best + ".tmp")
+            os.replace(best + ".tmp", best)
         if self.save_freq and (self.trainer.epoch + 1) % self.save_freq == 0:
             self._save(f"epoch_{self.trainer.epoch + 1}.pth")
 
@@ -141,5 +156,37 @@ class CheckpointLoader(HookBase):
             trainer.generator.set_state(ckpt["generator"])
             trainer.start_epoch = int(ckpt["epoch"])
             trainer.storage.iter = int(ckpt["step"])
+            trainer.comm_info["best_metric_value"] = float(ckpt.get("best_metric", -1.0))
         trainer.logger.info(f"checkpoint loaded (resume={resume}, "
                             f"epoch={trainer.start_epoch})")
+
+
+@HOOKS.register_module()
+class PreciseEvaluator(HookBase):
+    """Runs the configured testers (``cfg.test`` over ``cfg.data.test``)
+    after training, on ``model_best.pth`` unless ``test_last``. Does nothing
+    when the config names no tester. ``results`` keeps each tester's
+    metrics."""
+
+    def __init__(self, test_last: bool = False):
+        self.test_last = test_last
+        self.results = []
+
+    def after_train(self):
+        trainer, cfg = self.trainer, self.trainer.cfg
+        test_cfgs, data_test = cfg.get("test"), cfg.data.get("test")
+        if not test_cfgs or data_test is None:
+            return
+        test_cfgs = test_cfgs if isinstance(test_cfgs, (list, tuple)) else [test_cfgs]
+        data_cfgs = data_test if isinstance(data_test, (list, tuple)) else [data_test]
+        best = os.path.join(cfg.get("save_path", "exp/default"), "model", "model_best.pth")
+        if not self.test_last and os.path.exists(best):
+            ckpt = torch.load(best, map_location="cpu", weights_only=False)
+            trainer.model.load_state_dict(ckpt["state_dict"], strict=True)
+            trainer.logger.info("PreciseEvaluator: loaded model_best")
+        backbone_cfg = cfg.model.get("backbone", cfg.model)
+        patch = max(backbone_cfg.get("enc_patch_size", [1024]))
+        for tc, dc in zip(test_cfgs, data_cfgs):
+            tester = build_tester(tc, trainer.model, dc, patch_size=patch,
+                                  seed=cfg.get("seed", 0), device=trainer.device)
+            self.results.append(tester.test())

@@ -34,6 +34,9 @@ class TrainerBase:
         self.start_epoch = 0
         self.max_epoch = 0
         self.storage: Optional[EventStorage] = None
+        # what hooks tell each other: the evaluator's current metric, the
+        # checkpoint saver's best
+        self.comm_info = {}
 
     def register_hooks(self, hooks_cfg):
         self.hooks = build_hooks(hooks_cfg)

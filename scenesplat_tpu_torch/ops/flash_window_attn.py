@@ -25,82 +25,36 @@ it launches K1 alone. The kernels are built at first use with ``nvcc`` into
 ``build/kernels/`` at the root of the checkout, from this package's sources
 only, and bound through plain C functions with ``ctypes``. The wrappers
 launch them for CUDA tensors and use the plain version (and autograd
-through it) for CPU tensors; nothing falls back.
+through it) for CPU tensors; nothing falls back. ``ops/_build.py`` holds
+the build and binding code the port's kernels share.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "flash_window_attn.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from ._build import CSRC, KernelLibrary
+
+SOURCE = CSRC / "flash_window_attn.cu"
 # head widths the kernel is instantiated for: those of the flagship and the
 # shipped configs (16 in every encoder stage and dec2, 32 in dec1, 48 in dec0)
 HEAD_DIMS = (16, 32, 48)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not cand.exists():
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return str(cand)
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.fwa_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fwa_fwd.restype = ctypes.c_int
+    lib.fwa_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fwa_bwd.restype = ctypes.c_int
 
 
-def library_path() -> Path:
-    """The shared library's path, keyed by a hash of source and flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libflash_window_attn_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> float:
-    """Compile the kernel unless this source is already built; returns the
-    seconds spent. The compiler's register and spill report goes to a
-    ``.log`` file beside the library."""
-    lib = library_path()
-    if lib.exists():
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE}:\n{res.stderr}")
-    os.replace(tmp, lib)
-    return time.perf_counter() - t0
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        lib.fwa_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        lib.fwa_fwd.restype = ctypes.c_int
-        lib.fwa_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        lib.fwa_bwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+LIBRARY = KernelLibrary(SOURCE, _declare)
 
 
 def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int,
@@ -134,7 +88,7 @@ def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
            if with_lse else None)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
-        rc = _library().fwa_fwd(
+        rc = LIBRARY.load().fwa_fwd(
             qkv.data_ptr(), valid.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPES[qkv.dtype],
             b, n, c, num_heads, patch_size, float(scale), stream)
@@ -163,7 +117,7 @@ def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
     delta = torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
-        rc = _library().fwa_bwd(
+        rc = LIBRARY.load().fwa_bwd(
             qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), _DTYPES[qkv.dtype],
             b, n, c, num_heads, patch_size, float(scale), stream)

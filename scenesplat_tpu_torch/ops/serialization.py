@@ -2,9 +2,10 @@
 
 Counterpart of ``scenesplat_tpu/ops/serialization.py``: the batch is an
 explicit leading axis of padded tensors, padding slots carry a sentinel code
-above every real code so they sort last, and each curve is one ``torch.sort``
-over int64 codes (the JAX package's two-key uint32 sort has no counterpart
-here).
+above every real code so they sort last, and each curve is one stable sort
+over int64 codes through ``ops/bitonic_sort.py:sort_int64``: ``torch.sort``
+by default, the hand-written bitonic kernel on the codes' 32-bit halves
+with ``SCENESPLAT_BITONIC_SORT=1`` (the same order either way).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .bitonic_sort import sort_int64
 from .curves import encode
 
 # above every real code (codes use at most 48 bits) and above every code
@@ -66,7 +68,7 @@ def invert_order(order: torch.Tensor) -> torch.Tensor:
 
 def sort_codes(code: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(order, inverse) permutations along the last axis."""
-    order = torch.sort(code, dim=-1, stable=True).indices
+    order = sort_int64(code)[1]
     return order, invert_order(order)
 
 

@@ -7,7 +7,8 @@ neighbour plan is built once per stage and shared by every block of the
 stage, like spconv's ``indice_key``.
 
 One plan builder: the voxel keys, with the batch index folded in, are sorted
-once and every neighbour query is a ``searchsorted`` into them. The JAX
+once (``ops/bitonic_sort.py:sort_int64``, as the serialization sorts) and
+every neighbour query is a ``searchsorted`` into them. The JAX
 package's merge-join, dense-grid and hash builders, its host-built stem plan
 and its staged geometry programs exist for TPU compile limits and have no
 counterpart here.
@@ -20,6 +21,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from .bitonic_sort import sort_int64
 
 _AXIS_BITS = 16  # grid coords are < 2**depth <= 2**16 per axis
 _PAD_KEY = (1 << 62) + 1  # never equals a query key
@@ -75,7 +78,7 @@ def build_subm_conv_plan(grid_coord: torch.Tensor, mask: torch.Tensor,
     limit = (1 << depth) - 1
     grid = grid_coord.to(torch.int64)
     keys = torch.where(mask, _voxel_key(grid.clamp(0, limit)), _PAD_KEY)
-    sorted_keys, sort_idx = torch.sort(keys.reshape(-1), stable=True)
+    sorted_keys, sort_idx = sort_int64(keys.reshape(-1))
 
     offsets = torch.tensor(kernel_offsets(kernel_size), dtype=torch.int64,
                            device=grid.device)

@@ -6,8 +6,10 @@
 Reads the repo's config files as they are. Two keys there exist only for
 the TPU and have no effect here: ``split_geometry`` (geometry programs
 compiled apart from the train step, for the TPU compiler's memory) and
-``aot_cache`` (the TPU's executable cache); PyTorch runs eagerly. Runs on
-the CUDA card unless ``--device cpu`` is given.
+``aot_cache`` (the TPU's executable cache); PyTorch runs eagerly.
+``--options bitonic_sort=True`` sorts through the hand-written bitonic
+kernel (``SCENESPLAT_BITONIC_SORT=1``). Runs on the CUDA card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import sys
 
 from scenesplat_tpu_torch.engines.train import build_trainer
+from scenesplat_tpu_torch.ops.bitonic_sort import apply_sort_switch
 from scenesplat_tpu_torch.utils.config import Config
 
 
@@ -30,6 +33,7 @@ def main(argv=None) -> int:
 
     cfg = Config.fromfile(args.config_file)
     cfg.merge_from_options(args.options)
+    apply_sort_switch(cfg)
     cfg.setdefault("save_path", os.path.join("exp", "default"))
     os.makedirs(cfg.save_path, exist_ok=True)
     cfg.dump(os.path.join(cfg.save_path, "config.py"))

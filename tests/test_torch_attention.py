@@ -101,11 +101,13 @@ def test_dispatch_on_cpu():
 def test_kernel_source_and_build_command():
     """The kernel ships as CUDA C++ for sm_90a with a plain C entry point
     that the ctypes binding declares; the library name tracks the source."""
+    from scenesplat_tpu_torch.ops import _build
+
     src = tfwa.SOURCE.read_text()
     assert 'extern "C" int fwa_fwd(' in src
     assert "__global__" in src
-    cmd = tfwa.NVCC_FLAGS
+    cmd = _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    path = tfwa.library_path()
-    assert path.parent == tfwa.BUILD_DIR and path.suffix == ".so"
-    assert path.name == tfwa.library_path().name
+    path = tfwa.LIBRARY.path()
+    assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+    assert path.name == tfwa.LIBRARY.path().name

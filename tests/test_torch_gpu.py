@@ -1,5 +1,6 @@
-"""The flash-window attention kernels (K1 forward, K2 backward) on a CUDA
-card against their plain version and autograd through it (no JAX
+"""The hand-written kernels on a CUDA card: the flash-window attention
+kernels (K1 forward, K2 backward) against their plain version and autograd
+through it, and the bitonic row sort (K3) against its plain version (no JAX
 involved). Every test skips without a card; on one, run
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py -q
@@ -11,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from scenesplat_tpu_torch.ops import bitonic_sort as bs  # noqa: E402
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa  # noqa: E402
 from scenesplat_tpu_torch.ops import window_attention as wa  # noqa: E402
 
@@ -166,3 +168,94 @@ def test_grad_fn_only_when_recording(cuda):
     with torch.inference_mode():
         assert fwa.flash_window_attention(x, valid, 64, 4).grad_fn is None
     assert fwa.flash_window_attention_bwd.launches == b0
+
+
+def _sort_operands(cuda, b, n, num_ops, seed, ties=False):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    lo, hi = (0, 8) if ties else (-2 ** 31, 2 ** 31 - 1)  # negative: the high unsigned half
+    ops = [torch.randint(lo, hi, (b, n), generator=gen, device=cuda, dtype=torch.int32)
+           for _ in range(num_ops - 1)]
+    return ops + [torch.arange(n, dtype=torch.int32, device=cuda).expand(b, n).contiguous()]
+
+
+@pytest.mark.parametrize("b,n,num_ops,num_keys,ties", [
+    (1, 1000, 2, 1, False), (4, 1024, 3, 2, False), (3, 4095, 3, 3, True),
+    (2, 4097, 2, 2, True), (12, 5000, 3, 1, True), (4, 24576, 3, 3, False),
+    (4, 196608, 3, 3, False), (1, 1 << 20, 3, 3, True), (2, 70000, 3, 2, True),
+])
+def test_bitonic_sort_equals_plain_exactly(cuda, b, n, num_ops, num_keys, ties):
+    """K3 and its plain version run one network on identically padded rows:
+    every operand equal, payloads included, ties or not."""
+    ops = _sort_operands(cuda, b, n, num_ops, seed=n + num_keys, ties=ties)
+    kept = [o.clone() for o in ops]
+    calls, kernels = bs.bitonic_sort.launches, bs.bitonic_sort.kernel_launches
+    got = bs.bitonic_sort(ops, num_keys)
+    torch.cuda.synchronize()
+    assert bs.bitonic_sort.launches == calls + 1
+    assert bs.bitonic_sort.kernel_launches == kernels + bs.kernel_launches(n)
+    ref = bs.bitonic_sort_reference(ops, num_keys)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for o, k in zip(ops, kept):
+        assert torch.equal(o, k)  # the inputs are left alone
+    # and it is the sort of the keys: against torch.sort on the combined key
+    if num_keys <= 2:
+        def combined(keys):
+            out = torch.zeros_like(keys[0], dtype=torch.int64)
+            for k in keys:
+                out = (out << 32) | (k.to(torch.int64) & 0xFFFFFFFF)
+            return out ^ (-(1 << 63) if num_keys == 2 else 0)  # unsigned order of 64 bits
+        assert torch.equal(combined(got[:num_keys]),
+                           torch.sort(combined(ops[:num_keys]), dim=-1).values)
+
+
+def test_sort_int64_switch_on_equals_torch_sort_on_card(cuda, monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    code = torch.randint(0, 1 << 30, (4, 1, 50000), generator=gen, device=cuda)  # ties likely
+    code[..., -5000:] = 1 << 62  # a sentinel tail
+    monkeypatch.delenv(bs.ENV_SWITCH, raising=False)
+    values, order = bs.sort_int64(code)
+    monkeypatch.setenv(bs.ENV_SWITCH, "1")
+    before = bs.bitonic_sort.launches
+    values_on, order_on = bs.sort_int64(code)
+    assert bs.bitonic_sort.launches == before + 1
+    assert torch.equal(values, values_on) and torch.equal(order, order_on)
+
+
+def test_bitonic_sort_no_fallback(cuda, monkeypatch):
+    """With the switch on and CUDA tensors the kernel runs or the call
+    raises: a kernel made to fail is not replaced by torch.sort or the
+    plain version."""
+    class Broken:
+        @staticmethod
+        def bitonic_sort_rows(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setenv(bs.ENV_SWITCH, "1")
+    monkeypatch.setattr(bs.LIBRARY, "load", lambda: Broken)
+    code = torch.arange(2000, device=cuda).flip(0)[None]
+    before = bs.bitonic_sort.launches
+    with pytest.raises(RuntimeError):
+        bs.sort_int64(code)
+    assert bs.bitonic_sort.launches == before
+    with pytest.raises(TypeError):
+        bs.bitonic_sort([code], 1)  # int64 operands
+
+
+def test_knn_on_card_equals_ckdtree(cuda):
+    """The voting's neighbour search: brute force on the card picks the
+    cKDTree's neighbours, nearest first (random coordinates: no ties)."""
+    import numpy as np
+
+    from scenesplat_tpu_torch.ops.knn import knn
+
+    rng = np.random.default_rng(0)
+    data = rng.uniform(0, 6, (30000, 3)).astype(np.float32)
+    query = rng.uniform(0, 6, (4000, 3)).astype(np.float32)
+    got, ref = knn(data, query, 25, device=cuda), knn(data, query, 25, device="cpu")
+    assert got.shape == ref.shape == (4000, 25) and got.dtype == ref.dtype
+    # fp32 on the card, fp64 in the tree: a pair of neighbours closer in
+    # distance than fp32 resolves may swap places
+    assert (got == ref).mean() > 0.999
+    assert (np.sort(got, 1) == np.sort(ref, 1)).mean() > 0.9999
+    assert knn(data[:7], query, 25, device=cuda).shape == (4000, 7)

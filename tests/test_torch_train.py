@@ -237,11 +237,12 @@ def test_train_entry_two_epochs_checkpoints_and_resume(gs_root, tmp_path):
 
 
 def test_unported_hook_raises(gs_root, tmp_path):
-    """The flagship's evaluator hooks wait for the tester slice: building
-    the trainer with one raises instead of skipping it."""
+    """A hook the port does not have (the supervised SemSegEvaluator waits
+    for its slice): building the trainer with one raises instead of
+    skipping it."""
     from scenesplat_tpu_torch.engines.train import build_trainer
 
     cfg = _tiny_flagship(gs_root, str(tmp_path / "exp"))
-    cfg.hooks = cfg.hooks + [dict(type="PreciseEvaluator", test_last=False)]
+    cfg.hooks = cfg.hooks + [dict(type="SemSegEvaluator")]
     with pytest.raises(KeyError):
         build_trainer(cfg, device="cpu")
