@@ -8,8 +8,11 @@ Phases, one JSON line each:
      (one nvcc per source, started together);
   2. kernel: the flash-window attention kernel against its plain version at
      every (window, channels, heads) signature of the flagship backbone and
-     of configs/test_lang_inference.py, fp32 and bf16, with partial and fully
-     padded windows and a ragged last window;
+     of configs/test_lang_inference.py and at windows on both sides of the
+     bf16 variants' threshold, fp32 and bf16, with partial and fully padded
+     windows, a ragged last window and valid prefixes that end inside a key
+     tile, on a tile edge and one past it; in bf16 also the log-sum-exp
+     against the plain one;
   3. serve: the zero-shot serving path (FeatureExtractor -> flagship
      LangPretrainer in bf16 -> zero_shot_predict against the ScanNet200
      SigLIP2 table) at 196,608 points of a seeded synthetic room, a few
@@ -18,7 +21,8 @@ Phases, one JSON line each:
      kernel against its plain version in bf16, then the times of the
      kernel, the plain version and scaled_dot_product_attention (the
      library yardstick, used nowhere in the port), with the least time the
-     card could take for the same work;
+     card could take for the same work, the TFLOP/s reached and which
+     variant ran;
   5. shipped: one forward of the shipped inference backbone (decoder
      windows of 48, ragged at every stage) at 65,536 points;
   6. agree: fp32 forward with the kernel against the same forward with the
@@ -50,7 +54,9 @@ Phases, one JSON line each:
      at 2 and 3 operands, 1 to 3 keys, rows of 1000 to 2^20, 1 to 12 rows,
      random and heavily tied keys, and against torch.sort (equal keys;
      with the index as last key, the stable order); int64 codes with a
-     sentinel tail through sort_int64 with the switch off and on;
+     sentinel tail through sort_int64 with the switch on (K3's int64 entry)
+     against its plain version and against torch.sort(stable=True), rows
+     of 1, 3 and 4, lengths that are no power of two;
  12. test: scenesplat_tpu_torch.test's main on the flagship config file
      plus test= and data.test= (the fragment test pipeline of
      configs/_base_/gs_pipelines.py), bf16, the train phase's checkpoint,
@@ -61,8 +67,9 @@ Phases, one JSON line each:
      launches 0 then as reckoned, K1 18 per fragment; then once more with
      torch.sort and without the deterministic mode, as a user runs it, for
      the times per scene;
- 13. timing_sort: K3, torch.sort and the plain version by CUDA events at
-     the eight sort shapes of one fragment forward.
+ 13. timing_sort: sort_int64 with the switch on (K3 as the sort sites call
+     it), torch.sort and the plain version by CUDA events at the eight sort
+     shapes of one fragment forward.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 """
@@ -185,7 +192,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libraries = (fwa.LIBRARY, bs.LIBRARY)
+    libraries = (fwa.LIBRARY, fwa.LIBRARY_LARGE, bs.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         build_s = dict(zip((lib.source.name for lib in libraries),
@@ -196,7 +203,7 @@ def phase_device():
         lib.load()
         ptxas[lib.source.name] = [
             ln.split("ptxas info    : ")[-1] for ln in lib.log_path().read_text().splitlines()
-            if "registers" in ln or "spill" in ln][:24]
+            if "registers" in ln or "spill" in ln][:40]
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
               cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
@@ -235,7 +242,42 @@ SIGNATURES = sorted({
     (k, c, h)
     for k in (1024, 48)
     for c, h in ((768, 16), (512, 16), (256, 16))
-} | {(1024, c, h) for c, h in ((32, 2), (64, 4), (128, 8), (256, 16))})
+} | {(1024, c, h) for c, h in ((32, 2), (64, 4), (128, 8), (256, 16))}
+  # windows on both sides of the bf16 variants' threshold
+  | {(k, c, h) for k in (64, 128, 192, 256) for c, h in ((768, 16), (512, 16), (32, 2))})
+LSE_ATOL = 1e-4  # bf16 forward: fp32 log-sum-exp against the plain one
+
+
+def signature_inputs(gen, k, c, batch=2):
+    """qkv [batch, N, 3, c] fp32 and valid prefixes for windows of k with a
+    ragged last window: a partial window, then fully padded windows; with
+    batch 4 also prefixes that end on a 64-key tile edge and one past it."""
+    n = 3 * k + k // 2 + 5
+    valid = torch.zeros(batch, n, dtype=torch.bool, device="cuda")
+    valid[0, : int(0.8 * n)] = True  # ends inside a key tile
+    valid[1, : k + 7] = True  # then fully padded windows
+    if batch > 2:
+        valid[2, : k + 64] = True
+        valid[3, : k + 65] = True
+    qkv = torch.randn(batch, n, 3, c, generator=gen, device="cuda")
+    p = -(-n // k)
+    slot0 = torch.nn.functional.pad(valid, (0, p * k - n)).view(batch, p, k)[:, :, :1]
+    dead = ~slot0.expand(batch, p, k).reshape(batch, p * k)[:, :n]  # windows of padding
+    return n, qkv, valid, dead
+
+
+def plain_lse(qkv, valid, k, h):
+    """The natural-log log-sum-exp of each row's scaled scores over the valid
+    keys of its window, [B, N, H] fp32, in plain torch ops."""
+    b, n, _, c = qkv.shape
+    d, p = c // h, -(-n // k)
+    pad = p * k - n
+    qkv = torch.nn.functional.pad(qkv, (0, 0, 0, 0, 0, pad))
+    valid = torch.nn.functional.pad(valid, (0, pad))
+    blk = qkv.view(b, p, k, 3, h, d).permute(3, 0, 1, 4, 2, 5)
+    scores = (blk[0] * d ** -0.5).float() @ blk[1].float().transpose(-1, -2)
+    scores = torch.where(valid.view(b, p, 1, 1, k), scores, float("-inf"))
+    return torch.logsumexp(scores, -1).permute(0, 1, 3, 2).reshape(b, p * k, h)[:, :n]
 
 
 def phase_kernel():
@@ -243,27 +285,32 @@ def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst32, rows = 0.0, []
     for k, c, h in SIGNATURES:
-        n = 3 * k + k // 2 + 5  # ragged last window
-        valid = torch.zeros(2, n, dtype=torch.bool, device="cuda")
-        valid[0, : int(0.8 * n)] = True  # a partial window
-        valid[1, : k + 7] = True  # then fully padded windows
-        qkv = torch.randn(2, n, 3, c, generator=gen, device="cuda")
+        n, qkv, valid, dead = signature_inputs(gen, k, c, batch=4)
         out32 = fwa.flash_window_attention(qkv, valid, k, h)
         ref32 = fwa.flash_window_attention_plain(qkv, valid, k, h)
         torch.cuda.synchronize()
         check(torch.isfinite(out32).all().item(), f"non-finite output at {k, c, h}")
         err32 = (out32 - ref32)[valid].abs().max().item()
-        dead = torch.zeros_like(valid)
-        dead[1, -(-(k + 7) // k) * k:] = True
         check((out32[dead] == 0).all().item(), f"padded windows not zero at {k, c, h}")
 
-        err16, floor16 = check_bf16(qkv.bfloat16(), valid, k, h)
-        rows.append(dict(K=k, C=c, H=h, N=n, fp32_max_abs_err=err32,
-                         bf16_rel_err=err16, bf16_plain_rel_err=floor16))
+        x16 = qkv.bfloat16()
+        variant = fwa.forward_variant(x16.dtype, k, c // h)
+        out16, lse16 = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+        err16, floor16 = check_bf16(x16, valid, k, h, out=out16)
+        check((out16[dead] == 0).all().item(), f"bf16 padded windows not zero at {k, c, h}")
+        check(torch.equal(out16, fwa.flash_window_attention(x16, valid, k, h)),
+              f"bf16 output differs with and without the log-sum-exp at {k, c, h}")
+        lse_err = (lse16 - plain_lse(x16, valid, k, h))[~dead].abs().max().item()
+        check(lse_err <= LSE_ATOL, f"bf16 log-sum-exp error {lse_err} at {k, c, h}")
+        rows.append(dict(K=k, C=c, H=h, N=n, fp32_max_abs_err=err32, bf16_variant=variant,
+                         bf16_rel_err=err16, bf16_plain_rel_err=floor16,
+                         bf16_lse_max_abs_err=lse_err))
         check(err32 <= FP32_ATOL, f"fp32 error {err32} > {FP32_ATOL} at {k, c, h}")
         worst32 = max(worst32, err32)
+    check({r["bf16_variant"] for r in rows} == {"bf16_small", "bf16_large"},
+          "the signatures do not reach both bf16 variants")
     emit(dict(phase="kernel", fp32_atol=FP32_ATOL, bf16_noise_factor=BF16_NOISE_FACTOR,
-              cases=rows))
+              bf16_lse_atol=LSE_ATOL, cases=rows))
     return worst32
 
 
@@ -346,8 +393,12 @@ def phase_serve(text):
     sample = dict(coord=coord, feat=feat_in, grid_coord=grid)
     torch.cuda.reset_peak_memory_stats()
     fwa.flash_window_attention.launches = 0
+    large_before = fwa.flash_window_attention.variant_launches["bf16_large"]
     feat, pred, plans, times = serve(model, sample, text, reps)
     launches = fwa.flash_window_attention.launches
+    check(fwa.flash_window_attention.variant_launches["bf16_large"] - large_before == launches,
+          "the serve path's launches (bf16, windows of 1024) did not all take the "
+          "large-window kernel")
     check_features(feat, n, "serve")
     overflow = [int(p.n_overflow.max()) for p in plans]
     clusters = [int(p.n_clusters.max()) for p in plans]
@@ -419,9 +470,13 @@ def phase_timing(shapes):
         ops_ms, bytes_ms = bound_ms(n, n_valid, k, c)
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms,
                    bytes_ms=bytes_ms)
+        tflops = ops_ms * PEAK_BF16_FLOPS / ms / 1e12  # needed operations over the time
         rows.append(dict(N=n, valid=n_valid, K=k, C=c, H=h, launches=count, **row,
                          bound_ms=max(ops_ms, bytes_ms), bf16_rel_err=err16,
-                         bf16_plain_rel_err=floor16))
+                         bf16_plain_rel_err=floor16,
+                         variant=fwa.forward_variant(qkv.dtype, k, d), tflops=tflops,
+                         library_tflops=ops_ms * PEAK_BF16_FLOPS / lib_ms / 1e12,
+                         share_of_bf16_peak=ops_ms / ms))
         for key, val in row.items():
             tot[key] += count * val
         del qkv, qkv_w, q, kk, v
@@ -1070,18 +1125,37 @@ def phase_kernel_sort():
                 checked += 1
             cases.append(dict(B=b, n=n, padded=bs.padded_length(n),
                               kernel_launches=bs.kernel_launches(n)))
-    # int64 codes with duplicates and a sentinel tail, as the sort sites see them
-    for shape in ((4, 1, 196608), (3, 2, 24576), (393216,)):
+    # int64 codes with duplicates and a sentinel tail, as the sort sites see
+    # them: K3's int64 entry (sort_int64 with the switch on) against its plain
+    # version on the codes' halves and the index, and against torch.sort
+    int64_shapes = ((4, 1, 196608), (3, 2, 24576), (393216,), (1, 5000), (3, 70000), (4, 1000),
+                    (1, 1 << 20))
+    for shape in int64_shapes:
         code = torch.randint(0, 1 << 28, shape, generator=gen, device="cuda")
         code[..., -(shape[-1] // 7):] = SENTINEL
         sort_switch(False)
         values, order = bs.sort_int64(code)
+        calls, kernels = bs.bitonic_sort.launches, bs.bitonic_sort.kernel_launches
         sort_switch(True)
         values_on, order_on = bs.sort_int64(code)
         sort_switch(False)
+        check(bs.bitonic_sort.launches == calls + 1 and bs.bitonic_sort.kernel_launches
+              == kernels + bs.kernel_launches(shape[-1]),
+              f"sort_int64 with the switch on did not make one K3 call of "
+              f"{bs.kernel_launches(shape[-1])} launches at {shape}")
         check(torch.equal(values, values_on) and torch.equal(order, order_on),
               f"sort_int64 with the switch on differs from torch.sort at {shape}")
+        halves = code.view(torch.int32).view(*shape, 2)
+        iota = torch.arange(shape[-1], dtype=torch.int32, device="cuda").expand(shape)
+        hi, lo, idx = bs.bitonic_sort_reference((halves[..., 1], halves[..., 0], iota), 3)
+        plain = ((hi.long() << 32) | (lo.long() & 0xFFFFFFFF), idx.long())
+        worst = max(worst, sort_max_abs_diff((values_on, order_on), plain))
+        check(torch.equal(values_on, plain[0]) and torch.equal(order_on, plain[1]),
+              f"K3's int64 entry differs from its plain version at {shape}")
+        checked += 1
+    check(bs.kernel_launches(1 << 18) <= 10, "a row of 2^18 takes more than 10 launches")
     emit(dict(phase="kernel_sort", exact=True, signatures=checked, max_abs_err=worst,
+              int64_shapes=int64_shapes, launches_at_2_18=bs.kernel_launches(1 << 18),
               rows=cases))
     return worst
 
@@ -1303,10 +1377,11 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
 
 
 def phase_timing_sort(sizes):
-    """At the 8 sort shapes of one fragment forward: K3 (the wrapper on a
-    code's halves and the index, padding copies included), the plain version
-    and torch.sort(stable=True) on the int64 codes, by CUDA events; the bound
-    is every operand read once and written once at the memory rate."""
+    """At the 8 sort shapes of one fragment forward: sort_int64 with the
+    switch on (K3's int64 entry, as the sort sites call it), the plain
+    version and torch.sort(stable=True) on the int64 codes, by CUDA events;
+    the bound is every operand read once and written once at the memory
+    rate."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows, worst = [], 0
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, kernel_launches=0)
@@ -1316,17 +1391,23 @@ def phase_timing_sort(sizes):
         halves = code.view(torch.int32).view(b, n, 2)
         ops = (halves[..., 1].contiguous(), halves[..., 0].contiguous(),
                torch.arange(n, dtype=torch.int32, device="cuda").expand(b, n).contiguous())
-        got = bs.bitonic_sort(ops, 3)
-        ref = bs.bitonic_sort_reference(ops, 3)
+        sort_switch(True)
+        try:
+            got = bs.sort_int64(code)
+            ms = cuda_ms(lambda: bs.sort_int64(code), reps=20)
+        finally:
+            sort_switch(False)
+        hi, lo, idx = bs.bitonic_sort_reference(ops, 3)
+        ref = ((hi.long() << 32) | (lo.long() & 0xFFFFFFFF), idx.long())
         want = torch.sort(code, dim=-1, stable=True)
         torch.cuda.synchronize()
         worst = max(worst, sort_max_abs_diff(got, ref))
         check(all(torch.equal(g, r) for g, r in zip(got, ref)),
               f"K3 differs from its plain version at {(b, n)}")
-        check(torch.equal(got[2].long(), want.indices),
-              f"K3 order differs from the stable torch.sort at {(b, n)}")
+        check(torch.equal(got[0], want.values) and torch.equal(got[1], want.indices),
+              f"K3 differs from the stable torch.sort at {(b, n)}")
         row = dict(
-            ms=cuda_ms(lambda: bs.bitonic_sort(ops, 3), reps=20),
+            ms=ms,
             plain_ms=cuda_ms(lambda: bs.bitonic_sort_reference(ops, 3), reps=2, warmup=1),
             library_ms=cuda_ms(lambda: torch.sort(code, dim=-1, stable=True), reps=20),
             bound_ms=2 * 3 * 4 * b * n / PEAK_BYTES * 1e3)
@@ -1336,7 +1417,8 @@ def phase_timing_sort(sizes):
             tot[key] += val
         tot["kernel_launches"] += bs.kernel_launches(n)
     tot["max_abs_err"] = worst
-    emit(dict(phase="timing_sort", operands=3, num_keys=3, per_call=rows, per_forward=tot))
+    emit(dict(phase="timing_sort", operands=3, num_keys=3, entry="sort_int64, switch on",
+              per_call=rows, per_forward=tot))
     return tot
 
 
@@ -1372,17 +1454,21 @@ def main() -> int:
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
+    # bf16 at windows of 128 and more: every launch of the serve path, and
+    # the encoder's launches of the train path
+    source_large = "scenesplat_tpu_torch/csrc/flash_window_attn_fwd.cu"
     # launches: the count of the path's run (4 serve forwards, 6 train
     # steps, the test run's fragment forwards with the sort switch on); ms
     # and the other times: per forward or per step (18 attention launches, 8
     # sorts)
     emit({"kernels": [
-        dict(name="flash_window_attention_fwd", route="cuda", source=source,
+        dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
              launches=launches, ms_per="serve forward", max_abs_err=worst32, ms=tot["ms"],
              plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
              library_ms=tot["library_ms"]),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source,
+             sources=[source, source_large],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
              launches=k1_train, validation_launches=k1_val, ms_per="train step",
              max_abs_err=worst_fwd_lse,

@@ -1,9 +1,10 @@
 """Flash-window attention, forward and backward: the hand-written Hopper
 kernels and their plain PyTorch version.
 
-The forward kernel K1 (``csrc/flash_window_attn.cu``) replaces the TPU
-kernel ``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered through
-``_fwa_fwd``), the backward K2 replaces ``_bwd_kernel`` (through
+The forward kernel K1 (``csrc/flash_window_attn.cu`` and, for bf16 at
+windows of 128 to 4096 slots, ``csrc/flash_window_attn_fwd.cu``) replaces
+the TPU kernel ``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered
+through ``_fwa_fwd``), the backward K2 replaces ``_bwd_kernel`` (through
 ``_fwa_bwd``). Their work, 4*N*K*C (forward) and 10*N*K*C (backward)
 operations against about 4*N*C and 9*N*C elements moved per call, makes
 both bound by operations at windows of 1024 and by bytes at windows of 48
@@ -16,7 +17,14 @@ when training, writes each row's log-sum-exp; the backward recomputes the
 probabilities from it. Keys past the end of a ragged last window are
 masked, and a window whose slot 0 is padding writes zeros. bf16 runs its
 products on the tensor cores (mma.sync); fp32 runs scalar FMAs, which keeps
-it exact to the plain version.
+it exact to the plain version. The forward has three variants, chosen by
+``forward_variant`` from the storage type and the window: fp32; bf16 at
+small windows (bound by bytes: 64 query rows a block, synchronous tile
+loads); bf16 at large windows (bound by operations: 128 query rows a
+block, key and value tiles through a three-stage cp.async ring and
+ldmatrix, the softmax in the exp2 domain, key tiles of padding skipped).
+The C functions refuse what they were not built for and the wrapper
+raises: no variant stands in for another.
 
 ``flash_window_attention`` is differentiable: while grad is enabled and qkv
 requires grad it runs as a ``torch.autograd.Function`` whose forward
@@ -39,10 +47,19 @@ from torch.utils.checkpoint import checkpoint
 from ._build import CSRC, KernelLibrary
 
 SOURCE = CSRC / "flash_window_attn.cu"
+SOURCE_LARGE = CSRC / "flash_window_attn_fwd.cu"
 # head widths the kernel is instantiated for: those of the flagship and the
 # shipped configs (16 in every encoder stage and dec2, 32 in dec1, 48 in dec0)
 HEAD_DIMS = (16, 32, 48)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 windows of this many slots go to the large-window forward: from here
+# on a call is bound by operations (see forward_variant)
+LARGE_WINDOW_MIN = 128
+LARGE_WINDOW_MAX = 4096  # 64 key tiles of 64: what that kernel's tile list holds
+ROWS_PER_WARP = 32  # of its 128 query rows a block: 4 warps of two m16 tiles
+# variant -> (source, C function): what the sources instantiate
+VARIANTS = {"fp32": (SOURCE, "fwa_fwd"), "bf16_small": (SOURCE, "fwa_fwd"),
+            "bf16_large": (SOURCE_LARGE, "fwa_fwd_large")}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -54,7 +71,31 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fwa_bwd.restype = ctypes.c_int
 
 
+def _declare_large(lib: ctypes.CDLL) -> None:
+    lib.fwa_fwd_large.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fwa_fwd_large.restype = ctypes.c_int
+
+
 LIBRARY = KernelLibrary(SOURCE, _declare)
+LIBRARY_LARGE = KernelLibrary(SOURCE_LARGE, _declare_large)
+
+
+def forward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
+    """Which forward kernel a call takes, a key of ``VARIANTS``: ``"fp32"``
+    for float32; for bfloat16 ``"bf16_large"`` at windows of
+    ``LARGE_WINDOW_MIN`` to ``LARGE_WINDOW_MAX`` slots and ``"bf16_small"``
+    otherwise. Raises for a storage type or a head width without a kernel."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"qkv dtype {dtype} is not float32 or bfloat16")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
+    if patch_size <= 0:
+        raise ValueError(f"patch_size must be positive, got {patch_size}")
+    if dtype == torch.float32:
+        return "fp32"
+    large = LARGE_WINDOW_MIN <= patch_size <= LARGE_WINDOW_MAX
+    return "bf16_large" if large else "bf16_small"
 
 
 def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int,
@@ -87,14 +128,22 @@ def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
     lse = (torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
            if with_lse else None)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    variant = forward_variant(qkv.dtype, patch_size, c // num_heads)
+    ptrs = (qkv.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
     with torch.cuda.device(qkv.device):
-        rc = LIBRARY.load().fwa_fwd(
-            qkv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), _DTYPES[qkv.dtype],
-            b, n, c, num_heads, patch_size, float(scale), stream)
+        if variant == "bf16_large":
+            rc = LIBRARY_LARGE.load().fwa_fwd_large(
+                *ptrs, b, n, c, num_heads, patch_size, ROWS_PER_WARP, float(scale), stream)
+        else:
+            rc = LIBRARY.load().fwa_fwd(
+                *ptrs, _DTYPES[qkv.dtype], b, n, c, num_heads, patch_size, float(scale),
+                stream)
     if rc != 0:
-        raise RuntimeError(f"flash-window attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash-window attention ({variant}) launch failed: "
+                           f"CUDA error {rc}")
     flash_window_attention.launches += 1
+    flash_window_attention.variant_launches[variant] += 1
     return out, lse
 
 
@@ -167,6 +216,7 @@ def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
 
 
 flash_window_attention.launches = 0
+flash_window_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def _plain_chunk(qkv, valid, scale):

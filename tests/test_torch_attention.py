@@ -1,17 +1,24 @@
 """Port parity, window attention: the port's plain masked-exp window
 attention (the CPU side of the flash-window kernel) against the JAX
 package's ``window_attention_reference`` on the same numpy inputs, the
-ragged last window, and the CPU dispatch rules."""
+ragged last window, the CPU dispatch rules, the choice of the forward
+kernel's variant, and a torch emulation of the large-window kernel's
+arithmetic against both."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from scenesplat_tpu.ops import window_attention as jwa  # noqa: E402
 from scenesplat_tpu_torch.ops import flash_window_attn as tfwa  # noqa: E402
 from scenesplat_tpu_torch.ops import window_attention as twa  # noqa: E402
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
 
 
 def make_inputs(seed, b, n, heads, d):
@@ -96,6 +103,137 @@ def test_dispatch_on_cpu():
     assert tfwa.flash_window_attention.launches == before
     with pytest.raises(ValueError):
         twa.window_attention(q, v, 16, 2, use_kernel=True)
+
+
+def _stage_signatures():
+    """(window, head width) of every attention call of the flagship and the
+    shipped backbones, each with both storage types."""
+    from scenesplat_tpu_torch.entry import FLAGSHIP_BACKBONE, SHIPPED_INFERENCE_BACKBONE
+
+    sigs = set()
+    for cfg in (FLAGSHIP_BACKBONE, SHIPPED_INFERENCE_BACKBONE):
+        for side in ("enc", "dec"):
+            windows = cfg.get(f"{side}_patch_size", (48,) * len(cfg[f"{side}_channels"]))
+            for k, c, h in zip(windows, cfg[f"{side}_channels"], cfg[f"{side}_num_head"]):
+                sigs.add((k, c // h))
+    return sorted((dt, k, d) for k, d in sigs for dt in ("float32", "bfloat16"))
+
+
+@pytest.mark.parametrize("dtype,window,head_dim", _stage_signatures())
+def test_forward_variant_names_a_kernel_the_source_instantiates(dtype, window, head_dim):
+    variant = tfwa.forward_variant(getattr(torch, dtype), window, head_dim)
+    source, entry = tfwa.VARIANTS[variant]
+    text = source.read_text()
+    assert f'extern "C" int {entry}(' in text
+    instance = {"fp32": f"fwa_fwd_f32_kernel<{head_dim}>",
+                "bf16_small": f"fwa_fwd_bf16_kernel<{head_dim}>",
+                "bf16_large": f"FWA_LARGE({head_dim}, {tfwa.ROWS_PER_WARP // 16})"}[variant]
+    assert instance in text
+    if dtype == "float32":
+        assert variant == "fp32"
+    else:  # the threshold: windows of 128 to 4096 slots are bound by operations
+        assert variant == ("bf16_large" if 128 <= window <= 4096 else "bf16_small")
+
+
+@pytest.mark.parametrize("dtype,window,head_dim,error", [
+    ("float16", 1024, 16, TypeError), ("bfloat16", 1024, 40, ValueError),
+    ("float32", 48, 8, ValueError), ("bfloat16", 0, 16, ValueError)])
+def test_forward_variant_refuses_what_has_no_kernel(dtype, window, head_dim, error):
+    with pytest.raises(error):
+        tfwa.forward_variant(getattr(torch, dtype), window, head_dim)
+
+
+def test_forward_variant_threshold():
+    picks = [tfwa.forward_variant(torch.bfloat16, k, 48) for k in (48, 127, 128, 4096, 4097)]
+    assert picks == ["bf16_small", "bf16_small", "bf16_large", "bf16_large", "bf16_small"]
+    assert "fwa_fwd_large" in tfwa.SOURCE_LARGE.read_text()
+    assert tfwa.LIBRARY_LARGE.path().name.startswith("libflash_window_attn_fwd_")
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_large_window_kernel(qkv, valid, patch, heads, mq=128, mk=64):
+    """The large-window forward's arithmetic in torch ops: per (batch,
+    window, head) query tiles of ``mq`` rows walk the window's live key
+    tiles of ``mk`` (tiles without a valid key are skipped) with an online
+    softmax in the exp2 domain, P rounded to the storage type before P . V,
+    the running maximum kept in the natural domain, lse = max + log(sum).
+    Returns (out, lse, tiles skipped)."""
+    b, n, _, c = qkv.shape
+    d = c // heads
+    scale = d ** -0.5
+    out = torch.zeros(b, n, c, dtype=qkv.dtype)
+    lse = torch.zeros(b, n, heads)
+    skipped = 0
+    for bi in range(b):
+        for w0 in range(0, n, patch):
+            wlen = min(patch, n - w0)
+            vw = valid[bi, w0:w0 + wlen]
+            if not vw[0]:
+                continue  # a window of padding writes zeros
+            tiles = range(0, wlen, mk)
+            live = [t for t in tiles if vw[t:t + mk].any()]
+            skipped += len(tiles) - len(live)
+            for h in range(heads):
+                cols = slice(h * d, (h + 1) * d)
+                win = qkv[bi, w0:w0 + wlen]
+                q = (win[:, 0, cols] * scale).float()  # rounds to the storage type
+                k, v = win[:, 1, cols].float(), win[:, 2, cols].float()
+                for q0 in range(0, wlen, mq):
+                    rows = slice(q0, min(q0 + mq, wlen))
+                    m = torch.full((rows.stop - q0,), -1e30)
+                    l = torch.zeros_like(m)
+                    o = torch.zeros(rows.stop - q0, d)
+                    for t in live:
+                        s = q[rows] @ k[t:t + mk].T
+                        s = torch.where(vw[t:t + mk], s, float("-inf"))
+                        m_new = torch.maximum(m, s.amax(1))
+                        corr = torch.exp2((m - m_new) * LOG2E)
+                        p = torch.exp2(s * LOG2E - (m_new * LOG2E)[:, None])
+                        l = l * corr + p.sum(1)
+                        o = o * corr[:, None] + p.to(qkv.dtype).float() @ v[t:t + mk]
+                        m = m_new
+                    l = l.clamp(min=1e-30)
+                    out[bi, w0 + q0:w0 + rows.stop, cols] = (o / l[:, None]).to(qkv.dtype)
+                    lse[bi, w0 + q0:w0 + rows.stop, h] = m + torch.log(l)
+    return out, lse, skipped
+
+
+@pytest.mark.parametrize("patch,heads,d", [(128, 2, 16), (256, 2, 16), (128, 1, 48),
+                                           (256, 1, 32)])
+def test_large_window_arithmetic_matches_plain_and_jax(patch, heads, d):
+    """Query tiles of 128, key tiles of 64 with an exp2 online softmax and
+    dead tiles skipped: equal to the plain version and to the JAX reference
+    (output rtol 1e-5 / atol 1e-6, log-sum-exp 1e-5) with a ragged last
+    window and valid prefixes that end inside a key tile, on a tile edge,
+    one past it, and before a dead window."""
+    n = 3 * patch + patch // 2 + 5
+    rng = np.random.default_rng(patch + d)
+    qkv = rng.normal(size=(4, n, 3, heads * d)).astype(np.float32)
+    valid = np.zeros((4, n), bool)
+    for row, stop in enumerate((int(0.8 * n), patch + 37, patch + 64, patch + 65)):
+        valid[row, :stop] = True
+    got, lse, skipped = _emulate_large_window_kernel(_t(qkv), _t(valid), patch, heads)
+    assert skipped > 0  # dead key tiles inside live windows were left out
+    plain = tfwa.flash_window_attention_plain(_t(qkv), _t(valid), patch, heads)
+    np.testing.assert_allclose(got.numpy()[valid], plain.numpy()[valid], rtol=1e-5, atol=1e-6)
+    pad = -n % patch
+    qkv_p = np.concatenate([qkv, np.zeros((4, pad, 3, heads * d), np.float32)], 1)
+    valid_p = np.concatenate([valid, np.zeros((4, pad), bool)], 1)
+    ref = _jax_ref(qkv_p, valid_p, patch, heads)[:, :n]
+    np.testing.assert_allclose(got.numpy()[valid], ref[valid], rtol=1e-5, atol=1e-6)
+    # windows whose slot 0 is padding: zeros, as the plain version and JAX give
+    slot0 = valid_p.reshape(4, -1, patch)[:, :, :1]
+    dead = np.broadcast_to(~slot0, (4, slot0.shape[1], patch)).reshape(4, -1)[:, :n]
+    assert dead.any() and (got.numpy()[dead] == 0).all() and (ref[dead] == 0).all()
+    # the natural-log log-sum-exp of the scaled scores over the valid keys
+    blk = jnp.asarray(qkv_p).reshape(4, -1, patch, 3, heads, d)
+    scores = jnp.einsum("bpqhd,bpkhd->bphqk", blk[:, :, :, 0] * d ** -0.5, blk[:, :, :, 1])
+    scores = jnp.where(jnp.asarray(valid_p).reshape(4, -1, 1, 1, patch), scores, -jnp.inf)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1)).transpose(0, 1, 3, 2)
+    want = want.reshape(4, -1, heads)[:, :n]
+    np.testing.assert_allclose(lse.numpy()[~dead], want[~dead], rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_source_and_build_command():

@@ -71,6 +71,92 @@ def test_kernel_bf16_within_noise_floor(cuda, k, c, h):
     assert err <= 2.5 * floor, (err, floor)
 
 
+def _plain_lse(qkv, valid, k, h):
+    """Natural-log log-sum-exp of the scaled scores over each row's valid
+    keys, [B, N, H] fp32 (N a multiple of k)."""
+    b, n, _, c = qkv.shape
+    d = c // h
+    blk = qkv.view(b, n // k, k, 3, h, d).permute(3, 0, 1, 4, 2, 5)
+    s = (blk[0] * d ** -0.5).float() @ blk[1].float().transpose(-1, -2)
+    s = torch.where(valid.view(b, n // k, 1, 1, k), s, float("-inf"))
+    return torch.logsumexp(s, -1).permute(0, 1, 3, 2).reshape(b, n, h)
+
+
+@pytest.mark.parametrize("k", [128, 256, 1024])
+@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (32, 2)])
+def test_large_window_bf16_variant(cuda, k, c, h):
+    """The large-window bf16 forward: noise-floor rule, zeros in windows of
+    padding, the log-sum-exp against the plain one, with valid prefixes that
+    end inside a key tile, on a tile edge, one past it and in a dead
+    window; K2 fed with its lse stays within the gradient noise floor."""
+    assert fwa.forward_variant(torch.bfloat16, k, c // h) == "bf16_large"
+    n = 4 * k
+    gen = torch.Generator(device=cuda).manual_seed(k + c)
+    x16 = torch.randn(4, n, 3, c, generator=gen, device=cuda).bfloat16()
+    valid = torch.zeros(4, n, dtype=torch.bool, device=cuda)
+    for row, stop in enumerate((k + 37, 2 * k + 64, 65, n)):
+        valid[row, :stop] = True
+    large = fwa.flash_window_attention.variant_launches["bf16_large"]
+    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    assert fwa.flash_window_attention.variant_launches["bf16_large"] == large + 1
+    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
+
+    def rel(a):
+        return ((a[valid].float() - truth).norm() / truth.norm()).item()
+
+    floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h))
+    assert floor > 1e-4 and rel(out) <= 2.5 * floor
+    live = valid.view(4, n // k, k)[:, :, :1].expand(4, n // k, k).reshape(4, n)
+    assert (~live).any() and (out[~live] == 0).all()
+    assert (lse - _plain_lse(x16, valid, k, h))[live].abs().max().item() <= 1e-4
+
+    dout = torch.randn(4, n, c, generator=gen, device=cuda).bfloat16()
+    _, g_truth = _grads(fwa.flash_window_attention_plain, x16.float(), valid, k, h,
+                        dout.float())
+
+    def grel(a):
+        return ((a.float() - g_truth).norm() / g_truth.norm()).item()
+
+    g_floor = grel(_grads(fwa.flash_window_attention_plain, x16, valid, k, h, dout)[1])
+    dqkv = fwa.flash_window_attention_bwd(x16, valid, out, lse, dout, k, h, (c // h) ** -0.5)
+    assert grel(dqkv) <= 2.5 * g_floor
+    assert (dqkv[~live] == 0).all()
+
+
+def test_attention_no_fallback(cuda, monkeypatch):
+    """On CUDA tensors a variant's kernel launches or the call raises: a
+    failed launch or a failed build is not replaced by the other variant
+    or the plain version."""
+    class Refuses:
+        @staticmethod
+        def fwa_fwd_large(*args):
+            return 1  # cudaErrorInvalidValue
+
+    x16 = torch.randn(1, 512, 3, 64, device=cuda).bfloat16()
+    valid = torch.ones(1, 512, dtype=torch.bool, device=cuda)
+    fwa.flash_window_attention(x16, valid, 128, 4)  # builds and runs
+    before = fwa.flash_window_attention.launches
+    with monkeypatch.context() as patch:
+        patch.setattr(fwa.LIBRARY_LARGE, "load", lambda: Refuses)
+        with pytest.raises(RuntimeError):
+            fwa.flash_window_attention(x16, valid, 128, 4)
+
+    def no_compiler():
+        raise RuntimeError("nvcc not found")
+
+    with monkeypatch.context() as patch:
+        patch.setattr(fwa.LIBRARY_LARGE, "_lib", None)
+        patch.setattr(fwa.LIBRARY_LARGE, "build", no_compiler)
+        with pytest.raises(RuntimeError):
+            fwa.flash_window_attention(x16, valid, 128, 4)
+    assert fwa.flash_window_attention.launches == before
+    # the C function refuses a window its tile list cannot hold
+    rc = fwa.LIBRARY_LARGE.load().fwa_fwd_large(
+        x16.data_ptr(), valid.data_ptr(), x16.data_ptr(), None, 1, 512, 64, 4, 8192, 32,
+        0.25, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
 def test_padded_windows_write_zeros(cuda):
     k, c, h = 64, 64, 4
     qkv, valid = _inputs(cuda, 2, 5 * k, c, k)
@@ -209,17 +295,25 @@ def test_bitonic_sort_equals_plain_exactly(cuda, b, n, num_ops, num_keys, ties):
                            torch.sort(combined(ops[:num_keys]), dim=-1).values)
 
 
-def test_sort_int64_switch_on_equals_torch_sort_on_card(cuda, monkeypatch):
+@pytest.mark.parametrize("shape", [(4, 1, 50000), (1, 1000), (3, 4097), (4, 196608),
+                                   (1, 1 << 20), (2, 3, 24576)])
+def test_sort_int64_switch_on_equals_torch_sort_on_card(cuda, monkeypatch, shape):
+    """K3's int64 entry: one call, the schedule's launches, and the sorted
+    codes and stable order of torch.sort, ties and a sentinel tail included."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    code = torch.randint(0, 1 << 30, (4, 1, 50000), generator=gen, device=cuda)  # ties likely
-    code[..., -5000:] = 1 << 62  # a sentinel tail
+    code = torch.randint(0, 1 << 30, shape, generator=gen, device=cuda)  # ties likely
+    code[..., -(shape[-1] // 10):] = 1 << 62  # a sentinel tail
+    kept = code.clone()
     monkeypatch.delenv(bs.ENV_SWITCH, raising=False)
     values, order = bs.sort_int64(code)
     monkeypatch.setenv(bs.ENV_SWITCH, "1")
-    before = bs.bitonic_sort.launches
+    before, kernels = bs.bitonic_sort.launches, bs.bitonic_sort.kernel_launches
     values_on, order_on = bs.sort_int64(code)
     assert bs.bitonic_sort.launches == before + 1
+    assert bs.bitonic_sort.kernel_launches == kernels + bs.kernel_launches(shape[-1])
     assert torch.equal(values, values_on) and torch.equal(order, order_on)
+    assert order_on.dtype == torch.int64 and torch.equal(code, kept)
+    assert bs.kernel_launches(1 << 18) <= 10
 
 
 def test_bitonic_sort_no_fallback(cuda, monkeypatch):
@@ -231,12 +325,17 @@ def test_bitonic_sort_no_fallback(cuda, monkeypatch):
         def bitonic_sort_rows(*args):
             return 98  # cudaErrorInvalidDeviceFunction
 
+        bitonic_sort_codes = bitonic_sort_rows
+
     monkeypatch.setenv(bs.ENV_SWITCH, "1")
     monkeypatch.setattr(bs.LIBRARY, "load", lambda: Broken)
     code = torch.arange(2000, device=cuda).flip(0)[None]
     before = bs.bitonic_sort.launches
     with pytest.raises(RuntimeError):
         bs.sort_int64(code)
+    ops = [code.int(), torch.arange(2000, dtype=torch.int32, device=cuda)[None]]
+    with pytest.raises(RuntimeError):
+        bs.bitonic_sort(ops, 1)
     assert bs.bitonic_sort.launches == before
     with pytest.raises(TypeError):
         bs.bitonic_sort([code], 1)  # int64 operands

@@ -145,6 +145,87 @@ def test_sort_sites_switch_on_equal_switch_off(monkeypatch):
                                   np.asarray(ser_j.order)[..., :nv])
 
 
+def _network(np2):
+    """The stages (m, d) of the bitonic network on rows of np2, in order."""
+    return [(m, m >> s) for m in (2 << k for k in range(np2.bit_length() - 1))
+            for s in range(1, m.bit_length())]
+
+
+@pytest.mark.parametrize("n", [1000, 4096, 40000, 2 ** 17, 196608, 2 ** 20, 2 ** 24])
+def test_schedule_covers_the_network_once_and_in_order(n):
+    """The Python mirror of the kernel's launches and register passes: every
+    stage of the network exactly once, in the network's order (a total
+    order, so the flattened schedule is the network itself); local launches
+    stay below their tile, global ones at or above it; a pass runs at most
+    four stages, the opening pass phases 2 to 16."""
+    np2 = tsort.padded_length(n)
+    schedule = tsort.sort_schedule(n)
+    passes = [(launch, group) for launch in schedule for group in tsort.pass_stages(launch)]
+    assert [st for _, group in passes for st in group] == _network(np2)
+    tile = min(np2, tsort.BLOCK_TILE * tsort.CLUSTER)
+    for i, (launch, group) in enumerate(passes):
+        below = [d < tile for _, d in group]
+        assert all(below) if launch[0] == "local" else not any(below)
+        if i == 0:
+            assert group == _network(16)
+        else:
+            assert len(group) <= 4 and len({m for m, _ in group}) == 1
+            # one pass spans at most 16 partners: d_hi / d_lo <= 8
+            assert group[0][1] // group[-1][1] <= 8
+    assert schedule[0][:1] == ("local",) and schedule[-1][0] == "local"
+    assert schedule[-1][-1] == np2  # the last launch ends the last phase
+    assert tsort.kernel_launches(n) == len(schedule)
+    assert tsort.kernel_launches(2 ** 18) <= 10
+
+
+def _run_schedule(operands, num_keys):
+    """The schedule's stages as torch ops on rows padded by index."""
+    n = operands[0].shape[-1]
+    vals = tsort.padded_rows(operands, num_keys)
+    for launch in tsort.sort_schedule(n):
+        for group in tsort.pass_stages(launch):
+            for m, d in group:
+                vals = tsort.compare_exchange(vals, num_keys, m, d)
+    return [v[:, :n] for v in vals]
+
+
+@pytest.mark.parametrize("n,num_ops,num_keys,ties", [
+    (1000, 2, 1, True), (1000, 3, 3, True), (4096, 2, 2, False), (4096, 3, 1, True),
+    (40000, 3, 3, True), (40000, 2, 1, False), (2 ** 17, 3, 2, True)])
+def test_schedule_as_torch_ops_equals_plain_and_pallas_interpret(n, num_ops, num_keys, ties):
+    """Run pass by pass, the schedule equals the plain version and the JAX
+    package's Pallas kernel in interpret mode exactly, tied keys included."""
+    rng = np.random.default_rng(n + num_ops + num_keys)
+    hi = 8 if ties else 2 ** 32
+    ops = [rng.integers(0, hi, (2, n), dtype=np.uint64).astype(np.uint32)
+           for _ in range(num_ops - 1)]
+    ops.append(np.tile(np.arange(n, dtype=np.uint32), (2, 1)))
+    t_ops = [_t(o.view(np.int32)) for o in ops]
+    got = _run_schedule(t_ops, num_keys)
+    ref = tsort.bitonic_sort_reference(t_ops, num_keys)
+    jax_out = jsort.bitonic_sort([jnp.asarray(o) for o in ops], num_keys=num_keys,
+                                 interpret=True)
+    for g, r, j in zip(got, ref, jax_out):
+        assert torch.equal(g, r)
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(j))
+
+
+@pytest.mark.parametrize("n", [1, 700, 1024, 1500])
+def test_padding_is_formed_by_index(n):
+    """``padded_rows``: keys 0xFFFFFFFF and payload 0 at and past n, the
+    operands before it, as a filled and copied buffer would hold them."""
+    rng = np.random.default_rng(n)
+    ops = [_t(rng.integers(-2 ** 31, 2 ** 31, (3, n)).astype(np.int32)) for _ in range(3)]
+    np2 = tsort.padded_length(n)
+    for num_keys in (1, 3):
+        rows = tsort.padded_rows(ops, num_keys)
+        assert rows.shape == (3, 3, np2) and rows.dtype == torch.int32
+        for i, op in enumerate(ops):
+            want = torch.full((3, np2), -1 if i < num_keys else 0, dtype=torch.int32)
+            want[:, :n] = op
+            assert torch.equal(rows[i], want)
+
+
 def test_switch_and_config_option(monkeypatch):
     from scenesplat_tpu_torch.utils.config import Config
 
@@ -180,7 +261,8 @@ def test_wrapper_checks_and_padding():
         1024, 1024, 1024, 2048, 262144]
     assert [tsort.padded_length(n) for n in (1000, 5000, 196608)] == [
         jsort._next_pow2(n) for n in (1000, 5000, 196608)]
-    assert [tsort.kernel_launches(n) for n in (1000, 4096, 8192, 196608)] == [1, 1, 3, 28]
+    assert [tsort.kernel_launches(n) for n in (1000, 4096, 8192, 40000, 196608)] == [
+        1, 1, 1, 3, 7]
     for sentinel in (tser.SENTINEL, tconv._PAD_KEY):
         assert sentinel >> 32 == 0x40000000 < 0xFFFFFFFF
 
@@ -194,6 +276,7 @@ def test_kernel_source_and_build_command():
 
     src = tsort.SOURCE.read_text()
     assert 'extern "C" int bitonic_sort_rows(' in src and "__global__" in src
+    assert 'extern "C" int bitonic_sort_codes(' in src  # what sort_int64 calls
     assert "__syncthreads" in src
     for banned in ("thrust", "cub::", "#include <cub"):
         assert banned not in src
