@@ -549,11 +549,7 @@ def phase_kernel_bwd():
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, worst_fwd, rows = 0.0, 0.0, []
     for k, c, h in SIGNATURES:
-        n = 3 * k + k // 2 + 5  # ragged last window
-        valid = torch.zeros(2, n, dtype=torch.bool, device="cuda")
-        valid[0, : int(0.8 * n)] = True
-        valid[1, : k + 7] = True
-        qkv = torch.randn(2, n, 3, c, generator=gen, device="cuda")
+        n, qkv, valid, dead = signature_inputs(gen, k, c)
         dout = torch.randn(2, n, c, generator=gen, device="cuda")
         out32, g32 = grads_of(fwa.flash_window_attention, qkv, valid, k, h, dout)
         ref_out, ref32 = grads_of(fwa.flash_window_attention_plain, qkv, valid, k, h, dout)
@@ -564,8 +560,6 @@ def phase_kernel_bwd():
         worst_fwd = max(worst_fwd, err_fwd)
         errs = [(g32[:, :, i] - ref32[:, :, i]).abs().max().item() for i in range(3)]
         scale = [ref32[:, :, i].abs().max().item() for i in range(3)]
-        dead = torch.zeros_like(valid)
-        dead[1, -(-(k + 7) // k) * k:] = True
         check((g32[dead] == 0).all().item(), f"padded windows' gradients not zero at {k, c, h}")
 
         x16, d16 = qkv.bfloat16(), dout.bfloat16()

@@ -46,8 +46,14 @@
 //    tiles whose keys are all valid skip the masking;
 //  - the output tile goes through shared memory to 16-byte row stores.
 //
-// ROWS_PER_WARP = 32 (four warps, two m16 tiles each, so every K and V
-// fragment feeds two products) or 16 (eight warps); the wrapper names one.
+// Four warps of 32 rows (two m16 tiles each, so every K and V fragment feeds
+// two products), three blocks an SM. What holds it now is inside the SM, not
+// its loads (with every tile read from one place it is no faster): the warps
+// of a block meet at a barrier every tile and then run the same phases side
+// by side, so the tensor cores, the special-function unit and the fp32 and
+// integer pipes take turns instead of working at once. Two wgmma versions
+// of this kernel (products waited for at once; products queued under the
+// softmax of the tile before) gave the same results and no better times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,12 +122,13 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = +0
   return y;
 }
 
-// MT: m16 row tiles per warp; the block has MQ / (16 MT) warps
-template <int D, int MT>
-__global__ void __launch_bounds__(MQ / (16 * MT) * 32, MT == 2 ? 3 : 2)
+constexpr int MT = 2;  // m16 row tiles per warp: the block has MQ / 32 = 4 warps
+
+template <int D>
+__global__ void __launch_bounds__(MQ / (16 * MT) * 32, 3)
 fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __restrict__ valid,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int C,
-                     int H, int K, int P, int NQ, float scale, int probe) {
+                     int H, int K, int P, int NQ, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int NTHREADS = MQ / (16 * MT) * 32;
   constexpr int NWARPS = NTHREADS / 32;
@@ -181,7 +188,7 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
   const int nl = n_live;
 
   auto load_tile = [&](int li) {
-    const int t0 = probe ? 0 : live[li] * MK;
+    const int t0 = live[li] * MK;
     __nv_bfloat16* ks = kv[li % STAGES][0];
     __nv_bfloat16* vs = kv[li % STAGES][1];
     for (int i = tid; i < MK * CHUNKS; i += NTHREADS) {
@@ -366,649 +373,34 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
   }
 }
 
-// ---- wgmma design ----------------------------------------------------------
-
-// Shared-memory matrix descriptor of a wgmma operand without swizzle: core
-// matrices of 8 rows x 16 bytes, 128 bytes each; lbo / sbo are the byte
-// strides between core matrices along the K and the M/N direction.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (+)= a . b: a [64 x 16] from registers, b [16 x N] from shared memory
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7}, "
-      "{%8,%9,%10,%11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
-}
-
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
-      "{%16,%17,%18,%19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
-}
-
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n48(float (&d)[24], const uint32_t (&a)[4], uint64_t desc,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}, "
-      "{%24,%25,%26,%27}, %28, p, 1, 1, %30;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
-}
-
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
-}
-
-template <int N, int TRANS_B>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
-                                      int scale_d) {
-  if constexpr (N == 16) wgmma_n16<TRANS_B>(d, a, desc, scale_d);
-  if constexpr (N == 32) wgmma_n32<TRANS_B>(d, a, desc, scale_d);
-  if constexpr (N == 48) wgmma_n48<TRANS_B>(d, a, desc, scale_d);
-  if constexpr (N == 64) wgmma_n64<TRANS_B>(d, a, desc, scale_d);
-}
-
-// Two warpgroups of 64 query rows each. A tile's K and V lie in shared memory
-// as [d / 8][key][8 elements]: core matrices of 8 keys x 16 bytes, 128 bytes
-// apart along the keys and 1024 bytes apart along d, which is the layout
-// wgmma reads without swizzle both for K (K-major: S = Q . K^T) and for V
-// (MN-major: O += P . V, no transpose pass).
 template <int D>
-__global__ void __launch_bounds__(256, 2)
-fwa_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __restrict__ valid,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int C,
-                     int H, int K, int P, int NQ, float scale, int swap_v) {
-  constexpr int NTHREADS = 256;
-  constexpr int NWARPS = NTHREADS / 32;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NKEY = MK / 8;
-  constexpr int NDIM = D / 8;
-  constexpr int CHUNKS = D / 8;       // 16-byte chunks per row
-  constexpr int CORE = 128;           // bytes of a core matrix
-  constexpr int DSTRIDE = MK * 16;    // bytes between chunks of d: 64 keys x 16 bytes
-  constexpr int STR = D + 8;          // row stride of the output tile
-  __shared__ __align__(128) __nv_bfloat16 kv[STAGES][2][MK * D];
-  __shared__ unsigned long long vbits[MAX_TILES];
-  __shared__ int live[MAX_TILES];
-  __shared__ int n_live;
-  static_assert(STAGES * 2 * MK * D >= MQ * STR, "the ring holds the output tile");
-
-  const int qt = blockIdx.x % NQ;
-  const int h = (blockIdx.x / NQ) % H;
-  const int win = blockIdx.x / (NQ * H);
-  const int b = win / P;
-  const int w0 = (win - b * P) * K;
-  const int q0 = qt * MQ;
-  const int wlen = min(K, N - w0);
-  if (q0 >= wlen) return;  // whole block
-  const size_t tok0 = (size_t)b * N + w0;
-  const size_t stride = 3 * (size_t)C;
-  const uint8_t* vwin = valid + tok0;
-  const int tid = threadIdx.x;
-
-  if (!vwin[0]) {  // whole block: a window of padding writes zeros
-    for (int i = tid; i < MQ * CHUNKS; i += NTHREADS) {
-      const int row = q0 + i / CHUNKS;
-      if (row < wlen)
-        *reinterpret_cast<uint4*>(out + (tok0 + row) * C + h * D + (i % CHUNKS) * 8) =
-            make_uint4(0, 0, 0, 0);
-    }
-    return;
-  }
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-
-  const int n_tiles = (wlen + MK - 1) / MK;
-  for (int t = warp; t < n_tiles; t += NWARPS) {
-    const int k_lo = t * MK + lane, k_hi = k_lo + 32;
-    const unsigned lo = __ballot_sync(0xffffffffu, k_lo < wlen && vwin[k_lo] != 0);
-    const unsigned hi = __ballot_sync(0xffffffffu, k_hi < wlen && vwin[k_hi] != 0);
-    if (lane == 0) vbits[t] = ((unsigned long long)hi << 32) | lo;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int t = 0; t < n_tiles; ++t)
-      if (vbits[t]) live[n++] = t;
-    n_live = n;
-  }
-  __syncthreads();
-  const int nl = n_live;
-
-  auto load_tile = [&](int li) {
-    const int t0 = live[li] * MK;
-    __nv_bfloat16* ks = kv[li % STAGES][0];
-    __nv_bfloat16* vs = kv[li % STAGES][1];
-    for (int i = tid; i < MK * CHUNKS; i += NTHREADS) {
-      const int j = i / CHUNKS, part = i - j * CHUNKS;
-      const bool ok = t0 + j < wlen;
-      const __nv_bfloat16* src =
-          qkv + (tok0 + (ok ? t0 + j : 0)) * stride + C + h * D + part * 8;
-      cp_async16(&ks[(part * MK + j) * 8], src, ok);
-      cp_async16(&vs[(part * MK + j) * 8], src + C, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nl) load_tile(s);
-    cp_async_commit();
-  }
-
-  // A fragments of round(q * scale): warp w of a warpgroup holds its rows
-  // 16 w .. 16 w + 15, laid out as mma.sync's A fragment
-  const int wrow = q0 + warp * 16;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int t = 0; t < KSTEPS; ++t) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = wrow + g + ((r & 1) ? 8 : 0);
-      const int d = t * 16 + c2 + ((r & 2) ? 8 : 0);
-      float x0 = 0.f, x1 = 0.f;
-      if (row < wlen) {
-        const __nv_bfloat162 q2 =
-            *reinterpret_cast<const __nv_bfloat162*>(qkv + (tok0 + row) * stride + h * D + d);
-        x0 = __low2float(q2) * scale;
-        x1 = __high2float(q2) * scale;
-      }
-      qa[t][r] = pack_bf16(x0, x1);
-    }
-  }
-
-  float o[NDIM * 4];
-#pragma unroll
-  for (int i = 0; i < NDIM * 4; ++i) o[i] = 0.f;
-  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-
-  for (int it = 0; it < nl; ++it) {
-    cp_async_wait<STAGES - 2>();
-    // the copies are writes of the generic proxy; wgmma reads through the async one
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (it + STAGES - 1 < nl) load_tile(it + STAGES - 1);
-    cp_async_commit();
-    const char* ks = reinterpret_cast<const char*>(kv[it % STAGES][0]);
-    const char* vs = reinterpret_cast<const char*>(kv[it % STAGES][1]);
-    const unsigned long long bits = vbits[live[it]];
-
-    // S = q . k^T: 64 rows x 64 keys a warpgroup, one wgmma per 16 of d
-    float s[NKEY * 4];
-#pragma unroll
-    for (int i = 0; i < NKEY * 4; ++i) s[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < KSTEPS; ++t)
-      wgmma<MK, 0>(s, qa[t], smem_desc(ks + 2 * t * DSTRIDE, DSTRIDE, CORE), t > 0);
-    wgmma_commit();
-    wgmma_wait();
-
-    if (bits != ~0ull) {
-#pragma unroll
-      for (int n = 0; n < NKEY; ++n) {
-        const bool ok0 = (bits >> (n * 8 + c2)) & 1, ok1 = (bits >> (n * 8 + c2 + 1)) & 1;
-        if (!ok0) s[4 * n] = s[4 * n + 2] = -INFINITY;
-        if (!ok1) s[4 * n + 1] = s[4 * n + 3] = -INFINITY;
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NKEY; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
-    }
-    float ms[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      const float corr = ex2((m[r] - m_new) * LOG2E);
-      m[r] = m_new;
-      ms[r] = m_new * LOG2E;
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < NDIM; ++n) {
-        o[4 * n + 2 * r] *= corr;
-        o[4 * n + 2 * r + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NKEY * 4; ++i) {
-      const float p = ex2(fmaf(s[i], LOG2E, -ms[(i >> 1) & 1]));
-      l[(i >> 1) & 1] += p;
-      s[i] = p;
-    }
-
-    // O += round(P) . V: P from the S accumulators, V as stored
-    uint32_t pa[MK / 16][4];
-#pragma unroll
-    for (int kt = 0; kt < MK / 16; ++kt) {
-      pa[kt][0] = pack_bf16(s[8 * kt], s[8 * kt + 1]);
-      pa[kt][1] = pack_bf16(s[8 * kt + 2], s[8 * kt + 3]);
-      pa[kt][2] = pack_bf16(s[8 * kt + 4], s[8 * kt + 5]);
-      pa[kt][3] = pack_bf16(s[8 * kt + 6], s[8 * kt + 7]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kt = 0; kt < MK / 16; ++kt)
-      wgmma<D, 1>(o, pa[kt],
-                  swap_v ? smem_desc(vs + 2 * kt * CORE, DSTRIDE, CORE)
-                         : smem_desc(vs + 2 * kt * CORE, CORE, DSTRIDE),
-                  1);
-    wgmma_commit();
-    wgmma_wait();
-  }
-
-  cp_async_wait<0>();
-  __syncthreads();
-  __nv_bfloat16* ot = kv[0][0];  // [MQ][STR]
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int lrow = warp * 16 + g + 8 * r;
-    if (lse && (lane & 3) == 0 && q0 + lrow < wlen)
-      lse[(tok0 + q0 + lrow) * H + h] = m[r] + logf(fmaxf(sum, 1e-30f));
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-#pragma unroll
-    for (int n = 0; n < NDIM; ++n)
-      *reinterpret_cast<uint32_t*>(&ot[lrow * STR + n * 8 + c2]) =
-          pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
-  }
-  __syncthreads();
-  for (int i = tid; i < MQ * CHUNKS; i += NTHREADS) {
-    const int lrow = i / CHUNKS, part = i - lrow * CHUNKS;
-    if (q0 + lrow < wlen)
-      *reinterpret_cast<uint4*>(out + (tok0 + q0 + lrow) * C + h * D + part * 8) =
-          *reinterpret_cast<const uint4*>(&ot[lrow * STR + part * 8]);
-  }
-}
-
-template <int D>
-cudaError_t launch_wgmma(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
-                         int C, int H, int K, float scale, int swap_v, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
+                   int C, int H, int K, float scale, cudaStream_t stream) {
   const int P = (N + K - 1) / K;
   const int NQ = (K + MQ - 1) / MQ;
   const long long blocks = (long long)B * P * H * NQ;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  fwa_fwd_wgmma_kernel<D><<<(unsigned)blocks, 256, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const uint8_t*>(valid),
-      static_cast<__nv_bfloat16*>(out), lse, N, C, H, K, P, NQ, scale, swap_v);
-  return cudaGetLastError();
-}
-
-// ---- wgmma design, products under the softmax ------------------------------
-
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait_n() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// keeps the compiler from reading or moving an accumulator across a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&x)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-constexpr int WG_STAGES = 4;
-
-template <int D>
-struct WgState {
-  float o[D / 2];
-  float m[2], l[2];
-  uint32_t qa[D / 16][4];
-  uint32_t pa[MK / 16][4];  // round(P): read by the P . V in flight until it is waited for
-};
-
-// One key tile of one warpgroup: s_cur holds S(it), whose product was queued
-// a tile earlier; S(it + 1) is queued into s_next before the softmax of
-// S(it), and P(it) . V(it) after it, so the tensor cores work under the
-// exponentials.
-template <int D>
-__device__ __forceinline__ void wg_tile(WgState<D>& st, float (&s_cur)[MK / 2],
-                                        float (&s_next)[MK / 2], const char* k_next,
-                                        const char* v_cur, unsigned long long bits, bool first,
-                                        bool has_next, int c2) {
-  constexpr int KSTEPS = D / 16, NKEY = MK / 8, NDIM = D / 8;
-  constexpr int CORE = 128, DSTRIDE = MK * 16;
-  // S(it) is the older of the two products in flight (the other: P . V of it - 1)
-  if (first) wgmma_wait_n<0>(); else wgmma_wait_n<1>();
-  fence_regs(s_cur);
-  if (has_next) {
-    fence_regs(s_next);
-    wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < KSTEPS; ++t)
-      wgmma<MK, 0>(s_next, st.qa[t], smem_desc(k_next + 2 * t * DSTRIDE, DSTRIDE, CORE), t > 0);
-    wgmma_commit();
-  }
-
-  if (bits != ~0ull) {
-#pragma unroll
-    for (int n = 0; n < NKEY; ++n) {
-      const bool ok0 = (bits >> (n * 8 + c2)) & 1, ok1 = (bits >> (n * 8 + c2 + 1)) & 1;
-      if (!ok0) s_cur[4 * n] = s_cur[4 * n + 2] = -INFINITY;
-      if (!ok1) s_cur[4 * n + 1] = s_cur[4 * n + 3] = -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < NKEY; ++n) {
-    mx[0] = fmaxf(mx[0], fmaxf(s_cur[4 * n], s_cur[4 * n + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s_cur[4 * n + 2], s_cur[4 * n + 3]));
-  }
-  float ms[2], corr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(st.m[r], mx[r]);
-    corr[r] = ex2((st.m[r] - m_new) * LOG2E);
-    st.m[r] = m_new;
-    ms[r] = m_new * LOG2E;
-    st.l[r] *= corr[r];
-  }
-#pragma unroll
-  for (int i = 0; i < NKEY * 4; ++i) {
-    const float p = ex2(fmaf(s_cur[i], LOG2E, -ms[(i >> 1) & 1]));
-    st.l[(i >> 1) & 1] += p;
-    s_cur[i] = p;
-  }
-  // P . V of the tile before must be done before O is rescaled
-  if (has_next) wgmma_wait_n<1>(); else wgmma_wait_n<0>();
-  fence_regs(st.o);
-#pragma unroll
-  for (int kt = 0; kt < MK / 16; ++kt) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(st.pa[kt][r])::"memory");
-    st.pa[kt][0] = pack_bf16(s_cur[8 * kt], s_cur[8 * kt + 1]);
-    st.pa[kt][1] = pack_bf16(s_cur[8 * kt + 2], s_cur[8 * kt + 3]);
-    st.pa[kt][2] = pack_bf16(s_cur[8 * kt + 4], s_cur[8 * kt + 5]);
-    st.pa[kt][3] = pack_bf16(s_cur[8 * kt + 6], s_cur[8 * kt + 7]);
-  }
-#pragma unroll
-  for (int n = 0; n < NDIM; ++n) {
-    st.o[4 * n] *= corr[0];
-    st.o[4 * n + 1] *= corr[0];
-    st.o[4 * n + 2] *= corr[1];
-    st.o[4 * n + 3] *= corr[1];
-  }
-  fence_regs(st.o);
-  wgmma_fence();
-#pragma unroll
-  for (int kt = 0; kt < MK / 16; ++kt)
-    wgmma<D, 1>(st.o, st.pa[kt], smem_desc(v_cur + 2 * kt * CORE, CORE, DSTRIDE), 1);
-  wgmma_commit();
-}
-
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-fwa_fwd_wgmma2_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __restrict__ valid,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int C,
-                      int H, int K, int P, int NQ, float scale) {
-  constexpr int NTHREADS = 256;
-  constexpr int NWARPS = NTHREADS / 32;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NDIM = D / 8;
-  constexpr int CHUNKS = D / 8;
-  constexpr int STR = D + 8;
-  constexpr int TILE = MK * D;  // elements of one K or V tile
-  extern __shared__ __align__(128) unsigned char ring_bytes[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(ring_bytes);  // [WG_STAGES][2][TILE]
-  __shared__ unsigned long long vbits[MAX_TILES];
-  __shared__ int live[MAX_TILES];
-  __shared__ int n_live;
-  static_assert(WG_STAGES * 2 * TILE >= MQ * STR, "the ring holds the output tile");
-
-  const int qt = blockIdx.x % NQ;
-  const int h = (blockIdx.x / NQ) % H;
-  const int win = blockIdx.x / (NQ * H);
-  const int b = win / P;
-  const int w0 = (win - b * P) * K;
-  const int q0 = qt * MQ;
-  const int wlen = min(K, N - w0);
-  if (q0 >= wlen) return;  // whole block
-  const size_t tok0 = (size_t)b * N + w0;
-  const size_t stride = 3 * (size_t)C;
-  const uint8_t* vwin = valid + tok0;
-  const int tid = threadIdx.x;
-
-  if (!vwin[0]) {  // whole block: a window of padding writes zeros
-    for (int i = tid; i < MQ * CHUNKS; i += NTHREADS) {
-      const int row = q0 + i / CHUNKS;
-      if (row < wlen)
-        *reinterpret_cast<uint4*>(out + (tok0 + row) * C + h * D + (i % CHUNKS) * 8) =
-            make_uint4(0, 0, 0, 0);
-    }
-    return;
-  }
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-
-  const int n_tiles = (wlen + MK - 1) / MK;
-  for (int t = warp; t < n_tiles; t += NWARPS) {
-    const int k_lo = t * MK + lane, k_hi = k_lo + 32;
-    const unsigned lo = __ballot_sync(0xffffffffu, k_lo < wlen && vwin[k_lo] != 0);
-    const unsigned hi = __ballot_sync(0xffffffffu, k_hi < wlen && vwin[k_hi] != 0);
-    if (lane == 0) vbits[t] = ((unsigned long long)hi << 32) | lo;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int t = 0; t < n_tiles; ++t)
-      if (vbits[t]) live[n++] = t;
-    n_live = n;
-  }
-  __syncthreads();
-  const int nl = n_live;
-
-  auto load_tile = [&](int li) {
-    const int t0 = live[li] * MK;
-    __nv_bfloat16* ks = ring + (li % WG_STAGES) * 2 * TILE;
-    __nv_bfloat16* vs = ks + TILE;
-    for (int i = tid; i < MK * CHUNKS; i += NTHREADS) {
-      const int j = i / CHUNKS, part = i - j * CHUNKS;
-      const bool ok = t0 + j < wlen;
-      const __nv_bfloat16* src =
-          qkv + (tok0 + (ok ? t0 + j : 0)) * stride + C + h * D + part * 8;
-      cp_async16(&ks[(part * MK + j) * 8], src, ok);
-      cp_async16(&vs[(part * MK + j) * 8], src + C, ok);
-    }
-  };
-  auto k_of = [&](int li) {
-    return reinterpret_cast<const char*>(ring + (li % WG_STAGES) * 2 * TILE);
-  };
-
-  load_tile(0);
-  cp_async_commit();
-  if (nl > 1) load_tile(1);
-  cp_async_commit();
-
-  WgState<D> st;
-  const int wrow = q0 + warp * 16;
-#pragma unroll
-  for (int t = 0; t < KSTEPS; ++t) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = wrow + g + ((r & 1) ? 8 : 0);
-      const int d = t * 16 + c2 + ((r & 2) ? 8 : 0);
-      float x0 = 0.f, x1 = 0.f;
-      if (row < wlen) {
-        const __nv_bfloat162 q2 =
-            *reinterpret_cast<const __nv_bfloat162*>(qkv + (tok0 + row) * stride + h * D + d);
-        x0 = __low2float(q2) * scale;
-        x1 = __high2float(q2) * scale;
-      }
-      st.qa[t][r] = pack_bf16(x0, x1);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NDIM * 4; ++i) st.o[i] = 0.f;
-  st.m[0] = st.m[1] = -1e30f;
-  st.l[0] = st.l[1] = 0.f;
-#pragma unroll
-  for (int kt = 0; kt < MK / 16; ++kt) st.pa[kt][0] = st.pa[kt][1] = st.pa[kt][2] = st.pa[kt][3] = 0u;
-
-  float s_a[MK / 2], s_b[MK / 2];
-  cp_async_wait<1>();  // tile 0 has landed
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-  wgmma_fence();
-#pragma unroll
-  for (int t = 0; t < KSTEPS; ++t)
-    wgmma<MK, 0>(s_a, st.qa[t], smem_desc(k_of(0) + 2 * t * MK * 16, MK * 16, 128), t > 0);
-  wgmma_commit();
-
-  for (int it = 0; it < nl; ++it) {
-    // tile it + 1 has landed (its copies were queued a tile ago); every warp
-    // is past the P . V of tile it - 2, whose stage tile it + 2 takes
-    cp_async_wait<0>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (it + 2 < nl) load_tile(it + 2);
-    cp_async_commit();
-    const unsigned long long bits = vbits[live[it]];
-    const bool has_next = it + 1 < nl;
-    if (it & 1)
-      wg_tile<D>(st, s_b, s_a, k_of(it + 1), k_of(it) + TILE * 2, bits, it == 0, has_next, c2);
-    else
-      wg_tile<D>(st, s_a, s_b, k_of(it + 1), k_of(it) + TILE * 2, bits, it == 0, has_next, c2);
-  }
-  wgmma_wait_n<0>();
-  fence_regs(st.o);
-
-  cp_async_wait<0>();
-  __syncthreads();
-  __nv_bfloat16* ot = ring;  // [MQ][STR]
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = st.l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int lrow = warp * 16 + g + 8 * r;
-    if (lse && (lane & 3) == 0 && q0 + lrow < wlen)
-      lse[(tok0 + q0 + lrow) * H + h] = st.m[r] + logf(fmaxf(sum, 1e-30f));
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-#pragma unroll
-    for (int n = 0; n < NDIM; ++n)
-      *reinterpret_cast<uint32_t*>(&ot[lrow * STR + n * 8 + c2]) =
-          pack_bf16(st.o[4 * n + 2 * r] * inv, st.o[4 * n + 2 * r + 1] * inv);
-  }
-  __syncthreads();
-  for (int i = tid; i < MQ * CHUNKS; i += NTHREADS) {
-    const int lrow = i / CHUNKS, part = i - lrow * CHUNKS;
-    if (q0 + lrow < wlen)
-      *reinterpret_cast<uint4*>(out + (tok0 + q0 + lrow) * C + h * D + part * 8) =
-          *reinterpret_cast<const uint4*>(&ot[lrow * STR + part * 8]);
-  }
-}
-
-template <int D>
-cudaError_t launch_wgmma2(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
-                          int C, int H, int K, float scale, cudaStream_t stream) {
-  const int P = (N + K - 1) / K;
-  const int NQ = (K + MQ - 1) / MQ;
-  const long long blocks = (long long)B * P * H * NQ;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int smem = WG_STAGES * 2 * MK * D * (int)sizeof(__nv_bfloat16);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fwa_fwd_wgmma2_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  fwa_fwd_wgmma2_kernel<D><<<(unsigned)blocks, 256, smem, stream>>>(
+  fwa_fwd_large_kernel<D><<<(unsigned)blocks, MQ / (16 * MT) * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const uint8_t*>(valid),
       static_cast<__nv_bfloat16*>(out), lse, N, C, H, K, P, NQ, scale);
   return cudaGetLastError();
 }
 
-template <int D, int MT>
-cudaError_t launch(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
-                   int C, int H, int K, float scale, cudaStream_t stream, int probe = 0) {
-  const int P = (N + K - 1) / K;
-  const int NQ = (K + MQ - 1) / MQ;
-  const long long blocks = (long long)B * P * H * NQ;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  fwa_fwd_large_kernel<D, MT><<<(unsigned)blocks, MQ / (16 * MT) * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const uint8_t*>(valid),
-      static_cast<__nv_bfloat16*>(out), lse, N, C, H, K, P, NQ, scale, probe);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// bf16 only; head widths 16, 32 and 48; windows of at most 4096 slots;
-// rows_per_warp 16 or 32. lse may be null (inference). Returns a cudaError_t
-// (0 on success), cudaErrorInvalidValue for what it was not built for.
+// bf16 only; head widths 16, 32 and 48; windows of at most 4096 slots. lse may
+// be null (inference). Returns a cudaError_t (0 on success),
+// cudaErrorInvalidValue for what it was not built for.
 extern "C" int fwa_fwd_large(const void* qkv, const void* valid, void* out, void* lse, int B,
-                             int N, int C, int H, int K, int rows_per_warp, float scale,
-                             void* stream) {
+                             int N, int C, int H, int K, float scale, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || K <= 0 || C % H != 0) return cudaErrorInvalidValue;
   if (K > MAX_TILES * MK) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define FWA_LARGE(DD, MT)                   \
-  if (C / H == DD && rows_per_warp == 16 * MT) \
-    return launch<DD, MT>(qkv, valid, out, l, B, N, C, H, K, scale, s);
-  FWA_LARGE(16, 1) FWA_LARGE(32, 1) FWA_LARGE(48, 1)
-  FWA_LARGE(16, 2) FWA_LARGE(32, 2) FWA_LARGE(48, 2)
-#undef FWA_LARGE
-  if (rows_per_warp == 33) {  // PROBE
-    if (C / H == 16) return launch<16, 2>(qkv, valid, out, l, B, N, C, H, K, scale, s, 1);
-    if (C / H == 32) return launch<32, 2>(qkv, valid, out, l, B, N, C, H, K, scale, s, 1);
-    if (C / H == 48) return launch<48, 2>(qkv, valid, out, l, B, N, C, H, K, scale, s, 1);
+  switch (C / H) {
+    case 16: return launch<16>(qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 32: return launch<32>(qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 48: return launch<48>(qkv, valid, out, l, B, N, C, H, K, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  if (rows_per_warp == 66) {
-    if (C / H == 16) return launch_wgmma2<16>(qkv, valid, out, l, B, N, C, H, K, scale, s);
-    if (C / H == 32) return launch_wgmma2<32>(qkv, valid, out, l, B, N, C, H, K, scale, s);
-    if (C / H == 48) return launch_wgmma2<48>(qkv, valid, out, l, B, N, C, H, K, scale, s);
-  }
-  if (rows_per_warp == 64 || rows_per_warp == 65) {
-    const int sv = rows_per_warp == 65;
-    if (C / H == 16) return launch_wgmma<16>(qkv, valid, out, l, B, N, C, H, K, scale, sv, s);
-    if (C / H == 32) return launch_wgmma<32>(qkv, valid, out, l, B, N, C, H, K, scale, sv, s);
-    if (C / H == 48) return launch_wgmma<48>(qkv, valid, out, l, B, N, C, H, K, scale, sv, s);
-  }
-  return cudaErrorInvalidValue;
 }

@@ -56,7 +56,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # on a call is bound by operations (see forward_variant)
 LARGE_WINDOW_MIN = 128
 LARGE_WINDOW_MAX = 4096  # 64 key tiles of 64: what that kernel's tile list holds
-ROWS_PER_WARP = 32  # of its 128 query rows a block: 4 warps of two m16 tiles
 # variant -> (source, C function): what the sources instantiate
 VARIANTS = {"fp32": (SOURCE, "fwa_fwd"), "bf16_small": (SOURCE, "fwa_fwd"),
             "bf16_large": (SOURCE_LARGE, "fwa_fwd_large")}
@@ -72,7 +71,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _declare_large(lib: ctypes.CDLL) -> None:
-    lib.fwa_fwd_large.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    lib.fwa_fwd_large.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.fwa_fwd_large.restype = ctypes.c_int
 
@@ -134,7 +133,7 @@ def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
     with torch.cuda.device(qkv.device):
         if variant == "bf16_large":
             rc = LIBRARY_LARGE.load().fwa_fwd_large(
-                *ptrs, b, n, c, num_heads, patch_size, ROWS_PER_WARP, float(scale), stream)
+                *ptrs, b, n, c, num_heads, patch_size, float(scale), stream)
         else:
             rc = LIBRARY.load().fwa_fwd(
                 *ptrs, _DTYPES[qkv.dtype], b, n, c, num_heads, patch_size, float(scale),
@@ -205,7 +204,8 @@ def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
     """qkv [B, N, 3, C] (float32 or bfloat16), valid [B, N] bool ->
     [B, N, C]. Launches the kernels for CUDA tensors (K1, and K2 in the
     backward when qkv requires grad); CPU tensors take the plain version.
-    ``flash_window_attention.launches`` counts K1 launches."""
+    ``flash_window_attention.launches`` counts K1 launches,
+    ``flash_window_attention.variant_launches`` those of each variant."""
     if not qkv.is_cuda:
         return flash_window_attention_plain(qkv, valid, patch_size, num_heads, scale)
     if scale is None:

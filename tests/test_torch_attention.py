@@ -127,7 +127,7 @@ def test_forward_variant_names_a_kernel_the_source_instantiates(dtype, window, h
     assert f'extern "C" int {entry}(' in text
     instance = {"fp32": f"fwa_fwd_f32_kernel<{head_dim}>",
                 "bf16_small": f"fwa_fwd_bf16_kernel<{head_dim}>",
-                "bf16_large": f"FWA_LARGE({head_dim}, {tfwa.ROWS_PER_WARP // 16})"}[variant]
+                "bf16_large": f"launch<{head_dim}>"}[variant]
     assert instance in text
     if dtype == "float32":
         assert variant == "fp32"

@@ -152,8 +152,8 @@ def test_attention_no_fallback(cuda, monkeypatch):
     assert fwa.flash_window_attention.launches == before
     # the C function refuses a window its tile list cannot hold
     rc = fwa.LIBRARY_LARGE.load().fwa_fwd_large(
-        x16.data_ptr(), valid.data_ptr(), x16.data_ptr(), None, 1, 512, 64, 4, 8192, 32,
-        0.25, torch.cuda.current_stream().cuda_stream)
+        x16.data_ptr(), valid.data_ptr(), x16.data_ptr(), None, 1, 512, 64, 4, 8192, 0.25,
+        torch.cuda.current_stream().cuda_stream)
     assert rc != 0
 
 

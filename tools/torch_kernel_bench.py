@@ -8,8 +8,7 @@ attn: the flash-window attention forward (K1) in bf16 against its plain
 version (noise-floor rule, lse against the plain log-sum-exp, zeros in
 padded windows, valid prefixes that end inside a key tile, on a tile edge
 and one past it), then its time at the seven stage shapes of a flagship
-serve forward at 196,608 points for each rows-per-warp setting of the
-large-window kernel, beside scaled_dot_product_attention (the library
+serve forward at 196,608 points beside scaled_dot_product_attention (the library
 yardstick, used nowhere in the port) and the operations bound.
 sort: the bitonic row sort (K3), both C entries against the plain version
 and torch.sort (exact), then sort_int64 with the switch on at the eight sort
@@ -44,12 +43,6 @@ SORT_SHAPES = ((4, 196608), (1, 196608), (3, 98304), (1, 98304), (3, 49152), (1,
                (3, 24576), (1, 24576))
 
 
-# rows a warp of the large-window kernel: 16 or 32 on mma.sync, 64 (a warpgroup's
-# rows) on wgmma
-DESIGNS = (32, 64, 66)
-FAILED = set()
-
-
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -77,7 +70,7 @@ def build(libraries):
         info, name = [], None
         for ln in lines:
             if "Compiling entry function" in ln:
-                name = ln.split("'")[1][:60]
+                name = ln.split("'")[1][-70:]
             elif "registers" in ln or "spill" in ln:
                 info.append(f"{name}: {ln.split('ptxas info    : ')[-1]}")
             elif "warning" in ln.lower() or "Performance" in ln:
@@ -112,25 +105,18 @@ def attn_check():
             variant = fwa.forward_variant(qkv.dtype, k, c // h)
             truth = fwa.flash_window_attention_plain(qkv.float(), valid, k, h)
             floor = fwa.flash_window_attention_plain(qkv, valid, k, h)
-            for rpw in DESIGNS:
-                fwa.ROWS_PER_WARP = rpw
-                out, lse = fwa._launch_fwd(qkv, valid, k, h, (c // h) ** -0.5, True)
-                torch.cuda.synchronize()
-                err = ((out.float() - truth)[valid].norm() / truth[valid].norm()).item()
-                ref = ((floor.float() - truth)[valid].norm() / truth[valid].norm()).item()
-                live = valid.view(3, n // k, k)[:, :, :1].expand(3, n // k, k).reshape(3, n)
-                lse_err = (lse - plain_lse(qkv, valid, k, h))[live].abs().max().item()
-                dead_zero = bool((out[~live] == 0).all())
-                rows.append(dict(K=k, C=c, H=h, variant=variant, rows_per_warp=rpw, rel_err=err,
-                                 plain_rel_err=ref, lse_max_abs_err=lse_err,
-                                 dead_windows_zero=dead_zero))
-                ok = err <= 2.5 * ref and lse_err <= 1e-3 and dead_zero
-                if not ok:
-                    emit(dict(phase="attn_check", failed=rows[-1]))
-                    FAILED.add(rpw)
-                if variant != "bf16_large":
-                    break
-    fwa.ROWS_PER_WARP = 32
+            out, lse = fwa._launch_fwd(qkv, valid, k, h, (c // h) ** -0.5, True)
+            torch.cuda.synchronize()
+            err = ((out.float() - truth)[valid].norm() / truth[valid].norm()).item()
+            ref = ((floor.float() - truth)[valid].norm() / truth[valid].norm()).item()
+            live = valid.view(3, n // k, k)[:, :, :1].expand(3, n // k, k).reshape(3, n)
+            lse_err = (lse - plain_lse(qkv, valid, k, h))[live].abs().max().item()
+            dead_zero = bool((out[~live] == 0).all())
+            rows.append(dict(K=k, C=c, H=h, variant=variant, rel_err=err, plain_rel_err=ref,
+                             lse_max_abs_err=lse_err, dead_windows_zero=dead_zero))
+            if not (err <= 2.5 * ref and lse_err <= 1e-3 and dead_zero):
+                emit(dict(phase="attn_check", failed=rows[-1]))
+                raise AssertionError(rows[-1])
     emit(dict(phase="attn_check", cases=rows))
 
 
@@ -142,10 +128,8 @@ def attn_time(reps):
         valid = torch.zeros(1, n, dtype=torch.bool, device="cuda")
         valid[0, :n_valid] = True
         row = dict(N=n, valid=n_valid, K=k, C=c, H=h, launches=count)
-        for rpw in [x for x in DESIGNS if x not in FAILED] * 2:
-            fwa.ROWS_PER_WARP = rpw
-            ms = cuda_ms(lambda: fwa.flash_window_attention(qkv, valid, k, h), reps)
-            row.setdefault(f"ms_rows{rpw}", []).append(ms)
+        row["ms"] = [cuda_ms(lambda: fwa.flash_window_attention(qkv, valid, k, h), reps)
+                     for _ in range(2)]
         p, d = n // k, c // h
         q, kk, v = qkv.view(p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
         mask = valid.view(p, 1, 1, k)
@@ -153,14 +137,12 @@ def attn_time(reps):
             q, kk, v, attn_mask=mask), reps)
         ops = sum(4 * max(0, min(n_valid, w0 + k) - w0) ** 2 * c for w0 in range(0, n, k))
         row["ops_ms"] = ops / PEAK_BF16_FLOPS * 1e3
-        keys = [key for key in row if key.startswith("ms_rows")]
-        row["tflops"] = ops / min(min(row[key]) for key in keys) / 1e9
+        row["tflops"] = ops / min(row["ms"]) / 1e9
         rows.append(row)
-        for key in keys + ["library_ms", "ops_ms"]:
+        for key in ("ms", "library_ms", "ops_ms"):
             val = min(row[key]) if isinstance(row[key], list) else row[key]
             tot[key] = tot.get(key, 0.0) + count * val
         del qkv, q, kk, v
-    fwa.ROWS_PER_WARP = 32
     emit(dict(phase="attn_time", dtype="bfloat16", per_call=rows, per_forward=tot))
 
 
