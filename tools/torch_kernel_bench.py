@@ -2,7 +2,7 @@
 card, without the model: the quick loop while a kernel is being worked on
 (chip_smoke.py is the whole proof).
 
-    python3 tools/torch_kernel_bench.py [attn] [sort] [--reps N]
+    python3 tools/torch_kernel_bench.py [attn] [sort] [bwd] [--reps N]
 
 attn: the flash-window attention forward (K1) in bf16 against its plain
 version (noise-floor rule, lse against the plain log-sum-exp, zeros in
@@ -13,6 +13,13 @@ yardstick, used nowhere in the port) and the operations bound.
 sort: the bitonic row sort (K3), both C entries against the plain version
 and torch.sort (exact), then sort_int64 with the switch on at the eight sort
 shapes of one fragment forward beside torch.sort(stable=True).
+bwd: the attention backward (K2) alone, its source built alone: bf16
+against autograd through the plain version run in fp32 (noise-floor rule,
+zero gradients in windows of padding, a ragged last window) at windows on
+both sides of its variants' threshold, then its time per call and per step
+at the seven stage shapes of a flagship train step at 196,608 points, batch
+2, beside the backward of scaled_dot_product_attention and the bound
+(chip_smoke.py's arithmetic). O and lse come from the plain version.
 One JSON line per phase; the card's name and power limit first.
 """
 
@@ -30,6 +37,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke  # noqa: E402
 from scenesplat_tpu_torch.ops import bitonic_sort as bs  # noqa: E402
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa  # noqa: E402
 
@@ -39,6 +47,15 @@ SERVE_SHAPES = ((196608, 196608, 1024, 32, 2, 2), (98304, 66269, 1024, 64, 4, 2)
                 (49152, 16577, 1024, 128, 8, 2), (24576, 4108, 1024, 256, 16, 6),
                 (49152, 16577, 1024, 256, 16, 2), (98304, 66269, 1024, 512, 16, 2),
                 (196608, 196608, 1024, 768, 16, 2))
+# (N, valid counts of the two batch rows, K, C, H, launches) of a flagship
+# train step at 196,608 points, batch 2 (chip_smoke.py's timing_bwd)
+TRAIN_SHAPES = ((196608, (196608, 196608), 1024, 32, 2, 2),
+                (98304, (98009, 88835), 1024, 64, 4, 2),
+                (49152, (24032, 21419), 1024, 128, 8, 2),
+                (24576, (5206, 4743), 1024, 256, 16, 6),
+                (49152, (24032, 21419), 48, 256, 16, 2),
+                (98304, (98009, 88835), 48, 512, 16, 2),
+                (196608, (196608, 196608), 48, 768, 16, 2))
 SORT_SHAPES = ((4, 196608), (1, 196608), (3, 98304), (1, 98304), (3, 49152), (1, 49152),
                (3, 24576), (1, 24576))
 
@@ -146,6 +163,101 @@ def attn_time(reps):
     emit(dict(phase="attn_time", dtype="bfloat16", per_call=rows, per_forward=tot))
 
 
+def bwd_inputs(gen, b, n, c, k, stops):
+    """bf16 qkv and dout [b, n, ...], valid prefixes ending at ``stops``, the
+    plain bf16 output, the plain fp32 log-sum-exp, and the mask of windows
+    whose slot 0 is padding."""
+    qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
+    dout = torch.randn(b, n, c, generator=gen, device="cuda").bfloat16()
+    valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+    dead = torch.zeros_like(valid)
+    for i, stop in enumerate(stops):
+        valid[i, :stop] = True
+        dead[i, -(-stop // k) * k:] = True
+    return qkv, dout, valid, dead
+
+
+def plain_out_lse(qkv, valid, k, h):
+    chunk = max(8, 16384 // k)  # windows per plain chunk: the result is the same
+    out = fwa.flash_window_attention_plain(qkv, valid, k, h, patch_chunk=chunk)
+    return out.contiguous(), chip_smoke.plain_lse(qkv, valid, k, h).contiguous()
+
+
+def bwd_rel_err(qkv, valid, k, h, dout, dqkv):
+    """(kernel's, plain bf16 version's) relative gradient error against
+    autograd through the plain version run in fp32."""
+    chunk = max(8, 16384 // k)
+
+    def plain(t, m, kk, hh):
+        return fwa.flash_window_attention_plain(t, m, kk, hh, patch_chunk=chunk)
+
+    _, truth = chip_smoke.grads_of(plain, qkv.float(), valid, k, h, dout.float())
+    floor = chip_smoke.grads_of(plain, qkv, valid, k, h, dout)[1]
+
+    def rel(g):
+        return ((g.float() - truth).norm() / truth.norm()).item()
+
+    return rel(dqkv), rel(floor)
+
+
+def bwd_check():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for k in (16, 48, 64, 65, 127, 128, 1024):
+        for c, h in ((768, 16), (512, 16), (256, 16), (32, 2)):
+            n = 3 * k + k // 2 + 5  # a ragged last window
+            # valid prefixes: inside a window, then windows of padding; all
+            qkv, dout, valid, dead = bwd_inputs(gen, 3, n, c, k, (int(0.8 * n), k + 7, n))
+            out, lse = plain_out_lse(qkv, valid, k, h)
+            dqkv = fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h,
+                                                  (c // h) ** -0.5)
+            torch.cuda.synchronize()
+            err, floor = bwd_rel_err(qkv, valid, k, h, dout, dqkv)
+            row = dict(K=k, C=c, H=h, N=n, rel_err=err, plain_rel_err=floor,
+                       finite=bool(torch.isfinite(dqkv).all()),
+                       dead_windows_zero=bool((dqkv[dead] == 0).all()))
+            rows.append(row)
+            if not (row["finite"] and row["dead_windows_zero"] and floor > 1e-4
+                    and err <= chip_smoke.BF16_NOISE_FACTOR * floor):
+                emit(dict(phase="bwd_check", failed=row))
+                raise AssertionError(row)
+    emit(dict(phase="bwd_check", bf16_noise_factor=chip_smoke.BF16_NOISE_FACTOR, cases=rows))
+
+
+def bwd_time(reps):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, tot = [], dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for n, valids, k, c, h, count in TRAIN_SHAPES:
+        b, d, scale = len(valids), c // h, (c // h) ** -0.5
+        qkv, dout, valid, _ = bwd_inputs(gen, b, n, c, k, valids)
+        out, lse = plain_out_lse(qkv, valid, k, h)
+        ms = [cuda_ms(lambda: fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h,
+                                                             scale), reps) for _ in range(2)]
+        p = -(-n // k)
+        pad = p * k - n
+        qkv_w = torch.nn.functional.pad(qkv, (0, 0, 0, 0, 0, pad))
+        valid_w = torch.nn.functional.pad(valid, (0, pad))
+        q, kk, v = [t.detach().requires_grad_(True) for t in
+                    qkv_w.view(b * p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()]
+        mask = valid_w.view(b * p, 1, 1, k)
+        dout_w = torch.nn.functional.pad(dout, (0, 0, 0, pad))
+        dout_w = dout_w.view(b * p, k, h, d).transpose(1, 2).contiguous()
+        lib_ms, _ = chip_smoke.backward_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, v, attn_mask=mask),
+            [q, kk, v], dout_w, reps=5)
+        ops_ms, bytes_ms, _ = chip_smoke.bwd_bound_ms(n, valids, k, c, h)
+        row = dict(N=n, valid=valids, K=k, C=c, H=h, launches=count, ms=ms, library_ms=lib_ms,
+                   bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        rows.append(row)
+        tot["ms"] += count * min(ms)
+        tot["library_ms"] += count * lib_ms
+        tot["bound_ms"] += count * row["bound_ms"]
+        del qkv, dout, out, lse, q, kk, v, qkv_w, dout_w
+        torch.cuda.empty_cache()
+    emit(dict(phase="bwd_time", dtype="bfloat16", per_call=rows, per_step=tot))
+
+
 def sort_check():
     gen = torch.Generator(device="cuda").manual_seed(2)
     checked = 0
@@ -236,6 +348,8 @@ def main() -> int:
         libraries += [fwa.LIBRARY_LARGE, fwa.LIBRARY]
     if "sort" in args.what:
         libraries.append(bs.LIBRARY)
+    if "bwd" in args.what:
+        libraries.append(fwa.LIBRARY)
     build(libraries)
     if "sort" in args.what:
         sort_check()
@@ -244,6 +358,9 @@ def main() -> int:
     if "attn" in args.what:
         attn_check()
         attn_time(args.reps)
+    if "bwd" in args.what:
+        bwd_check()
+        bwd_time(args.reps)
     return 0
 
 
