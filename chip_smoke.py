@@ -27,10 +27,11 @@ Phases, one JSON line each:
      windows of 48, ragged at every stage) at 65,536 points;
   6. agree: fp32 forward with the kernel against the same forward with the
      plain attention at 49,152 points;
-  7. kernel_bwd: the attention backward kernel (through the autograd
+  7. kernel_bwd: the attention backward kernels (through the autograd
      Function) against autograd through the plain version at every
-     signature of phase 2, fp32 and bf16, with zero gradients in padded
-     windows;
+     signature of phase 2, fp32 and bf16 (both bf16 variants: windows on
+     both sides of the backward's threshold of 64), with zero gradients in
+     padded windows;
   8. train: scenesplat_tpu_torch.train's trainer on the flagship config
      (configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py, read
      through the port's Config) over a synthetic 3DGS dataset written to a
@@ -192,7 +193,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libraries = (fwa.LIBRARY, fwa.LIBRARY_LARGE, bs.LIBRARY)
+    libraries = (fwa.LIBRARY, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD, bs.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         build_s = dict(zip((lib.source.name for lib in libraries),
@@ -243,8 +244,9 @@ SIGNATURES = sorted({
     for k in (1024, 48)
     for c, h in ((768, 16), (512, 16), (256, 16))
 } | {(1024, c, h) for c, h in ((32, 2), (64, 4), (128, 8), (256, 16))}
-  # windows on both sides of the bf16 variants' threshold
-  | {(k, c, h) for k in (64, 128, 192, 256) for c, h in ((768, 16), (512, 16), (32, 2))})
+  # windows on both sides of the bf16 variants' thresholds (forward 128,
+  # backward 64)
+  | {(k, c, h) for k in (64, 65, 128, 192, 256) for c, h in ((768, 16), (512, 16), (32, 2))})
 LSE_ATOL = 1e-4  # bf16 forward: fp32 log-sum-exp against the plain one
 
 
@@ -569,16 +571,25 @@ def phase_kernel_bwd():
         def rel(g):
             return ((g.float() - truth).norm() / truth.norm()).item()
 
-        err16 = rel(grads_of(fwa.flash_window_attention, x16, valid, k, h, d16)[1])
+        variant = fwa.backward_variant(x16.dtype, k, c // h)
+        before = fwa.flash_window_attention_bwd.variant_launches[variant]
+        g16 = grads_of(fwa.flash_window_attention, x16, valid, k, h, d16)[1]
+        check(fwa.flash_window_attention_bwd.variant_launches[variant] == before + 1,
+              f"the {variant} backward did not run at {k, c, h}")
+        check((g16[dead] == 0).all().item(), f"bf16 padded windows' gradients not zero at "
+              f"{k, c, h}")
+        err16 = rel(g16)
         floor16 = rel(grads_of(fwa.flash_window_attention_plain, x16, valid, k, h, d16)[1])
         rows.append(dict(K=k, C=c, H=h, N=n, fp32_max_abs_err_dq_dk_dv=errs,
                          fp32_max_abs_grad=scale, fp32_fwd_lse_max_abs_err=err_fwd,
-                         bf16_rel_err=err16, bf16_plain_rel_err=floor16))
+                         bf16_variant=variant, bf16_rel_err=err16, bf16_plain_rel_err=floor16))
         for name, e, m in zip(("dq", "dk", "dv"), errs, scale):
             check(e <= BWD_FP32_RTOL * m, f"fp32 {name} error {e} > {BWD_FP32_RTOL} x {m} "
                   f"at {k, c, h}")
         check_noise_floor(err16, floor16, "gradient", ("K, C, H", k, c, h))
         worst = max(worst, *errs)
+    check({r["bf16_variant"] for r in rows} == {"bf16_small", "bf16_large"},
+          "the signatures do not reach both bf16 backward variants")
     emit(dict(phase="kernel_bwd", fp32_rtol=BWD_FP32_RTOL,
               bf16_noise_factor=BF16_NOISE_FACTOR, cases=rows))
     return worst, worst_fwd
@@ -764,6 +775,8 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
 
         fwa.flash_window_attention.launches = 0
         fwa.flash_window_attention_bwd.launches = 0
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
+        k2_variants.update(dict.fromkeys(k2_variants, 0))
         batch, oom, result = 2, None, None
         try:
             result = run_training(flagship_train_config(root, os.path.join(tmp, "exp"), batch))
@@ -776,6 +789,7 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
             batch = 1
             fwa.flash_window_attention.launches = 0
             fwa.flash_window_attention_bwd.launches = 0
+            k2_variants.update(dict.fromkeys(k2_variants, 0))
             result = run_training(flagship_train_config(root, os.path.join(tmp, "exp1"), batch))
         trainer, probe, records, k1_counts = result
         backbone = trainer.cfg.model.backbone
@@ -800,6 +814,11 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
         check(val_forwards == len(trainer.cfg.data.val) and k1_val == blocks * val_forwards,
               f"{k1_val} kernel launches in {val_forwards} validation forwards, expected "
               f"{blocks} each, one forward per validation set")
+        # bf16: the encoder's windows of 1024 take the large-window backward,
+        # the decoder's windows of 48 the one-pass one
+        check(k2_variants["bf16_small"] > 0 and k2_variants["bf16_large"] > 0
+              and k2_variants["bf16_small"] + k2_variants["bf16_large"] == k2,
+              f"backward variant launches {k2_variants} of {k2}")
         check(fwa.flash_window_attention.launches == k1 + k1_val,
               f"K1 launched {fwa.flash_window_attention.launches} times, {k1} + {k1_val} "
               "of them inside a forward")
@@ -827,7 +846,8 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
                   steps=steps, loss=losses, grad_norm=grad_norms, lr=hist("lr").values(),
                   cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
                   profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
-                  k1_launches=k1, k2_launches=k2, validation_forwards=val_forwards,
+                  k1_launches=k1, k2_launches=k2, k2_variant_launches=dict(k2_variants),
+                  validation_forwards=val_forwards,
                   validation_k1_launches=k1_val,
                   peak_mem_gib=peak_gib,
                   n_overflow=overflow, stage_slots_valid=sizes[-1],
@@ -837,7 +857,7 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
         del trainer
     torch.cuda.empty_cache()
     shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
-    return shapes, k1, k1_val, k2, checkpoint
+    return shapes, k1, k1_val, dict(k2_variants), checkpoint
 
 
 def bwd_bound_ms(n, valids, k, c, h):
@@ -846,7 +866,8 @@ def bwd_bound_ms(n, valids, k, c, h):
     five products, the recompute of S included) at the bf16 peak; the bytes
     of the function K2 replaces (qkv and dO of live windows and the mask
     read once, dqkv written once) at the memory rate; and those bytes plus
-    the O and lse of live windows that this design's backward also reads."""
+    what this design's backward also reads of live windows: lse, and O at
+    windows above the one-pass variant's (delta from dO and O)."""
     ops, rows_live = 0, 0
     for nv in valids:
         for w0 in range(0, n, k):
@@ -854,7 +875,7 @@ def bwd_bound_ms(n, valids, k, c, h):
             ops += 10 * v * v * c
             rows_live += min(k, n - w0) if v else 0
     nbytes = rows_live * (2 * 3 * c + 2 * c) + len(valids) * n * (2 * 3 * c + 1)
-    design = nbytes + rows_live * (2 * c + 4 * h)
+    design = nbytes + rows_live * ((2 * c if k > fwa.BWD_SMALL_MAX else 0) + 4 * h)
     return (ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
             design / PEAK_BYTES * 1e3)
 
@@ -961,7 +982,8 @@ def phase_timing_bwd(shapes):
                    bytes_ms=bytes_ms, design_bytes_ms=design_bytes_ms, fwd_lse_ms=fwd_ms,
                    fwd_plain_ms=fwd_plain_ms, fwd_library_ms=fwd_lib_ms,
                    fwd_ops_ms=fwd_ops_ms, fwd_bytes_ms=fwd_bytes_ms)
-        rows.append(dict(N=n, B=b, valid=valids, K=k, C=c, H=h, launches=count, **row,
+        rows.append(dict(N=n, B=b, valid=valids, K=k, C=c, H=h, launches=count,
+                         variant=fwa.backward_variant(qkv.dtype, k, d), **row,
                          bound_ms=max(ops_ms, bytes_ms),
                          fwd_bound_ms=max(fwd_ops_ms, fwd_bytes_ms),
                          bf16_grad_rel_err=err16, bf16_grad_plain_rel_err=floor16,
@@ -1439,7 +1461,7 @@ def main() -> int:
         phase_shipped(text)
         phase_agree(text)
         worst_bwd, worst_fwd_lse = phase_kernel_bwd()
-        train_shapes, k1_train, k1_val, k2_train, checkpoint = phase_train(work)
+        train_shapes, k1_train, k1_val, k2_variants, checkpoint = phase_train(work)
         tot_bwd = phase_timing_bwd(train_shapes)
         phase_train_agree()
         worst_sort = phase_kernel_sort()
@@ -1448,6 +1470,8 @@ def main() -> int:
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
+    # the bf16 backward; flash_window_attn.cu holds its fp32 twin
+    source_bwd = "scenesplat_tpu_torch/csrc/flash_window_attn_bwd.cu"
     # bf16 at windows of 128 and more: every launch of the serve path, and
     # the encoder's launches of the train path
     source_large = "scenesplat_tpu_torch/csrc/flash_window_attn_fwd.cu"
@@ -1469,9 +1493,11 @@ def main() -> int:
              ms=tot_bwd["fwd_lse_ms"], plain_ms=tot_bwd["fwd_plain_ms"],
              bound_ms=tot_bwd["fwd_bound_ms"], bound_by=tot_bwd["fwd_bound_by"],
              library_ms=tot_bwd["fwd_library_ms"]),
-        dict(name="flash_window_attention_bwd", route="cuda", source=source,
+        dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
+             sources=[source_bwd, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
-             launches=k2_train, ms_per="train step", max_abs_err=worst_bwd,
+             launches=sum(k2_variants.values()), variant_launches=k2_variants,
+             ms_per="train step", max_abs_err=worst_bwd,
              ms=tot_bwd["ms"], plain_ms=tot_bwd["plain_ms"], bound_ms=tot_bwd["bound_ms"],
              bound_by=tot_bwd["bound_by"], library_ms=tot_bwd["library_ms"],
              design_bound_ms=tot_bwd["design_bound_ms"]),

@@ -4,27 +4,33 @@ kernels and their plain PyTorch version.
 The forward kernel K1 (``csrc/flash_window_attn.cu`` and, for bf16 at
 windows of 128 to 4096 slots, ``csrc/flash_window_attn_fwd.cu``) replaces
 the TPU kernel ``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered
-through ``_fwa_fwd``), the backward K2 replaces ``_bwd_kernel`` (through
-``_fwa_bwd``). Their work, 4*N*K*C (forward) and 10*N*K*C (backward)
-operations against about 4*N*C and 9*N*C elements moved per call, makes
-both bound by operations at windows of 1024 and by bytes at windows of 48
-(the flagship config's decoder) on this card. The TPU kernels hold a whole [K, K]
-fp32 score tile in VMEM (4 MB at K = 1024); a Hopper block has at most
-227 KB of shared memory, so each block owns a tile of query (or key) rows
-of one (batch, window, head) and streams the other side's rows through
-shared memory: the forward keeps an online softmax in fp32 registers and,
-when training, writes each row's log-sum-exp; the backward recomputes the
-probabilities from it. Keys past the end of a ragged last window are
-masked, and a window whose slot 0 is padding writes zeros. bf16 runs its
-products on the tensor cores (mma.sync); fp32 runs scalar FMAs, which keeps
-it exact to the plain version. The forward has three variants, chosen by
-``forward_variant`` from the storage type and the window: fp32; bf16 at
-small windows (bound by bytes: 64 query rows a block, synchronous tile
-loads); bf16 at large windows (bound by operations: 128 query rows a
-block, key and value tiles through a three-stage cp.async ring and
-ldmatrix, the softmax in the exp2 domain, key tiles of padding skipped).
-The C functions refuse what they were not built for and the wrapper
-raises: no variant stands in for another.
+through ``_fwa_fwd``), the backward K2 (``csrc/flash_window_attn.cu`` for
+fp32, ``csrc/flash_window_attn_bwd.cu`` for bf16) replaces ``_bwd_kernel``
+(through ``_fwa_bwd``). Their work, 4*N*K*C (forward) and 10*N*K*C
+(backward) operations against about 4*N*C and 7*N*C elements moved per
+call, makes both bound by operations at windows of 1024 and by bytes at
+windows of 48 (the flagship config's decoder) on this card. The TPU kernels
+hold a whole [K, K] fp32 score tile in VMEM (4 MB at K = 1024); a Hopper
+block has at most 227 KB of shared memory, so at large windows each block
+owns a tile of query (or key) rows of one (batch, window, head) and streams
+the other side's rows through shared memory: the forward keeps an online
+softmax in fp32 registers and, when training, writes each row's
+log-sum-exp; the backward recomputes the probabilities from it. Keys past
+the end of a ragged last window are masked, and a window whose slot 0 is
+padding writes zeros. bf16 runs its products on the tensor cores
+(mma.sync); fp32 runs scalar FMAs, which keeps it exact to the plain
+version. The forward has three variants, chosen by ``forward_variant`` from
+the storage type and the window: fp32; bf16 at small windows (bound by
+bytes: 64 query rows a block, synchronous tile loads); bf16 at large
+windows (bound by operations: 128 query rows a block, key and value tiles
+through a three-stage cp.async ring and ldmatrix, the softmax in the exp2
+domain, key tiles of padding skipped). The backward has three too, chosen
+by ``backward_variant``: fp32; bf16 at windows of at most 64 slots (one
+pass per window and head, the whole window in shared memory, the next
+window's rows loaded by cp.async under this one's products); bf16 at larger
+windows (a dQ kernel and a dK/dV kernel). The C functions refuse what they
+were not built for and the wrapper raises: no variant stands in for
+another.
 
 ``flash_window_attention`` is differentiable: while grad is enabled and qkv
 requires grad it runs as a ``torch.autograd.Function`` whose forward
@@ -48,6 +54,7 @@ from ._build import CSRC, KernelLibrary
 
 SOURCE = CSRC / "flash_window_attn.cu"
 SOURCE_LARGE = CSRC / "flash_window_attn_fwd.cu"
+SOURCE_BWD = CSRC / "flash_window_attn_bwd.cu"
 # head widths the kernel is instantiated for: those of the flagship and the
 # shipped configs (16 in every encoder stage and dec2, 32 in dec1, 48 in dec0)
 HEAD_DIMS = (16, 32, 48)
@@ -59,13 +66,18 @@ LARGE_WINDOW_MAX = 4096  # 64 key tiles of 64: what that kernel's tile list hold
 # variant -> (source, C function): what the sources instantiate
 VARIANTS = {"fp32": (SOURCE, "fwa_fwd"), "bf16_small": (SOURCE, "fwa_fwd"),
             "bf16_large": (SOURCE_LARGE, "fwa_fwd_large")}
+# bf16 backward windows of at most this many slots take the one-pass kernel
+# (four m16 tiles: the whole window's rows in shared memory)
+BWD_SMALL_MAX = 64
+BWD_VARIANTS = {"fp32": (SOURCE, "fwa_bwd"), "bf16_small": (SOURCE_BWD, "fwa_bwd_small"),
+                "bf16_large": (SOURCE_BWD, "fwa_bwd_large")}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.fwa_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.fwa_fwd.restype = ctypes.c_int
-    lib.fwa_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    lib.fwa_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.fwa_bwd.restype = ctypes.c_int
 
@@ -76,8 +88,20 @@ def _declare_large(lib: ctypes.CDLL) -> None:
     lib.fwa_fwd_large.restype = ctypes.c_int
 
 
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    lib.fwa_bwd_small.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fwa_bwd_small.restype = ctypes.c_int
+    lib.fwa_bwd_large.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fwa_bwd_large.restype = ctypes.c_int
+    lib.fwa_bwd_small_residency.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fwa_bwd_small_residency.restype = ctypes.c_int
+
+
 LIBRARY = KernelLibrary(SOURCE, _declare)
 LIBRARY_LARGE = KernelLibrary(SOURCE_LARGE, _declare_large)
+LIBRARY_BWD = KernelLibrary(SOURCE_BWD, _declare_bwd)
 
 
 def forward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
@@ -95,6 +119,22 @@ def forward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
         return "fp32"
     large = LARGE_WINDOW_MIN <= patch_size <= LARGE_WINDOW_MAX
     return "bf16_large" if large else "bf16_small"
+
+
+def backward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
+    """Which backward kernel a call takes, a key of ``BWD_VARIANTS``:
+    ``"fp32"`` for float32; for bfloat16 ``"bf16_small"`` at windows of at
+    most ``BWD_SMALL_MAX`` slots and ``"bf16_large"`` above. Raises for a
+    storage type or a head width without a kernel."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"qkv dtype {dtype} is not float32 or bfloat16")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
+    if patch_size <= 0:
+        raise ValueError(f"patch_size must be positive, got {patch_size}")
+    if dtype == torch.float32:
+        return "fp32"
+    return "bf16_small" if patch_size <= BWD_SMALL_MAX else "bf16_large"
 
 
 def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int,
@@ -152,7 +192,8 @@ def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
                                scale: float) -> torch.Tensor:
     """K2: dqkv [B, N, 3, C] from the forward's inputs, its ``out`` and
     ``lse`` and the output gradient ``dout`` [B, N, C], all on one card.
-    ``flash_window_attention_bwd.launches`` counts launches."""
+    ``flash_window_attention_bwd.launches`` counts launches,
+    ``flash_window_attention_bwd.variant_launches`` those of each variant."""
     b, n, c = _check(qkv, valid, patch_size, num_heads)
     for name, t, shape, dtype in (("out", out, (b, n, c), qkv.dtype),
                                   ("dout", dout, (b, n, c), qkv.dtype),
@@ -162,20 +203,30 @@ def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
+    variant = backward_variant(qkv.dtype, patch_size, c // num_heads)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    dims = (b, n, c, num_heads, patch_size, float(scale), stream)
     with torch.cuda.device(qkv.device):
-        rc = LIBRARY.load().fwa_bwd(
-            qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), _DTYPES[qkv.dtype],
-            b, n, c, num_heads, patch_size, float(scale), stream)
+        if variant == "bf16_small":  # delta = rowsum(dP * P) in the kernel: no O read
+            rc = LIBRARY_BWD.load().fwa_bwd_small(
+                qkv.data_ptr(), valid.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                dqkv.data_ptr(), *dims)
+        else:
+            delta = torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
+            ptrs = (qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr())
+            lib = LIBRARY if variant == "fp32" else LIBRARY_BWD
+            rc = getattr(lib.load(), BWD_VARIANTS[variant][1])(*ptrs, *dims)
     if rc != 0:
-        raise RuntimeError(f"flash-window attention backward launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash-window attention backward ({variant}) launch failed: "
+                           f"CUDA error {rc}")
     flash_window_attention_bwd.launches += 1
+    flash_window_attention_bwd.variant_launches[variant] += 1
     return dqkv
 
 
 flash_window_attention_bwd.launches = 0
+flash_window_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
 
 class _FlashWindowAttention(torch.autograd.Function):

@@ -156,6 +156,41 @@ def test_attention_no_fallback(cuda, monkeypatch):
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0
 
+    # the backward, both bf16 variants: a refused launch or a failed build
+    # raises out of the autograd backward, and nothing else runs in its place
+    class RefusesBwd:
+        @staticmethod
+        def fwa_bwd_small(*args):
+            return 1
+
+        fwa_bwd_large = fwa_bwd_small
+
+    dout = torch.randn(1, 512, 64, device=cuda).bfloat16()
+    for k in (48, 128):
+        variant = fwa.backward_variant(torch.bfloat16, k, 16)
+        x = x16.detach().clone().requires_grad_(True)
+        fwa.flash_window_attention(x, valid, k, 4).backward(dout)  # builds and runs
+        b0 = dict(fwa.flash_window_attention_bwd.variant_launches)
+        with monkeypatch.context() as patch:
+            patch.setattr(fwa.LIBRARY_BWD, "load", lambda: RefusesBwd)
+            with pytest.raises(RuntimeError, match=variant):
+                fwa.flash_window_attention(x, valid, k, 4).backward(dout)
+        with monkeypatch.context() as patch:
+            patch.setattr(fwa.LIBRARY_BWD, "_lib", None)
+            patch.setattr(fwa.LIBRARY_BWD, "build", no_compiler)
+            with pytest.raises(RuntimeError):
+                fwa.flash_window_attention(x, valid, k, 4).backward(dout)
+        assert fwa.flash_window_attention_bwd.variant_launches == b0
+    # each C function refuses the other's windows and head widths it lacks
+    lib, stream = fwa.LIBRARY_BWD.load(), torch.cuda.current_stream().cuda_stream
+    p = x16.data_ptr()
+    for k, c in ((fwa.BWD_SMALL_MAX + 1, 64), (48, 160)):
+        assert lib.fwa_bwd_small(p, valid.data_ptr(), p, p, p, 1, 512, c, 4, k, 0.25,
+                                 stream) != 0
+    for k, c in ((fwa.BWD_SMALL_MAX, 64), (128, 160)):
+        assert lib.fwa_bwd_large(p, valid.data_ptr(), p, p, p, p, p, 1, 512, c, 4, k, 0.25,
+                                 stream) != 0
+
 
 def test_padded_windows_write_zeros(cuda):
     k, c, h = 64, 64, 4
@@ -218,6 +253,55 @@ def test_backward_fp32_matches_plain_autograd(cuda, k, c, h):
     dead = torch.zeros_like(valid)
     dead[1, -(-(k + 3) // k) * k:] = True
     assert dead.any() and (g[dead] == 0).all()
+
+
+BWD_FP32_RTOL = 1e-4  # fp32 gradients: max abs error over the largest plain gradient
+
+
+@pytest.mark.parametrize("k", [48, 64, 65, 128, 1024])
+@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (32, 2)])
+def test_backward_variants_either_side_of_threshold(cuda, k, c, h):
+    """Windows of 48 and 64 (the threshold) take the one-pass bf16
+    backward, 65 and more the two-kernel one: each within 2.5x the plain bf16
+    gradient error, fp32 within BWD_FP32_RTOL, with a ragged last window, a
+    valid prefix that ends inside a window and windows of padding (zero
+    gradients)."""
+    assert fwa.BWD_SMALL_MAX == 64
+    n = 3 * k + k // 2 + 5
+    gen = torch.Generator(device=cuda).manual_seed(k + c)
+    qkv = torch.randn(2, n, 3, c, generator=gen, device=cuda)
+    dout = torch.randn(2, n, c, generator=gen, device=cuda)
+    valid = torch.zeros(2, n, dtype=torch.bool, device=cuda)
+    valid[0, : int(0.8 * n)] = True
+    valid[1, : k + 7] = True
+    dead = torch.zeros_like(valid)
+    dead[1, 2 * k:] = True
+
+    launches = fwa.flash_window_attention_bwd.variant_launches
+    f0 = launches["fp32"]
+    _, g = _grads(fwa.flash_window_attention, qkv, valid, k, h, dout)
+    _, ref = _grads(fwa.flash_window_attention_plain, qkv, valid, k, h, dout)
+    assert launches["fp32"] == f0 + 1
+    for i in range(3):
+        bound = BWD_FP32_RTOL * ref[:, :, i].abs().max().item()
+        assert (g[:, :, i] - ref[:, :, i]).abs().max().item() <= bound, i
+    assert (g[dead] == 0).all()
+
+    x16, d16 = qkv.bfloat16(), dout.bfloat16()
+    variant = fwa.backward_variant(torch.bfloat16, k, c // h)
+    assert variant == ("bf16_small" if k <= 64 else "bf16_large")
+    _, truth = _grads(fwa.flash_window_attention_plain, x16.float(), valid, k, h, d16.float())
+
+    def rel(a):
+        return ((a.float() - truth).norm() / truth.norm()).item()
+
+    floor = rel(_grads(fwa.flash_window_attention_plain, x16, valid, k, h, d16)[1])
+    v0 = launches[variant]
+    g16 = _grads(fwa.flash_window_attention, x16, valid, k, h, d16)[1]
+    torch.cuda.synchronize()
+    assert launches[variant] == v0 + 1
+    assert torch.isfinite(g16).all() and (g16[dead] == 0).all()
+    assert floor > 1e-4 and rel(g16) <= 2.5 * floor, (rel(g16), floor)
 
 
 @pytest.mark.parametrize("k,c,h", [(1024, 32, 2), (1024, 768, 16), (48, 512, 16)])
