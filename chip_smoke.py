@@ -9,10 +9,12 @@ Phases, one JSON line each:
   2. kernel: the flash-window attention kernel against its plain version at
      every (window, channels, heads) signature of the flagship backbone and
      of configs/test_lang_inference.py and at windows on both sides of the
-     bf16 variants' threshold, fp32 and bf16, with partial and fully padded
-     windows, a ragged last window and valid prefixes that end inside a key
-     tile, on a tile edge and one past it; in bf16 also the log-sum-exp
-     against the plain one;
+     bf16 variants' thresholds (windows of 16 to 64 on the one-pass
+     bf16_small, 65 and 4160 on bf16_tiled, 128 to 1024 on bf16_large),
+     fp32 and bf16, with partial and fully padded windows, a ragged last
+     window and valid prefixes that end inside a key tile, on a tile edge and
+     one past it; in bf16 also the log-sum-exp against the plain one and the
+     output with and without it (equal bits);
   3. serve: the zero-shot serving path (FeatureExtractor -> flagship
      LangPretrainer in bf16 -> zero_shot_predict against the ScanNet200
      SigLIP2 table) at 196,608 points of a seeded synthetic room, a few
@@ -24,7 +26,7 @@ Phases, one JSON line each:
      card could take for the same work, the TFLOP/s reached and which
      variant ran;
   5. shipped: one forward of the shipped inference backbone (decoder
-     windows of 48, ragged at every stage) at 65,536 points;
+     windows of 48, ragged at every stage, on bf16_small) at 65,536 points;
   6. agree: fp32 forward with the kernel against the same forward with the
      plain attention at 49,152 points;
   7. kernel_bwd: the attention backward kernels (through the autograd
@@ -40,8 +42,9 @@ Phases, one JSON line each:
      contrastive term is live, and the file's own hooks (the evaluator
      over one small validation scene per dataset logs val*/fg_mIoU, the
      saver writes model_best.pth, PreciseEvaluator finds no tester); 1 + 5
-     steps with K1 and K2 launches counted, step times, loader waits, peak
-     memory and one profiled step;
+     steps with K1 and K2 launches counted (and each variant's: the
+     decoder's windows of 48 on bf16_small, the encoder's on bf16_large),
+     step times, loader waits, peak memory and one profiled step;
   9. timing_bwd: at the train step's stage shapes, the forward with
      log-sum-exp and the backward kernel against the plain version (bf16
      noise-floor rule, zeros in padded windows), then their times against
@@ -65,12 +68,17 @@ Phases, one JSON line each:
      1 cm spacing (2 fragments of 160,001 points each); once with
      torch.sort and once with SCENESPLAT_BITONIC_SORT=1, both under
      torch.use_deterministic_algorithms: equal predictions and metrics, K3
-     launches 0 then as reckoned, K1 18 per fragment; then once more with
-     torch.sort and without the deterministic mode, as a user runs it, for
-     the times per scene;
+     launches 0 then as reckoned, K1 18 per fragment (the decoder's 6 on
+     bf16_small); then once more with torch.sort and without the
+     deterministic mode, as a user runs it, for the times per scene;
  13. timing_sort: sort_int64 with the switch on (K3 as the sort sites call
      it), torch.sort and the plain version by CUDA events at the eight sort
-     shapes of one fragment forward.
+     shapes of one fragment forward;
+ 14. timing_test: at the shapes and valid counts the test phase gave the
+     decoder's K1 calls (windows of 48, without lse) in one fragment
+     forward, the kernel against its plain version in bf16, then the times
+     of the kernel, the plain version and scaled_dot_product_attention, with
+     the bound, per call and per fragment forward.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 """
@@ -109,6 +117,7 @@ from scenesplat_tpu_torch.models import PointBatch, build_criteria, build_model
 from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3, _round_capacity
 from scenesplat_tpu_torch.ops import bitonic_sort as bs
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa
+from scenesplat_tpu_torch.ops import window_attention as window_attention_module
 from scenesplat_tpu_torch.ops.knn import knn
 from scenesplat_tpu_torch.ops.serialization import SENTINEL
 from scenesplat_tpu_torch.utils.config import Config
@@ -152,6 +161,26 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def reset_k1_counts():
+    """K1's launch count and each variant's to 0, as just before a path is
+    driven."""
+    fwa.flash_window_attention.launches = 0
+    counts = fwa.flash_window_attention.variant_launches
+    counts.update(dict.fromkeys(counts, 0))
+
+
+def k1_variants():
+    """K1's launches of each variant since the last reset."""
+    return dict(fwa.flash_window_attention.variant_launches)
+
+
+def depth_split(backbone):
+    """(encoder blocks, decoder blocks) of a backbone config: the K1
+    launches a forward makes at the encoder's and at the decoder's
+    windows."""
+    return sum(backbone["enc_depths"]), sum(backbone["dec_depths"])
+
+
 def room_scene(rng, n, size_m, thickness=1):
     """n unique 2 cm voxels on the floor and the four walls of a room of
     ``size_m`` metres, surfaces ``thickness`` voxels thick, with 11 Gaussian
@@ -193,7 +222,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libraries = (fwa.LIBRARY, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD, bs.LIBRARY)
+    libraries = (fwa.LIBRARY, fwa.LIBRARY_SMALL, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD, bs.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         build_s = dict(zip((lib.source.name for lib in libraries),
@@ -244,9 +273,15 @@ SIGNATURES = sorted({
     for k in (1024, 48)
     for c, h in ((768, 16), (512, 16), (256, 16))
 } | {(1024, c, h) for c, h in ((32, 2), (64, 4), (128, 8), (256, 16))}
-  # windows on both sides of the bf16 variants' thresholds (forward 128,
-  # backward 64)
-  | {(k, c, h) for k in (64, 65, 128, 192, 256) for c, h in ((768, 16), (512, 16), (32, 2))})
+  # windows on both sides of the bf16 variants' thresholds (forward 64 and
+  # 128, backward 64)
+  | {(k, c, h) for k in (16, 32, 64, 65, 128, 192, 256)
+     for c, h in ((768, 16), (512, 16), (32, 2))}
+  # above the large-window forward's 4096: the tiled forward again
+  | {(4160, 32, 2)})
+# the bf16 forward variant each of these windows of SIGNATURES must take
+VARIANT_WINDOWS = {"bf16_small": {16, 32, 48, 64}, "bf16_tiled": {65, 4160},
+                   "bf16_large": {128, 192, 256, 1024}}
 LSE_ATOL = 1e-4  # bf16 forward: fp32 log-sum-exp against the plain one
 
 
@@ -309,8 +344,10 @@ def phase_kernel():
                          bf16_lse_max_abs_err=lse_err))
         check(err32 <= FP32_ATOL, f"fp32 error {err32} > {FP32_ATOL} at {k, c, h}")
         worst32 = max(worst32, err32)
-    check({r["bf16_variant"] for r in rows} == {"bf16_small", "bf16_large"},
-          "the signatures do not reach both bf16 variants")
+    for variant, windows in VARIANT_WINDOWS.items():
+        took = {r["K"] for r in rows if r["bf16_variant"] == variant}
+        check(took == windows, f"bf16 {variant} took windows {sorted(took)}, expected "
+              f"{sorted(windows)}")
     emit(dict(phase="kernel", fp32_atol=FP32_ATOL, bf16_noise_factor=BF16_NOISE_FACTOR,
               bf16_lse_atol=LSE_ATOL, cases=rows))
     return worst32
@@ -394,13 +431,12 @@ def phase_serve(text):
     model = build_lang_model(backbone, dtype="bfloat16", device="cuda", seed=0)
     sample = dict(coord=coord, feat=feat_in, grid_coord=grid)
     torch.cuda.reset_peak_memory_stats()
-    fwa.flash_window_attention.launches = 0
-    large_before = fwa.flash_window_attention.variant_launches["bf16_large"]
+    reset_k1_counts()
     feat, pred, plans, times = serve(model, sample, text, reps)
-    launches = fwa.flash_window_attention.launches
-    check(fwa.flash_window_attention.variant_launches["bf16_large"] - large_before == launches,
-          "the serve path's launches (bf16, windows of 1024) did not all take the "
-          "large-window kernel")
+    launches, variants = fwa.flash_window_attention.launches, k1_variants()
+    check(variants["bf16_large"] == launches,
+          f"the serve path's launches (bf16, windows of 1024) did not all take the "
+          f"large-window kernel: {variants}")
     check_features(feat, n, "serve")
     overflow = [int(p.n_overflow.max()) for p in plans]
     clusters = [int(p.n_clusters.max()) for p in plans]
@@ -424,12 +460,13 @@ def phase_serve(text):
               cold_extract_ms=times[0][0], warm_extract_ms=[t[0] for t in times[1:]],
               zero_shot_ms=[t[1] for t in times], forward_ms=forward_ms,
               kernel_launches=launches, launches_per_forward=launches / (1 + reps),
+              variant_launches=variants,
               n_clusters=clusters, n_overflow=overflow, peak_mem_gib=peak_gib,
               classes_predicted=len(uniq),
               class_histogram=dict(zip(uniq.tolist(), counts.tolist())),
               profile=profile))
     sizes = [(n, n)] + [(p.out_mask.shape[1], int(p.out_mask.sum())) for p in plans]
-    return stage_shapes(backbone, sizes), launches
+    return stage_shapes(backbone, sizes), launches, variants
 
 
 def bound_ms(n, n_valid, k, c):
@@ -494,10 +531,14 @@ def phase_shipped(text):
     coord, feat_in, grid = room_scene(rng, n, (3.0, 3.0, 3.0))
     backbone = dict(SHIPPED_INFERENCE_BACKBONE)
     model = build_lang_model(backbone, dtype="bfloat16", device="cuda", seed=0)
-    fwa.flash_window_attention.launches = 0
+    reset_k1_counts()
     feat, pred, plans, times = serve(
         model, dict(coord=coord, feat=feat_in, grid_coord=grid), text, reps=0)
-    launches = fwa.flash_window_attention.launches
+    launches, variants = fwa.flash_window_attention.launches, k1_variants()
+    enc, dec = depth_split(backbone)
+    check(variants["bf16_large"] == enc and variants["bf16_small"] == dec,
+          f"shipped: variant launches {variants}, expected {enc} bf16_large (windows of "
+          f"1024) and {dec} bf16_small (windows of 48)")
     check_features(feat, n, "shipped")
     overflow = [int(p.n_overflow.max()) for p in plans]
     check(all(o == 0 for o in overflow), f"pooling overflow {overflow}")
@@ -507,6 +548,7 @@ def phase_shipped(text):
     check(len(ragged) == len(sizes) - 1, f"decoder stages {sizes[:-1]} not all ragged")
     emit(dict(phase="shipped", points=n, dec_window=48, stage_sizes=sizes,
               ragged_decoder_stages=ragged, extract_ms=times[0][0], kernel_launches=launches,
+              variant_launches=variants,
               n_overflow=overflow, classes_predicted=int(len(np.unique(pred)))))
     return launches
 
@@ -723,15 +765,19 @@ def run_training(cfg):
     probe.trainer = trainer
     trainer.hooks.append(probe)
     records = []
-    k1 = dict(train_forwards=0, train_launches=0, val_forwards=0, val_launches=0)
+    k1 = dict(train_forwards=0, train_launches=0, val_forwards=0, val_launches=0,
+              train_variants=dict.fromkeys(fwa.VARIANTS, 0),
+              val_variants=dict.fromkeys(fwa.VARIANTS, 0))
     forward = trainer.model.forward
 
     def recording_forward(point, generator=None):
-        before = fwa.flash_window_attention.launches
+        before, variants = fwa.flash_window_attention.launches, k1_variants()
         out = forward(point, generator=generator)
         mode = "train" if trainer.model.training else "val"
         k1[mode + "_forwards"] += 1
         k1[mode + "_launches"] += fwa.flash_window_attention.launches - before
+        for v, n in k1_variants().items():
+            k1[mode + "_variants"][v] += n - variants[v]
         if mode == "val":
             return out
         records.append(dict(
@@ -773,7 +819,7 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
             os.symlink(val_scene, os.path.join(root[name], val_split, "scene_val"))
         data_s = time.perf_counter() - t0
 
-        fwa.flash_window_attention.launches = 0
+        reset_k1_counts()
         fwa.flash_window_attention_bwd.launches = 0
         k2_variants = fwa.flash_window_attention_bwd.variant_launches
         k2_variants.update(dict.fromkeys(k2_variants, 0))
@@ -787,13 +833,14 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
             gc.collect()
             torch.cuda.empty_cache()
             batch = 1
-            fwa.flash_window_attention.launches = 0
+            reset_k1_counts()
             fwa.flash_window_attention_bwd.launches = 0
             k2_variants.update(dict.fromkeys(k2_variants, 0))
             result = run_training(flagship_train_config(root, os.path.join(tmp, "exp1"), batch))
         trainer, probe, records, k1_counts = result
         backbone = trainer.cfg.model.backbone
-        blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])  # 18
+        enc, dec = depth_split(backbone)
+        blocks = enc + dec  # 18
         # K1 with lse: the launches counted inside the train steps' forwards;
         # the evaluator hook's validation forwards launch K1 without lse
         k1, k1_val = k1_counts["train_launches"], k1_counts["val_launches"]
@@ -822,6 +869,13 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
         check(fwa.flash_window_attention.launches == k1 + k1_val,
               f"K1 launched {fwa.flash_window_attention.launches} times, {k1} + {k1_val} "
               "of them inside a forward")
+        # K1 in bf16: the encoder's windows of 1024 on the large-window
+        # forward, the decoder's windows of 48 on the one-pass one
+        for mode, forwards in (("train", steps), ("val", val_forwards)):
+            got = {v: n for v, n in k1_counts[mode + "_variants"].items() if n}
+            check(got == dict(bf16_large=enc * forwards, bf16_small=dec * forwards),
+                  f"{mode} K1 variant launches {got} in {forwards} forwards, expected "
+                  f"{enc} bf16_large and {dec} bf16_small each")
         overflow = [int(max(int(o.max()) for o in r["overflow"])) for r in records]
         check(all(o == 0 for o in overflow), f"pooling overflow {overflow}")
         model_dir = os.path.join(trainer.cfg.save_path, "model")
@@ -847,8 +901,10 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
                   cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
                   profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
                   k1_launches=k1, k2_launches=k2, k2_variant_launches=dict(k2_variants),
+                  k1_variant_launches=k1_counts["train_variants"],
                   validation_forwards=val_forwards,
                   validation_k1_launches=k1_val,
+                  validation_k1_variant_launches=k1_counts["val_variants"],
                   peak_mem_gib=peak_gib,
                   n_overflow=overflow, stage_slots_valid=sizes[-1],
                   dataset_write_s=data_s, validation={k: v[0] for k, v in val.items()},
@@ -857,7 +913,8 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
         del trainer
     torch.cuda.empty_cache()
     shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
-    return shapes, k1, k1_val, dict(k2_variants), checkpoint
+    k1_vars = dict(train=k1_counts["train_variants"], validation=k1_counts["val_variants"])
+    return shapes, k1, k1_val, k1_vars, dict(k2_variants), checkpoint
 
 
 def bwd_bound_ms(n, valids, k, c, h):
@@ -917,6 +974,8 @@ def phase_timing_bwd(shapes):
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
                design_bytes_ms=0.0, fwd_lse_ms=0.0, fwd_plain_ms=0.0,
                fwd_library_ms=0.0, fwd_ops_ms=0.0, fwd_bytes_ms=0.0)
+    fwd_keys = ("fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_ops_ms", "fwd_bytes_ms")
+    by_variant = {}  # the forward's per-step sums for each of its variants
     # what the autograd Function keeps beyond the JAX package's residuals
     # (qkv, valid): the bf16 output and the fp32 log-sum-exp of every call
     saved_gib = sum(count * len(valids) * n * (2 * c + 4 * h)
@@ -982,14 +1041,19 @@ def phase_timing_bwd(shapes):
                    bytes_ms=bytes_ms, design_bytes_ms=design_bytes_ms, fwd_lse_ms=fwd_ms,
                    fwd_plain_ms=fwd_plain_ms, fwd_library_ms=fwd_lib_ms,
                    fwd_ops_ms=fwd_ops_ms, fwd_bytes_ms=fwd_bytes_ms)
+        fwd_variant = fwa.forward_variant(qkv.dtype, k, d)
         rows.append(dict(N=n, B=b, valid=valids, K=k, C=c, H=h, launches=count,
-                         variant=fwa.backward_variant(qkv.dtype, k, d), **row,
+                         variant=fwa.backward_variant(qkv.dtype, k, d),
+                         fwd_variant=fwd_variant, **row,
                          bound_ms=max(ops_ms, bytes_ms),
                          fwd_bound_ms=max(fwd_ops_ms, fwd_bytes_ms),
                          bf16_grad_rel_err=err16, bf16_grad_plain_rel_err=floor16,
                          bf16_fwd_lse_rel_err=fwd_err, bf16_fwd_plain_rel_err=fwd_floor))
         for key, val in row.items():
             tot[key] += count * val
+        part = by_variant.setdefault(fwd_variant, dict.fromkeys(fwd_keys, 0.0))
+        for key in fwd_keys:
+            part[key] += count * row[key]
         del qkv, dout, out, lse, dqkv, q, kk, v, qkv_w, dout_w
         torch.cuda.empty_cache()
     for pre in ("", "fwd_"):
@@ -997,6 +1061,9 @@ def phase_timing_bwd(shapes):
         tot[pre + "bound_ms"] = max(ops_ms, bytes_ms)
         tot[pre + "bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     tot["design_bound_ms"] = max(tot["ops_ms"], tot["design_bytes_ms"])
+    for part in by_variant.values():
+        part["fwd_bound_ms"] = max(part["fwd_ops_ms"], part["fwd_bytes_ms"])
+    tot["fwd_by_variant"] = by_variant
     emit(dict(phase="timing_bwd", dtype="bfloat16", bf16_noise_factor=BF16_NOISE_FACTOR,
               per_call=rows, per_step=tot, saved_out_lse_gib=saved_gib,
               worst_bf16_grad_ratio=max(r["bf16_grad_rel_err"] / r["bf16_grad_plain_rel_err"]
@@ -1274,12 +1341,43 @@ def forward_sort_sizes(backbone, n_points):
     return sizes
 
 
+class SmallWindowCalls:
+    """Records (N, valid count of each batch row, K, C, H) of the first
+    ``limit`` K1 calls at windows of at most FWD_SMALL_MAX (the decoder's)
+    while it is entered, then passes each call on unchanged."""
+
+    def __init__(self, limit):
+        self.limit, self.calls = limit, []
+
+    def __enter__(self):
+        real = self.real = window_attention_module.flash_window_attention
+
+        def recording(qkv, valid, patch_size, num_heads, scale=None):
+            if len(self.calls) < self.limit and patch_size <= fwa.FWD_SMALL_MAX:
+                self.calls.append((qkv.shape[1], tuple(valid.sum(1).tolist()), patch_size,
+                                   qkv.shape[3], num_heads))
+            return real(qkv, valid, patch_size, num_heads, scale)
+
+        window_attention_module.flash_window_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        window_attention_module.flash_window_attention = self.real
+
+    def shapes(self):
+        """(N, valids, K, C, H, calls) of each distinct call, in call order."""
+        order = list(dict.fromkeys(self.calls))
+        return [(*call, self.calls.count(call)) for call in order]
+
+
 def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
     """The test entry point's main three times: switch off and switch on
     under deterministic algorithms, whose predictions and metrics must be
     equal, then switch off as a user runs it (no deterministic mode), whose
     times are the ones to quote per scene. Returns the K3 counts of the run
-    with the switch on, its fragment forwards and the sort sizes of one."""
+    with the switch on, its fragment forwards, the sort sizes of one, K1's
+    variant launches in that run and the shapes of the decoder's K1 calls
+    in the first fragment forward."""
     t0 = time.perf_counter()
     data_root = os.path.join(work, "scannet_test")
     n_points = write_test_scenes(data_root, n_scenes, n_voxels, seed=12)
@@ -1290,8 +1388,10 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
                                    data_root=data_root, meta_root=meta_root))
     write_s = time.perf_counter() - t0
     backbone = Config.fromfile(cfg_file).model.backbone
-    blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])
+    enc, dec = depth_split(backbone)
+    blocks = enc + dec
     sizes = forward_sort_sizes(backbone, n_voxels + 1)
+    small_calls = SmallWindowCalls(limit=dec)
 
     runs = {}
     try:
@@ -1303,12 +1403,16 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
             torch.use_deterministic_algorithms(deterministic, warn_only=True)
             save = os.path.join(work, f"test_{name}")
             bs.bitonic_sort.launches = bs.bitonic_sort.kernel_launches = 0
-            fwa.flash_window_attention.launches = 0
+            reset_k1_counts()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            (res,) = test_entry.main([
-                "--config-file", cfg_file, "--options", f"weight={checkpoint}",
-                f"test.save_path={save}", f"bitonic_sort={switch}"])
+            args = ["--config-file", cfg_file, "--options", f"weight={checkpoint}",
+                    f"test.save_path={save}", f"bitonic_sort={switch}"]
+            if name == "off":  # the compared run: the decoder's call shapes, for timing_test
+                with small_calls:
+                    (res,) = test_entry.main(args)
+            else:
+                (res,) = test_entry.main(args)
             seconds = time.perf_counter() - t1
             with open(os.path.join(save, "scene_log.json")) as f:
                 scenes = json.load(f)
@@ -1318,7 +1422,7 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
                 res=res, scenes=scenes, preds=preds, seconds=seconds,
                 sort_calls=bs.bitonic_sort.launches,
                 sort_kernels=bs.bitonic_sort.kernel_launches,
-                k1=fwa.flash_window_attention.launches)
+                k1=fwa.flash_window_attention.launches, k1_variants=k1_variants())
     finally:
         torch.use_deterministic_algorithms(False)
         sort_switch(False)
@@ -1349,6 +1453,13 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
     check(off["k1"] == on["k1"] == timed["k1"] == blocks * fragments,
           f"K1 launches {off['k1']} / {on['k1']} / {timed['k1']}, expected {blocks} per "
           "fragment")
+    for run in (off, on, timed):  # the decoder's windows of 48 on the one-pass forward
+        got = {v: n for v, n in run["k1_variants"].items() if n}
+        check(got == dict(bf16_large=enc * fragments, bf16_small=dec * fragments),
+              f"K1 variant launches {got} in {fragments} fragment forwards, expected {enc} "
+              f"bf16_large and {dec} bf16_small each")
+    check(len(small_calls.calls) == dec and all(k == 48 for _, _, k, _, _ in small_calls.calls),
+          f"the first fragment's decoder calls: {small_calls.calls}")
     check(timed["sort_calls"] == 0 and len(timed["preds"]) == n_scenes,
           "the run without deterministic algorithms launched K3 or lost a scene")
     agreement = float(np.mean([np.mean(pred == timed["preds"][name])
@@ -1377,6 +1488,7 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
                         sort_calls=off["sort_calls"]),
         switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
                        per_scene=split(on), k1_launches=on["k1"],
+                       k1_variant_launches=on["k1_variants"],
                        sort_calls=on["sort_calls"], sort_kernel_launches=on["sort_kernels"]),
         as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
                                seconds=timed["seconds"], per_scene=split(timed),
@@ -1388,8 +1500,10 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
         metrics={k: off["res"][k] for k in ("mIoU", "fg_mIoU", "mAcc", "fg_mAcc", "allAcc")},
         classes_predicted=int(len(np.unique(np.concatenate(list(off["preds"].values()))))),
         knn_s=knn_s, knn_data=len(data), knn_queries=len(query))
+    record["decoder_k1_calls_first_fragment"] = small_calls.shapes()
     emit(record)
-    return on["sort_calls"], on["sort_kernels"], fragments, sizes
+    return (on["sort_calls"], on["sort_kernels"], fragments, sizes, on["k1_variants"],
+            small_calls.shapes())
 
 
 def phase_timing_sort(sizes):
@@ -1438,6 +1552,59 @@ def phase_timing_sort(sizes):
     return tot
 
 
+def phase_timing_test(shapes):
+    """At the shapes and valid counts of the decoder's K1 calls in one test
+    fragment forward (windows of 48, no lse, bf16_small): the kernel against
+    its plain version (bf16 noise-floor rule, zeros where slot 0 is
+    padding), then the kernel's, the plain version's and the library's
+    times per call and per fragment forward, with the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows, worst = [], 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    for n, valids, k, c, h, count in shapes:
+        b, d = len(valids), c // h
+        qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
+        valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+        dead = torch.zeros_like(valid)
+        for i, nv in enumerate(valids):
+            valid[i, :nv] = True
+            dead[i, -(-nv // k) * k:] = True
+        variant = fwa.forward_variant(qkv.dtype, k, d)
+        out = fwa.flash_window_attention(qkv, valid, k, h)
+        torch.cuda.synchronize()
+        check((out[dead] == 0).all().item(), f"padded windows not zero at {n, valids, k, c, h}")
+        err16, floor16 = check_bf16(qkv, valid, k, h, out=out)
+        plain16 = fwa.flash_window_attention_plain(qkv, valid, k, h, patch_chunk=16384 // k)
+        worst = max(worst, (out.float() - plain16.float())[valid].abs().max().item())
+        ms = cuda_ms(lambda: fwa.flash_window_attention(qkv, valid, k, h), reps=10)
+        plain_ms = cuda_ms(lambda: fwa.flash_window_attention_plain(qkv, valid, k, h),
+                           reps=3, warmup=1)
+        p = -(-n // k)
+        pad = p * k - n
+        qkv_w = torch.nn.functional.pad(qkv, (0, 0, 0, 0, 0, pad))
+        valid_w = torch.nn.functional.pad(valid, (0, pad))
+        q, kk, v = qkv_w.view(b * p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+        mask = valid_w.view(b * p, 1, 1, k)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kk, v, attn_mask=mask), reps=10)
+        ops_ms, bytes_ms = (sum(x) for x in zip(*(bound_ms(n, nv, k, c) for nv in valids)))
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms,
+                   bytes_ms=bytes_ms)
+        rows.append(dict(N=n, valid=list(valids), K=k, C=c, H=h, launches=count,
+                         variant=variant, **row, bound_ms=max(ops_ms, bytes_ms),
+                         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                         bf16_rel_err=err16, bf16_plain_rel_err=floor16))
+        for key, val in row.items():
+            tot[key] += count * val
+        del qkv, qkv_w, q, kk, v, out, plain16
+    tot["max_abs_err"] = worst  # against the plain bf16 version
+    tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
+    tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+    emit(dict(phase="timing_test", dtype="bfloat16", lse=False, per_call=rows,
+              per_fragment_forward=tot))
+    return tot
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1456,20 +1623,26 @@ def main() -> int:
         smi = phase_device()
         worst32 = phase_kernel()
         text = load_text_embeddings("builtin:scannet200")
-        shapes, launches = phase_serve(text)
+        shapes, launches, serve_variants = phase_serve(text)
         tot = phase_timing(shapes)
         phase_shipped(text)
         phase_agree(text)
         worst_bwd, worst_fwd_lse = phase_kernel_bwd()
-        train_shapes, k1_train, k1_val, k2_variants, checkpoint = phase_train(work)
+        train_shapes, k1_train, k1_val, k1_variants_train, k2_variants, checkpoint = \
+            phase_train(work)
         tot_bwd = phase_timing_bwd(train_shapes)
         phase_train_agree()
         worst_sort = phase_kernel_sort()
-        sort_calls, sort_kernels, fragments, sort_sizes = phase_test(work, checkpoint, meta_root)
+        sort_calls, sort_kernels, fragments, sort_sizes, test_variants, test_shapes = \
+            phase_test(work, checkpoint, meta_root)
         tot_sort = phase_timing_sort(sort_sizes)
+        tot_test = phase_timing_test(test_shapes)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
+    # bf16 at windows of at most 64: the decoder's launches of the train and
+    # test paths
+    source_small = "scenesplat_tpu_torch/csrc/flash_window_attn_fwd_small.cu"
     # the bf16 backward; flash_window_attn.cu holds its fp32 twin
     source_bwd = "scenesplat_tpu_torch/csrc/flash_window_attn_bwd.cu"
     # bf16 at windows of 128 and more: every launch of the serve path, and
@@ -1478,21 +1651,34 @@ def main() -> int:
     # launches: the count of the path's run (4 serve forwards, 6 train
     # steps, the test run's fragment forwards with the sort switch on); ms
     # and the other times: per forward or per step (18 attention launches, 8
-    # sorts)
+    # sorts; the small forward: the decoder's 6 launches of a test fragment
+    # forward)
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
-             launches=launches, ms_per="serve forward", max_abs_err=worst32, ms=tot["ms"],
+             launches=launches, variant_launches=serve_variants,
+             ms_per="serve forward", max_abs_err=worst32, ms=tot["ms"],
              plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
              library_ms=tot["library_ms"]),
-        dict(name="flash_window_attention_fwd_lse", route="cuda", source=source,
-             sources=[source, source_large],
+        dict(name="flash_window_attention_fwd_lse", route="cuda", source=source_small,
+             sources=[source_small, source_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
-             launches=k1_train, validation_launches=k1_val, ms_per="train step",
+             launches=k1_train, validation_launches=k1_val,
+             variant_launches=k1_variants_train, ms_per="train step",
              max_abs_err=worst_fwd_lse,
              ms=tot_bwd["fwd_lse_ms"], plain_ms=tot_bwd["fwd_plain_ms"],
              bound_ms=tot_bwd["fwd_bound_ms"], bound_by=tot_bwd["fwd_bound_by"],
              library_ms=tot_bwd["fwd_library_ms"]),
+        dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
+             replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
+             launches=test_variants["bf16_small"], variant_launches=test_variants,
+             fragment_forwards=fragments, train_launches=k1_variants_train["train"]["bf16_small"],
+             train_step=tot_bwd["fwd_by_variant"]["bf16_small"],
+             ms_per="test fragment forward (the decoder's windows of 48, no lse)",
+             max_abs_err=tot_test["max_abs_err"], ms=tot_test["ms"],
+             plain_ms=tot_test["plain_ms"],
+             bound_ms=tot_test["bound_ms"], bound_by=tot_test["bound_by"],
+             library_ms=tot_test["library_ms"]),
         dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
              sources=[source_bwd, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",

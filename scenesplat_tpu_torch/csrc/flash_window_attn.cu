@@ -44,11 +44,15 @@
 // and by bytes at windows of 48 (the flagship config's decoder). Each
 // instantiated for the main path's head widths D = 16, 32 and 48:
 //
-//  - the bf16 forward: four warps, 16 rows each; every product is an
-//    mma.sync m16n8k16 tensor-core product with fp32 accumulators in
-//    registers, and P goes from one product's accumulators to the A operand
-//    of the next without leaving registers. Not wgmma/TMA: synchronous tile
-//    loads, no warp specialisation.
+//  - the bf16 forward (the bf16_tiled variant): four warps, 16 rows each;
+//    every product is an mma.sync m16n8k16 tensor-core product with fp32
+//    accumulators in registers, and P goes from one product's accumulators
+//    to the A operand of the next without leaving registers. Not wgmma/TMA:
+//    synchronous tile loads, no warp specialisation. It now serves only the
+//    bf16 windows no redesigned forward takes, 65 to 127 and above 4096
+//    slots (ops/flash_window_attn.py:forward_variant): windows up to 64 go
+//    to flash_window_attn_fwd_small.cu, 128 to 4096 to
+//    flash_window_attn_fwd.cu. The C function still takes any window.
 //  - fp32, forward and backward: one row per thread with scalar fp32 FMAs,
 //    so it stays exact to the plain version (tensor cores would round the
 //    products to TF32).
@@ -186,7 +190,7 @@ cudaError_t launch_f32(const void* qkv, const void* valid, void* out, float* lse
   return cudaGetLastError();
 }
 
-// ---- bf16 tensor-core variant ---------------------------------------------
+// ---- bf16 tensor-core variant (bf16_tiled) ----------------------------------
 
 constexpr int MQ = 64;  // query rows per block: 4 warps x 16
 constexpr int MK = 64;  // keys per shared-memory tile

@@ -1,11 +1,10 @@
 """Flash-window attention, forward and backward: the hand-written Hopper
 kernels and their plain PyTorch version.
 
-The forward kernel K1 (``csrc/flash_window_attn.cu`` and, for bf16 at
-windows of 128 to 4096 slots, ``csrc/flash_window_attn_fwd.cu``) replaces
-the TPU kernel ``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered
-through ``_fwa_fwd``), the backward K2 (``csrc/flash_window_attn.cu`` for
-fp32, ``csrc/flash_window_attn_bwd.cu`` for bf16) replaces ``_bwd_kernel``
+The forward kernel K1 replaces the TPU kernel
+``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered through
+``_fwa_fwd``), the backward K2 (``csrc/flash_window_attn.cu`` for fp32,
+``csrc/flash_window_attn_bwd.cu`` for bf16) replaces ``_bwd_kernel``
 (through ``_fwa_bwd``). Their work, 4*N*K*C (forward) and 10*N*K*C
 (backward) operations against about 4*N*C and 7*N*C elements moved per
 call, makes both bound by operations at windows of 1024 and by bytes at
@@ -19,18 +18,24 @@ log-sum-exp; the backward recomputes the probabilities from it. Keys past
 the end of a ragged last window are masked, and a window whose slot 0 is
 padding writes zeros. bf16 runs its products on the tensor cores
 (mma.sync); fp32 runs scalar FMAs, which keeps it exact to the plain
-version. The forward has three variants, chosen by ``forward_variant`` from
-the storage type and the window: fp32; bf16 at small windows (bound by
-bytes: 64 query rows a block, synchronous tile loads); bf16 at large
-windows (bound by operations: 128 query rows a block, key and value tiles
-through a three-stage cp.async ring and ldmatrix, the softmax in the exp2
-domain, key tiles of padding skipped). The backward has three too, chosen
+version. The forward has four variants, chosen by ``forward_variant`` from
+the storage type and the window: fp32 (``csrc/flash_window_attn.cu``); bf16
+at windows of at most ``FWD_SMALL_MAX`` = 64 slots, ``bf16_small``
+(``csrc/flash_window_attn_fwd_small.cu``, a source and a library of its
+own: one pass per window and head in persistent blocks of K/16 warps, the
+whole window in shared memory, the next unit's rows loaded by cp.async
+under this one's products, the softmax over the whole window at once);
+bf16 at windows of 128 to 4096, ``bf16_large``
+(``csrc/flash_window_attn_fwd.cu``: bound by operations, 128 query rows a
+block, key and value tiles through a three-stage cp.async ring and
+ldmatrix, the softmax in the exp2 domain, key tiles of padding skipped);
+and bf16 at the windows neither takes (65 to 127, above 4096),
+``bf16_tiled`` (``csrc/flash_window_attn.cu``: 64 query rows a block,
+synchronous tile loads, an online softmax). The backward has three, chosen
 by ``backward_variant``: fp32; bf16 at windows of at most 64 slots (one
-pass per window and head, the whole window in shared memory, the next
-window's rows loaded by cp.async under this one's products); bf16 at larger
-windows (a dQ kernel and a dK/dV kernel). The C functions refuse what they
-were not built for and the wrapper raises: no variant stands in for
-another.
+pass per window and head, as the small forward); bf16 at larger windows (a
+dQ kernel and a dK/dV kernel). The C functions refuse what they were not
+built for and the wrapper raises: no variant stands in for another.
 
 ``flash_window_attention`` is differentiable: while grad is enabled and qkv
 requires grad it runs as a ``torch.autograd.Function`` whose forward
@@ -53,19 +58,31 @@ from torch.utils.checkpoint import checkpoint
 from ._build import CSRC, KernelLibrary
 
 SOURCE = CSRC / "flash_window_attn.cu"
+SOURCE_SMALL = CSRC / "flash_window_attn_fwd_small.cu"
 SOURCE_LARGE = CSRC / "flash_window_attn_fwd.cu"
 SOURCE_BWD = CSRC / "flash_window_attn_bwd.cu"
 # head widths the kernel is instantiated for: those of the flagship and the
 # shipped configs (16 in every encoder stage and dec2, 32 in dec1, 48 in dec0)
 HEAD_DIMS = (16, 32, 48)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 windows of at most this many slots take the one-pass forward (four
+# m16 tiles: the whole window's rows in shared memory)
+FWD_SMALL_MAX = 64
 # bf16 windows of this many slots go to the large-window forward: from here
 # on a call is bound by operations (see forward_variant)
 LARGE_WINDOW_MIN = 128
 LARGE_WINDOW_MAX = 4096  # 64 key tiles of 64: what that kernel's tile list holds
 # variant -> (source, C function): what the sources instantiate
-VARIANTS = {"fp32": (SOURCE, "fwa_fwd"), "bf16_small": (SOURCE, "fwa_fwd"),
-            "bf16_large": (SOURCE_LARGE, "fwa_fwd_large")}
+VARIANTS = {"fp32": (SOURCE, "fwa_fwd"), "bf16_small": (SOURCE_SMALL, "fwa_fwd_small"),
+            "bf16_tiled": (SOURCE, "fwa_fwd"), "bf16_large": (SOURCE_LARGE, "fwa_fwd_large")}
+# The orders in which the one-pass forward's persistent blocks walk the
+# (batch, window, head) units, by the C function's ``chunk`` argument (see
+# small_unit_order): "H" a contiguous share a block (0), "A" single units
+# dealt in turn (1), "A2", "A4" and "A8" runs of 2, 4 and 8 heads, "C" runs
+# of a window's heads (None: the head count). tools/torch_kernel_bench.py
+# times each; PERF.md has what they gave.
+SMALL_UNIT_ORDERS = {"H": 0, "A": 1, "A2": 2, "A4": 4, "A8": 8, "C": None}
+FWD_SMALL_ORDER = "A2"
 # bf16 backward windows of at most this many slots take the one-pass kernel
 # (four m16 tiles: the whole window's rows in shared memory)
 BWD_SMALL_MAX = 64
@@ -80,6 +97,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fwa_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.fwa_bwd.restype = ctypes.c_int
+
+
+def _declare_small(lib: ctypes.CDLL) -> None:
+    lib.fwa_fwd_small.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.fwa_fwd_small.restype = ctypes.c_int
+    lib.fwa_fwd_small_residency.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fwa_fwd_small_residency.restype = ctypes.c_int
 
 
 def _declare_large(lib: ctypes.CDLL) -> None:
@@ -100,15 +125,18 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = KernelLibrary(SOURCE, _declare)
+LIBRARY_SMALL = KernelLibrary(SOURCE_SMALL, _declare_small)
 LIBRARY_LARGE = KernelLibrary(SOURCE_LARGE, _declare_large)
 LIBRARY_BWD = KernelLibrary(SOURCE_BWD, _declare_bwd)
 
 
 def forward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
     """Which forward kernel a call takes, a key of ``VARIANTS``: ``"fp32"``
-    for float32; for bfloat16 ``"bf16_large"`` at windows of
-    ``LARGE_WINDOW_MIN`` to ``LARGE_WINDOW_MAX`` slots and ``"bf16_small"``
-    otherwise. Raises for a storage type or a head width without a kernel."""
+    for float32; for bfloat16 ``"bf16_small"`` at windows of at most
+    ``FWD_SMALL_MAX`` slots, ``"bf16_large"`` at windows of
+    ``LARGE_WINDOW_MIN`` to ``LARGE_WINDOW_MAX`` slots and ``"bf16_tiled"``
+    at the others. Raises for a storage type or a head width without a
+    kernel."""
     if dtype not in _DTYPES:
         raise TypeError(f"qkv dtype {dtype} is not float32 or bfloat16")
     if head_dim not in HEAD_DIMS:
@@ -117,8 +145,33 @@ def forward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
         raise ValueError(f"patch_size must be positive, got {patch_size}")
     if dtype == torch.float32:
         return "fp32"
+    if patch_size <= FWD_SMALL_MAX:
+        return "bf16_small"
     large = LARGE_WINDOW_MIN <= patch_size <= LARGE_WINDOW_MAX
-    return "bf16_large" if large else "bf16_small"
+    return "bf16_large" if large else "bf16_tiled"
+
+
+def small_chunk(order: str, heads: int) -> int:
+    """The C function's ``chunk`` argument for unit order ``order`` (a key
+    of SMALL_UNIT_ORDERS) at ``heads`` heads."""
+    if order not in SMALL_UNIT_ORDERS:
+        raise ValueError(f"unit order {order!r} is not one of {tuple(SMALL_UNIT_ORDERS)}")
+    chunk = SMALL_UNIT_ORDERS[order]
+    return heads if chunk is None else chunk
+
+
+def small_unit_order(units: int, grid: int, chunk: int) -> list:
+    """The units each of ``grid`` persistent blocks of the one-pass forward
+    walks (a list per block), as the kernel's ``walk_of`` computes them.
+    Unit u is head u % H of window u // H. Runs of ``chunk`` consecutive
+    units are dealt to the blocks in turn, block b taking runs b, b + grid,
+    ...; with ``chunk`` 0 block b takes the contiguous units [b * units //
+    grid, (b + 1) * units // grid)."""
+    if chunk == 0:
+        return [list(range(b * units // grid, (b + 1) * units // grid)) for b in range(grid)]
+    chunks = -(-units // chunk)
+    return [[u for j in range(b, chunks, grid)
+             for u in range(j * chunk, min(units, (j + 1) * chunk))] for b in range(grid)]
 
 
 def backward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
@@ -171,7 +224,11 @@ def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
     ptrs = (qkv.data_ptr(), valid.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
     with torch.cuda.device(qkv.device):
-        if variant == "bf16_large":
+        if variant == "bf16_small":
+            rc = LIBRARY_SMALL.load().fwa_fwd_small(
+                *ptrs, b, n, c, num_heads, patch_size, float(scale),
+                small_chunk(FWD_SMALL_ORDER, num_heads), stream)
+        elif variant == "bf16_large":
             rc = LIBRARY_LARGE.load().fwa_fwd_large(
                 *ptrs, b, n, c, num_heads, patch_size, float(scale), stream)
         else:

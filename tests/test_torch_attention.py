@@ -126,26 +126,39 @@ def test_forward_variant_names_a_kernel_the_source_instantiates(dtype, window, h
     text = source.read_text()
     assert f'extern "C" int {entry}(' in text
     instance = {"fp32": f"fwa_fwd_f32_kernel<{head_dim}>",
-                "bf16_small": f"fwa_fwd_bf16_kernel<{head_dim}>",
+                "bf16_small": f"launch_d<{head_dim}>",
+                "bf16_tiled": f"fwa_fwd_bf16_kernel<{head_dim}>",
                 "bf16_large": f"launch<{head_dim}>"}[variant]
     assert instance in text
     if dtype == "float32":
         assert variant == "fp32"
-    else:  # the threshold: windows of 128 to 4096 slots are bound by operations
-        assert variant == ("bf16_large" if 128 <= window <= 4096 else "bf16_small")
+    elif window <= 64:  # the decoder's windows of 48: the one-pass kernel
+        assert variant == "bf16_small"
+    else:  # windows of 128 to 4096 slots are bound by operations
+        assert variant == ("bf16_large" if 128 <= window <= 4096 else "bf16_tiled")
 
 
 @pytest.mark.parametrize("dtype,window,head_dim,error", [
     ("float16", 1024, 16, TypeError), ("bfloat16", 1024, 40, ValueError),
-    ("float32", 48, 8, ValueError), ("bfloat16", 0, 16, ValueError)])
+    ("float32", 48, 8, ValueError), ("bfloat16", 0, 16, ValueError),
+    ("bfloat16", 48, 64, ValueError), ("bfloat16", 64, 8, ValueError),
+    ("float16", 48, 48, TypeError), ("bfloat16", -48, 48, ValueError)])
 def test_forward_variant_refuses_what_has_no_kernel(dtype, window, head_dim, error):
     with pytest.raises(error):
         tfwa.forward_variant(getattr(torch, dtype), window, head_dim)
 
 
 def test_forward_variant_threshold():
-    picks = [tfwa.forward_variant(torch.bfloat16, k, 48) for k in (48, 127, 128, 4096, 4097)]
-    assert picks == ["bf16_small", "bf16_small", "bf16_large", "bf16_large", "bf16_small"]
+    """Every bf16 window has exactly one forward: the one-pass kernel up to
+    64 slots, the large-window one from 128 to 4096, the tiled one between
+    and above; fp32 has one kernel at every window."""
+    windows = (1, 16, 48, 64, 65, 127, 128, 4096, 4097)
+    picks = [tfwa.forward_variant(torch.bfloat16, k, 48) for k in windows]
+    assert picks == ["bf16_small"] * 4 + ["bf16_tiled"] * 2 + ["bf16_large"] * 2 + [
+        "bf16_tiled"]
+    assert tfwa.FWD_SMALL_MAX == 64 == tfwa.BWD_SMALL_MAX
+    assert {tfwa.forward_variant(torch.float32, k, 48) for k in windows} == {"fp32"}
+    assert set(tfwa.VARIANTS) == set(tfwa.flash_window_attention.variant_launches)
     assert "fwa_fwd_large" in tfwa.SOURCE_LARGE.read_text()
     assert tfwa.LIBRARY_LARGE.path().name.startswith("libflash_window_attn_fwd_")
 
@@ -249,3 +262,16 @@ def test_kernel_source_and_build_command():
     path = tfwa.LIBRARY.path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path.name == tfwa.LIBRARY.path().name
+    # the one-pass forward: a source and a library of its own, its C entry
+    # taking the run of units a block is dealt, its window limit the wrapper's
+    small = tfwa.SOURCE_SMALL.read_text()
+    assert tfwa.SOURCE_SMALL.name == "flash_window_attn_fwd_small.cu"
+    assert 'extern "C" int fwa_fwd_small(' in small and "int chunk, void* stream)" in small
+    assert 'extern "C" int fwa_fwd_small_residency(' in small
+    assert f"constexpr int SMALL_MAX = {tfwa.FWD_SMALL_MAX};" in small and "K > SMALL_MAX" in small
+    assert "fwa_fwd_small" not in src
+    lib = tfwa.LIBRARY_SMALL.path()
+    assert lib.parent == _build.BUILD_DIR and lib.name.startswith("libflash_window_attn_fwd_small_")
+    assert tfwa.LIBRARY_SMALL.source == tfwa.SOURCE_SMALL != tfwa.LIBRARY.source
+    assert tfwa.VARIANTS["bf16_small"] == (tfwa.SOURCE_SMALL, "fwa_fwd_small")
+    assert tfwa.VARIANTS["bf16_tiled"] == (tfwa.SOURCE, "fwa_fwd")

@@ -123,6 +123,146 @@ def test_large_window_bf16_variant(cuda, k, c, h):
     assert (dqkv[~live] == 0).all()
 
 
+def _small_inputs(cuda, k, c, seed):
+    """bf16 qkv [4, N, 3, c] for windows of k with a ragged last window, and
+    valid prefixes: inside a window, then windows of padding; inside the
+    ragged last window; one slot past the first window; all."""
+    n = 3 * k + k // 2 + 5
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x16 = torch.randn(4, n, 3, c, generator=gen, device=cuda).bfloat16()
+    valid = torch.zeros(4, n, dtype=torch.bool, device=cuda)
+    for row, stop in enumerate((k + 7, n - 3, k + 1, n)):
+        valid[row, :stop] = True
+    p = -(-n // k)
+    slot0 = torch.nn.functional.pad(valid, (0, p * k - n)).view(4, p, k)[:, :, :1]
+    live = slot0.expand(4, p, k).reshape(4, p * k)[:, :n]
+    return n, x16, valid, live
+
+
+@pytest.mark.parametrize("k", [16, 32, 48, 64])
+@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (256, 16), (32, 2)])
+def test_small_window_bf16_variant(cuda, k, c, h):
+    """The one-pass bf16 forward at windows up to 64: noise-floor rule, zeros
+    in windows of padding, a ragged last window, the log-sum-exp against the
+    plain one, the output bit-equal with and without it; K2 fed with its
+    lse stays within the gradient noise floor."""
+    assert fwa.forward_variant(torch.bfloat16, k, c // h) == "bf16_small"
+    n, x16, valid, live = _small_inputs(cuda, k, c, seed=k + c)
+    small = fwa.flash_window_attention.variant_launches["bf16_small"]
+    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    again = fwa.flash_window_attention(x16, valid, k, h)
+    assert fwa.flash_window_attention.variant_launches["bf16_small"] == small + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
+
+    def rel(a):
+        return ((a[valid].float() - truth).norm() / truth.norm()).item()
+
+    floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h))
+    assert floor > 1e-4 and rel(out) <= 2.5 * floor, (rel(out), floor)
+    assert torch.isfinite(out).all()
+    assert (~live).any() and (out[~live] == 0).all()
+    lse_plain = _plain_lse(torch.nn.functional.pad(x16, (0, 0, 0, 0, 0, -n % k)),
+                           torch.nn.functional.pad(valid, (0, -n % k)), k, h)[:, :n]
+    assert (lse - lse_plain)[live].abs().max().item() <= 1e-4
+
+    dout = torch.randn(4, n, c, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(k)).bfloat16()
+    _, g_truth = _grads(fwa.flash_window_attention_plain, x16.float(), valid, k, h,
+                        dout.float())
+
+    def grel(a):
+        return ((a.float() - g_truth).norm() / g_truth.norm()).item()
+
+    g_floor = grel(_grads(fwa.flash_window_attention_plain, x16, valid, k, h, dout)[1])
+    dqkv = fwa.flash_window_attention_bwd(x16, valid, out, lse, dout, k, h, (c // h) ** -0.5)
+    assert grel(dqkv) <= 2.5 * g_floor
+    assert (dqkv[~live] == 0).all()
+
+
+@pytest.mark.parametrize("k,variant", [(64, "bf16_small"), (65, "bf16_tiled"),
+                                       (127, "bf16_tiled"), (128, "bf16_large")])
+def test_forward_variants_either_side_of_small_max(cuda, k, variant):
+    """Windows on either side of FWD_SMALL_MAX = 64 and of 128 take the
+    variant forward_variant names, each within the bf16 noise floor, with
+    zeros in windows of padding and the lse against the plain one."""
+    assert fwa.FWD_SMALL_MAX == 64
+    c, h = 512, 16
+    assert fwa.forward_variant(torch.bfloat16, k, c // h) == variant
+    n, x16, valid, live = _small_inputs(cuda, k, c, seed=k)
+    before = dict(fwa.flash_window_attention.variant_launches)
+    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    after = fwa.flash_window_attention.variant_launches
+    assert {v: after[v] - before[v] for v in after} == {
+        v: int(v == variant) for v in fwa.VARIANTS}
+    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
+
+    def rel(a):
+        return ((a[valid].float() - truth).norm() / truth.norm()).item()
+
+    floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h))
+    assert floor > 1e-4 and rel(out) <= 2.5 * floor, (rel(out), floor)
+    assert (out[~live] == 0).all()
+    lse_plain = _plain_lse(torch.nn.functional.pad(x16, (0, 0, 0, 0, 0, -n % k)),
+                           torch.nn.functional.pad(valid, (0, -n % k)), k, h)[:, :n]
+    assert (lse - lse_plain)[live].abs().max().item() <= 1e-4
+
+
+def test_small_forward_unit_orders_agree(cuda):
+    """Every unit order of the one-pass forward gives the same bits (the
+    order moves no arithmetic), at a grid smaller than the unit count; the C
+    function refuses an order, a window and a head width it lacks."""
+    k, c, h = 48, 768, 16
+    n, x16, valid, live = _small_inputs(cuda, k, c, seed=3)
+    lib, stream = fwa.LIBRARY_SMALL.load(), torch.cuda.current_stream().cuda_stream
+    outs = []
+    for order in fwa.SMALL_UNIT_ORDERS:
+        out = torch.empty(4, n, c, dtype=torch.bfloat16, device=cuda)
+        lse = torch.empty(4, n, h, device=cuda)
+        assert lib.fwa_fwd_small(x16.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                                 lse.data_ptr(), 4, n, c, h, k, (c // h) ** -0.5,
+                                 fwa.small_chunk(order, h), stream) == 0
+        outs.append((out, lse))
+    torch.cuda.synchronize()
+    # the lse of a window of padding is not written
+    for out, lse in outs[1:]:
+        assert torch.equal(outs[0][0], out) and torch.equal(outs[0][1][live], lse[live])
+    assert lib.fwa_fwd_small_residency(c // h, k) >= 1
+    p = x16.data_ptr()
+    for kk, cc, chunk in ((k, c, 1025), (k, c, -1), (fwa.FWD_SMALL_MAX + 1, c, 1),
+                          (k, 40 * h, 1)):
+        assert lib.fwa_fwd_small(p, valid.data_ptr(), p, None, 4, n, cc, h, kk, 0.25, chunk,
+                                 stream) != 0
+
+
+def test_small_forward_no_fallback(cuda, monkeypatch):
+    """A refused launch or a failed build of the one-pass forward raises;
+    neither the tiled kernel nor the plain version runs in its place."""
+    class Refuses:
+        @staticmethod
+        def fwa_fwd_small(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def no_compiler():
+        raise RuntimeError("nvcc not found")
+
+    x16 = torch.randn(1, 480, 3, 64, device=cuda).bfloat16()
+    valid = torch.ones(1, 480, dtype=torch.bool, device=cuda)
+    fwa.flash_window_attention(x16, valid, 48, 4)  # builds and runs
+    before = dict(fwa.flash_window_attention.variant_launches)
+    with monkeypatch.context() as patch:
+        patch.setattr(fwa.LIBRARY_SMALL, "load", lambda: Refuses)
+        with pytest.raises(RuntimeError, match="bf16_small"):
+            fwa.flash_window_attention(x16, valid, 48, 4)
+    with monkeypatch.context() as patch:
+        patch.setattr(fwa.LIBRARY_SMALL, "_lib", None)
+        patch.setattr(fwa.LIBRARY_SMALL, "build", no_compiler)
+        with pytest.raises(RuntimeError):
+            fwa.flash_window_attention(x16, valid, 48, 4)
+    assert fwa.flash_window_attention.variant_launches == before
+
+
 def test_attention_no_fallback(cuda, monkeypatch):
     """On CUDA tensors a variant's kernel launches or the call raises: a
     failed launch or a failed build is not replaced by the other variant

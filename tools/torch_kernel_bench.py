@@ -7,9 +7,15 @@ card, without the model: the quick loop while a kernel is being worked on
 attn: the flash-window attention forward (K1) in bf16 against its plain
 version (noise-floor rule, lse against the plain log-sum-exp, zeros in
 padded windows, valid prefixes that end inside a key tile, on a tile edge
-and one past it), then its time at the seven stage shapes of a flagship
-serve forward at 196,608 points beside scaled_dot_product_attention (the library
-yardstick, used nowhere in the port) and the operations bound.
+and one past it) at windows of 16 to 1024, every bf16 variant; then its
+time at the seven stage shapes of a flagship serve forward at 196,608
+points beside scaled_dot_product_attention (the library yardstick, used
+nowhere in the port) and the operations bound; then, at the decoder's
+windows of 48 (dec2, dec1, dec0), the one-pass bf16_small kernel in each
+unit order, in turns, beside the tiled kernel it replaced there (the C
+function of bf16_tiled called at 48), the library and the bound, per call
+and per step: with lse at a train step's shapes (batch 2) and without lse
+at a test fragment's (batch 1).
 sort: the bitonic row sort (K3), both C entries against the plain version
 and torch.sort (exact), then sort_int64 with the switch on at the eight sort
 shapes of one fragment forward beside torch.sort(stable=True).
@@ -56,6 +62,12 @@ TRAIN_SHAPES = ((196608, (196608, 196608), 1024, 32, 2, 2),
                 (49152, (24032, 21419), 48, 256, 16, 2),
                 (98304, (98009, 88835), 48, 512, 16, 2),
                 (196608, (196608, 196608), 48, 768, 16, 2))
+# (N, valid count, K, C, H, launches) of the decoder's calls in one test
+# fragment forward of chip_smoke.py's test phase (160,001 points in the
+# 196,608 bucket; the pooled stages' valid counts as that phase records
+# them, decoder_k1_calls_first_fragment)
+TEST_DEC_SHAPES = ((49152, 16577, 48, 256, 16, 2), (98304, 64901, 48, 512, 16, 2),
+                   (196608, 160001, 48, 768, 16, 2))
 SORT_SHAPES = ((4, 196608), (1, 196608), (3, 98304), (1, 98304), (3, 49152), (1, 49152),
                (3, 24576), (1, 24576))
 
@@ -110,7 +122,7 @@ def plain_lse(qkv, valid, k, h):
 def attn_check():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for k in (64, 128, 192, 256, 1024):
+    for k in (16, 32, 48, 64, 65, 127, 128, 192, 256, 1024):
         for c, h in ((768, 16), (512, 16), (32, 2)):
             n = 4 * k
             # valid prefixes: inside a key tile, on a tile edge, one past it; a dead window
@@ -161,6 +173,104 @@ def attn_time(reps):
             tot[key] = tot.get(key, 0.0) + count * val
         del qkv, q, kk, v
     emit(dict(phase="attn_time", dtype="bfloat16", per_call=rows, per_forward=tot))
+
+
+def small_call(order, qkv, valid, k, h, with_lse):
+    """One launch of the bf16_small C function in unit order ``order`` (a
+    key of fwa.SMALL_UNIT_ORDERS): out and lse (or None)."""
+    b, n, _, c = qkv.shape
+    out = torch.empty(b, n, c, dtype=qkv.dtype, device="cuda")
+    lse = torch.empty(b, n, h, device="cuda") if with_lse else None
+    rc = fwa.LIBRARY_SMALL.load().fwa_fwd_small(
+        qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, n, c, h, k, (c // h) ** -0.5, fwa.small_chunk(order, h),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"fwa_fwd_small failed: CUDA error {rc}")
+    return out, lse
+
+
+def tiled_call(qkv, valid, k, h, with_lse):
+    """One launch of the bf16_tiled C function (the kernel that served
+    windows of 48 before bf16_small) at window ``k``: out and lse (or None)."""
+    b, n, _, c = qkv.shape
+    out = torch.empty(b, n, c, dtype=qkv.dtype, device="cuda")
+    lse = torch.empty(b, n, h, device="cuda") if with_lse else None
+    rc = fwa.LIBRARY.load().fwa_fwd(
+        qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        1, b, n, c, h, k, (c // h) ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"fwa_fwd (bf16_tiled) failed: CUDA error {rc}")
+    return out, lse
+
+
+def small_time(reps):
+    """bf16_small at the decoder's shapes: each unit order and the tiled
+    kernel, in turns (each order, the tiled kernel twice, each order again
+    in reverse), per call and per step, with lse at a train step's shapes
+    and without at a test fragment's; every order checked bit-equal to the
+    shipped one and the tiled kernel's output within the noise-floor rule."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    orders = tuple(fwa.SMALL_UNIT_ORDERS)
+    cases = [("train", True, n, valids, k, c, h, count)
+             for n, valids, k, c, h, count in TRAIN_SHAPES if k <= fwa.FWD_SMALL_MAX]
+    cases += [("test", False, n, (nv,), k, c, h, count)
+              for n, nv, k, c, h, count in TEST_DEC_SHAPES]
+    for path in ("train", "test"):
+        rows, tot = [], {}
+        for _, with_lse, n, valids, k, c, h, count in (x for x in cases if x[0] == path):
+            b, d = len(valids), c // h
+            qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
+            valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+            for i, nv in enumerate(valids):
+                valid[i, :nv] = True
+            shipped = fwa._launch_fwd(qkv, valid, k, h, d ** -0.5, with_lse)
+            live = valid.view(b, n // k, k)[:, :, :1].expand(b, n // k, k).reshape(b, n)
+            for order in orders:
+                got = small_call(order, qkv, valid, k, h, with_lse)
+                # the lse of a window of padding is not written
+                same = torch.equal(got[0], shipped[0]) and (
+                    not with_lse or torch.equal(got[1][live], shipped[1][live]))
+                if not same:
+                    raise AssertionError(f"order {order} differs from the shipped one at "
+                                         f"{n, valids, k, c, h}")
+            err, floor = chip_smoke.check_bf16(qkv, valid, k, h, out=shipped[0])
+            t_err, _ = chip_smoke.check_bf16(qkv, valid, k, h,
+                                              out=tiled_call(qkv, valid, k, h, with_lse)[0])
+            times = {o: [] for o in orders}
+            times["tiled"] = []
+            turns = list(orders) + ["tiled", "tiled"] + list(reversed(orders))
+            for who in turns:
+                if who == "tiled":
+                    fn = lambda: tiled_call(qkv, valid, k, h, with_lse)  # noqa: E731
+                else:
+                    fn = lambda o=who: small_call(o, qkv, valid, k, h, with_lse)  # noqa: E731
+                times[who].append(cuda_ms(fn, reps))
+            p = n // k
+            q, kk, v = qkv.view(b * p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+            mask = valid.view(b * p, 1, 1, k)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kk, v, attn_mask=mask), reps)
+            if with_lse:
+                ops_ms, bytes_ms = chip_smoke.fwd_lse_bound_ms(n, valids, k, c, h)
+            else:
+                ops_ms, bytes_ms = chip_smoke.bound_ms(n, valids[0], k, c)
+            row = dict(N=n, B=b, valid=list(valids), K=k, C=c, H=h, launches=count,
+                       lse=with_lse, ms={o: times[o] for o in orders},
+                       tiled_ms=times["tiled"], library_ms=lib_ms,
+                       bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       rel_err=err, tiled_rel_err=t_err, plain_rel_err=floor,
+                       blocks_per_sm=fwa.LIBRARY_SMALL.load().fwa_fwd_small_residency(d, k))
+            rows.append(row)
+            for key, val in [(f"ms_{o}", min(times[o])) for o in orders] + [
+                    ("tiled_ms", min(times["tiled"])), ("library_ms", lib_ms),
+                    ("bound_ms", row["bound_ms"])]:
+                tot[key] = tot.get(key, 0.0) + count * val
+            del qkv, q, kk, v
+            torch.cuda.empty_cache()
+        emit(dict(phase="small_time", path=path, shipped_order=fwa.FWD_SMALL_ORDER,
+                  per_call=rows, per_step_or_forward=tot))
 
 
 def bwd_inputs(gen, b, n, c, k, stops):
@@ -351,7 +461,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libraries = []
     if "attn" in args.what:
-        libraries += [fwa.LIBRARY_LARGE, fwa.LIBRARY]
+        libraries += [fwa.LIBRARY_LARGE, fwa.LIBRARY, fwa.LIBRARY_SMALL]
     if "sort" in args.what:
         libraries.append(bs.LIBRARY)
     if "bwd" in args.what:
@@ -363,6 +473,7 @@ def main() -> int:
         sort_profile()
     if "attn" in args.what:
         attn_check()
+        small_time(args.reps)
         attn_time(args.reps)
     if "bwd" in args.what:
         bwd_check()
