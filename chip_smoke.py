@@ -78,13 +78,35 @@ Phases, one JSON line each:
      decoder's K1 calls (windows of 48, without lse) in one fragment
      forward, the kernel against its plain version in bf16, then the times
      of the kernel, the plain version and scaled_dot_product_attention, with
-     the bound, per call and per fragment forward.
+     the bound, per call and per fragment forward;
+ 15. semseg_train: the trainer on the semantic-segmentation file
+     configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py as it is
+     (DefaultSegmentorV2 over a 5-stage PT-v3m1, 32 heads at stage 4,
+     in_channels 14, 205,824 points, CE + Lovasz, Mix3D 0.8, its own hooks:
+     SemSegEvaluator, CheckpointSaver, PreciseEvaluator with the file's
+     SemSegTester and 9 test-time views) at batch 2 for 6 steps over 4
+     synthetic ScanNet-layout scenes with normals and 20 classes and one
+     validation scene: step times, loader waits, peak memory, val/mIoU, K1
+     and K2 launches of each variant a step, pooling overflow per stage
+     (none allowed); then semseg_timing_bwd, timing_bwd at its stage shapes;
+ 16. semseg_agree: one fp32 train step of that model at one block a stage
+     and 49,152 points with the kernels and with the plain attention
+     (losses to 1e-5, gradients to 1e-4 relative);
+ 17. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
+     the semseg_train checkpoint over two synthetic scenes of 320,000
+     Gaussians, 9 views each: torch.sort and K3 under deterministic
+     algorithms (equal predictions and mIoU), then as a user runs it, for
+     the seconds per scene (fetch, extract, vote); then semseg_timing_test
+     (every K1 call of the first fragment forward, bf16_large and
+     bf16_small without lse) and semseg_timing_sort (K3 at that forward's
+     sort shapes).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import inspect
 import json
@@ -107,7 +129,7 @@ from scenesplat_tpu_torch.engines.hooks import HookBase
 from scenesplat_tpu_torch.engines.hooks.misc import PreciseEvaluator
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor, bucket_size
 from scenesplat_tpu_torch.engines.train import build_trainer
-from scenesplat_tpu_torch.engines.train_step import lang_loss
+from scenesplat_tpu_torch.engines.train_step import lang_loss, semseg_loss
 from scenesplat_tpu_torch.entry import (
     FLAGSHIP_BACKBONE,
     SHIPPED_INFERENCE_BACKBONE,
@@ -150,6 +172,7 @@ ZERO_GRAD = 1e-7
 TRAIN_POINTS = 196608
 TRAIN_CLASSES = 20
 LANG_DIM = 768
+SEMSEG_CONFIG = "configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py"
 
 
 def emit(obj):
@@ -278,7 +301,10 @@ SIGNATURES = sorted({
   | {(k, c, h) for k in (16, 32, 64, 65, 128, 192, 256)
      for c, h in ((768, 16), (512, 16), (32, 2))}
   # above the large-window forward's 4096: the tiled forward again
-  | {(4160, 32, 2)})
+  | {(4160, 32, 2)}
+  # the semseg files' backbone: 32 heads at encoder stage 4, and the
+  # decoder's 4 heads at C = 64 and 8 at C = 128 at windows of 48
+  | {(1024, 512, 32), (48, 64, 4), (48, 128, 8)})
 # the bf16 forward variant each of these windows of SIGNATURES must take
 VARIANT_WINDOWS = {"bf16_small": {16, 32, 48, 64}, "bf16_tiled": {65, 4160},
                    "bf16_large": {128, 192, 256, 1024}}
@@ -637,24 +663,43 @@ def phase_kernel_bwd():
     return worst, worst_fwd
 
 
-def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0):
+def shell_normals(grid, extent, thickness):
+    """Unit normals of the voxels of a room's shell (room_scene's floor and
+    walls, ``extent`` voxels a side): up on the floor, into the room on the
+    walls."""
+    normal = np.zeros((len(grid), 3), np.float32)
+    for axis, sign, on in ((0, 1, grid[:, 0] < thickness),
+                           (0, -1, grid[:, 0] >= extent[0] - thickness),
+                           (1, 1, grid[:, 1] < thickness),
+                           (1, -1, grid[:, 1] >= extent[1] - thickness),
+                           (2, 1, grid[:, 2] < thickness)):
+        normal[on] = 0
+        normal[on, axis] = sign
+    return normal
+
+
+def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0,
+                    semseg=False):
     """``n_scenes`` synthetic 3DGS scenes of ``n`` unique 2 cm voxels on the
     4 cm thick floor and walls of a room of ``size_m`` metres (81% of its
     247,072 surface voxels at the default size), in the GS datasets'
     layout (root/scene/<asset>.npy): colour, opacity, quaternion, scale, 20
     classes by angle around the room's centre and height, 768-d fp16
-    lang_feat (the class's unit embedding plus noise) and valid_feat_mask.
-    Dense shells keep the pooled stages inside their capacities after
-    Mix3D merges two rooms and halves each one's density. With
-    ``pc_points`` a scene also gets an evaluation point cloud (that many of
-    its points, moved by a few millimetres, with their labels)."""
+    lang_feat (the class's unit embedding plus noise) and valid_feat_mask;
+    with ``semseg`` the semseg files' assets instead of the last two:
+    normals and the labels as ``segment20``. Dense shells keep the pooled
+    stages inside their capacities after Mix3D merges two rooms and halves
+    each one's density. With ``pc_points`` a scene also gets an evaluation
+    point cloud (that many of its points, moved by a few millimetres, with
+    their labels)."""
     rng = np.random.default_rng(seed)
-    emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
-    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
-    noise = (0.05 * rng.standard_normal((n, LANG_DIM), dtype=np.float32))
+    if not semseg:
+        emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        noise = (0.05 * rng.standard_normal((n, LANG_DIM), dtype=np.float32))
     dirs = []
     for i in range(n_scenes):
-        coord, _, _ = room_scene(rng, n, size_m, thickness=2)
+        coord, _, grid = room_scene(rng, n, size_m, thickness=2)
         angle = np.arctan2(coord[:, 1] - size_m[1] / 2, coord[:, 0] - size_m[0] / 2)
         seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
         seg = (seg + 10 * (coord[:, 2] > 1.0)).astype(np.int16)
@@ -664,10 +709,15 @@ def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0
             coord=coord, color=rng.uniform(0, 255, (n, 3)).astype(np.float32),
             opacity=rng.uniform(0, 1, n).astype(np.float32),
             quat=rng.normal(size=(n, 4)).astype(np.float32),
-            scale=rng.uniform(0, 0.05, (n, 3)).astype(np.float32),
-            segment=seg, segment200=seg,
-            lang_feat=(emb[seg] + np.roll(noise, i, axis=0)).astype(np.float16),
-            valid_feat_mask=rng.random(n) > 0.1)
+            scale=rng.uniform(0, 0.05, (n, 3)).astype(np.float32))
+        if semseg:
+            extent = [int(round(m / GRID)) for m in size_m]
+            assets.update(segment20=seg, normal=shell_normals(grid, extent, 2))
+        else:
+            assets.update(
+                segment=seg, segment200=seg,
+                lang_feat=(emb[seg] + np.roll(noise, i, axis=0)).astype(np.float16),
+                valid_feat_mask=rng.random(n) > 0.1)
         if pc_points:
             pick = rng.choice(n, pc_points, replace=False)
             assets["pc_coord"] = (coord[pick] + rng.normal(0, 0.003, (pc_points, 3))
@@ -758,7 +808,8 @@ def run_training(cfg):
     per-step records of the training forward (pooling overflow, stage sizes
     and valid counts) and, read from K1's counter around every forward, the
     forwards and K1 launches of the train steps and of the hooks'
-    validation."""
+    validation and testing, with the largest pooling overflow of each of
+    those forwards."""
     trainer = build_trainer(cfg, device="cuda")
     steps = len(trainer.train_loader)
     probe = StepProbe(profile_step=steps - 1)
@@ -767,7 +818,7 @@ def run_training(cfg):
     records = []
     k1 = dict(train_forwards=0, train_launches=0, val_forwards=0, val_launches=0,
               train_variants=dict.fromkeys(fwa.VARIANTS, 0),
-              val_variants=dict.fromkeys(fwa.VARIANTS, 0))
+              val_variants=dict.fromkeys(fwa.VARIANTS, 0), val_overflow=[])
     forward = trainer.model.forward
 
     def recording_forward(point, generator=None):
@@ -779,6 +830,8 @@ def run_training(cfg):
         for v, n in k1_variants().items():
             k1[mode + "_variants"][v] += n - variants[v]
         if mode == "val":
+            k1["val_overflow"].append(max((int(p.n_overflow.max()) for p in out.plans),
+                                          default=0))
             return out
         records.append(dict(
             overflow=[p.n_overflow for p in out.plans],
@@ -962,7 +1015,7 @@ def backward_ms(make_out, x_list, dout, reps):
     return total / reps, grads
 
 
-def phase_timing_bwd(shapes):
+def phase_timing_bwd(shapes, phase="timing_bwd"):
     """At the train step's shapes: the forward with log-sum-exp and the
     backward kernel against the plain version under the bf16 noise-floor
     rule (gradients against autograd through the plain version run in
@@ -1064,13 +1117,57 @@ def phase_timing_bwd(shapes):
     for part in by_variant.values():
         part["fwd_bound_ms"] = max(part["fwd_ops_ms"], part["fwd_bytes_ms"])
     tot["fwd_by_variant"] = by_variant
-    emit(dict(phase="timing_bwd", dtype="bfloat16", bf16_noise_factor=BF16_NOISE_FACTOR,
+    emit(dict(phase=phase, dtype="bfloat16", bf16_noise_factor=BF16_NOISE_FACTOR,
               per_call=rows, per_step=tot, saved_out_lse_gib=saved_gib,
               worst_bf16_grad_ratio=max(r["bf16_grad_rel_err"] / r["bf16_grad_plain_rel_err"]
                                         for r in rows),
               worst_bf16_fwd_lse_ratio=max(r["bf16_fwd_lse_rel_err"]
                                            / r["bf16_fwd_plain_rel_err"] for r in rows)))
     return tot
+
+
+def compare_train_steps(phase, step, blocks, **record):
+    """``step(use_kernel)`` -> (loss, gradients by name, pooling overflow of
+    each stage) runs one train step from fixed weights and generator seeds;
+    it runs with the kernels (``blocks`` K1 and K2 launches) and with the
+    plain attention (none). The losses must agree to TRAIN_LOSS_RTOL and
+    each gradient to TRAIN_GRAD_RTOL of its own norm (or both be zero, see
+    ZERO_GRAD); no stage may overflow. Emits ``phase`` with ``record``."""
+    before = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
+    loss_k, grads_k, overflow_k = step(None)
+    after = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
+    check(after == (before[0] + blocks, before[1] + blocks),
+          f"{phase}: kernel path not taken: {before} {after}")
+    loss_p, grads_p, overflow_p = step(False)
+    check((fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
+          == after, f"{phase}: plain path launched a kernel")
+    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_p.values()])).item()
+    worst, zero, by_share = 0.0, [], {}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        check(torch.isfinite(gk).all().item(), f"{phase}: non-finite gradient {name}")
+        norm, diff = gp.norm().item(), (gk - gp).norm().item()
+        # per decade of the tensor's share of the global norm: how many
+        # tensors, and their worst error relative to their own norm
+        decade = f"1e{math.floor(math.log10(norm / total))}" if norm else "0"
+        count, own = by_share.get(decade, (0, 0.0))
+        by_share[decade] = (count + 1, max(own, diff / norm if norm else diff))
+        if norm < ZERO_GRAD * total:
+            zero.append(name)
+            check(gk.norm().item() < ZERO_GRAD * total,
+                  f"{phase}: gradient of {name} is zero on the plain path only")
+            continue
+        worst = max(worst, diff / norm)
+        check(diff / norm <= TRAIN_GRAD_RTOL,
+              f"{phase}: gradient of {name} differs by {diff / norm} (relative L2)")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit(dict(phase=phase, dtype="float32", **record, n_overflow=[overflow_k, overflow_p],
+              loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel,
+              loss_rtol=TRAIN_LOSS_RTOL, grad_tensors=len(grads_p), worst_grad_rel_l2=worst,
+              grad_rtol=TRAIN_GRAD_RTOL, zero_grad_tensors=zero, global_grad_norm=total,
+              worst_own_rel_l2_by_share=dict(sorted(by_share.items()))))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"{phase}: losses differ by {loss_rel} relative")
+    check(not any(overflow_k + overflow_p), f"{phase}: pooling overflow {overflow_k}")
 
 
 def phase_train_agree(n=49152):
@@ -1106,48 +1203,11 @@ def phase_train_agree(n=49152):
         gen = torch.Generator(device="cuda").manual_seed(11)
         loss, out = lang_loss(model, criteria, batch, gen, epoch_progress=1.0)
         loss.backward()
-        overflow.append([int(p.n_overflow.max()) for p in out.plans])
-        return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+        return (loss.item(), {k: p.grad for k, p in model.named_parameters()},
+                [int(p.n_overflow.max()) for p in out.plans])
 
-    blocks = sum(backbone["enc_depths"]) + sum(backbone["dec_depths"])
-    overflow = []
-    before = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
-    loss_k, grads_k = step(None)
-    after = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
-    check(after == (before[0] + blocks, before[1] + blocks),
-          f"kernel path not taken: {before} {after}")
-    loss_p, grads_p = step(False)
-    check((fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
-          == after, "plain path launched a kernel")
-    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_p.values()])).item()
-    worst, zero, by_share = 0.0, [], {}
-    for name, gp in grads_p.items():
-        gk = grads_k[name]
-        check(torch.isfinite(gk).all().item(), f"non-finite gradient {name}")
-        norm, diff = gp.norm().item(), (gk - gp).norm().item()
-        # per decade of the tensor's share of the global norm: how many
-        # tensors, and their worst error relative to their own norm
-        decade = f"1e{math.floor(math.log10(norm / total))}" if norm else "0"
-        count, own = by_share.get(decade, (0, 0.0))
-        by_share[decade] = (count + 1, max(own, diff / norm if norm else diff))
-        if norm < ZERO_GRAD * total:
-            zero.append(name)
-            check(gk.norm().item() < ZERO_GRAD * total,
-                  f"gradient of {name} is zero on the plain path only")
-            continue
-        worst = max(worst, diff / norm)
-        check(diff / norm <= TRAIN_GRAD_RTOL,
-              f"gradient of {name} differs by {diff / norm} (relative L2)")
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    emit(dict(phase="train_agree", points=n, dtype="float32",
-              dec_patch_size=backbone.get("dec_patch_size", "default (48)"),
-              n_overflow=overflow, loss_kernel=loss_k,
-              loss_plain=loss_p, loss_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
-              grad_tensors=len(grads_p), worst_grad_rel_l2=worst, grad_rtol=TRAIN_GRAD_RTOL,
-              zero_grad_tensors=zero, global_grad_norm=total,
-              worst_own_rel_l2_by_share=dict(sorted(by_share.items()))))
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"losses differ by {loss_rel} relative")
-    check(not any(map(any, overflow)), f"pooling overflow {overflow}")
+    compare_train_steps("train_agree", step, sum(depth_split(backbone)), points=n,
+                        dec_patch_size=backbone.get("dec_patch_size", "default (48)"))
 
 SORT_ROWS = (1000, 1024, 5000, 4095, 4097, 24576, 196608, 1 << 20)
 # (operands, keys, heavy ties): the last operand is the element index
@@ -1243,18 +1303,22 @@ def phase_kernel_sort():
     return worst
 
 
-def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000):
-    """``n_scenes`` ScanNet200-layout scenes under root/val: ``n_voxels``
+def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000, semseg=False):
+    """``n_scenes`` ScanNet-layout scenes under root/val: ``n_voxels``
     unique 2 cm voxels on the floor and walls of a 6 x 6 x 3 m room, each
     holding two Gaussians 1 cm apart on its diagonal, plus one Gaussian at
     height 0 in a voxel of its own, so that the 1 cm deduplication keeps all
     2 n + 1 and the 2 cm test voxelisation, whose cells line up with the
     voxels after CenterShift, gives 2 fragments of n + 1 points. With 200
-    classes by position, valid_feat_mask and an evaluation point cloud of
-    ``pc_points`` of the Gaussians moved by a few millimetres."""
+    classes by position as ``segment200``, valid_feat_mask and an
+    evaluation point cloud of ``pc_points`` of the Gaussians moved by a few
+    millimetres; with ``semseg`` the semseg files' assets instead: normals
+    and 20 classes by angle and height as ``segment20``. Returns the
+    Gaussians a scene holds."""
     rng = np.random.default_rng(seed)
-    ex, ey, ez = (int(round(m / GRID)) for m in (6.0, 6.0, 3.0))
-    x, y, z = np.meshgrid(np.arange(ex), np.arange(ey), np.arange(ez), indexing="ij")
+    extent = [int(round(m / GRID)) for m in (6.0, 6.0, 3.0)]
+    ex, ey, _ = extent
+    x, y, z = np.meshgrid(*(np.arange(e) for e in extent), indexing="ij")
     surface = (z < 1) | (x < 1) | (x >= ex - 1) | (y < 1) | (y >= ey - 1)
     vox = np.stack([x[surface], y[surface], z[surface]], -1)
     for i in range(n_scenes):
@@ -1268,23 +1332,32 @@ def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000):
                                ).astype(np.float32)
         n = len(coord)
         angle = np.arctan2(coord[:, 1] - 3.0, coord[:, 0] - 3.0)
-        seg = ((angle + np.pi) / (2 * np.pi) * 20).astype(np.int64).clip(0, 19)
-        seg = (seg * 10 + (coord[:, 2] / 3.0 * 10).astype(np.int64).clip(0, 9)).astype(np.int16)
-        pick = rng.choice(n, pc_points, replace=False)
+        if semseg:
+            seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
+            seg = (seg + 10 * (coord[:, 2] > 1.5)).astype(np.int16)
+        else:
+            seg = ((angle + np.pi) / (2 * np.pi) * 20).astype(np.int64).clip(0, 19)
+            seg = (seg * 10 + (coord[:, 2] / 3.0 * 10).astype(np.int64).clip(0, 9)
+                   ).astype(np.int16)
+            pick = rng.choice(n, pc_points, replace=False)
         assets = dict(
             coord=coord, color=rng.uniform(0, 255, (n, 3)).astype(np.float32),
             opacity=rng.uniform(0, 1, n).astype(np.float32),
             quat=rng.normal(size=(n, 4)).astype(np.float32),
-            scale=rng.uniform(0, 0.05, (n, 3)).astype(np.float32), segment200=seg,
-            valid_feat_mask=rng.random(n) > 0.1,
-            pc_coord=(coord[pick] + rng.normal(0, 0.002, (pc_points, 3))).astype(np.float32),
-            pc_segment200=seg[pick].astype(np.int32))
+            scale=rng.uniform(0, 0.05, (n, 3)).astype(np.float32))
+        if semseg:
+            cells = np.concatenate([grid, grid, anchor[None]])
+            assets.update(segment20=seg, normal=shell_normals(cells, extent, 1))
+        else:
+            assets.update(
+                segment200=seg, valid_feat_mask=rng.random(n) > 0.1,
+                pc_coord=(coord[pick] + rng.normal(0, 0.002, (pc_points, 3))).astype(np.float32),
+                pc_segment200=seg[pick].astype(np.int32))
         scene = os.path.join(root, "val", f"scene{i:04d}_00")
         os.makedirs(scene)
         for key, value in assets.items():
             np.save(os.path.join(scene, f"{key}.npy"), value)
     return 2 * n_voxels + 1
-
 
 TEST_CONFIG = """# The flagship config file plus the tester and its data: test= and
 # data.test= of configs/scannet/lang-pretrain-scannet-mcmc-wo-normal-contrastive.py
@@ -1341,19 +1414,20 @@ def forward_sort_sizes(backbone, n_points):
     return sizes
 
 
-class SmallWindowCalls:
+class WindowCalls:
     """Records (N, valid count of each batch row, K, C, H) of the first
-    ``limit`` K1 calls at windows of at most FWD_SMALL_MAX (the decoder's)
-    while it is entered, then passes each call on unchanged."""
+    ``limit`` K1 calls at windows of at most ``max_window`` slots (by
+    default FWD_SMALL_MAX: the decoder's) while it is entered, then passes
+    each call on unchanged."""
 
-    def __init__(self, limit):
-        self.limit, self.calls = limit, []
+    def __init__(self, limit, max_window=fwa.FWD_SMALL_MAX):
+        self.limit, self.max_window, self.calls = limit, max_window, []
 
     def __enter__(self):
         real = self.real = window_attention_module.flash_window_attention
 
         def recording(qkv, valid, patch_size, num_heads, scale=None):
-            if len(self.calls) < self.limit and patch_size <= fwa.FWD_SMALL_MAX:
+            if len(self.calls) < self.limit and patch_size <= self.max_window:
                 self.calls.append((qkv.shape[1], tuple(valid.sum(1).tolist()), patch_size,
                                    qkv.shape[3], num_heads))
             return real(qkv, valid, patch_size, num_heads, scale)
@@ -1370,14 +1444,106 @@ class SmallWindowCalls:
         return [(*call, self.calls.count(call)) for call in order]
 
 
+def run_test_entry(work, prefix, args, calls):
+    """The test entry point's main with ``args`` three times: sort switch
+    off and on under deterministic algorithms, whose predictions and
+    metrics the caller holds equal, then off as a user runs it (no
+    deterministic mode), whose times are the ones to quote per scene.
+    ``calls`` (a WindowCalls) records K1's calls in the first run. Returns
+    each run ("off", "on", "timed"): its results, scene log, predictions by
+    scene, seconds, K3 sort calls and kernel launches, K1 launches and K1
+    launches by variant."""
+    runs = {}
+    try:
+        for name, switch, deterministic in (("off", False, True), ("on", True, True),
+                                            ("timed", False, False)):
+            # scatter-adds of the pooling sum in an order that changes from
+            # run to run, and a last-bit difference can flip an argmax: the
+            # two runs that are compared use the deterministic forms
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            save = os.path.join(work, f"{prefix}_{name}")
+            bs.bitonic_sort.launches = bs.bitonic_sort.kernel_launches = 0
+            reset_k1_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run_args = args + [f"test.save_path={save}", f"bitonic_sort={switch}"]
+            with calls if name == "off" else contextlib.nullcontext():
+                (res,) = test_entry.main(run_args)
+            seconds = time.perf_counter() - t1
+            with open(os.path.join(save, "scene_log.json")) as f:
+                scenes = json.load(f)
+            runs[name] = dict(
+                res=res, scenes=scenes, seconds=seconds,
+                preds={sc["name"]: np.load(os.path.join(save, f"{sc['name']}_pred.npy"))
+                       for sc in scenes},
+                sort_calls=bs.bitonic_sort.launches, sort_kernels=bs.bitonic_sort.kernel_launches,
+                k1=fwa.flash_window_attention.launches, k1_variants=k1_variants())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        sort_switch(False)
+    return runs
+
+
+def check_test_runs(phase, runs, n_scenes, n_points, backbone):
+    """What both test phases hold of run_test_entry's runs: every scene of
+    ``n_points`` predicted in each run, equal predictions and metrics with
+    the sort switch off and on, K3 launched only with the switch on and
+    then for every sort of every fragment forward (reckoned from the
+    fragments' sizes), and K1 once a block in every fragment forward, the
+    encoder's on bf16_large and the decoder's windows of 48 on bf16_small.
+    Returns the fragments' point counts and each fragment forward's sort
+    sizes."""
+    off, on, timed = runs["off"], runs["on"], runs["timed"]
+    check(len(off["preds"]) == n_scenes
+          and sorted(off["preds"]) == sorted(on["preds"]) == sorted(timed["preds"]),
+          f"{phase}: predicted scenes {sorted(off['preds'])}, {sorted(on['preds'])} and "
+          f"{sorted(timed['preds'])}")
+    for sc in on["scenes"]:
+        check(sc["points"] == n_points, f"{phase}: scene {sc['name']} has {sc['points']} points")
+    for key, pred in off["preds"].items():
+        check(pred.ndim == 1, f"{phase}: {key} predictions of shape {pred.shape}")
+        check(np.array_equal(pred, on["preds"][key]),
+              f"{phase}: {key}: predictions differ with the sort switch on")
+    for key, value in off["res"].items():
+        check(np.array_equal(value, on["res"][key]),
+              f"{phase}: metric {key} differs with the sort switch on")
+    fragment_points = [p for sc in on["scenes"] for p in sc["fragment_points"]]
+    fragments = len(fragment_points)
+    # the sorts of each fragment forward: the bucket's curves and conv plan,
+    # and each pooled stage's
+    sizes = [forward_sort_sizes(backbone, p) for p in fragment_points]
+    want_calls = sum(len(sz) for sz in sizes)
+    want_kernels = sum(bs.kernel_launches(length) for sz in sizes for _, length in sz)
+    check(off["sort_calls"] == off["sort_kernels"] == timed["sort_calls"] == 0,
+          f"{phase}: K3 launched with the sort switch off")
+    check(on["sort_calls"] == want_calls and on["sort_kernels"] == want_kernels,
+          f"{phase}: K3 {on['sort_calls']} sorts and {on['sort_kernels']} kernels, reckoned "
+          f"{want_calls} and {want_kernels}")
+    enc, dec = depth_split(backbone)
+    for name, run in runs.items():
+        got = {v: n for v, n in run["k1_variants"].items() if n}
+        check(run["k1"] == (enc + dec) * fragments
+              and got == dict(bf16_large=enc * fragments, bf16_small=dec * fragments),
+              f"{phase}: run {name}: K1 launches {run['k1']} {got} in {fragments} fragment "
+              f"forwards, expected {enc} bf16_large and {dec} bf16_small each")
+    return fragment_points, sizes
+
+
+def scene_split(run):
+    """Each scene's points, fragments and seconds (fetch, extract, score
+    where the tester scores, vote, total) from a run's scene log."""
+    keys = ("fetch_s", "extract_s", "score_s", "vote_s", "total_s")
+    return [dict(name=sc["name"], points=sc["points"], fragments=sc["fragments"],
+                 fragment_points=sc["fragment_points"], **{k: sc[k] for k in keys if k in sc})
+            for sc in run["scenes"]]
+
+
 def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
-    """The test entry point's main three times: switch off and switch on
-    under deterministic algorithms, whose predictions and metrics must be
-    equal, then switch off as a user runs it (no deterministic mode), whose
-    times are the ones to quote per scene. Returns the K3 counts of the run
-    with the switch on, its fragment forwards, the sort sizes of one, K1's
-    variant launches in that run and the shapes of the decoder's K1 calls
-    in the first fragment forward."""
+    """The zero-shot test entry point on the flagship file's tester, three
+    times through run_test_entry. Returns the K3 counts of the run with the
+    switch on, its fragment forwards, the sort sizes of one, K1's variant
+    launches in that run and the shapes of the decoder's K1 calls in the
+    first fragment forward."""
     t0 = time.perf_counter()
     data_root = os.path.join(work, "scannet_test")
     n_points = write_test_scenes(data_root, n_scenes, n_voxels, seed=12)
@@ -1389,79 +1555,22 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
     write_s = time.perf_counter() - t0
     backbone = Config.fromfile(cfg_file).model.backbone
     enc, dec = depth_split(backbone)
-    blocks = enc + dec
-    sizes = forward_sort_sizes(backbone, n_voxels + 1)
-    small_calls = SmallWindowCalls(limit=dec)
-
-    runs = {}
-    try:
-        for name, switch, deterministic in (("off", False, True), ("on", True, True),
-                                            ("timed", False, False)):
-            # scatter-adds of the pooling sum in an order that changes from
-            # run to run, and a last-bit difference can flip an argmax: the
-            # two runs that are compared use the deterministic forms
-            torch.use_deterministic_algorithms(deterministic, warn_only=True)
-            save = os.path.join(work, f"test_{name}")
-            bs.bitonic_sort.launches = bs.bitonic_sort.kernel_launches = 0
-            reset_k1_counts()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            args = ["--config-file", cfg_file, "--options", f"weight={checkpoint}",
-                    f"test.save_path={save}", f"bitonic_sort={switch}"]
-            if name == "off":  # the compared run: the decoder's call shapes, for timing_test
-                with small_calls:
-                    (res,) = test_entry.main(args)
-            else:
-                (res,) = test_entry.main(args)
-            seconds = time.perf_counter() - t1
-            with open(os.path.join(save, "scene_log.json")) as f:
-                scenes = json.load(f)
-            preds = {name: np.load(os.path.join(save, name)) for name in sorted(os.listdir(save))
-                     if name.endswith("_pred.npy")}
-            runs[name] = dict(
-                res=res, scenes=scenes, preds=preds, seconds=seconds,
-                sort_calls=bs.bitonic_sort.launches,
-                sort_kernels=bs.bitonic_sort.kernel_launches,
-                k1=fwa.flash_window_attention.launches, k1_variants=k1_variants())
-    finally:
-        torch.use_deterministic_algorithms(False)
-        sort_switch(False)
-
+    # the compared run's decoder call shapes, for timing_test
+    small_calls = WindowCalls(limit=dec)
+    runs = run_test_entry(work, "test", ["--config-file", cfg_file, "--options",
+                                         f"weight={checkpoint}"], small_calls)
+    fragment_points, sizes = check_test_runs("test", runs, n_scenes, n_points, backbone)
     off, on, timed = runs["off"], runs["on"], runs["timed"]
-    fragments = sum(s["fragments"] for s in on["scenes"])
-    check(len(on["preds"]) == n_scenes and sorted(off["preds"]) == sorted(on["preds"]),
-          f"prediction files: {sorted(off['preds'])} and {sorted(on['preds'])}")
+    fragments = len(fragment_points)
     for s in on["scenes"]:
-        check(s["fragments"] >= 2 and min(s["fragment_points"]) >= 150000
-              and s["points"] == n_points,
+        check(s["fragments"] >= 2 and min(s["fragment_points"]) >= 150000,
               f"scene {s['name']}: {s['fragments']} fragments of {s['fragment_points']}")
-    for name, pred in off["preds"].items():
-        check(np.array_equal(pred, on["preds"][name]),
-              f"{name}: predictions differ with the sort switch on")
-        check(pred.ndim == 1 and len(pred) > 50000, f"{name}: shape {pred.shape}")
-    for key, value in off["res"].items():
-        check(np.array_equal(value, on["res"][key]), f"metric {key} differs with the switch on")
+    for name, pred in off["preds"].items():  # voted onto the evaluation cloud
+        check(len(pred) > 50000, f"{name}: shape {pred.shape}")
     check(all(np.isfinite(off["res"][k]) for k in ("mIoU", "fg_mIoU", "mAcc", "allAcc")),
           "non-finite metrics")
-    want_calls = fragments * len(sizes)
-    want_kernels = fragments * sum(bs.kernel_launches(n) for _, n in sizes)
-    check(off["sort_calls"] == 0 and off["sort_kernels"] == 0,
-          f"K3 launched {off['sort_calls']} times with the switch off")
-    check(on["sort_calls"] == want_calls and on["sort_kernels"] == want_kernels,
-          f"K3: {on['sort_calls']} sorts and {on['sort_kernels']} kernels, reckoned "
-          f"{want_calls} and {want_kernels}")
-    check(off["k1"] == on["k1"] == timed["k1"] == blocks * fragments,
-          f"K1 launches {off['k1']} / {on['k1']} / {timed['k1']}, expected {blocks} per "
-          "fragment")
-    for run in (off, on, timed):  # the decoder's windows of 48 on the one-pass forward
-        got = {v: n for v, n in run["k1_variants"].items() if n}
-        check(got == dict(bf16_large=enc * fragments, bf16_small=dec * fragments),
-              f"K1 variant launches {got} in {fragments} fragment forwards, expected {enc} "
-              f"bf16_large and {dec} bf16_small each")
     check(len(small_calls.calls) == dec and all(k == 48 for _, _, k, _, _ in small_calls.calls),
           f"the first fragment's decoder calls: {small_calls.calls}")
-    check(timed["sort_calls"] == 0 and len(timed["preds"]) == n_scenes,
-          "the run without deterministic algorithms launched K3 or lost a scene")
     agreement = float(np.mean([np.mean(pred == timed["preds"][name])
                                for name, pred in off["preds"].items()]))
 
@@ -1474,24 +1583,18 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
     knn(data, query, 25, device="cuda")
     knn_s = time.perf_counter() - t1
 
-    def split(run):
-        keys = ("fetch_s", "extract_s", "score_s", "vote_s", "total_s")
-        return [dict(name=s["name"], points=s["points"], fragments=s["fragments"],
-                     fragment_points=s["fragment_points"], **{k: s[k] for k in keys})
-                for s in run["scenes"]]
-
     record = dict(
         phase="test", dtype="bfloat16", scenes=n_scenes, points_per_scene=n_points,
-        fragments=fragments, dataset_write_s=write_s, sort_sizes=sizes,
+        fragments=fragments, dataset_write_s=write_s, sort_sizes=sizes[0],
         switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
-                        per_scene=split(off), k1_launches=off["k1"],
+                        per_scene=scene_split(off), k1_launches=off["k1"],
                         sort_calls=off["sort_calls"]),
         switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
-                       per_scene=split(on), k1_launches=on["k1"],
+                       per_scene=scene_split(on), k1_launches=on["k1"],
                        k1_variant_launches=on["k1_variants"],
                        sort_calls=on["sort_calls"], sort_kernel_launches=on["sort_kernels"]),
         as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
-                               seconds=timed["seconds"], per_scene=split(timed),
+                               seconds=timed["seconds"], per_scene=scene_split(timed),
                                k1_launches=timed["k1"],
                                predictions_equal_to_deterministic_run=agreement,
                                metrics={k: timed["res"][k]
@@ -1502,11 +1605,10 @@ def phase_test(work, checkpoint, meta_root, n_voxels=160000, n_scenes=2):
         knn_s=knn_s, knn_data=len(data), knn_queries=len(query))
     record["decoder_k1_calls_first_fragment"] = small_calls.shapes()
     emit(record)
-    return (on["sort_calls"], on["sort_kernels"], fragments, sizes, on["k1_variants"],
+    return (on["sort_calls"], on["sort_kernels"], fragments, sizes[0], on["k1_variants"],
             small_calls.shapes())
 
-
-def phase_timing_sort(sizes):
+def phase_timing_sort(sizes, phase="timing_sort"):
     """At the 8 sort shapes of one fragment forward: sort_int64 with the
     switch on (K3's int64 entry, as the sort sites call it), the plain
     version and torch.sort(stable=True) on the int64 codes, by CUDA events;
@@ -1547,20 +1649,22 @@ def phase_timing_sort(sizes):
             tot[key] += val
         tot["kernel_launches"] += bs.kernel_launches(n)
     tot["max_abs_err"] = worst
-    emit(dict(phase="timing_sort", operands=3, num_keys=3, entry="sort_int64, switch on",
+    emit(dict(phase=phase, operands=3, num_keys=3, entry="sort_int64, switch on",
               per_call=rows, per_forward=tot))
     return tot
 
 
-def phase_timing_test(shapes):
-    """At the shapes and valid counts of the decoder's K1 calls in one test
-    fragment forward (windows of 48, no lse, bf16_small): the kernel against
-    its plain version (bf16 noise-floor rule, zeros where slot 0 is
-    padding), then the kernel's, the plain version's and the library's
-    times per call and per fragment forward, with the bound."""
+def phase_timing_test(shapes, phase="timing_test"):
+    """At the shapes and valid counts of K1's calls in one test fragment
+    forward (the flagship's: the decoder's, windows of 48 on bf16_small; the
+    semseg file's: every call), without lse: the kernel against its plain
+    version (bf16 noise-floor rule, zeros where slot 0 is padding), then the
+    kernel's, the plain version's and the library's times per call and per
+    fragment forward, with the bound, in all and for each variant."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows, worst = [], 0.0
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    by_variant = {}
     for n, valids, k, c, h, count in shapes:
         b, d = len(valids), c // h
         qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
@@ -1594,16 +1698,222 @@ def phase_timing_test(shapes):
                          variant=variant, **row, bound_ms=max(ops_ms, bytes_ms),
                          bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                          bf16_rel_err=err16, bf16_plain_rel_err=floor16))
+        part = by_variant.setdefault(variant, dict.fromkeys(row, 0.0))
         for key, val in row.items():
             tot[key] += count * val
+            part[key] += count * val
         del qkv, qkv_w, q, kk, v, out, plain16
     tot["max_abs_err"] = worst  # against the plain bf16 version
-    tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
-    tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
-    emit(dict(phase="timing_test", dtype="bfloat16", lse=False, per_call=rows,
+    for part in [tot] + list(by_variant.values()):
+        part["bound_ms"] = max(part["ops_ms"], part["bytes_ms"])
+        part["bound_by"] = "operations" if part["ops_ms"] >= part["bytes_ms"] else "bytes"
+    tot["by_variant"] = by_variant
+    emit(dict(phase=phase, dtype="bfloat16", lse=False, per_call=rows,
               per_fragment_forward=tot))
     return tot
 
+
+def semseg_train_config(root, exp, batch_size, steps, scenes):
+    """The ScanNet-20 semseg file as it is, its hooks included, with the
+    data roots (train, val and the post-training test all under ``root``),
+    epoch 1, the batch size, and a train loop that gives ``steps`` steps
+    over ``scenes`` scenes (Mix3D: two samples a batch slot). The
+    post-training tester writes its scene log under ``exp``."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    cfg.merge_from_options(dict(save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size))
+    samples = steps * batch_size * (2 if cfg.mix_prob > 0 else 1)
+    check(samples % scenes == 0, f"{samples} samples over {scenes} scenes")
+    cfg.data.train.update(data_root=root, loop=samples // scenes)
+    cfg.data.val.data_root = cfg.data.test.data_root = root
+    cfg.test["save_path"] = os.path.join(exp, "precise_test")
+    return cfg
+
+
+def phase_semseg_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6),
+                       val_points=40000):
+    """The semseg trainer on configs/scannet/semseg-gs-scannet-all-w-normal-
+    fixed-xyz.py as it is (widths, 205,824 points, losses, optimizer,
+    schedule, transforms, Mix3D 0.8 and its own hooks) at batch 2 for
+    ``steps`` steps over 4 synthetic ScanNet-layout scenes with normals and
+    20 classes, and one validation scene, which PreciseEvaluator's
+    SemSegTester also runs after training with the file's 9 views. Returns
+    the train-step stage shapes, the K1 / K2 launch counts and the best
+    checkpoint, copied into ``work``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "scannet_gs")
+        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=21, size_m=room,
+                        semseg=True)
+        write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=22,
+                        size_m=(2.4, 2.4, 2.0), semseg=True)
+        data_s = time.perf_counter() - t0
+        reset_k1_counts()
+        fwa.flash_window_attention_bwd.launches = 0
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
+        k2_variants.update(dict.fromkeys(k2_variants, 0))
+        cfg = semseg_train_config(root, os.path.join(tmp, "exp"), 2, steps, 4)
+        trainer, probe, records, k1_counts = run_training(cfg)
+        backbone = trainer.cfg.model.backbone
+        enc, dec = depth_split(backbone)
+        blocks = enc + dec  # 22
+        k1, k1_val = k1_counts["train_launches"], k1_counts["val_launches"]
+        k2 = fwa.flash_window_attention_bwd.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = probe.step_ms()
+        hist = trainer.storage.history
+        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+        n_steps = len(losses)
+        check(n_steps == steps, f"semseg: {n_steps} train steps, expected {steps}")
+        check(all(math.isfinite(v) for v in losses + grad_norms),
+              f"semseg: non-finite loss or grad_norm: {losses} {grad_norms}")
+        check(k1_counts["train_forwards"] == steps and k1 == blocks * steps
+              and k2 == blocks * steps,
+              f"semseg: {k1} forward and {k2} backward kernel launches in {steps} steps, "
+              f"expected {blocks} each per step")
+        check(k2_variants == dict(k2_variants, bf16_small=dec * steps, bf16_large=enc * steps),
+              f"semseg: backward variant launches {k2_variants}, expected {dec} bf16_small "
+              f"(windows of 48) and {enc} bf16_large (windows of 1024) a step")
+        got = {v: n for v, n in k1_counts["train_variants"].items() if n}
+        check(got == dict(bf16_large=enc * steps, bf16_small=dec * steps),
+              f"semseg: train K1 variant launches {got}, expected {enc} bf16_large and "
+              f"{dec} bf16_small a step")
+        # after training: one validation forward (the evaluator), then the
+        # PreciseEvaluator's tester, one forward a fragment
+        precise = [h for h in trainer.hooks if isinstance(h, PreciseEvaluator)]
+        check(len(precise) == 1 and len(precise[0].results) == 1,
+              "semseg: PreciseEvaluator did not run the file's tester")
+        with open(os.path.join(cfg.test.save_path, "scene_log.json")) as f:
+            test_fragments = sum(sc["fragments"] for sc in json.load(f))
+        val_forwards = k1_counts["val_forwards"]
+        check(val_forwards == 1 + test_fragments and k1_val == blocks * val_forwards,
+              f"semseg: {k1_val} K1 launches in {val_forwards} evaluation forwards, expected "
+              f"{blocks} in each of 1 validation and {test_fragments} test fragments")
+        got = {v: n for v, n in k1_counts["val_variants"].items() if n}
+        check(got == dict(bf16_large=enc * val_forwards, bf16_small=dec * val_forwards),
+              f"semseg: evaluation K1 variant launches {got}")
+        overflow = [[int(o.max()) for o in r["overflow"]] for r in records]
+        check(not any(map(any, overflow)) and not any(k1_counts["val_overflow"]),
+              f"semseg: pooling overflow {overflow} {k1_counts['val_overflow']}")
+        miou = hist("val/mIoU").values()
+        check(len(miou) == 1 and 0.0 <= miou[0] <= 1.0, f"semseg: val/mIoU {miou}")
+        check(trainer.comm_info.get("current_metric_name") == "mIoU",
+              "semseg: the evaluator set no checkpoint metric")
+        test_miou = precise[0].results[0]["mIoU"]
+        check(math.isfinite(test_miou), f"semseg: test mIoU {test_miou}")
+        model_dir = os.path.join(trainer.cfg.save_path, "model")
+        check(os.path.exists(os.path.join(model_dir, "model_best.pth")),
+              "semseg: no model_best.pth")
+        checkpoint = shutil.copy(os.path.join(model_dir, "model_best.pth"),
+                                 os.path.join(work, "semseg_model_best.pth"))
+        sizes = [[(n, v.tolist()) for n, v in r["sizes"]] for r in records]
+        emit(dict(phase="semseg_train", config=SEMSEG_CONFIG, batch_size=2,
+                  points=cfg.data.num_points, steps=n_steps, loss=losses, grad_norm=grad_norms,
+                  lr=hist("lr").values(), cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=peak_gib, val_miou=miou[0], precise_test_miou=test_miou,
+                  precise_test_fragments=test_fragments,
+                  k1_launches_per_step=k1 / steps, k2_launches_per_step=k2 / steps,
+                  k1_variant_launches=k1_counts["train_variants"],
+                  k2_variant_launches=dict(k2_variants),
+                  evaluation_forwards=val_forwards, evaluation_k1_launches=k1_val,
+                  evaluation_k1_variant_launches=k1_counts["val_variants"],
+                  n_overflow_per_stage=overflow, evaluation_n_overflow=k1_counts["val_overflow"],
+                  stage_slots_valid=sizes[-1], dataset_write_s=data_s, profile=probe.profile))
+        print(f"semseg_train: val/mIoU {miou[0]:.4f} (after {n_steps} steps)", flush=True)
+        del trainer
+    torch.cuda.empty_cache()
+    shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
+    variants = dict(train=k1_counts["train_variants"], evaluation=k1_counts["val_variants"])
+    return shapes, k1, variants, dict(k2_variants), checkpoint
+
+
+def phase_semseg_agree(n=49152):
+    """One fp32 train step of the semseg file's model at one block a stage
+    (its widths, heads and windows kept) and ``n`` points, CE + Lovasz, with
+    the kernels and with the plain attention."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4)
+    rng = np.random.default_rng(13)
+    size_m = (2.4, 2.4, 2.4)  # the 4 cm cells fit the first pooling (see train_agree)
+    coord, feat_in, grid = room_scene(rng, n, size_m)
+    normal = shell_normals(grid, [int(round(m / GRID)) for m in size_m], 1)
+    angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
+    seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
+    seg = seg + 10 * (coord[:, 2] > 1.0)
+    seg[rng.random(n) < 0.05] = -1  # ignored points
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x))[None].cuda()
+
+    batch = dict(coord=dev(coord), feat=dev(np.concatenate([feat_in, normal], 1)),
+                 grid_coord=dev(grid), mask=torch.ones(1, n, dtype=torch.bool, device="cuda"),
+                 segment=dev(seg))
+    model_cfg = dict(cfg.model)
+    criteria = build_criteria(model_cfg.pop("criteria"))
+
+    def step(use_kernel):
+        model = build_model(dict(model_cfg, backbone=dict(
+            backbone, dtype="float32", seed=1, use_kernel=use_kernel)))
+        model = model.cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        loss, out = semseg_loss(model, criteria, batch, gen)
+        loss.backward()
+        return (loss.item(), {k: p.grad for k, p in model.named_parameters()},
+                [int(p.n_overflow.max()) for p in out.plans])
+
+    compare_train_steps("semseg_agree", step, sum(depth_split(backbone)), points=n,
+                        config=SEMSEG_CONFIG, enc_depths=backbone["enc_depths"],
+                        dec_depths=backbone["dec_depths"], criteria=[
+                            c["type"] for c in cfg.model.criteria])
+
+
+def phase_semseg_test(work, checkpoint, n_voxels=160000, n_scenes=2):
+    """``python -m scenesplat_tpu_torch.test`` on the semseg file as it is
+    (SemSegTester with the file's 9 test-time views and fragment voting,
+    bf16) with the semseg_train checkpoint, three times through
+    run_test_entry; the per-scene seconds (fetch, extract, vote) of the run
+    as a user makes it are the ones to quote. Returns K3's and K1's counts
+    of the K3 run, the fragments, the sort sizes of the first fragment
+    forward and the shapes of K1's calls in it."""
+    t0 = time.perf_counter()
+    data_root = os.path.join(work, "semseg_test")
+    n_points = write_test_scenes(data_root, n_scenes, n_voxels, seed=23, semseg=True)
+    write_s = time.perf_counter() - t0
+    backbone = Config.fromfile(SEMSEG_CONFIG).model.backbone
+    blocks = sum(depth_split(backbone))
+    calls = WindowCalls(limit=blocks, max_window=max(backbone["enc_patch_size"]))
+    runs = run_test_entry(work, "semseg_test", [
+        "--config-file", SEMSEG_CONFIG, "--options", f"weight={checkpoint}",
+        f"data.test.data_root={data_root}"], calls)
+    fragment_points, sizes = check_test_runs("semseg_test", runs, n_scenes, n_points, backbone)
+    off, on, timed = runs["off"], runs["on"], runs["timed"]
+    for sc in on["scenes"]:
+        check(sc["fragments"] >= 9, f"semseg_test: scene {sc['name']}: {sc['fragments']} "
+              "fragments for 9 views")
+    for key, pred in off["preds"].items():
+        check(len(pred) == n_points, f"semseg_test: {key} {pred.shape}")
+    check(np.isfinite(off["res"]["mIoU"]), f"semseg_test: mIoU {off['res']['mIoU']}")
+    check(len(calls.calls) == blocks, f"semseg_test: first fragment's K1 calls {calls.calls}")
+    emit(dict(phase="semseg_test", config=SEMSEG_CONFIG, dtype="bfloat16", scenes=n_scenes,
+              points_per_scene=n_points, views=9, fragments=len(fragment_points),
+              dataset_write_s=write_s,
+              switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
+                              per_scene=scene_split(off), k1_launches=off["k1"]),
+              switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
+                             per_scene=scene_split(on), k1_launches=on["k1"],
+                             k1_variant_launches=on["k1_variants"], sort_calls=on["sort_calls"],
+                             sort_kernel_launches=on["sort_kernels"]),
+              as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
+                                     seconds=timed["seconds"], per_scene=scene_split(timed),
+                                     mIoU=timed["res"]["mIoU"]),
+              predictions_equal=True, mIoU=off["res"]["mIoU"],
+              iou_per_class=off["res"]["iou_per_class"].tolist(),
+              k1_calls_first_fragment=calls.shapes()))
+    for sc in scene_split(timed):
+        print(f"semseg_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: "
+              f"fetch {sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, vote "
+              f"{sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
+    return on, len(fragment_points), sizes[0], calls.shapes()
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1637,6 +1947,14 @@ def main() -> int:
             phase_test(work, checkpoint, meta_root)
         tot_sort = phase_timing_sort(sort_sizes)
         tot_test = phase_timing_test(test_shapes)
+        semseg_shapes, semseg_k1, semseg_k1_variants, semseg_k2_variants, semseg_checkpoint = \
+            phase_semseg_train(work)
+        semseg_bwd = phase_timing_bwd(semseg_shapes, phase="semseg_timing_bwd")
+        phase_semseg_agree()
+        semseg_on, semseg_fragments, semseg_sort_sizes, semseg_calls = \
+            phase_semseg_test(work, semseg_checkpoint)
+        semseg_fwd = phase_timing_test(semseg_calls, phase="semseg_timing_test")
+        semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -1652,14 +1970,28 @@ def main() -> int:
     # steps, the test run's fragment forwards with the sort switch on); ms
     # and the other times: per forward or per step (18 attention launches, 8
     # sorts; the small forward: the decoder's 6 launches of a test fragment
-    # forward)
+    # forward). "semseg": the same for the semseg file's path (6 train
+    # steps of 22 attention launches; the test run's fragment forwards, the
+    # first one's 14 encoder and 8 decoder launches timed, 10 sorts)
+
+    def times(t, pre=""):
+        """A timing phase's sums, of the forward with lse with pre "fwd_"."""
+        return dict(ms=t["fwd_lse_ms" if pre else "ms"], plain_ms=t[pre + "plain_ms"],
+                    bound_ms=t[pre + "bound_ms"], bound_by=t[pre + "bound_by"],
+                    library_ms=t[pre + "library_ms"])
+
+    semseg_test = dict(path="semseg test", fragment_forwards=semseg_fragments,
+                       ms_per="test fragment forward (the first fragment's calls, no lse)")
+    semseg_train = dict(path="semseg train", ms_per="train step")
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
              launches=launches, variant_launches=serve_variants,
              ms_per="serve forward", max_abs_err=worst32, ms=tot["ms"],
              plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
-             library_ms=tot["library_ms"]),
+             library_ms=tot["library_ms"],
+             semseg=dict(semseg_test, launches=semseg_on["k1_variants"]["bf16_large"],
+                         **times(semseg_fwd["by_variant"]["bf16_large"]))),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source_small,
              sources=[source_small, source_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
@@ -1668,7 +2000,9 @@ def main() -> int:
              max_abs_err=worst_fwd_lse,
              ms=tot_bwd["fwd_lse_ms"], plain_ms=tot_bwd["fwd_plain_ms"],
              bound_ms=tot_bwd["fwd_bound_ms"], bound_by=tot_bwd["fwd_bound_by"],
-             library_ms=tot_bwd["fwd_library_ms"]),
+             library_ms=tot_bwd["fwd_library_ms"],
+             semseg=dict(semseg_train, launches=semseg_k1, variant_launches=semseg_k1_variants,
+                         by_variant=semseg_bwd["fwd_by_variant"], **times(semseg_bwd, "fwd_"))),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -1678,7 +2012,11 @@ def main() -> int:
              max_abs_err=tot_test["max_abs_err"], ms=tot_test["ms"],
              plain_ms=tot_test["plain_ms"],
              bound_ms=tot_test["bound_ms"], bound_by=tot_test["bound_by"],
-             library_ms=tot_test["library_ms"]),
+             library_ms=tot_test["library_ms"],
+             semseg=dict(semseg_test, launches=semseg_on["k1_variants"]["bf16_small"],
+                         train_launches=semseg_k1_variants["train"]["bf16_small"],
+                         train_step=semseg_bwd["fwd_by_variant"]["bf16_small"],
+                         **times(semseg_fwd["by_variant"]["bf16_small"]))),
         dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
              sources=[source_bwd, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
@@ -1686,7 +2024,9 @@ def main() -> int:
              ms_per="train step", max_abs_err=worst_bwd,
              ms=tot_bwd["ms"], plain_ms=tot_bwd["plain_ms"], bound_ms=tot_bwd["bound_ms"],
              bound_by=tot_bwd["bound_by"], library_ms=tot_bwd["library_ms"],
-             design_bound_ms=tot_bwd["design_bound_ms"]),
+             design_bound_ms=tot_bwd["design_bound_ms"],
+             semseg=dict(semseg_train, launches=sum(semseg_k2_variants.values()),
+                         variant_launches=semseg_k2_variants, **times(semseg_bwd))),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -1694,7 +2034,13 @@ def main() -> int:
              ms_per="fragment forward",
              max_abs_err=max(worst_sort, tot_sort["max_abs_err"]), ms=tot_sort["ms"],
              plain_ms=tot_sort["plain_ms"], bound_ms=tot_sort["bound_ms"], bound_by="bytes",
-             library_ms=tot_sort["library_ms"])]})
+             library_ms=tot_sort["library_ms"],
+             semseg=dict(semseg_test, ms_per="fragment forward (the first fragment's sorts)",
+                         launches=semseg_on["sort_calls"],
+                         kernel_launches=semseg_on["sort_kernels"], ms=semseg_sort["ms"],
+                         plain_ms=semseg_sort["plain_ms"], bound_ms=semseg_sort["bound_ms"],
+                         bound_by="bytes", library_ms=semseg_sort["library_ms"],
+                         max_abs_err=semseg_sort["max_abs_err"]))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

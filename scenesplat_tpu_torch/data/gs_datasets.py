@@ -83,3 +83,10 @@ class Matterport3D_160_GSDataset(Matterport3DGSDataset):
     EVAL_PC_ASSETS = ["pc_coord", "pc_segment160", "pc_segment_nyu_160", "pc_segment"]
     SEGMENT_KEYS = ("segment160", "segment_nyu_160", "segment")
     PC_SEGMENT_KEYS = ("pc_segment160", "pc_segment_nyu_160", "pc_segment")
+
+
+@DATASETS.register_module()
+class HoliCityGSDataset(_GSDatasetBase):
+    VALID_ASSETS = ["coord", "color", "segment", "quat", "scale", "opacity", "lang_feat",
+                    "valid_feat_mask"]
+    EVAL_PC_ASSETS = ["pc_coord", "pc_segment"]

@@ -7,6 +7,10 @@ predicts classes by cosine similarity against text embeddings, votes the
 predictions onto the evaluation point cloud, logs mIoU / fg_mIoU per
 validation dataset and hands the mean fg_mIoU to the checkpoint saver
 (``trainer.comm_info["current_metric_value"]``).
+
+``SemSegEvaluator``: after every epoch it runs each whole validation scene
+through the segmentor, takes the argmax of the logits and hands the mIoU
+over the classes the scenes hold to the checkpoint saver.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from scenesplat_tpu_torch.engines.eval import (
     load_text_embeddings,
 )
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
+from scenesplat_tpu_torch.utils.misc import intersection_and_union
 
 from .default import HOOKS, HookBase
 
@@ -116,3 +121,52 @@ class LangPretrainZeroShotSemSegEvalMulti(HookBase):
 @HOOKS.register_module()
 class LangPretrainZeroShotSemSegEval(LangPretrainZeroShotSemSegEvalMulti):
     """Single-dataset variant."""
+
+
+@HOOKS.register_module()
+class SemSegEvaluator(HookBase):
+    """Supervised segmentation over ``cfg.data.val``: mIoU over the classes
+    present in the validation scenes, logged as ``val/mIoU``."""
+
+    def __init__(self, ignore_index: int = -1, max_scenes: Optional[int] = None):
+        self.ignore_index = ignore_index
+        self.max_scenes = max_scenes
+        self.dataset = None
+
+    def before_train(self):
+        cfg = self.trainer.cfg
+        val_cfg = cfg.data.get("val")
+        if val_cfg is None:
+            return
+        self.dataset = build_dataset(dict(val_cfg))
+        self.num_classes = cfg.data.get("num_classes")
+        backbone_cfg = cfg.model.get("backbone", cfg.model)
+        self.extractor = FeatureExtractor(
+            self.trainer.model, patch_size=max(backbone_cfg.get("enc_patch_size", [1024])),
+            device=self.trainer.device)
+
+    def after_epoch(self):
+        if self.dataset is None:
+            return
+        trainer = self.trainer
+        trainer.model.eval()  # the next train step puts it back into training
+        n_scenes = len(self.dataset)
+        if self.max_scenes:
+            n_scenes = min(n_scenes, self.max_scenes)
+        counts = []  # per scene: (intersection, union, target) of each class
+        for i in range(n_scenes):
+            seed_transforms((self._seed(), i))
+            sample = self.dataset[i]
+            logits = self.extractor(sample)
+            counts.append(intersection_and_union(
+                logits.argmax(-1).astype(np.int32), np.asarray(sample["segment"]),
+                logits.shape[-1], self.ignore_index))
+        inter, union, target = ((sum(c) for c in zip(*counts)) if counts
+                                else [np.zeros(self.num_classes or 1)] * 3)
+        iou = inter / np.maximum(union, 1e-10)
+        seen = target > 0
+        miou = float(iou[seen].mean()) if seen.any() else 0.0
+        trainer.logger.info(f"val mIoU {miou:.4f}")
+        trainer.comm_info["current_metric_value"] = miou
+        trainer.comm_info["current_metric_name"] = "mIoU"
+        trainer.storage.put_scalar("val/mIoU", miou)

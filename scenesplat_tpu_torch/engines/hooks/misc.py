@@ -1,7 +1,8 @@
 """Training hooks (counterpart of ``scenesplat_tpu/engines/hooks/misc.py``):
 the iteration timer, the metrics writer, checkpoint save and load as torch
 state dicts (model, optimizer, scheduler, the training generator's state,
-step, epoch and best metric), and the testers' run after training."""
+step, epoch and best metric), the evaluators' run before training and the
+testers' run after it."""
 
 from __future__ import annotations
 
@@ -190,3 +191,26 @@ class PreciseEvaluator(HookBase):
             tester = build_tester(tc, trainer.model, dc, patch_size=patch,
                                   seed=cfg.get("seed", 0), device=trainer.device)
             self.results.append(tester.test())
+
+
+@HOOKS.register_module()
+class BeginningEvaluator(HookBase):
+    """Runs every evaluator hook (a hook whose type name holds "Eval") once
+    before the first epoch, e.g. to score a loaded checkpoint; list it after
+    them, since each builds its validation data in its own
+    ``before_train``. It scores the weights the trainer holds, which is
+    what ``test_last=True`` (as the shipped files set it) asks for;
+    ``test_last=False`` would ask for ``model_best.pth``, which this hook
+    does not load, and raises."""
+
+    def __init__(self, test_last: bool = True):
+        if not test_last:
+            raise ValueError("BeginningEvaluator scores the weights the trainer holds "
+                             "(test_last=True); scoring model_best.pth is not supported")
+
+    def before_train(self):
+        for h in self.trainer.hooks:
+            if h is not self and "Eval" in type(h).__name__:
+                self.trainer.epoch = -1
+                h.after_epoch()
+                self.trainer.epoch = self.trainer.start_epoch

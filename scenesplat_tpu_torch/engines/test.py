@@ -4,8 +4,11 @@
 ``ZeroShotSemSegTester``: per scene, accumulate sigmoid class probabilities
 over complementary voxel fragments into a full-scene buffer, threshold,
 inverse-map to the original points, kNN-vote onto the evaluation point
-cloud, and report mIoU / fg_mIoU. One process evaluates every scene; the
-other testers of the JAX package are not ported yet.
+cloud, and report mIoU / fg_mIoU. ``SemSegTester`` does the same with a
+segmentor's logits (summed over the fragments of every test-time
+augmentation, no threshold, no kNN vote) and reports mIoU. One process
+evaluates every scene; the other testers of the JAX package are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ from scenesplat_tpu_torch.engines.eval import (
 )
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
 from scenesplat_tpu_torch.utils.logger import get_root_logger
-from scenesplat_tpu_torch.utils.misc import clustering_voting, neighbor_voting
+from scenesplat_tpu_torch.utils.misc import (
+    clustering_voting,
+    intersection_and_union,
+    neighbor_voting,
+)
 from scenesplat_tpu_torch.utils.registry import Registry
 
 TESTERS = Registry("testers")
@@ -288,6 +295,93 @@ class ZeroShotSemSegTester(TesterBase):
                 f.write("\nExcluded classes:\n")
                 for idx in excluded:
                     f.write(f"Class_{idx}-{self.class_names[idx]}\n")
+
+
+@TESTERS.register_module()
+class SemSegTester(TesterBase):
+    """Supervised fragment-voting tester: per scene, the logits of every
+    fragment of every test-time augmentation are summed by point, the
+    argmax (or, for a ScanNet++ dataset, the top 3 in order, of which the
+    first is scored) is mapped back through the deduplicating GridSample's
+    inverse to ``origin_segment``, and intersection and union add up over
+    the scenes. With ``save_path`` each scene's scored prediction goes to
+    ``<name>_pred.npy`` and the per-scene seconds (fetch, extract, vote)
+    to ``scene_log.json``."""
+
+    def __init__(self, num_classes: int, ignore_index: int = -1,
+                 max_scenes: Optional[int] = None, top3: Optional[bool] = None,
+                 save_path: Optional[str] = None, save_submission: bool = False, **kwargs):
+        super().__init__(**kwargs)
+        if save_submission:
+            raise NotImplementedError("the submission writers are not ported")
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+        self.max_scenes = max_scenes
+        if top3 is None:
+            top3 = "ScanNetPP" in type(self.dataset).__name__
+        self.top3 = bool(top3)
+        self.save_path = save_path
+        self.scene_log = []
+
+    def test(self):
+        inter = np.zeros(self.num_classes, np.float64)
+        union = np.zeros(self.num_classes, np.float64)
+        target_area = np.zeros(self.num_classes, np.float64)
+        n_scenes = len(self.dataset)
+        if self.max_scenes:
+            n_scenes = min(n_scenes, self.max_scenes)
+        self.model.eval()
+        for i in partition_indices(n_scenes):
+            t_start = time.perf_counter()
+            seed_transforms((self.seed, i))
+            scene = self.dataset[i]
+            t_fetch = time.perf_counter()
+            name = scene.get("name", f"scene{i}")
+            segment = np.asarray(scene["segment"]).reshape(-1)
+            logits_sum = np.zeros((segment.shape[0], self.num_classes), np.float32)
+            extract_s = 0.0
+            for frag in scene["fragment_list"]:
+                t0 = time.perf_counter()
+                logits = self.extractor(frag)  # ends with the copy to the host
+                extract_s += time.perf_counter() - t0
+                logits_sum[np.asarray(frag["index"]).reshape(-1)] += logits
+            t_vote = time.perf_counter()
+            if self.top3:  # ScanNet++ protocol: the 3 best classes, best first
+                pred = np.argsort(-logits_sum, axis=1, kind="stable")[
+                    :, :min(3, self.num_classes)].astype(np.int32)
+            else:
+                pred = logits_sum.argmax(axis=1).astype(np.int32)
+            if "origin_segment" in scene and "inverse" in scene:
+                pred = pred[np.asarray(scene["inverse"]).reshape(-1)]
+                segment = np.asarray(scene["origin_segment"]).reshape(-1)
+            if pred.ndim > 1:
+                pred = np.ascontiguousarray(pred[:, 0])  # the top-1 is scored
+            i_, u_, t_ = intersection_and_union(pred, segment, self.num_classes,
+                                                self.ignore_index)
+            inter, union, target_area = inter + i_, union + u_, target_area + t_
+            if self.save_path:
+                os.makedirs(self.save_path, exist_ok=True)
+                np.save(os.path.join(self.save_path, f"{name}_pred.npy"), pred)
+            t_end = time.perf_counter()
+            self.scene_log.append(dict(
+                name=name, points=int(len(pred)), fragments=len(scene["fragment_list"]),
+                fragment_points=[int(np.asarray(f["index"]).size)
+                                 for f in scene["fragment_list"]],
+                fetch_s=t_fetch - t_start, extract_s=extract_s, vote_s=t_end - t_vote,
+                total_s=t_end - t_start))
+            run_iou = (inter / (union + 1e-10))[union != 0]
+            self.logger.info(
+                f"Test: {name} [{i + 1}/{n_scenes}]-{len(segment)} "
+                f"Accuracy {i_.sum() / (t_.sum() + 1e-10):.4f} "
+                f"mIoU ({run_iou.mean() if run_iou.size else 0.0:.4f})")
+        if self.save_path and self.scene_log:
+            with open(os.path.join(self.save_path, "scene_log.json"), "w") as f:
+                json.dump(self.scene_log, f)
+        iou = inter / np.maximum(union, 1e-10)
+        seen = target_area > 0
+        miou = float(iou[seen].mean()) if seen.any() else 0.0
+        self.logger.info(f"test mIoU {miou:.4f}")
+        return {"mIoU": miou, "iou_per_class": iou}
 
 
 def build_tester(cfg, model, dataset_cfg, patch_size=1024, seed=0,

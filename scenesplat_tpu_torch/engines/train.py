@@ -1,7 +1,9 @@
 """Trainers (counterpart of ``scenesplat_tpu/engines/train.py``): a
 hook-driven epoch and step loop around ``engines/train_step.py``.
 
-The port trains the VL pretraining task (``LangPretrainer``) on one card.
+The port trains the VL pretraining task (``LangPretrainer``) and semantic
+segmentation (``DefaultSegmentorV2``) on one card; the model's type picks
+the task, as ``Trainer.TASKS`` does in the JAX package.
 Parameters come from ``cfg.seed``; every training draw (curve shuffle,
 drop-path, the contrastive split) comes from one ``torch.Generator`` on
 the card seeded from it, and the data pipeline seeds its own per-sample
@@ -64,7 +66,10 @@ class TrainerBase:
 
 @TRAINERS.register_module("DefaultTrainer")
 class Trainer(TrainerBase):
-    """Single-dataset trainer of a ``LangPretrainer`` on ``device``."""
+    """Single-dataset trainer on ``device``; the task comes from the model
+    type (``TASKS``), and a type outside it raises."""
+
+    TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg"}
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
@@ -91,9 +96,10 @@ class Trainer(TrainerBase):
 
         model_cfg = dict(cfg.model)
         criteria_cfg = model_cfg.pop("criteria", None)
-        if model_cfg.get("type") != "LangPretrainer":
-            raise NotImplementedError(f"model {model_cfg.get('type')} is not ported; "
-                                      "the port trains LangPretrainer")
+        self.task = self.TASKS.get(model_cfg.get("type"))
+        if self.task is None:
+            raise NotImplementedError(f"model {model_cfg.get('type')} is not ported; the "
+                                      f"port trains {', '.join(self.TASKS)}")
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
         self.model = build_model(model_cfg).to(self.device)
@@ -133,7 +139,7 @@ class Trainer(TrainerBase):
         metrics = train_step(self.model, self.criteria, self.optimizer, self.scheduler,
                              batch_to_device(batch, self.device), generator=self.generator,
                              epoch_progress=(self.epoch + 1) / max(self.max_epoch, 1),
-                             clip_grad=self.clip_grad)
+                             clip_grad=self.clip_grad, task=self.task)
         self.storage.put_scalars(loss=metrics["loss"].item(),
                                  grad_norm=metrics["grad_norm"].item(), lr=lr)
 

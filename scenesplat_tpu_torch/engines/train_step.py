@@ -1,11 +1,13 @@
-"""One training step of the VL pretraining task (counterpart of
-``scenesplat_tpu/engines/train_step.py``, task ``"lang"``).
+"""One training step (counterpart of ``scenesplat_tpu/engines/train_step.py``)
+of the VL pretraining task (``"lang"``) or of semantic segmentation
+(``"semseg"``).
 
 bf16 compute comes from the model's compute dtype over fp32 parameters, so
-no GradScaler is needed. The loss reads ``lang_feat`` upcast to fp32; the
-step runs backward, clips the gradient's global norm, steps the optimizer
-and the schedule, and returns the loss and the gradient norm before
-clipping (the JAX step's ``optax.global_norm(grads)``).
+no GradScaler is needed. The lang loss reads ``lang_feat`` upcast to fp32,
+the semseg loss the logits against ``segment``; the step runs backward,
+clips the gradient's global norm, steps the optimizer and the schedule,
+and returns the loss and the gradient norm before clipping (the JAX step's
+``optax.global_norm(grads)``).
 """
 
 from __future__ import annotations
@@ -52,13 +54,26 @@ def lang_loss(model, criteria, batch: Dict[str, torch.Tensor],
     return loss, out
 
 
+def semseg_loss(model, criteria, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None, epoch_progress=None):
+    """Forward and loss of semantic segmentation (the losses take no
+    schedule: ``epoch_progress`` is unused); returns (loss, model output)."""
+    out = model(point_from_batch(batch), generator=generator)
+    return criteria(out.feat, batch["segment"], mask=out.mask), out
+
+
+TASK_LOSSES = {"lang": lang_loss, "semseg": semseg_loss}
+
+
 def train_step(model, criteria, optimizer, scheduler, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None, epoch_progress=None,
-               clip_grad: Optional[float] = None) -> Dict[str, torch.Tensor]:
-    """One step in train mode; returns {"loss", "grad_norm"} as 0-d tensors
-    on the model's device (no host sync)."""
+               clip_grad: Optional[float] = None, task: str = "lang"
+               ) -> Dict[str, torch.Tensor]:
+    """One step in train mode of ``task`` (a key of ``TASK_LOSSES``);
+    returns {"loss", "grad_norm"} as 0-d tensors on the model's device (no
+    host sync)."""
     model.train()
-    loss, _ = lang_loss(model, criteria, batch, generator, epoch_progress)
+    loss, _ = TASK_LOSSES[task](model, criteria, batch, generator, epoch_progress)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grad_norm = apply_gradients(optimizer, scheduler, clip_grad)

@@ -1,6 +1,7 @@
-"""LangPretrainer: backbone + L2-normalized per-Gaussian language features,
-in eval and in training (counterpart of
-``scenesplat_tpu/models/default.py:LangPretrainer``)."""
+"""Task heads over the backbone, in eval and in training (counterpart of
+``scenesplat_tpu/models/default.py``): ``LangPretrainer`` (L2-normalized
+per-Gaussian language features) and ``DefaultSegmentorV2`` (a linear
+segmentation head)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 from torch import nn
 
 from .builder import MODELS, build_model
+from .ptv3 import Linear
 from .structure import PointBatch
 
 
@@ -27,3 +29,25 @@ class LangPretrainer(nn.Module):
         """``generator`` draws the backbone's training randomness."""
         out = self.backbone(point, generator=generator)
         return out.replace(feat=l2_normalize(out.feat))
+
+
+@MODELS.register_module()
+class DefaultSegmentorV2(nn.Module):
+    """Backbone plus a linear ``seg_head`` to ``num_classes`` logits; with
+    ``num_classes <= 0`` the backbone's features. The head computes in fp32
+    whatever the backbone's dtype, as flax's ``nn.Dense`` promotes a bf16
+    input with fp32 parameters, so the logits are fp32. Its parameters are
+    drawn from the backbone's ``seed``."""
+
+    def __init__(self, num_classes: int, backbone_out_channels: int, backbone: dict):
+        super().__init__()
+        self.backbone = build_model(dict(backbone))
+        self.seg_head = None
+        if num_classes > 0:
+            self.seg_head = Linear(backbone_out_channels, num_classes, dtype=torch.float32)
+            self.seg_head.reset_parameters(
+                torch.Generator().manual_seed(int(backbone.get("seed", 0)) + 1))
+
+    def forward(self, point: PointBatch, generator=None) -> PointBatch:
+        out = self.backbone(point, generator=generator)
+        return out if self.seg_head is None else out.replace(feat=self.seg_head(out.feat))

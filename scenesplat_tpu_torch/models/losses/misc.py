@@ -1,10 +1,14 @@
-"""Mask-aware feature losses for padded batches (counterpart of
-``scenesplat_tpu/models/losses/misc.py``: CosineSimilarity, L2Loss).
-Both compute in fp32 whatever the prediction's dtype."""
+"""Mask-aware losses for padded batches (counterpart of
+``scenesplat_tpu/models/losses/misc.py``: CrossEntropyLoss,
+CosineSimilarity, L2Loss). All compute in fp32 whatever the prediction's
+dtype."""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
+import torch.nn.functional as F
 
 from .builder import LOSSES
 
@@ -54,3 +58,44 @@ class L2Loss:
         valid = _valid(err.shape, valid_feat_mask, mask, err.device)
         out = _masked_mean(err, valid) if self.reduction == "mean" else (err * valid).sum()
         return self.loss_weight * out
+
+
+@LOSSES.register_module()
+class CrossEntropyLoss:
+    """Cross-entropy over the points that are valid (``mask``) and not
+    ``ignore_index``. With ``weight`` (one per class) the loss is the
+    weighted sum over those points divided by the sum of their weights;
+    ``label_smoothing`` mixes the one-hot target with the uniform one."""
+
+    def __init__(self, weight: Optional[Sequence[float]] = None, reduction: str = "mean",
+                 label_smoothing: float = 0.0, loss_weight: float = 1.0,
+                 ignore_index: int = -1):
+        self.weight = None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
+        self.reduction = reduction
+        self.label_smoothing = label_smoothing
+        self.loss_weight = loss_weight
+        self.ignore_index = ignore_index
+
+    def __call__(self, pred, target, mask=None, **kwargs):
+        num_classes = pred.shape[-1]
+        valid = target != self.ignore_index
+        if mask is not None:
+            valid = valid & mask
+        logp = F.log_softmax(pred.float(), dim=-1)
+        safe_t = target.long().clamp(0, num_classes - 1)
+        if self.label_smoothing > 0:
+            off = self.label_smoothing / num_classes
+            one_hot = F.one_hot(safe_t, num_classes).float()
+            tgt = one_hot * (1.0 - self.label_smoothing + off) + (1.0 - one_hot) * off
+            nll = -(tgt * logp).sum(-1)
+        else:
+            nll = -logp.gather(-1, safe_t[..., None])[..., 0]
+        if self.weight is not None:
+            w = self.weight.to(nll.device)[safe_t]
+            nll = nll * w
+            loss = (nll * valid).sum() / (w * valid).sum().clamp(min=1e-12)
+        elif self.reduction == "mean":
+            loss = _masked_mean(nll, valid)
+        else:
+            loss = (nll * valid).sum()
+        return self.loss_weight * loss

@@ -6,7 +6,9 @@ the configured testers with a trained checkpoint.
 
 ``cfg.weight`` is a checkpoint of the port's ``CheckpointSaver`` or a
 reference Pointcept ``.pth``; without it the model keeps the weights drawn
-from ``cfg.seed``. Every ``(test, data.test)`` pair of the config runs in
+from ``cfg.seed``. The testers read the model's output: the L2-normalized
+features of a ``LangPretrainer`` (``ZeroShotSemSegTester``), the logits of a
+``DefaultSegmentorV2`` (``SemSegTester``). Every ``(test, data.test)`` pair of the config runs in
 turn; the final metrics go to the log and, with a tester ``save_path``, to
 ``eval_results.txt``. ``--options bitonic_sort=True`` sorts through the
 hand-written bitonic kernel (``SCENESPLAT_BITONIC_SORT=1``). Runs on the
@@ -18,6 +20,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import numpy as np
 
 from scenesplat_tpu_torch.engines.test import build_tester
 from scenesplat_tpu_torch.entry import load_weights
@@ -70,9 +74,9 @@ def main(argv=None) -> list:
                               else None, device=args.device)
         res = tester.test()
         results.append(res)
-        if res:
+        if res:  # the scalar metrics (the per-class arrays are in the log)
             print("test results: " + " ".join(
-                f"{k} {res[k]:.4f}" for k in ("mIoU", "fg_mIoU", "mAcc", "allAcc")), flush=True)
+                f"{k} {v:.4f}" for k, v in res.items() if np.ndim(v) == 0), flush=True)
     return results
 
 

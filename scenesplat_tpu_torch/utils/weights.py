@@ -3,8 +3,10 @@
 The port's own copy of the mapping that
 ``scenesplat_tpu/utils/ckpt_bridge.py:export_ptv3_lang_checkpoint`` emits:
 flax ``params`` and ``batch_stats`` (nested dicts of arrays) become a state
-dict in the Pointcept PTv3 key layout, which the port's LangPretrainer
-(prefix ``backbone.``) or PointTransformerV3 (prefix ``""``) takes with
+dict in the Pointcept PTv3 key layout, which the port's LangPretrainer or
+DefaultSegmentorV2 (prefix ``backbone.``; the segmentor's flax ``seg_head``
+becomes ``seg_head.weight`` and ``seg_head.bias``, Pointcept's names) or
+PointTransformerV3 (prefix ``""``) takes with
 ``load_state_dict(strict=True)``. Dense kernels are transposed to
 [out, in]; SubMConv kernels [K3, Cin, Cout] are reshaped to spconv's
 [k, k, k, Cin, Cout]; every BatchNorm gets a zero ``num_batches_tracked``.
@@ -119,6 +121,10 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
             put_bn(f"dec.dec{s}.up.proj.1", (name, "proj_norm"))
             put_dense(f"dec.dec{s}.up.proj_skip.0", (name, "proj_skip"))
             put_bn(f"dec.dec{s}.up.proj_skip.1", (name, "proj_skip_norm"))
+    head = params.get("seg_head") if flax_backbone_key else None
+    if head is not None:  # DefaultSegmentorV2's linear head, outside the backbone
+        out["seg_head.weight"] = np.asarray(head["kernel"]).T
+        out["seg_head.bias"] = np.asarray(head["bias"])
     return out
 
 

@@ -40,6 +40,8 @@ def _inputs(cuda, b, n, c, k, seed=0):
 @pytest.mark.parametrize("k,c,h", [
     (1024, 32, 2), (1024, 64, 4), (1024, 128, 8), (1024, 256, 16),
     (1024, 768, 16), (1024, 512, 16), (48, 768, 16), (48, 256, 16), (16, 32, 2),
+    # the semseg files' new signatures: 32 heads at stage 4, 4 heads at C = 64
+    (1024, 512, 32), (48, 64, 4),
 ])
 def test_kernel_fp32_matches_plain(cuda, k, c, h):
     n = 2 * k + k // 3 + 1  # ragged last window
@@ -83,7 +85,7 @@ def _plain_lse(qkv, valid, k, h):
 
 
 @pytest.mark.parametrize("k", [128, 256, 1024])
-@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (32, 2)])
+@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (32, 2), (512, 32), (64, 4)])
 def test_large_window_bf16_variant(cuda, k, c, h):
     """The large-window bf16 forward: noise-floor rule, zeros in windows of
     padding, the log-sum-exp against the plain one, with valid prefixes that
@@ -140,7 +142,7 @@ def _small_inputs(cuda, k, c, seed):
 
 
 @pytest.mark.parametrize("k", [16, 32, 48, 64])
-@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (256, 16), (32, 2)])
+@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (256, 16), (32, 2), (64, 4), (128, 8)])
 def test_small_window_bf16_variant(cuda, k, c, h):
     """The one-pass bf16 forward at windows up to 64: noise-floor rule, zeros
     in windows of padding, a ragged last window, the log-sum-exp against the
@@ -209,11 +211,13 @@ def test_forward_variants_either_side_of_small_max(cuda, k, variant):
     assert (lse - lse_plain)[live].abs().max().item() <= 1e-4
 
 
-def test_small_forward_unit_orders_agree(cuda):
+@pytest.mark.parametrize("k,c,h", [(48, 768, 16), (48, 64, 4)])
+def test_small_forward_unit_orders_agree(cuda, k, c, h):
     """Every unit order of the one-pass forward gives the same bits (the
-    order moves no arithmetic), at a grid smaller than the unit count; the C
-    function refuses an order, a window and a head width it lacks."""
-    k, c, h = 48, 768, 16
+    order moves no arithmetic), at a grid smaller than the unit count, with
+    16 heads and with the semseg decoder's 4 (runs of two heads: two runs a
+    window); the C function refuses an order, a window and a head width it
+    lacks."""
     n, x16, valid, live = _small_inputs(cuda, k, c, seed=3)
     lib, stream = fwa.LIBRARY_SMALL.load(), torch.cuda.current_stream().cuda_stream
     outs = []
@@ -399,7 +403,7 @@ BWD_FP32_RTOL = 1e-4  # fp32 gradients: max abs error over the largest plain gra
 
 
 @pytest.mark.parametrize("k", [48, 64, 65, 128, 1024])
-@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (32, 2)])
+@pytest.mark.parametrize("c,h", [(768, 16), (512, 16), (32, 2), (512, 32), (64, 4)])
 def test_backward_variants_either_side_of_threshold(cuda, k, c, h):
     """Windows of 48 and 64 (the threshold) take the one-pass bf16
     backward, 65 and more the two-kernel one: each within 2.5x the plain bf16

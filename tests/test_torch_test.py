@@ -58,6 +58,19 @@ def _pipelines():
     return module
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's torch work in this file. The
+    suite runs files in parallel processes, and the port's loader threads
+    each start an OpenMP team; with teams as wide as the machine in every
+    process they spin against each other (a train entry test of 8 s took
+    over 15 minutes beside five copies of itself on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _jax_numpy_grid_sample(monkeypatch):
     from scenesplat_tpu import native

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.test_full_model_golden import MINI  # noqa: E402
 from tests.test_torch_model import _case  # noqa: E402
+from tests.test_torch_test import one_torch_thread  # noqa: E402,F401 (fixture)
 
 FLAGSHIP = "configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py"
 LOSS_RTOL = 1e-5
@@ -237,12 +238,12 @@ def test_train_entry_two_epochs_checkpoints_and_resume(gs_root, tmp_path):
 
 
 def test_unported_hook_raises(gs_root, tmp_path):
-    """A hook the port does not have (the supervised SemSegEvaluator waits
-    for its slice): building the trainer with one raises instead of
-    skipping it."""
+    """A hook the port does not have (the instance-segmentation
+    InsSegEvaluator waits for its slice): building the trainer with one
+    raises instead of skipping it."""
     from scenesplat_tpu_torch.engines.train import build_trainer
 
     cfg = _tiny_flagship(gs_root, str(tmp_path / "exp"))
-    cfg.hooks = cfg.hooks + [dict(type="SemSegEvaluator")]
+    cfg.hooks = cfg.hooks + [dict(type="InsSegEvaluator")]
     with pytest.raises(KeyError):
         build_trainer(cfg, device="cpu")
