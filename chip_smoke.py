@@ -99,7 +99,35 @@ Phases, one JSON line each:
      the seconds per scene (fetch, extract, vote); then semseg_timing_test
      (every K1 call of the first fragment forward, bf16_large and
      bf16_small without lse) and semseg_timing_sort (K3 at that forward's
-     sort shapes).
+     sort shapes);
+ 18. ssl_train: the trainer on the SimDINO file
+     configs/scannet/ssl-pretrain-scannet-all-base.py as it is
+     (SimDINOSSL over a 5-stage PT-v3m1 with its mask token, windows of
+     1024 in the encoder and 48 in the decoder, the DINO, iBOT and MAE
+     heads, the EMA teacher, 2 global crops of 102,400 points with patch
+     token masks and 3 local crops of 25,600, the multi-crop transforms
+     with the voxel blur, AdamW + OneCycle, its own hooks) at batch 2 (the
+     file's 24 is 8 a card on 3 cards) for 6 steps over 4 synthetic
+     unlabeled rooms: step times, loader waits, peak memory, every loss
+     term (finite), pooling overflow per stage and crop kind (none allowed
+     past the first pooling, where the file's capacities overflow on dense
+     rooms, as they do unseen in the JAX package), K1 launches
+     of each variant with and without lse for the student and the teacher
+     apart, K2 launches of each variant, the teacher held to m t + (1 - m) s
+     at every step within fp32 rounding and its mask token unmoved; then
+     ssl_timing_bwd, timing_bwd at the student's stage shapes (the first
+     global crop's twice, the first local crop's three times, the locals'
+     decoder forward only);
+ 19. ssl_agree: one fp32 SSL loss and its gradients of that model at one
+     block a stage with mean pooling (the file's max pooling makes the
+     gradient a discontinuous function of the features), batch 2, global
+     crops of 24,576 points with injected token masks and local crops of
+     6,144, with the kernels and with the plain attention: the loss to
+     1e-5, the gradient of each term apart, each tensor and the whole to
+     1e-4 relative (the MCR expansion's from one cotangent at the student's
+     DINO heads, given to both paths: its own is ill-conditioned).
+The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
+encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 """
@@ -128,6 +156,7 @@ from scenesplat_tpu_torch.data import metadata
 from scenesplat_tpu_torch.engines.hooks import HookBase
 from scenesplat_tpu_torch.engines.hooks.misc import PreciseEvaluator
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor, bucket_size
+from scenesplat_tpu_torch.engines.pretrain import build_ssl_model, ssl_loss
 from scenesplat_tpu_torch.engines.train import build_trainer
 from scenesplat_tpu_torch.engines.train_step import lang_loss, semseg_loss
 from scenesplat_tpu_torch.entry import (
@@ -137,6 +166,7 @@ from scenesplat_tpu_torch.entry import (
 )
 from scenesplat_tpu_torch.models import PointBatch, build_criteria, build_model
 from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3, _round_capacity
+from scenesplat_tpu_torch.models.ssl import generate_token_masks
 from scenesplat_tpu_torch.ops import bitonic_sort as bs
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa
 from scenesplat_tpu_torch.ops import window_attention as window_attention_module
@@ -173,6 +203,7 @@ TRAIN_POINTS = 196608
 TRAIN_CLASSES = 20
 LANG_DIM = 768
 SEMSEG_CONFIG = "configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py"
+SSL_CONFIG = "configs/scannet/ssl-pretrain-scannet-all-base.py"
 
 
 def emit(obj):
@@ -188,13 +219,20 @@ def reset_k1_counts():
     """K1's launch count and each variant's to 0, as just before a path is
     driven."""
     fwa.flash_window_attention.launches = 0
-    counts = fwa.flash_window_attention.variant_launches
-    counts.update(dict.fromkeys(counts, 0))
+    for counts in (fwa.flash_window_attention.variant_launches,
+                   fwa.flash_window_attention.lse_variant_launches):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def k1_variants():
     """K1's launches of each variant since the last reset."""
     return dict(fwa.flash_window_attention.variant_launches)
+
+
+def k1_lse_variants():
+    """K1's launches with the log-sum-exp, of each variant, since the last
+    reset."""
+    return dict(fwa.flash_window_attention.lse_variant_launches)
 
 
 def depth_split(backbone):
@@ -305,17 +343,25 @@ SIGNATURES = sorted({
   # the semseg files' backbone: 32 heads at encoder stage 4, and the
   # decoder's 4 heads at C = 64 and 8 at C = 128 at windows of 48
   | {(1024, 512, 32), (48, 64, 4), (48, 128, 8)})
+# the encoder stages of a local crop of the SSL file (25,600 points, windows
+# of 1024: whole windows, two at stage 4): (N, K, C, H), checked beside
+# SIGNATURES at their own N
+SSL_LOCAL_STAGES = ((25600, 1024, 32, 2), (13312, 1024, 64, 4), (7168, 1024, 128, 8),
+                    (4096, 1024, 256, 16), (2048, 1024, 512, 32))
+KERNEL_CASES = [(k, c, h, None) for k, c, h in SIGNATURES] + [
+    (k, c, h, n) for n, k, c, h in SSL_LOCAL_STAGES]
 # the bf16 forward variant each of these windows of SIGNATURES must take
 VARIANT_WINDOWS = {"bf16_small": {16, 32, 48, 64}, "bf16_tiled": {65, 4160},
                    "bf16_large": {128, 192, 256, 1024}}
 LSE_ATOL = 1e-4  # bf16 forward: fp32 log-sum-exp against the plain one
 
 
-def signature_inputs(gen, k, c, batch=2):
-    """qkv [batch, N, 3, c] fp32 and valid prefixes for windows of k with a
-    ragged last window: a partial window, then fully padded windows; with
-    batch 4 also prefixes that end on a 64-key tile edge and one past it."""
-    n = 3 * k + k // 2 + 5
+def signature_inputs(gen, k, c, batch=2, n=None):
+    """qkv [batch, N, 3, c] fp32 and valid prefixes for windows of k, by
+    default N with a ragged last window: a partial window, then fully padded
+    windows; with batch 4 also prefixes that end on a 64-key tile edge and
+    one past it."""
+    n = n or 3 * k + k // 2 + 5
     valid = torch.zeros(batch, n, dtype=torch.bool, device="cuda")
     valid[0, : int(0.8 * n)] = True  # ends inside a key tile
     valid[1, : k + 7] = True  # then fully padded windows
@@ -347,8 +393,8 @@ def phase_kernel():
     """Kernel vs plain at every signature; returns the fp32 max abs error."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst32, rows = 0.0, []
-    for k, c, h in SIGNATURES:
-        n, qkv, valid, dead = signature_inputs(gen, k, c, batch=4)
+    for k, c, h, n_case in KERNEL_CASES:
+        n, qkv, valid, dead = signature_inputs(gen, k, c, batch=4, n=n_case)
         out32 = fwa.flash_window_attention(qkv, valid, k, h)
         ref32 = fwa.flash_window_attention_plain(qkv, valid, k, h)
         torch.cuda.synchronize()
@@ -618,8 +664,8 @@ def phase_kernel_bwd():
     forward with log-sum-exp (the Function's forward)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, worst_fwd, rows = 0.0, 0.0, []
-    for k, c, h in SIGNATURES:
-        n, qkv, valid, dead = signature_inputs(gen, k, c)
+    for k, c, h, n_case in KERNEL_CASES:
+        n, qkv, valid, dead = signature_inputs(gen, k, c, n=n_case)
         dout = torch.randn(2, n, c, generator=gen, device="cuda")
         out32, g32 = grads_of(fwa.flash_window_attention, qkv, valid, k, h, dout)
         ref_out, ref32 = grads_of(fwa.flash_window_attention_plain, qkv, valid, k, h, dout)
@@ -1016,12 +1062,13 @@ def backward_ms(make_out, x_list, dout, reps):
 
 
 def phase_timing_bwd(shapes, phase="timing_bwd"):
-    """At the train step's shapes: the forward with log-sum-exp and the
-    backward kernel against the plain version under the bf16 noise-floor
-    rule (gradients against autograd through the plain version run in
-    fp32), with zero output and gradients in windows whose slot 0 is
-    padding; then each kernel's time per call and per step against the
-    plain version, the library call and the bound."""
+    """At the train step's shapes, (N, valid counts, K, C, H, forward
+    launches a step[, backward launches a step]): the forward with
+    log-sum-exp and the backward kernel against the plain version under the
+    bf16 noise-floor rule (gradients against autograd through the plain
+    version run in fp32), with zero output and gradients in windows whose
+    slot 0 is padding; then each kernel's time per call and per step against
+    the plain version, the library call and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
@@ -1031,9 +1078,10 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
     by_variant = {}  # the forward's per-step sums for each of its variants
     # what the autograd Function keeps beyond the JAX package's residuals
     # (qkv, valid): the bf16 output and the fp32 log-sum-exp of every call
+    shapes = [tuple(sh) + (sh[5],) * (7 - len(sh)) for sh in shapes]
     saved_gib = sum(count * len(valids) * n * (2 * c + 4 * h)
-                    for n, valids, k, c, h, count in shapes) / 2 ** 30
-    for n, valids, k, c, h, count in shapes:
+                    for n, valids, k, c, h, count, _ in shapes) / 2 ** 30
+    for n, valids, k, c, h, count, bwd_count in shapes:
         b, d, scale = len(valids), c // h, (c // h) ** -0.5
         shape = ("N, valid, K, C, H", n, valids, k, c, h)
         qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
@@ -1096,6 +1144,7 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
                    fwd_ops_ms=fwd_ops_ms, fwd_bytes_ms=fwd_bytes_ms)
         fwd_variant = fwa.forward_variant(qkv.dtype, k, d)
         rows.append(dict(N=n, B=b, valid=valids, K=k, C=c, H=h, launches=count,
+                         bwd_launches=bwd_count,
                          variant=fwa.backward_variant(qkv.dtype, k, d),
                          fwd_variant=fwd_variant, **row,
                          bound_ms=max(ops_ms, bytes_ms),
@@ -1103,7 +1152,7 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
                          bf16_grad_rel_err=err16, bf16_grad_plain_rel_err=floor16,
                          bf16_fwd_lse_rel_err=fwd_err, bf16_fwd_plain_rel_err=fwd_floor))
         for key, val in row.items():
-            tot[key] += count * val
+            tot[key] += (count if key.startswith("fwd_") else bwd_count) * val
         part = by_variant.setdefault(fwd_variant, dict.fromkeys(fwd_keys, 0.0))
         for key in fwd_keys:
             part[key] += count * row[key]
@@ -1116,6 +1165,8 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
     tot["design_bound_ms"] = max(tot["ops_ms"], tot["design_bytes_ms"])
     for part in by_variant.values():
         part["fwd_bound_ms"] = max(part["fwd_ops_ms"], part["fwd_bytes_ms"])
+        part["fwd_bound_by"] = ("operations" if part["fwd_ops_ms"] >= part["fwd_bytes_ms"]
+                                else "bytes")
     tot["fwd_by_variant"] = by_variant
     emit(dict(phase=phase, dtype="bfloat16", bf16_noise_factor=BF16_NOISE_FACTOR,
               per_call=rows, per_step=tot, saved_out_lse_gib=saved_gib,
@@ -1127,46 +1178,64 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
 
 
 def compare_train_steps(phase, step, blocks, **record):
-    """``step(use_kernel)`` -> (loss, gradients by name, pooling overflow of
-    each stage) runs one train step from fixed weights and generator seeds;
-    it runs with the kernels (``blocks`` K1 and K2 launches) and with the
-    plain attention (none). The losses must agree to TRAIN_LOSS_RTOL and
-    each gradient to TRAIN_GRAD_RTOL of its own norm (or both be zero, see
-    ZERO_GRAD); no stage may overflow. Emits ``phase`` with ``record``."""
+    """``step(use_kernel)`` -> (loss, or the loss terms with the composed
+    one under "loss", gradients by name, pooling overflow of each stage)
+    runs one train step from fixed weights and generator seeds; it runs
+    with the kernels (``blocks`` K1 and K2 launches, or a pair of counts
+    (K1, K2)) and with the plain attention (none). The losses must agree to
+    TRAIN_LOSS_RTOL (each term's difference is recorded) and each gradient
+    to TRAIN_GRAD_RTOL of its own norm (or both be zero, see ZERO_GRAD),
+    the whole gradient too; no stage may overflow. Gradients named
+    ``<term>/<parameter>`` are one loss term's: each term is its own whole
+    gradient. Emits ``phase`` with ``record``."""
     before = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
     loss_k, grads_k, overflow_k = step(None)
     after = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
-    check(after == (before[0] + blocks, before[1] + blocks),
-          f"{phase}: kernel path not taken: {before} {after}")
+    k1, k2 = blocks if isinstance(blocks, tuple) else (blocks, blocks)
+    check(after == (before[0] + k1, before[1] + k2),
+          f"{phase}: kernel path not taken: {before} {after}, expected {k1} and {k2} more")
     loss_p, grads_p, overflow_p = step(False)
     check((fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
           == after, f"{phase}: plain path launched a kernel")
-    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_p.values()])).item()
-    worst, zero, by_share = 0.0, [], {}
+    term = {name: name.split("/")[0] if "/" in name else "" for name in grads_p}
+    total = {t: torch.linalg.vector_norm(torch.stack(
+        [g.norm() for name, g in grads_p.items() if term[name] == t])).item()
+        for t in set(term.values())}
+    worst, zero, by_share, diff_sq = 0.0, [], {}, dict.fromkeys(total, 0.0)
     for name, gp in grads_p.items():
-        gk = grads_k[name]
+        gk, whole = grads_k[name], total[term[name]]
         check(torch.isfinite(gk).all().item(), f"{phase}: non-finite gradient {name}")
         norm, diff = gp.norm().item(), (gk - gp).norm().item()
-        # per decade of the tensor's share of the global norm: how many
-        # tensors, and their worst error relative to their own norm
-        decade = f"1e{math.floor(math.log10(norm / total))}" if norm else "0"
+        diff_sq[term[name]] += diff ** 2
+        # per decade of the tensor's share of its whole gradient's norm: how
+        # many tensors, and their worst error relative to their own norm
+        decade = f"1e{math.floor(math.log10(norm / whole))}" if norm else "0"
         count, own = by_share.get(decade, (0, 0.0))
         by_share[decade] = (count + 1, max(own, diff / norm if norm else diff))
-        if norm < ZERO_GRAD * total:
+        if norm < ZERO_GRAD * whole:
             zero.append(name)
-            check(gk.norm().item() < ZERO_GRAD * total,
+            check(gk.norm().item() < ZERO_GRAD * whole,
                   f"{phase}: gradient of {name} is zero on the plain path only")
             continue
         worst = max(worst, diff / norm)
         check(diff / norm <= TRAIN_GRAD_RTOL,
               f"{phase}: gradient of {name} differs by {diff / norm} (relative L2)")
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    losses_k, losses_p = (loss_k, loss_p) if isinstance(loss_p, dict) else (
+        dict(loss=loss_k), dict(loss=loss_p))
+    loss_rel = {k: abs(losses_k[k] - v) / abs(v) for k, v in losses_p.items()}
+    whole_rel = {t: math.sqrt(diff_sq[t]) / total[t] for t in total}
     emit(dict(phase=phase, dtype="float32", **record, n_overflow=[overflow_k, overflow_p],
-              loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel,
+              loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel["loss"],
+              term_rel_diff=loss_rel,
               loss_rtol=TRAIN_LOSS_RTOL, grad_tensors=len(grads_p), worst_grad_rel_l2=worst,
-              grad_rtol=TRAIN_GRAD_RTOL, zero_grad_tensors=zero, global_grad_norm=total,
+              grad_rtol=TRAIN_GRAD_RTOL, zero_grad_tensors=zero,
+              global_grad_norm=total[""] if "" in total else total,
+              global_grad_rel_l2=whole_rel[""] if "" in whole_rel else whole_rel,
               worst_own_rel_l2_by_share=dict(sorted(by_share.items()))))
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"{phase}: losses differ by {loss_rel} relative")
+    check(loss_rel["loss"] <= TRAIN_LOSS_RTOL,
+          f"{phase}: losses differ by {loss_rel['loss']} relative")
+    check(max(whole_rel.values()) <= TRAIN_GRAD_RTOL,
+          f"{phase}: the whole gradient differs by {whole_rel}")
     check(not any(overflow_k + overflow_p), f"{phase}: pooling overflow {overflow_k}")
 
 
@@ -1915,6 +1984,301 @@ def phase_semseg_test(work, checkpoint, n_voxels=160000, n_scenes=2):
               f"{sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
     return on, len(fragment_points), sizes[0], calls.shapes()
 
+def ssl_train_config(root, exp, batch_size, steps, scenes):
+    """The ScanNet SSL file as it is, its hooks included, with the data
+    root, epoch 1, the batch size and a train loop that gives ``steps``
+    steps over ``scenes`` scenes."""
+    cfg = Config.fromfile(SSL_CONFIG)
+    cfg.merge_from_options(dict(save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size))
+    samples = steps * batch_size
+    check(samples % scenes == 0, f"{samples} samples over {scenes} scenes")
+    cfg.data.train.update(data_root=root, loop=samples // scenes)
+    return cfg
+
+
+def record_passes(model):
+    """Wraps the SSL model's student and teacher backbones: for each, the
+    forwards, K1's launches of each variant inside them with and without the
+    log-sum-exp, and per forward the pooling overflow and (slots, valid
+    count) of each stage, kept as tensors (no host sync in the step)."""
+    rec = {}
+    for name, module in (("student", model.backbone), ("teacher", model.teacher)):
+        r = rec[name] = dict(forwards=0, variants=dict.fromkeys(fwa.VARIANTS, 0),
+                             lse_variants=dict.fromkeys(fwa.VARIANTS, 0), passes=[])
+
+        def recording(point, generator=None, token_mask=None, return_enc=False,
+                      _forward=module.forward, _r=r):
+            before, before_lse = k1_variants(), k1_lse_variants()
+            out = _forward(point, generator=generator, token_mask=token_mask,
+                           return_enc=return_enc)
+            _r["forwards"] += 1
+            for v, n in k1_variants().items():
+                _r["variants"][v] += n - before[v]
+            for v, n in k1_lse_variants().items():
+                _r["lse_variants"][v] += n - before_lse[v]
+            dec = out[0] if return_enc else out
+            _r["passes"].append(dict(
+                masked=token_mask is not None, overflow=[p.n_overflow for p in dec.plans],
+                clusters=[p.n_clusters for p in dec.plans],
+                sizes=[(point.mask.shape[1], point.mask.sum(1))]
+                + [(p.out_mask.shape[1], p.out_mask.sum(1)) for p in dec.plans]))
+            return out
+
+        module.forward = recording
+    return rec
+
+
+class EmaProbe(HookBase):
+    """Holds the teacher to its EMA at every step: one teacher parameter
+    after the step must equal m t + (1 - m) s, t its value before the step,
+    s the student's after the optimizer step, m the step's momentum, within
+    four fp32 roundings of |m t| + |(1 - m) s|; the teacher's mask token
+    must never move."""
+
+    PARAM = "enc.enc4.block1.attn.qkv.weight"
+
+    def before_train(self):
+        self.token = self.trainer.model.teacher.mask_token.detach().clone()
+        self.errors = []
+
+    def before_step(self):
+        self.m = np.float32(self.trainer.momentum_schedule(self.trainer.storage.iter))
+        self.t = self.trainer.model.teacher.get_parameter(self.PARAM).detach().clone()
+
+    def after_step(self):
+        model = self.trainer.model
+        s = model.backbone.get_parameter(self.PARAM).detach()
+        got = model.teacher.get_parameter(self.PARAM).detach()
+        a, b = self.t * float(self.m), s * float(np.float32(1) - self.m)
+        err = (got - (a + b)).abs()
+        tol = 4 * torch.finfo(torch.float32).eps * (a.abs() + b.abs()) + 1e-30
+        self.errors.append(dict(momentum=float(self.m), max_abs_err=err.max().item(),
+                                worst_err_over_tol=(err / tol).max().item(),
+                                moved=(got != self.t).any().item()))
+        check((err <= tol).all().item(), f"ssl: teacher {self.PARAM} is not m t + (1 - m) s "
+              f"at step {self.trainer.storage.iter}: {self.errors[-1]}")
+        check(torch.equal(model.teacher.mask_token, self.token),
+              "ssl: the teacher's mask token moved")
+
+
+def ssl_stage_shapes(backbone, student, local_crop_num):
+    """The timing phase's shapes from one step's student passes: the first
+    global crop's stages for both globals (forward with lse and backward
+    twice), the first local crop's for every local (the encoder forward and
+    backward, the decoder forward only: its output takes no gradient)."""
+    g0, _, local = student["passes"][-(2 + local_crop_num):][:3]  # the last step's
+    check(g0["masked"] and not local["masked"], "ssl: the student's passes out of order")
+    shapes = []
+    for record, count, dec_bwd in ((g0, 2, 2), (local, local_crop_num, 0)):
+        sizes = [(n, v.tolist()) for n, v in record["sizes"]]
+        stages = stage_shapes(backbone, sizes)
+        enc = len(sizes)
+        shapes += [sh[:5] + (sh[5] * count, sh[5] * (count if i < enc else dec_bwd))
+                   for i, sh in enumerate(stages)]
+    return shapes
+
+
+def phase_ssl_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6)):
+    """The SSL trainer on configs/scannet/ssl-pretrain-scannet-all-base.py as
+    it is (SimDINOSSL at the shipped widths: 5 stages, windows of 1024 in
+    the encoder, 48 in the decoder, 3 local crops, patch masks, MAE; AdamW,
+    OneCycle, the EMA teacher, the multi-crop transforms with the voxel
+    blur, 102,400 / 25,600 points a global / local crop, its own hooks) at
+    batch 2 for ``steps`` steps over 4 synthetic unlabeled rooms of
+    ``scene_points`` 2 cm voxels. Returns the timing phase's shapes and the
+    launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "ssl_gs")
+        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=31, size_m=room,
+                        semseg=True)
+        data_s = time.perf_counter() - t0
+        batch = 2  # the reference's 8 a card cut to 2
+        reset_k1_counts()
+        fwa.flash_window_attention_bwd.launches = 0
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
+        k2_variants.update(dict.fromkeys(k2_variants, 0))
+        cfg = ssl_train_config(root, os.path.join(tmp, "exp"), batch, steps, 4)
+        trainer = build_trainer(cfg, device="cuda")
+        probe, ema = StepProbe(profile_step=steps - 1), EmaProbe()
+        for hook in (probe, ema):
+            hook.trainer = trainer
+            trainer.hooks.append(hook)
+        passes = record_passes(trainer.model)
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train()
+        backbone = trainer.cfg.model.backbone
+        locals_ = trainer.loss_kwargs["local_crop_num"]
+        enc, dec = depth_split(backbone)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = probe.step_ms()
+        hist = trainer.storage.history
+        terms = ("loss", "grad_norm", "mcr_comp_loss", "mcr_expa_loss", "sim_dino_crops_loss",
+                 "sim_ibot_patch_loss", "global_mae_loss")
+        logged = {k: hist(k).values() for k in terms}
+        check(all(len(v) == steps for v in logged.values()),
+              f"ssl: {[len(v) for v in logged.values()]} logged steps, expected {steps}")
+        check(all(math.isfinite(x) for v in logged.values() for x in v),
+              f"ssl: non-finite loss terms {logged}")
+        student, teacher = passes["student"], passes["teacher"]
+        check(student["forwards"] == (2 + locals_) * steps and teacher["forwards"] == 2 * steps,
+              f"ssl: {student['forwards']} student and {teacher['forwards']} teacher forwards "
+              f"in {steps} steps")
+        # K1: every student pass records a graph (lse), the teacher's none;
+        # the encoder's windows of 1024 on bf16_large, the decoder's 48 on
+        # bf16_small
+        for name, r, forwards, lse in (("student", student, (2 + locals_) * steps, True),
+                                       ("teacher", teacher, 2 * steps, False)):
+            got = {v: n for v, n in r["variants"].items() if n}
+            want = dict(bf16_large=enc * forwards, bf16_small=dec * forwards)
+            check(got == want, f"ssl: {name} K1 variant launches {got}, expected {want}")
+            got_lse = {v: n for v, n in r["lse_variants"].items() if n}
+            check(got_lse == (want if lse else {}),
+                  f"ssl: {name} K1 launches with lse {got_lse}")
+        k1 = fwa.flash_window_attention.launches
+        check(k1 == (enc + dec) * (4 + locals_) * steps,
+              f"ssl: K1 launched {k1} times, not all inside the backbones' forwards")
+        # K2: the globals' encoder and decoder, the locals' encoder (their
+        # decoder output takes no gradient)
+        k2_want = dict(bf16_large=enc * (2 + locals_) * steps, bf16_small=dec * 2 * steps)
+        got = {v: n for v, n in k2_variants.items() if n}
+        check(got == k2_want, f"ssl: K2 variant launches {got}, expected {k2_want}")
+        # pooling overflow: the file's capacities (1/2 to 1/16 of the crop's
+        # slots) against the clusters of each crop; the JAX package drops the
+        # clusters past them unseen, the port counts them. Per crop kind and
+        # stage: the most clusters lost in a row and their share
+        overflow = {}
+        for r in (student, teacher):
+            for p in r["passes"]:
+                kind = "global" if p["sizes"][0][0] == cfg.data.num_points else "local"
+                rows = overflow.setdefault(kind, [[0, 0.0] for _ in p["overflow"]])
+                for stage, (o, c) in enumerate(zip(p["overflow"], p["clusters"])):
+                    rows[stage][0] = max(rows[stage][0], int(o.max()))
+                    rows[stage][1] = max(rows[stage][1], (o / c.clamp(min=1)).max().item())
+        lost = {k: [o for o, _ in v] for k, v in overflow.items()}
+        model_dir = os.path.join(trainer.cfg.save_path, "model")
+        check(os.path.exists(os.path.join(model_dir, "model_last.pth")),
+              "ssl: no checkpoint written")
+        last = student["passes"][-(2 + locals_):]
+        stage_slots_valid = [[(n, v.tolist()) for n, v in p["sizes"]] for p in last]
+        emit(dict(phase="ssl_train", config=SSL_CONFIG, batch_size=batch,
+                  batch_cut="the file's batch_size 24 (8 a card x 3 cards) cut to "
+                            f"{batch} on one card",
+                  global_points=cfg.data.num_points, local_points=cfg.data.num_points_local,
+                  local_crop_num=locals_, steps=steps, **logged, lr=hist("lr").values(),
+                  momentum=[e["momentum"] for e in ema.errors], ema_check=ema.errors,
+                  cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=peak_gib,
+                  k1_student_variant_launches=student["variants"],
+                  k1_student_lse_variant_launches=student["lse_variants"],
+                  k1_teacher_variant_launches=teacher["variants"],
+                  k1_teacher_lse_variant_launches=teacher["lse_variants"],
+                  k1_launches_per_step=k1 / steps, k2_variant_launches=dict(k2_variants),
+                  k2_launches_per_step=sum(k2_variants.values()) / steps,
+                  n_overflow_per_stage=lost,
+                  overflow_share_per_stage={k: [f for _, f in v] for k, v in overflow.items()},
+                  stage_slots_valid_last_step=stage_slots_valid,
+                  dataset_write_s=data_s, profile=probe.profile))
+        # the one loss the file's capacities are known to take: a crop's 4 cm
+        # cells past its first pooling's 1/2 (up to 32% of a local crop's, 1%
+        # of a global's; ROADMAP Queue 3); no later stage may lose any
+        check(not any(o for v in lost.values() for o in v[1:]),
+              f"ssl: pooling overflow beyond the first stage: {lost}")
+        warm = step_ms[1:-1] or step_ms
+        print(f"ssl_train: loss {logged['loss'][-1]:.4f} after {steps} steps, warm step "
+              f"{min(warm):.0f}-{max(warm):.0f} ms, peak {peak_gib:.2f} GiB", flush=True)
+        shapes = ssl_stage_shapes(backbone, student, locals_)
+        counts = dict(student_lse=student["lse_variants"], teacher=teacher["variants"],
+                      k1=k1, k2=dict(k2_variants), steps=steps)
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes, counts
+
+
+def phase_ssl_agree(n=24576, n_local=6144):
+    """One fp32 SSL loss and its gradients of the SSL file's model at one
+    block a stage with mean pooling (its widths, heads and windows kept),
+    batch 2, two global crops of ``n`` points with injected token masks and
+    three local crops of ``n_local``, with the kernels and with the plain
+    attention; each loss term's gradient apart."""
+    cfg = Config.fromfile(SSL_CONFIG)
+    # mean pooling in place of the file's max: which point is a cluster's
+    # max is a discontinuous function of the features, and an attention
+    # output a few ulps off flips near-ties, moving some gradients by 1e-3
+    # on either path (the kernels' or the plain path's own under one ulp);
+    # max pooling runs as the file has it in ssl_train and against JAX in
+    # tests/test_torch_ssl.py
+    backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4,
+                    pool_reduce="mean")
+    rng = np.random.default_rng(19)
+    batch = {}
+    for prefix, points, size in (("global_crop0", n, 1.8), ("global_crop1", n, 1.8),
+                                 ("local_crop0", n_local, 0.9), ("local_crop1", n_local, 0.9),
+                                 ("local_crop2", n_local, 0.9)):
+        # rooms small enough that their 4 cm cells fit the first pooling
+        rows = [room_scene(rng, points, (size,) * 3) for _ in range(2)]
+        for i, key in enumerate(("coord", "feat", "grid_coord")):
+            batch[f"{prefix}_{key}"] = torch.from_numpy(np.stack([r[i] for r in rows])).cuda()
+        batch[f"{prefix}_mask"] = torch.ones(2, points, dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for prefix in ("global_crop0", "global_crop1"):
+        tm, w = generate_token_masks(gen, batch[f"{prefix}_coord"], batch[f"{prefix}_mask"],
+                                     mask_sample_probability=1.0)
+        batch[f"{prefix}_token_mask"], batch[f"{prefix}_mask_weight"] = tm, w
+
+    # the expansion term's gradient at the student's DINO heads: each
+    # path's own is as ill-conditioned as I + 2560 cov (eigenvalues 1 to
+    # about 5,100 at two rows); the first step's is given to both, so what
+    # is compared is the heads' and the backbones' backward, where the
+    # kernels are
+    cotangent = []
+
+    def step(use_kernel):
+        model, loss_kwargs = build_ssl_model(dict(cfg.model, backbone=dict(
+            backbone, dtype="float32", seed=1, use_kernel=use_kernel)))
+        model = model.cuda().train()
+        passes = record_passes(model)
+        heads, head = [], model.dino_head.forward
+
+        def recording(x):
+            y = head(x)
+            if torch.is_grad_enabled():  # the student's
+                heads.append(y)
+            return y
+
+        model.dino_head.forward = recording
+        loss, metrics = ssl_loss(model, batch, torch.Generator(device="cuda").manual_seed(13),
+                                 **loss_kwargs)
+        if not cotangent:
+            cotangent.extend(torch.autograd.grad(metrics["mcr_expa_loss"], heads,
+                                                 retain_graph=True))
+        named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+        grads = {}
+        for term, out, cot in (("mcr_comp_loss", metrics["mcr_comp_loss"], None),
+                               ("sim_ibot_patch_loss", metrics["sim_ibot_patch_loss"], None),
+                               ("global_mae_loss", metrics["global_mae_loss"], None),
+                               ("mcr_expa_loss", heads, cotangent)):
+            got = torch.autograd.grad(out, [p for _, p in named], grad_outputs=cot,
+                                      retain_graph=True, allow_unused=True)
+            grads.update({f"{term}/{k}": g for (k, _), g in zip(named, got) if g is not None})
+        overflow = [max(int(o.max()) for p in r["passes"] for o in p["overflow"])
+                    for r in passes.values()]
+        return {k: v.item() for k, v in metrics.items()}, grads, overflow
+
+    enc, dec = depth_split(backbone)
+    # K2: the compression's and the expansion's backward each reach the
+    # encoders of all five student passes, the iBOT term's the globals'
+    # encoders and decoders, the MAE term's the first global's
+    compare_train_steps("ssl_agree", step, ((enc + dec) * 7, enc * 5 * 2 + (enc + dec) * 3),
+                        points=dict(global_crop=n, local_crop=n_local, batch=2),
+                        config=SSL_CONFIG, enc_depths=backbone["enc_depths"],
+                        dec_depths=backbone["dec_depths"], token_masks="injected",
+                        passes="2 teacher, 2 masked global, 3 local",
+                        grads="per term; the expansion's from one cotangent at the heads")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1955,6 +2319,9 @@ def main() -> int:
             phase_semseg_test(work, semseg_checkpoint)
         semseg_fwd = phase_timing_test(semseg_calls, phase="semseg_timing_test")
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
+        ssl_shapes, ssl_counts = phase_ssl_train(work)
+        ssl_bwd = phase_timing_bwd(ssl_shapes, phase="ssl_timing_bwd")
+        phase_ssl_agree()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -1983,6 +2350,13 @@ def main() -> int:
     semseg_test = dict(path="semseg test", fragment_forwards=semseg_fragments,
                        ms_per="test fragment forward (the first fragment's calls, no lse)")
     semseg_train = dict(path="semseg train", ms_per="train step")
+    # "ssl": the SSL file's path, 6 train steps of 7 backbone passes; ms
+    # and the other times per step (timing at the student's shapes: the
+    # globals' 22 launches twice, the locals' 22 forward and 14 backward
+    # launches three times); the teacher's launches, without lse, are
+    # counted apart
+    ssl_train = dict(path="ssl train", ms_per="train step", steps=ssl_counts["steps"])
+    ssl_small = ssl_bwd["fwd_by_variant"]["bf16_small"]
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
@@ -2002,7 +2376,12 @@ def main() -> int:
              bound_ms=tot_bwd["fwd_bound_ms"], bound_by=tot_bwd["fwd_bound_by"],
              library_ms=tot_bwd["fwd_library_ms"],
              semseg=dict(semseg_train, launches=semseg_k1, variant_launches=semseg_k1_variants,
-                         by_variant=semseg_bwd["fwd_by_variant"], **times(semseg_bwd, "fwd_"))),
+                         by_variant=semseg_bwd["fwd_by_variant"], **times(semseg_bwd, "fwd_")),
+             ssl=dict(ssl_train, launches=sum(ssl_counts["student_lse"].values()),
+                      variant_launches=ssl_counts["student_lse"],
+                      teacher_launches_without_lse=sum(ssl_counts["teacher"].values()),
+                      teacher_variant_launches=ssl_counts["teacher"],
+                      by_variant=ssl_bwd["fwd_by_variant"], **times(ssl_bwd, "fwd_"))),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -2016,7 +2395,13 @@ def main() -> int:
              semseg=dict(semseg_test, launches=semseg_on["k1_variants"]["bf16_small"],
                          train_launches=semseg_k1_variants["train"]["bf16_small"],
                          train_step=semseg_bwd["fwd_by_variant"]["bf16_small"],
-                         **times(semseg_fwd["by_variant"]["bf16_small"]))),
+                         **times(semseg_fwd["by_variant"]["bf16_small"])),
+             ssl=dict(ssl_train, launches=ssl_counts["student_lse"]["bf16_small"],
+                      teacher_launches_without_lse=ssl_counts["teacher"]["bf16_small"],
+                      ms_per="train step (the student's decoder launches, with lse)",
+                      ms=ssl_small["fwd_lse_ms"], plain_ms=ssl_small["fwd_plain_ms"],
+                      bound_ms=ssl_small["fwd_bound_ms"], bound_by=ssl_small["fwd_bound_by"],
+                      library_ms=ssl_small["fwd_library_ms"])),
         dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
              sources=[source_bwd, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
@@ -2026,7 +2411,9 @@ def main() -> int:
              bound_by=tot_bwd["bound_by"], library_ms=tot_bwd["library_ms"],
              design_bound_ms=tot_bwd["design_bound_ms"],
              semseg=dict(semseg_train, launches=sum(semseg_k2_variants.values()),
-                         variant_launches=semseg_k2_variants, **times(semseg_bwd))),
+                         variant_launches=semseg_k2_variants, **times(semseg_bwd)),
+             ssl=dict(ssl_train, launches=sum(ssl_counts["k2"].values()),
+                      variant_launches=ssl_counts["k2"], **times(ssl_bwd))),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",

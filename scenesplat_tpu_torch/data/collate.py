@@ -6,7 +6,9 @@ consecutive sample pairs with probability ``mix_prob``: a mixed pair's
 points are concatenated into one slot and the batch dimension stays
 static. A sample above ``num_points`` is randomly downsampled. The JAX
 package drops its host-built conv-plan keys on both paths; the port builds
-every plan on the card and has no such keys.
+every plan on the card and has no such keys. ``collate_ssl`` (the port's
+copy of the JAX function) pads each crop of the SSL multi-crop samples to
+its own size through ``collate_padded``.
 """
 
 from __future__ import annotations
@@ -99,4 +101,30 @@ def collate_padded(samples: List[Dict[str, np.ndarray]], num_points: int,
     for i, n in enumerate(lengths):
         mask[i, :n] = True
     batch["mask"] = mask
+    return batch
+
+
+def collate_ssl(samples: List[Dict[str, np.ndarray]], global_points: int, local_points: int,
+                local_crop_num: int = 3) -> Dict[str, np.ndarray]:
+    """Multi-crop SSL samples (keys prefixed ``global_crop{0,1}_`` and
+    ``local_crop{i}_``) -> ``<prefix>_<key>`` arrays of [B, points, ...] and
+    a ``<prefix>_mask`` per crop: the globals padded to ``global_points``,
+    the locals to ``local_points``. Integer keys become int32, floats
+    float32."""
+    prefixes = [("global_crop0", global_points), ("global_crop1", global_points)]
+    prefixes += [(f"local_crop{i}", local_points) for i in range(local_crop_num)]
+    batch: Dict[str, np.ndarray] = {}
+    for prefix, target in prefixes:
+        subs = []
+        for s in samples:
+            sub = {k[len(prefix) + 1:]: v for k, v in s.items() if k.startswith(prefix + "_")}
+            if "coord" not in sub:
+                raise KeyError(f"missing {prefix}_coord in sample")
+            subs.append(sub)
+        for key, arr in collate_padded(subs, target).items():
+            if arr.ndim < 2:
+                continue  # a crop's scalars do not batch
+            if arr.dtype == np.float16:
+                arr = arr.astype(np.float32)
+            batch[f"{prefix}_{key}"] = arr
     return batch

@@ -90,3 +90,19 @@ class HoliCityGSDataset(_GSDatasetBase):
     VALID_ASSETS = ["coord", "color", "segment", "quat", "scale", "opacity", "lang_feat",
                     "valid_feat_mask"]
     EVAL_PC_ASSETS = ["pc_coord", "pc_segment"]
+
+
+@DATASETS.register_module()
+class GenericGSDataset(_GSDatasetBase):
+    """Unlabeled or custom 3DGS scenes (the SSL files' dataset): opacity
+    clipped to at least 1e-3, scale to [1e-4, 1]."""
+
+    VALID_ASSETS = ["coord", "color", "normal", "segment", "instance", "quat", "scale",
+                    "opacity", "lang_feat", "valid_feat_mask"]
+    EVAL_PC_ASSETS = ["pc_coord", "pc_segment"]
+    SCALE_CLIP = (1e-4, 1.0)
+
+    def standardize(self, data_dict):
+        super().standardize(data_dict)
+        if "opacity" in data_dict:
+            data_dict["opacity"] = np.clip(data_dict["opacity"], 1e-3, None)

@@ -4,8 +4,10 @@
 A thread pool prepares samples two batches ahead; each sample's transforms
 draw from a generator seeded by (seed, epoch, sample index), and collate's
 Mix3D and downsampling draws by (seed, epoch, batch index), so batches do
-not depend on the number of workers or on thread scheduling. One process
-loads every row of the batch (the port does not run data parallel yet).
+not depend on the number of workers or on thread scheduling. A
+``collate_fn`` takes collate's place (the SSL trainer's ``collate_ssl``).
+One process loads every row of the batch (the port does not run data
+parallel yet).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, num_points: int, mix_prob: float = 0.0,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 4,
-                 drop_last: bool = True):
+                 drop_last: bool = True, collate_fn=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_points = num_points
@@ -34,6 +36,7 @@ class Loader:
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.collate_fn = collate_fn
         self.epoch = 0
         # Mix3D consumes two source samples per batch slot (see collate)
         self.samples_per_batch = batch_size * (2 if mix_prob > 0 else 1)
@@ -74,7 +77,10 @@ class Loader:
                     submit(bi + ahead)
                 samples = [f.result() for f in futures]
                 seed_transforms((self.seed, self.epoch, bi, 1))  # collate's draws
-                yield collate_padded(samples, self.num_points, mix_prob=self.mix_prob)
+                if self.collate_fn is not None:
+                    yield self.collate_fn(samples)
+                else:
+                    yield collate_padded(samples, self.num_points, mix_prob=self.mix_prob)
 
 
 class MultiDatasetLoader:

@@ -4,6 +4,12 @@ and test pipelines (the port's copy of the part of
 ``configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py`` and the
 fragment test pipeline of ``configs/_base_/gs_pipelines.py`` use).
 
+The SSL files' multi-crop pipeline is here too: the colour jitter,
+grayscale and solarize transforms, ``SphereCropRandomMaxPoints``,
+``ContrastiveViewsGenerator_SSL``, ``CollectContrast`` and the opacity-masked
+voxel blur ``GSGaussianBlurVoxelOpc`` (scipy's ``gaussian_filter`` on the
+host, as the JAX package runs it).
+
 All transforms run in numpy on the host and draw from a per-thread
 generator that the loader seeds per sample (``seed_transforms``), so
 augmentation is a pure function of (seed, epoch, sample index). 3DGS
@@ -15,6 +21,7 @@ voxel hash, SphereCrop crops every per-point key including ``lang_feat``.
 from __future__ import annotations
 
 import copy
+import numbers
 import threading
 from collections.abc import Sequence
 
@@ -631,3 +638,274 @@ class GridSample:
         data_dict["pc_coord"] = data_dict["pc_coord"][chosen]
         if "pc_segment" in data_dict:
             data_dict["pc_segment"] = data_dict["pc_segment"][chosen]
+
+
+@TRANSFORMS.register_module()
+class RandomColorGrayScale:
+    def __init__(self, p):
+        self.p = p
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and trng().random() < self.p:
+            r, g, b = (data_dict["color"][..., i] for i in range(3))
+            gray = (0.2989 * r + 0.587 * g + 0.114 * b).astype(data_dict["color"].dtype)
+            data_dict["color"] = np.broadcast_to(gray[..., None],
+                                                 data_dict["color"].shape).copy()
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorSolarize:
+    """Inverts colours at or above ``threshold``, written back (the
+    reference's version drops its result; the JAX package fixes that)."""
+
+    def __init__(self, p=0.2, threshold=128):
+        self.p = p
+        self.threshold = threshold
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and trng().random() < self.p:
+            color = data_dict["color"]
+            data_dict["color"] = np.where(color < self.threshold, color, 255 - color)
+        return data_dict
+
+
+def _rgb_to_hsv(rgb):
+    """Vectorized colorsys.rgb_to_hsv over [..., 3] arrays: h and s in
+    [0, 1], v the raw largest channel."""
+    rgb = rgb.astype(np.float64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = rgb.max(axis=-1)
+    minc = rgb.min(axis=-1)
+    span = maxc - minc
+    safe = np.where(span == 0, 1.0, span)
+    s = np.where(maxc == 0, 0.0, span / np.where(maxc == 0, 1.0, maxc))
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = np.select([span == 0, r == maxc, g == maxc], [0.0, bc - gc, 2.0 + rc - bc],
+                  default=4.0 + gc - rc)
+    h = (h / 6.0) % 1.0
+    return np.stack([h, s, maxc], axis=-1)
+
+
+def _hsv_to_rgb(hsv):
+    """Vectorized colorsys.hsv_to_rgb; v carries the original value scale."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = np.floor(h * 6.0).astype(np.int64) % 6
+    f = (h * 6.0) - np.floor(h * 6.0)
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    conditions = [s == 0.0, i == 1, i == 2, i == 3, i == 4, i == 5]
+    r = np.select(conditions, [v, q, p, p, t, v], default=v)
+    g = np.select(conditions, [v, v, v, q, p, p], default=t)
+    b = np.select(conditions, [v, p, t, v, v, q], default=p)
+    return np.stack([r, g, b], axis=-1)
+
+
+@TRANSFORMS.register_module()
+class RandomColorJitter:
+    """torchvision-style colour jitter over RGB in [0, 255]: brightness,
+    contrast, saturation and hue factors drawn first, then applied in a
+    random order, each with probability ``p``."""
+
+    def __init__(self, brightness=0, contrast=0, saturation=0, hue=0, p=0.95):
+        self.brightness = self._check_input(brightness, "brightness")
+        self.contrast = self._check_input(contrast, "contrast")
+        self.saturation = self._check_input(saturation, "saturation")
+        self.hue = self._check_input(hue, "hue", center=0, bound=(-0.5, 0.5),
+                                     clip_first_on_zero=False)
+        self.p = p
+
+    @staticmethod
+    def _check_input(value, name, center=1, bound=(0, float("inf")),
+                     clip_first_on_zero=True):
+        if isinstance(value, numbers.Number):
+            if value < 0:
+                raise ValueError(f"{name} must be non-negative")
+            value = [center - value, center + value]
+            if clip_first_on_zero:
+                value[0] = max(value[0], 0.0)
+        elif isinstance(value, (tuple, list)) and len(value) == 2:
+            if not bound[0] <= value[0] <= value[1] <= bound[1]:
+                raise ValueError(f"{name} values should be between {bound}")
+        else:
+            raise TypeError(f"{name} should be a number or a pair")
+        if value[0] == value[1] == center:
+            value = None
+        return value
+
+    @staticmethod
+    def _blend(color1, color2, ratio):
+        return (ratio * color1 + (1.0 - ratio) * color2).clip(0, 255.0).astype(color1.dtype)
+
+    @staticmethod
+    def _grayscale(color):
+        r, g, b = color[..., 0], color[..., 1], color[..., 2]
+        return (0.2989 * r + 0.587 * g + 0.114 * b)[..., None]
+
+    def __call__(self, data_dict):
+        if "color" not in data_dict:
+            return data_dict
+        factors = {
+            0: None if self.brightness is None else trng().uniform(*self.brightness),
+            1: None if self.contrast is None else trng().uniform(*self.contrast),
+            2: None if self.saturation is None else trng().uniform(*self.saturation),
+            3: None if self.hue is None else trng().uniform(*self.hue),
+        }
+        for fn_id in trng().permutation(4):
+            f = factors[int(fn_id)]
+            if f is None or trng().random() >= self.p:
+                continue
+            color = data_dict["color"]
+            if fn_id == 0:  # brightness
+                color = self._blend(color, np.zeros_like(color), f)
+            elif fn_id == 1:  # contrast
+                color = self._blend(color, self._grayscale(color).mean(), f)
+            elif fn_id == 2:  # saturation
+                color = self._blend(color, self._grayscale(color), f)
+            else:  # hue
+                orig_dtype = color.dtype
+                hsv = _rgb_to_hsv(color.astype(np.float64) / 255.0)
+                hsv[..., 0] = (hsv[..., 0] + f) % 1.0
+                color = (_hsv_to_rgb(hsv) * 255.0).clip(0, 255).astype(orig_dtype)
+            data_dict["color"] = color
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class SphereCropRandomMaxPoints:
+    """SphereCrop with a random budget: a ``random_scale=(lo, hi)`` share of
+    ``point_max`` (of the point count without it), or else an absolute
+    ``max_points=(lo, hi)`` range."""
+
+    def __init__(self, max_points=None, random_scale=None, point_max=None, mode="random"):
+        self.max_points = max_points
+        self.random_scale = random_scale
+        self.point_max = point_max
+        self.mode = mode
+
+    def __call__(self, data_dict):
+        if self.random_scale is not None:
+            scale = trng().uniform(*self.random_scale)
+            budget = int(scale * (self.point_max or data_dict["coord"].shape[0]))
+        else:
+            lo, hi = self.max_points or (80000, 120000)
+            budget = int(trng().integers(lo, hi + 1))
+        return SphereCrop(point_max=max(budget, 1), mode=self.mode)(data_dict)
+
+
+@TRANSFORMS.register_module()
+class ContrastiveViewsGenerator_SSL:
+    """Multi-crop views for SimDINO pretraining: a global base transform
+    feeds two differently augmented global crops, a local base transform
+    feeds ``local_crop_num`` local crops; outputs are prefixed
+    ``global_crop{0,1}_`` and ``local_crop{i}_``. The draws happen in that
+    order: global base, global 0, global 1, local base, each local."""
+
+    def __init__(self, view_keys=("coord", "color", "normal", "origin_coord"),
+                 global_base_transform=None, local_base_transform=None,
+                 global_transform0=None, global_transform1=None, local_transform=None,
+                 local_crop_num=4):
+        self.view_keys = view_keys
+        self.global_base_transform = Compose(global_base_transform)
+        self.local_base_transform = Compose(local_base_transform)
+        self.global_transform0 = Compose(global_transform0)
+        self.global_transform1 = Compose(global_transform1)
+        self.local_transform = Compose(local_transform)
+        self.local_crop_num = local_crop_num
+
+    def __call__(self, data_dict):
+        def clone(src):
+            return {k: np.copy(src[k]) for k in self.view_keys if k in src}
+
+        global_base = self.global_base_transform(clone(data_dict))
+        views = {"global_crop0": self.global_transform0(clone(global_base)),
+                 "global_crop1": self.global_transform1(clone(global_base))}
+        local_base = self.local_base_transform(clone(data_dict))
+        for i in range(self.local_crop_num):
+            views[f"local_crop{i}"] = self.local_transform(clone(local_base))
+        for prefix, view in views.items():
+            for key, value in view.items():
+                data_dict[f"{prefix}_{key}"] = value
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class CollectContrast:
+    """Keeps the keys that start with one of ``keys_prefix`` and, for each
+    ``<name>_keys`` argument, concatenates those keys' columns into
+    ``<name>`` (fp32). ``offset_keys_dict`` (the reference's per-crop point
+    counts) is accepted and emits nothing: the padded batches carry each
+    crop's ``mask``. The JAX package's CollectContrast reads it as a list of
+    feature keys and raises KeyError on the shipped SSL pipeline."""
+
+    def __init__(self, keys_prefix, offset_keys_dict=None, **kwargs):
+        self.keys_prefix = [keys_prefix] if isinstance(keys_prefix, str) else list(keys_prefix)
+        self.kwargs = kwargs
+
+    def __call__(self, data_dict):
+        data = {k: v for k, v in data_dict.items() if k.startswith(tuple(self.keys_prefix))}
+        for name, keys in self.kwargs.items():
+            data[name.replace("_keys", "")] = np.concatenate(
+                [np.asarray(data_dict[k], np.float32).reshape(len(data_dict[k]), -1)
+                 for k in keys], axis=1)
+        return data
+
+
+@TRANSFORMS.register_module()
+class GSGaussianBlurVoxelOpc:
+    """Opacity-masked voxel blur of 3DGS attributes: the Gaussians of
+    opacity above 0.5 are put into a dense grid of their ``grid_coord``
+    cells, their colour (and ``extra_keys``) and an occupancy weight are
+    blurred together by a Gaussian of sigma ~ U(sigma[0], sigma[1]) cells
+    (truncated at 2 sigma), and each of them reads back its cell's
+    blurred values over the blurred weight. Quaternions are renormalized,
+    every row of them."""
+
+    def __init__(self, p=0.5, sigma=(0.1, 2, 0), extra_keys=()):
+        self.p = p
+        self.sigma = sigma
+        self.extra_keys = tuple(extra_keys or ())
+
+    def __call__(self, data_dict):
+        if trng().random() >= self.p:
+            return data_dict
+        import scipy.ndimage
+
+        if "grid_coord" not in data_dict:
+            raise KeyError("GSGaussianBlurVoxelOpc needs GridSample(return_grid_coord=True)")
+        grid_coord = data_dict["grid_coord"]
+        opacity = np.asarray(data_dict["opacity"]).reshape(-1)
+        sigma = trng().uniform(self.sigma[0], self.sigma[1])
+        blur_mask = opacity > 0.5
+        if not blur_mask.any():
+            return data_dict
+        gmin = grid_coord.min(axis=0)
+        gsize = grid_coord.max(axis=0) - gmin + 1
+        idx = tuple((grid_coord[blur_mask] - gmin).astype(int).T)
+
+        keys = ["color"] + [k for k in self.extra_keys if k in data_dict]
+        channels, slices, start = [], {}, 0
+        for k in keys:
+            v = np.asarray(data_dict[k], np.float32)
+            v = v.reshape(len(v), -1)
+            channels.append(v[blur_mask])
+            slices[k] = slice(start, start + v.shape[1])
+            start += v.shape[1]
+        values = np.concatenate(channels + [np.ones((blur_mask.sum(), 1), np.float32)], axis=1)
+        grid = np.zeros((*gsize, values.shape[1]), np.float32)
+        grid[idx] = values
+        blurred = scipy.ndimage.gaussian_filter(grid, sigma=sigma, truncate=2.0,
+                                                axes=(0, 1, 2))
+        picked = blurred[idx]
+        weights = picked[:, -1:] + 1e-7
+        for k in keys:
+            out = np.asarray(data_dict[k], np.float32).copy()
+            flat = out.reshape(len(out), -1)
+            flat[blur_mask] = picked[:, slices[k]] / weights
+            if k == "quat":
+                flat /= np.maximum(np.linalg.norm(flat, axis=1, keepdims=True), 1e-9)
+            data_dict[k] = flat.reshape(np.asarray(data_dict[k]).shape)
+        return data_dict

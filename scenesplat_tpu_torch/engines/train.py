@@ -3,7 +3,10 @@ hook-driven epoch and step loop around ``engines/train_step.py``.
 
 The port trains the VL pretraining task (``LangPretrainer``) and semantic
 segmentation (``DefaultSegmentorV2``) on one card; the model's type picks
-the task, as ``Trainer.TASKS`` does in the JAX package.
+the task, as ``Trainer.TASKS`` does in the JAX package. SimDINO
+self-supervised pretraining has a trainer of its own
+(``engines/pretrain.py:DefaultSSLPreTrainer``, ``train =
+dict(type="DefaultSSLPreTrainer")`` in a config).
 Parameters come from ``cfg.seed``; every training draw (curve shuffle,
 drop-path, the contrastive split) comes from one ``torch.Generator`` on
 the card seeded from it, and the data pipeline seeds its own per-sample
@@ -102,7 +105,7 @@ class Trainer(TrainerBase):
                                       f"port trains {', '.join(self.TASKS)}")
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
-        self.model = build_model(model_cfg).to(self.device)
+        self.model = self.build_model(model_cfg).to(self.device)
         self.criteria = build_criteria(criteria_cfg)
         self.clip_grad = cfg.get("clip_grad")
 
@@ -118,6 +121,9 @@ class Trainer(TrainerBase):
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.get("seed", 0) + 1)
         self.register_hooks(cfg.get("hooks"))
+
+    def build_model(self, model_cfg: dict) -> torch.nn.Module:
+        return build_model(model_cfg)
 
     def build_train_loader(self):
         return Loader(build_dataset(dict(self.cfg.data.train)),
@@ -166,3 +172,6 @@ def build_trainer(cfg, device="cuda"):
     if trainer_cls is None:
         raise KeyError(f"trainer {kind} is not ported")
     return trainer_cls(cfg, device=device, **train_cfg)
+
+
+from . import pretrain  # noqa: E402,F401 (registers DefaultSSLPreTrainer)

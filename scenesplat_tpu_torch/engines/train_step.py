@@ -22,13 +22,14 @@ _INT_KEYS = ("grid_coord", "segment")
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """Collated numpy arrays -> tensors on ``device`` (integer keys as
-    int64); other entries pass through."""
+    """Collated numpy arrays -> tensors on ``device`` (integer keys, the SSL
+    crops' ``<crop>_grid_coord`` too, as int64); other entries pass
+    through."""
     out = {}
     for k, v in batch.items():
         if hasattr(v, "dtype") and hasattr(v, "shape"):
             t = torch.as_tensor(v).to(device, non_blocking=True)
-            out[k] = t.long() if k in _INT_KEYS else t
+            out[k] = t.long() if k.endswith(_INT_KEYS) else t
         else:
             out[k] = v
     return out

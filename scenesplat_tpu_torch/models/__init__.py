@@ -3,3 +3,4 @@ from .structure import PointBatch
 from . import ptv3  # noqa: F401 (registers PT-v3m1)
 from . import default  # noqa: F401 (registers LangPretrainer, DefaultSegmentorV2)
 from .losses import build_criteria  # noqa: E402,F401
+from . import ssl  # noqa: E402,F401 (registers SimDINOSSL, DefaultContrastiverSimDinoV2)

@@ -348,6 +348,7 @@ class PointTransformerV3(nn.Module):
         serialization_depth: int = 16,
         stage_capacity: Optional[Sequence[float]] = None,
         use_kernel: Optional[bool] = None,
+        enable_mask_token: bool = False,
         dtype="float32",
         seed: int = 0,
     ):
@@ -359,6 +360,8 @@ class PointTransformerV3(nn.Module):
         self.enc_patch_size = tuple(enc_patch_size)
         self.serialization_depth = serialization_depth
         self.num_stages = len(enc_depths)
+        self.enc_channels = tuple(enc_channels)
+        self.out_channels = dec_channels[0]  # the decoder output's width
         self.shuffle_orders = shuffle_orders
         self.stage_capacity = tuple(
             stage_capacity or (0.5 ** s for s in range(1, self.num_stages)))
@@ -377,6 +380,10 @@ class PointTransformerV3(nn.Module):
         dec_dp = torch.linspace(0, drop_path, sum(dec_depths), dtype=torch.float64).tolist()
 
         self.embedding = Embedding(in_channels, enc_channels[0], dtype=dtype)
+        # SSL: a learnable token that replaces the embedding's output at
+        # masked points (Pointcept's [1, C] ``mask_token``)
+        self.mask_token = (nn.Parameter(torch.empty(1, enc_channels[0]))
+                           if enable_mask_token else None)
         self.enc = nn.ModuleDict()
         for s in range(self.num_stages):
             down = {}
@@ -404,14 +411,23 @@ class PointTransformerV3(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (Linear, SubMConv)):
                 mod.reset_parameters(gen)
+        if self.mask_token is not None:  # flax's truncated_normal(0.02): 2 std
+            nn.init.trunc_normal_(self.mask_token.data, std=0.02, a=-0.04, b=0.04,
+                                  generator=gen)
 
-    def forward(self, point: PointBatch,
-                generator: Optional[torch.Generator] = None) -> PointBatch:
+    def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None,
+                token_mask: Optional[torch.Tensor] = None, return_enc: bool = False):
         """Returns the decoder output at the input points; ``plans`` holds
         the pooling plans (their ``n_overflow`` counts clusters lost to the
         stage capacities). In training, ``generator`` (on the points'
         device) draws the curve shuffle and the dropout masks; a point that
-        arrives serialized keeps its serialization."""
+        arrives serialized keeps its serialization.
+
+        With ``enable_mask_token``, ``token_mask`` [B, N] bool puts the mask
+        token in place of the embedding at its true points, before the first
+        block (whose xCPE sees the masked features, as the reference's
+        in-place assignment gives). ``return_enc`` returns (output, the
+        coarsest encoder stage's features, its mask)."""
         depth = self.serialization_depth
         if point.ser is None:
             shuffle = self.training and self.shuffle_orders and len(self.order) > 1
@@ -425,6 +441,10 @@ class PointTransformerV3(nn.Module):
         state = StageState(point.coord, point.grid_coord, point.mask, point.ser,
                            subplan(stem_plan, 3))
         feat = self.embedding(point.feat.to(self.dtype), stem_plan, state.mask)
+        if token_mask is not None:
+            if self.mask_token is None:
+                raise ValueError("token_mask needs enable_mask_token=True")
+            feat = torch.where(token_mask[..., None], self.mask_token.to(feat.dtype), feat)
 
         skips, plans = [], []
         for s in range(self.num_stages):
@@ -440,6 +460,7 @@ class PointTransformerV3(nn.Module):
                                    build_subm_conv_plan(grid_coord, mask, 3, depth))
             for blk in stage.blocks():
                 feat = blk(feat, state, generator=generator)
+        enc_feat, enc_mask = feat, state.mask
 
         for s in reversed(range(self.num_stages - 1)):
             parent_feat, parent_state, plan = skips.pop()
@@ -451,6 +472,6 @@ class PointTransformerV3(nn.Module):
                 feat = blk(feat, state, cpe_feat=skip_feat if i == 0 else None,
                            generator=generator)
 
-        return point.replace(feat=feat, coord=state.coord,
-                             grid_coord=state.grid_coord, mask=state.mask,
-                             ser=state.ser, plans=tuple(plans))
+        out = point.replace(feat=feat, coord=state.coord, grid_coord=state.grid_coord,
+                            mask=state.mask, ser=state.ser, plans=tuple(plans))
+        return (out, enc_feat, enc_mask) if return_enc else out

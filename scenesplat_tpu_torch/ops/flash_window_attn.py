@@ -240,6 +240,8 @@ def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
                            f"CUDA error {rc}")
     flash_window_attention.launches += 1
     flash_window_attention.variant_launches[variant] += 1
+    if with_lse:
+        flash_window_attention.lse_variant_launches[variant] += 1
     return out, lse
 
 
@@ -313,7 +315,9 @@ def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
     [B, N, C]. Launches the kernels for CUDA tensors (K1, and K2 in the
     backward when qkv requires grad); CPU tensors take the plain version.
     ``flash_window_attention.launches`` counts K1 launches,
-    ``flash_window_attention.variant_launches`` those of each variant."""
+    ``flash_window_attention.variant_launches`` those of each variant and
+    ``flash_window_attention.lse_variant_launches`` those that also wrote
+    the log-sum-exp (the forwards that record a graph)."""
     if not qkv.is_cuda:
         return flash_window_attention_plain(qkv, valid, patch_size, num_heads, scale)
     if scale is None:
@@ -325,6 +329,7 @@ def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
 
 flash_window_attention.launches = 0
 flash_window_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_window_attention.lse_variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def _plain_chunk(qkv, valid, scale):

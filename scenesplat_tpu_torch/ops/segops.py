@@ -83,10 +83,12 @@ def pool_values(plan: PoolingPlan, values: torch.Tensor,
         if reduce == "mean":
             out[:, :m] /= plan.counts.clamp(min=1).unsqueeze(-1)
     elif reduce in ("max", "min"):
+        # out of place: the scatter's backward reads its output (ties share
+        # the gradient evenly, as JAX's segment_max gradient does)
         fill = float("-inf") if reduce == "max" else float("inf")
-        out = sorted_vals.new_full((b, m + 1, c), fill)
-        out.scatter_reduce_(1, idx, sorted_vals, "amax" if reduce == "max" else "amin")
-        out[:, :m] = torch.where((plan.counts > 0).unsqueeze(-1), out[:, :m], 0.0)
+        out = sorted_vals.new_full((b, m + 1, c), fill).scatter_reduce(
+            1, idx, sorted_vals, "amax" if reduce == "max" else "amin")
+        return torch.where((plan.counts > 0).unsqueeze(-1), out[:, :m], 0.0).to(values.dtype)
     else:
         raise ValueError(f"unknown reduce: {reduce}")
     return out[:, :m].to(values.dtype)
@@ -116,3 +118,10 @@ def unpool_values(values_pooled: torch.Tensor,
                   cluster_of_point: torch.Tensor) -> torch.Tensor:
     """Broadcast cluster values [B, M, C] back to points [B, N, C]."""
     return take_along_points(values_pooled, cluster_of_point)
+
+
+def masked_mean_pool(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over each row's valid points, [B, N, C] -> [B, C], in the
+    values' dtype (the valid count too, as the JAX function computes it)."""
+    w = mask.unsqueeze(-1).to(values.dtype)
+    return (values * w).sum(1) / w.sum(1).clamp(min=1.0)

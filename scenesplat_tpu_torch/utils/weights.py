@@ -10,6 +10,15 @@ PointTransformerV3 (prefix ``""``) takes with
 ``load_state_dict(strict=True)``. Dense kernels are transposed to
 [out, in]; SubMConv kernels [K3, Cin, Cout] are reshaped to spconv's
 [k, k, k, Cin, Cout]; every BatchNorm gets a zero ``num_batches_tracked``.
+
+A ``SimDINOSSL`` tree (flax ``backbone_module`` with its ``mask_token``,
+``dino_head``, ``ibot_head`` and ``mae_*``), with the train state's
+``teacher_params`` and ``teacher_batch_stats``, becomes the port's
+SimDINOSSL state dict: ``backbone.*`` and ``teacher.*`` in the PTv3 layout
+(``mask_token`` reshaped to Pointcept's [1, C], as
+``scenesplat_tpu/utils/ckpt_bridge.py`` exports it), the heads'
+``{dino,ibot}_head.fc{i}.{weight,bias}`` and
+``mae_fc{1,2}.{weight,bias}``, ``mae_norm.{weight,bias}``.
 """
 
 from __future__ import annotations
@@ -31,15 +40,45 @@ def _lookup(tree, path):
 
 
 def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone.",
-                         flax_backbone_key: str = "backbone_module"
+                         flax_backbone_key: str = "backbone_module",
+                         teacher_params=None, teacher_batch_stats=None
                          ) -> Dict[str, np.ndarray]:
-    """Flax PTv3 (or LangPretrainer) variables -> Pointcept-layout numpy
-    state dict."""
+    """Flax PTv3 (or LangPretrainer, DefaultSegmentorV2, SimDINOSSL)
+    variables -> Pointcept-layout numpy state dict; ``teacher_params`` (and
+    its ``teacher_batch_stats``) go under ``teacher.``."""
     params = dict(params)
     batch_stats = dict(batch_stats)
     bb_params = params.get(flax_backbone_key, params) if flax_backbone_key else params
     bb_stats = (batch_stats.get(flax_backbone_key, batch_stats)
                 if flax_backbone_key else batch_stats)
+    out = _backbone_state(bb_params, bb_stats, backbone_prefix)
+    if teacher_params is not None:
+        out.update(_backbone_state(teacher_params, teacher_batch_stats or {}, "teacher."))
+    if not flax_backbone_key:
+        return out
+    head = params.get("seg_head")
+    if head is not None:  # DefaultSegmentorV2's linear head, outside the backbone
+        _put_dense(out, "seg_head", head)
+    for name in ("dino_head", "ibot_head"):  # SimDINOSSL's projection heads
+        for fc, dense in sorted(params.get(name, {}).items()):
+            _put_dense(out, f"{name}.{fc}", dense)
+    for name in ("mae_fc1", "mae_fc2"):
+        if name in params:
+            _put_dense(out, name, params[name])
+    if "mae_norm" in params:
+        out["mae_norm.weight"] = np.asarray(params["mae_norm"]["scale"])
+        out["mae_norm.bias"] = np.asarray(params["mae_norm"]["bias"])
+    return out
+
+
+def _put_dense(out: Dict[str, np.ndarray], key: str, dense) -> None:
+    out[key + ".weight"] = np.asarray(dense["kernel"]).T
+    out[key + ".bias"] = np.asarray(dense["bias"])
+
+
+def _backbone_state(bb_params, bb_stats, backbone_prefix: str) -> Dict[str, np.ndarray]:
+    """One PTv3's flax params and batch stats -> its state dict entries
+    under ``backbone_prefix``."""
     out: Dict[str, np.ndarray] = {}
 
     def get(fpath, stats=False):
@@ -121,10 +160,9 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
             put_bn(f"dec.dec{s}.up.proj.1", (name, "proj_norm"))
             put_dense(f"dec.dec{s}.up.proj_skip.0", (name, "proj_skip"))
             put_bn(f"dec.dec{s}.up.proj_skip.1", (name, "proj_skip_norm"))
-    head = params.get("seg_head") if flax_backbone_key else None
-    if head is not None:  # DefaultSegmentorV2's linear head, outside the backbone
-        out["seg_head.weight"] = np.asarray(head["kernel"]).T
-        out["seg_head.bias"] = np.asarray(head["bias"])
+    mask_token = get(("mask_token",))
+    if mask_token is not None:
+        put("mask_token", mask_token.reshape(1, -1))
     return out
 
 

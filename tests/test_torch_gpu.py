@@ -469,6 +469,54 @@ def test_backward_bf16_within_noise_floor(cuda, k, c, h):
     assert err <= 2.5 * floor, (err, floor)
 
 
+# the encoder stages of a local crop of the SSL files (25,600 points, windows
+# of 1024, capacities 1/2 to 1/16 rounded up to whole windows): (N, C, H)
+SSL_LOCAL_STAGES = [(25600, 32, 2), (13312, 64, 4), (7168, 128, 8), (4096, 256, 16),
+                    (2048, 512, 32)]
+
+
+@pytest.mark.parametrize("n,c,h", SSL_LOCAL_STAGES)
+def test_ssl_local_crop_stages(cuda, n, c, h):
+    """K1 and K2 in bf16 at a local crop's stage shapes (whole windows of
+    1024, stage 4 two of them): the forward with lse within the noise floor
+    and its output equal to the one without lse (the teacher's launch),
+    the lse against the plain one, K2 within the gradient noise floor, zeros
+    in windows of padding."""
+    k = 1024
+    gen = torch.Generator(device=cuda).manual_seed(n + c)
+    x16 = torch.randn(2, n, 3, c, generator=gen, device=cuda).bfloat16()
+    dout = torch.randn(2, n, c, generator=gen, device=cuda).bfloat16()
+    valid = torch.zeros(2, n, dtype=torch.bool, device=cuda)
+    valid[0, : n - 700] = True  # a partial last window
+    valid[1, : k + 300] = True  # then windows of padding (one at stage 4)
+    live = valid.view(2, n // k, k)[:, :, :1].expand(2, n // k, k).reshape(2, n)
+    lse_before = fwa.flash_window_attention.lse_variant_launches["bf16_large"]
+    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    assert fwa.flash_window_attention.lse_variant_launches["bf16_large"] == lse_before + 1
+    assert torch.equal(out, fwa.flash_window_attention(x16, valid, k, h))
+    assert fwa.flash_window_attention.lse_variant_launches["bf16_large"] == lse_before + 1
+    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
+
+    def rel(a):
+        return ((a[valid].float() - truth).norm() / truth.norm()).item()
+
+    floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h))
+    assert floor > 1e-4 and rel(out) <= 2.5 * floor
+    assert (out[~live] == 0).all()
+    assert (lse - _plain_lse(x16, valid, k, h))[live].abs().max().item() <= 1e-4
+
+    _, g_truth = _grads(fwa.flash_window_attention_plain, x16.float(), valid, k, h,
+                        dout.float())
+
+    def grel(a):
+        return ((a.float() - g_truth).norm() / g_truth.norm()).item()
+
+    g_floor = grel(_grads(fwa.flash_window_attention_plain, x16, valid, k, h, dout)[1])
+    g = _grads(fwa.flash_window_attention, x16, valid, k, h, dout)[1]
+    assert g_floor > 1e-4 and grel(g) <= 2.5 * g_floor
+    assert (g[~live] == 0).all()
+
+
 def test_grad_fn_only_when_recording(cuda):
     """The kernel output carries a grad_fn whenever grad is enabled and qkv
     requires grad; under no_grad / inference_mode only K1 runs, without
