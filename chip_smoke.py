@@ -54,14 +54,32 @@ Phases, one JSON line each:
  10. train_agree: one fp32 train step of the flagship config file's model at
      49,152 points with the kernels and one with the plain attention, same
      weights and generator seeds;
- 11. kernel_sort: the bitonic row sort K3 against its plain version, exact,
+ 11. ddp_train: data parallel, the train phase's run once more through
+     DistributedDataParallel under a one-process NCCL group, as torchrun
+     starts one (the same data, batch 2, 1 + 5 steps, the file's hooks with
+     the evaluator on the scene-sharded path, K1 and K2 launches, step
+     times, loader waits, peak memory, beside the train phase's), its
+     checkpoint loaded strictly into a one-process model; then one fp32
+     step at 49,152 points under DDP against the same step without it
+     (losses to 1e-5, gradients to 1e-4 relative);
+ 12. ddp_agree: two ranks on the one card over gloo (NCCL refuses two ranks
+     on one card), spawned after the kernels are built: one fp32 step of a
+     global batch of 2 rows of 49,152 points (drop-path 0.3, the
+     contrastive term on) against one process's step over both rows (the
+     loss to 1e-5, the gradient norm, every gradient and every BatchNorm
+     running statistic to 1e-4 relative, equal gradients on both ranks),
+     then the zero-shot test entry over 3 scenes on the ddp_train
+     checkpoint, the ranks' metrics and predictions equal to one
+     process's (both under deterministic algorithms); the ranks' K1 and K2
+     launches go into the kernels line;
+ 13. kernel_sort: the bitonic row sort K3 against its plain version, exact,
      at 2 and 3 operands, 1 to 3 keys, rows of 1000 to 2^20, 1 to 12 rows,
      random and heavily tied keys, and against torch.sort (equal keys;
      with the index as last key, the stable order); int64 codes with a
      sentinel tail through sort_int64 with the switch on (K3's int64 entry)
      against its plain version and against torch.sort(stable=True), rows
      of 1, 3 and 4, lengths that are no power of two;
- 12. test: scenesplat_tpu_torch.test's main on the flagship config file
+ 14. test: scenesplat_tpu_torch.test's main on the flagship config file
      plus test= and data.test= (the fragment test pipeline of
      configs/_base_/gs_pipelines.py), bf16, the train phase's checkpoint,
      over two synthetic ScanNet200-layout scenes of 320,001 Gaussians at
@@ -71,15 +89,15 @@ Phases, one JSON line each:
      launches 0 then as reckoned, K1 18 per fragment (the decoder's 6 on
      bf16_small); then once more with torch.sort and without the
      deterministic mode, as a user runs it, for the times per scene;
- 13. timing_sort: sort_int64 with the switch on (K3 as the sort sites call
+ 15. timing_sort: sort_int64 with the switch on (K3 as the sort sites call
      it), torch.sort and the plain version by CUDA events at the eight sort
      shapes of one fragment forward;
- 14. timing_test: at the shapes and valid counts the test phase gave the
+ 16. timing_test: at the shapes and valid counts the test phase gave the
      decoder's K1 calls (windows of 48, without lse) in one fragment
      forward, the kernel against its plain version in bf16, then the times
      of the kernel, the plain version and scaled_dot_product_attention, with
      the bound, per call and per fragment forward;
- 15. semseg_train: the trainer on the semantic-segmentation file
+ 17. semseg_train: the trainer on the semantic-segmentation file
      configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py as it is
      (DefaultSegmentorV2 over a 5-stage PT-v3m1, 32 heads at stage 4,
      in_channels 14, 205,824 points, CE + Lovasz, Mix3D 0.8, its own hooks:
@@ -89,10 +107,10 @@ Phases, one JSON line each:
      validation scene: step times, loader waits, peak memory, val/mIoU, K1
      and K2 launches of each variant a step, pooling overflow per stage
      (none allowed); then semseg_timing_bwd, timing_bwd at its stage shapes;
- 16. semseg_agree: one fp32 train step of that model at one block a stage
+ 18. semseg_agree: one fp32 train step of that model at one block a stage
      and 49,152 points with the kernels and with the plain attention
      (losses to 1e-5, gradients to 1e-4 relative);
- 17. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
+ 19. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
      the semseg_train checkpoint over two synthetic scenes of 320,000
      Gaussians, 9 views each: torch.sort and K3 under deterministic
      algorithms (equal predictions and mIoU), then as a user runs it, for
@@ -100,7 +118,7 @@ Phases, one JSON line each:
      (every K1 call of the first fragment forward, bf16_large and
      bf16_small without lse) and semseg_timing_sort (K3 at that forward's
      sort shapes);
- 18. ssl_train: the trainer on the SimDINO file
+ 20. ssl_train: the trainer on the SimDINO file
      configs/scannet/ssl-pretrain-scannet-all-base.py as it is
      (SimDINOSSL over a 5-stage PT-v3m1 with its mask token, windows of
      1024 in the encoder and 48 in the decoder, the DINO, iBOT and MAE
@@ -118,7 +136,7 @@ Phases, one JSON line each:
      ssl_timing_bwd, timing_bwd at the student's stage shapes (the first
      global crop's twice, the first local crop's three times, the locals'
      decoder forward only);
- 19. ssl_agree: one fp32 SSL loss and its gradients of that model at one
+ 21. ssl_agree: one fp32 SSL loss and its gradients of that model at one
      block a stage with mean pooling (the file's max pooling makes the
      gradient a discontinuous function of the features), batch 2, global
      crops of 24,576 points with injected token masks and local crops of
@@ -130,6 +148,16 @@ The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
 encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
+
+    python3 chip_smoke.py --cards N
+
+runs data parallel across N cards of one host instead (not the one-card
+smoke test): the kernels' build; ddp_cards_train, the flagship file at its
+own global batch of 8 as 2 rows a card on N = 4 cards (each rank a spawned
+process on its card over NCCL, the train phase's rooms, one epoch's steps
+and one sharded validation; the same losses on every rank); and
+ddp_cards_agree, ddp_agree with one rank a card over NCCL on that run's
+checkpoint.
 """
 
 from __future__ import annotations
@@ -139,8 +167,10 @@ import gc
 import inspect
 import json
 import math
+import multiprocessing as mp
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -158,7 +188,7 @@ from scenesplat_tpu_torch.engines.hooks.misc import PreciseEvaluator
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor, bucket_size
 from scenesplat_tpu_torch.engines.pretrain import build_ssl_model, ssl_loss
 from scenesplat_tpu_torch.engines.train import build_trainer
-from scenesplat_tpu_torch.engines.train_step import lang_loss, semseg_loss
+from scenesplat_tpu_torch.engines.train_step import lang_loss, semseg_loss, train_step
 from scenesplat_tpu_torch.entry import (
     FLAGSHIP_BACKBONE,
     SHIPPED_INFERENCE_BACKBONE,
@@ -172,6 +202,13 @@ from scenesplat_tpu_torch.ops import flash_window_attn as fwa
 from scenesplat_tpu_torch.ops import window_attention as window_attention_module
 from scenesplat_tpu_torch.ops.knn import knn
 from scenesplat_tpu_torch.ops.serialization import SENTINEL
+from scenesplat_tpu_torch.parallel.dist import (
+    data_parallel,
+    init_distributed,
+    local_batch_slice,
+    process_group,
+    world,
+)
 from scenesplat_tpu_torch.utils.config import Config
 
 FLAGSHIP_CONFIG = "configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py"
@@ -467,6 +504,15 @@ def serve(model, sample, text, reps):
     return feat, pred, plans, times
 
 
+def device_kernels(prof):
+    """A profile's device work by name: kernels and copies, not the ranges
+    that code annotates (an annotated range's device time, such as
+    DistributedDataParallel.forward's or the optimizer step's, repeats its
+    kernels' time)."""
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0 and not e.is_user_annotation]
+
+
 def device_profile(model, point):
     """Device time of one forward by kernel, from torch.profiler: the busy
     time, the wall time of the forward and the kernels that take most."""
@@ -478,8 +524,7 @@ def device_profile(model, point):
         model(point)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -821,12 +866,13 @@ class StepProbe(HookBase):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - self.t0) * 1e3
             self.prof.__exit__(None, None, None)
-            kernels = [e for e in self.prof.key_averages()
-                       if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            kernels = device_kernels(self.prof)
             busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            # DDP's gradient all-reduce (NCCL's kernels, on a stream of their own)
+            nccl = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower())
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
             self.profile = dict(step=self.profile_step, wall_ms=wall_ms, device_busy_ms=busy,
-                                idle_share=1 - busy / wall_ms,
+                                idle_share=1 - busy / wall_ms, nccl_ms=nccl / 1e3,
                                 top_kernels=[dict(name=e.key[:90], calls=e.count,
                                                   ms=e.self_device_time_total / 1e3)
                                              for e in top])
@@ -891,37 +937,132 @@ def run_training(cfg):
     return trainer, probe, records, k1
 
 
-def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000):
+def write_flagship_data(tmp, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000,
+                        copies=1):
+    """The flagship file's three training sets over 4 synthetic rooms (each
+    listed ``copies`` times) and one small validation scene each, under
+    ``tmp``; returns the data roots by dataset type and the seconds the
+    writing took."""
+    t0 = time.perf_counter()
+    scenes = write_gs_scenes(os.path.join(tmp, "scenes"), 4, scene_points, seed=4,
+                             size_m=room)
+    (val_scene,) = write_gs_scenes(os.path.join(tmp, "val_scenes"), 1, val_points, seed=9,
+                                   size_m=(2.4, 2.4, 2.0), pc_points=val_points // 4)
+    # Matterport (loop 3): 4 scenes -> 3 batches; ScanNet++ (loop 2): 4
+    # -> 2; ScanNet200 (loop 2): 2 -> 1 (Mix3D: 4 samples a batch). One
+    # validation scene per dataset.
+    root, splits = {}, {"Matterport3D_160_GSDataset": (
+        "train_grid1.0cm_chunk6x6_stride3x3_filtered", 4,
+        "test_grid1.0cm_chunk6x6_stride3x3_filtered"),
+        "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 4, "val"),
+        "ScanNet200GSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 2, "val")}
+    for name, (split, count, val_split) in splits.items():
+        root[name] = os.path.join(tmp, name)
+        os.makedirs(os.path.join(root[name], split))
+        for copy in range(copies):
+            for scene in scenes[:count]:
+                os.symlink(scene, os.path.join(root[name], split,
+                                               f"{os.path.basename(scene)}_{copy}"))
+        os.makedirs(os.path.join(root[name], val_split))
+        os.symlink(val_scene, os.path.join(root[name], val_split, "scene_val"))
+    return root, time.perf_counter() - t0
+
+
+def reset_k2_counts():
+    fwa.flash_window_attention_bwd.launches = 0
+    counts = fwa.flash_window_attention_bwd.variant_launches
+    counts.update(dict.fromkeys(counts, 0))
+
+
+def check_flagship_run(phase, trainer, probe, records, k1_counts):
+    """What both flagship trainer phases hold of run_training's run (the
+    counts reset just before it): at least 1 + 5 finite steps, K1 with lse
+    and K2 once a block in every step's forward and backward, K1 without
+    lse once a block in one validation forward per set (the encoder's on
+    bf16_large, the decoder's windows of 48 on bf16_small), no pooling
+    overflow, the file's own hooks' work done (each set's fg_mIoU logged
+    once, model_last.pth and model_best.pth written, PreciseEvaluator with
+    no tester). Returns the run's record."""
+    backbone = trainer.cfg.model.backbone
+    enc, dec = depth_split(backbone)
+    blocks = enc + dec  # 18
+    # K1 with lse: the launches counted inside the train steps' forwards;
+    # the evaluator hook's validation forwards launch K1 without lse
+    k1, k1_val = k1_counts["train_launches"], k1_counts["val_launches"]
+    val_forwards = k1_counts["val_forwards"]
+    k2 = fwa.flash_window_attention_bwd.launches
+    k2_variants = dict(fwa.flash_window_attention_bwd.variant_launches)
+    step_ms = probe.step_ms()
+    hist = trainer.storage.history
+    losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+    steps = len(losses)
+    check(steps >= 6, f"{phase}: {steps} train steps, expected at least 1 + 5")
+    check(all(math.isfinite(v) for v in losses + grad_norms),
+          f"{phase}: non-finite loss or grad_norm: {losses} {grad_norms}")
+    check(k1_counts["train_forwards"] == steps and k1 == blocks * steps
+          and k2 == blocks * steps,
+          f"{phase}: {k1} forward and {k2} backward kernel launches in {steps} steps "
+          f"({k1_counts['train_forwards']} forwards), expected {blocks} each per step")
+    check(val_forwards == len(trainer.cfg.data.val) and k1_val == blocks * val_forwards,
+          f"{phase}: {k1_val} kernel launches in {val_forwards} validation forwards, "
+          f"expected {blocks} each, one forward per validation set")
+    # bf16: the encoder's windows of 1024 take the large-window backward,
+    # the decoder's windows of 48 the one-pass one
+    check(k2_variants["bf16_small"] > 0 and k2_variants["bf16_large"] > 0
+          and k2_variants["bf16_small"] + k2_variants["bf16_large"] == k2,
+          f"{phase}: backward variant launches {k2_variants} of {k2}")
+    check(fwa.flash_window_attention.launches == k1 + k1_val,
+          f"{phase}: K1 launched {fwa.flash_window_attention.launches} times, {k1} + "
+          f"{k1_val} of them inside a forward")
+    # K1 in bf16: the encoder's windows of 1024 on the large-window
+    # forward, the decoder's windows of 48 on the one-pass one
+    for mode, forwards in (("train", steps), ("val", val_forwards)):
+        got = {v: n for v, n in k1_counts[mode + "_variants"].items() if n}
+        check(got == dict(bf16_large=enc * forwards, bf16_small=dec * forwards),
+              f"{phase}: {mode} K1 variant launches {got} in {forwards} forwards, expected "
+              f"{enc} bf16_large and {dec} bf16_small each")
+    overflow = [int(max(int(o.max()) for o in r["overflow"])) for r in records]
+    check(all(o == 0 for o in overflow), f"{phase}: pooling overflow {overflow}")
+    model_dir = os.path.join(trainer.cfg.save_path, "model")
+    check(os.path.exists(os.path.join(model_dir, "model_last.pth")),
+          f"{phase}: no checkpoint written")
+    # the file's own hooks: the evaluator logged each validation set's
+    # fg_mIoU, the saver kept the best epoch, PreciseEvaluator had no tester
+    val = {f"val{i}/{m}": hist(f"val{i}/{m}").values()
+           for i in range(len(trainer.cfg.data.val)) for m in ("mIoU", "fg_mIoU")}
+    check(all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in val.values()),
+          f"{phase}: validation metrics not logged once per set: {val}")
+    check(trainer.comm_info.get("current_metric_name") == "fg_mIoU",
+          f"{phase}: the evaluator hook set no checkpoint metric")
+    check(os.path.exists(os.path.join(model_dir, "model_best.pth")),
+          f"{phase}: no model_best.pth")
+    precise = [h for h in trainer.hooks if isinstance(h, PreciseEvaluator)]
+    check(len(precise) == 1 and precise[0].results == [],
+          f"{phase}: PreciseEvaluator ran a tester the config does not name")
+    sizes = [[(n, v.tolist()) for n, v in r["sizes"]] for r in records]
+    return dict(points=TRAIN_POINTS, steps=steps, loss=losses, grad_norm=grad_norms,
+                lr=hist("lr").values(), cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                k1_launches=k1, k2_launches=k2, k2_variant_launches=k2_variants,
+                k1_variant_launches=k1_counts["train_variants"],
+                validation_forwards=val_forwards, validation_k1_launches=k1_val,
+                validation_k1_variant_launches=k1_counts["val_variants"],
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                n_overflow=overflow, stage_slots_valid=sizes[-1],
+                validation={k: v[0] for k, v in val.items()},
+                best_metric=trainer.comm_info.get("best_metric_value"),
+                profile=probe.profile)
+
+
+def phase_train(work):
     """The flagship trainer, its own hooks included, for 1 + 5 steps and one
     validation; returns the train-step stage shapes, the K1 / K2 launch
-    counts and the best checkpoint, copied into ``work``."""
+    counts, the best checkpoint, copied into ``work``, and the run's
+    record."""
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        scenes = write_gs_scenes(os.path.join(tmp, "scenes"), 4, scene_points, seed=4,
-                                 size_m=room)
-        (val_scene,) = write_gs_scenes(os.path.join(tmp, "val_scenes"), 1, val_points, seed=9,
-                                       size_m=(2.4, 2.4, 2.0), pc_points=val_points // 4)
-        # Matterport (loop 3): 4 scenes -> 3 batches; ScanNet++ (loop 2): 4
-        # -> 2; ScanNet200 (loop 2): 2 -> 1 (Mix3D: 4 samples a batch). One
-        # validation scene per dataset.
-        root, splits = {}, {"Matterport3D_160_GSDataset": (
-            "train_grid1.0cm_chunk6x6_stride3x3_filtered", 4,
-            "test_grid1.0cm_chunk6x6_stride3x3_filtered"),
-            "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 4, "val"),
-            "ScanNet200GSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 2, "val")}
-        for name, (split, count, val_split) in splits.items():
-            root[name] = os.path.join(tmp, name)
-            os.makedirs(os.path.join(root[name], split))
-            for scene in scenes[:count]:
-                os.symlink(scene, os.path.join(root[name], split, os.path.basename(scene)))
-            os.makedirs(os.path.join(root[name], val_split))
-            os.symlink(val_scene, os.path.join(root[name], val_split, "scene_val"))
-        data_s = time.perf_counter() - t0
-
+        root, data_s = write_flagship_data(tmp)
         reset_k1_counts()
-        fwa.flash_window_attention_bwd.launches = 0
-        k2_variants = fwa.flash_window_attention_bwd.variant_launches
-        k2_variants.update(dict.fromkeys(k2_variants, 0))
+        reset_k2_counts()
         batch, oom, result = 2, None, None
         try:
             result = run_training(flagship_train_config(root, os.path.join(tmp, "exp"), batch))
@@ -933,87 +1074,20 @@ def phase_train(work, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=4000
             torch.cuda.empty_cache()
             batch = 1
             reset_k1_counts()
-            fwa.flash_window_attention_bwd.launches = 0
-            k2_variants.update(dict.fromkeys(k2_variants, 0))
+            reset_k2_counts()
             result = run_training(flagship_train_config(root, os.path.join(tmp, "exp1"), batch))
         trainer, probe, records, k1_counts = result
         backbone = trainer.cfg.model.backbone
-        enc, dec = depth_split(backbone)
-        blocks = enc + dec  # 18
-        # K1 with lse: the launches counted inside the train steps' forwards;
-        # the evaluator hook's validation forwards launch K1 without lse
-        k1, k1_val = k1_counts["train_launches"], k1_counts["val_launches"]
-        val_forwards = k1_counts["val_forwards"]
-        k2 = fwa.flash_window_attention_bwd.launches
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        step_ms = probe.step_ms()
-        hist = trainer.storage.history
-        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
-        steps = len(losses)
-        check(steps >= 6, f"{steps} train steps, expected at least 1 + 5")
-        check(all(math.isfinite(v) for v in losses + grad_norms),
-              f"non-finite loss or grad_norm: {losses} {grad_norms}")
-        check(k1_counts["train_forwards"] == steps and k1 == blocks * steps
-              and k2 == blocks * steps,
-              f"{k1} forward and {k2} backward kernel launches in {steps} steps "
-              f"({k1_counts['train_forwards']} forwards), expected {blocks} each per step")
-        check(val_forwards == len(trainer.cfg.data.val) and k1_val == blocks * val_forwards,
-              f"{k1_val} kernel launches in {val_forwards} validation forwards, expected "
-              f"{blocks} each, one forward per validation set")
-        # bf16: the encoder's windows of 1024 take the large-window backward,
-        # the decoder's windows of 48 the one-pass one
-        check(k2_variants["bf16_small"] > 0 and k2_variants["bf16_large"] > 0
-              and k2_variants["bf16_small"] + k2_variants["bf16_large"] == k2,
-              f"backward variant launches {k2_variants} of {k2}")
-        check(fwa.flash_window_attention.launches == k1 + k1_val,
-              f"K1 launched {fwa.flash_window_attention.launches} times, {k1} + {k1_val} "
-              "of them inside a forward")
-        # K1 in bf16: the encoder's windows of 1024 on the large-window
-        # forward, the decoder's windows of 48 on the one-pass one
-        for mode, forwards in (("train", steps), ("val", val_forwards)):
-            got = {v: n for v, n in k1_counts[mode + "_variants"].items() if n}
-            check(got == dict(bf16_large=enc * forwards, bf16_small=dec * forwards),
-                  f"{mode} K1 variant launches {got} in {forwards} forwards, expected "
-                  f"{enc} bf16_large and {dec} bf16_small each")
-        overflow = [int(max(int(o.max()) for o in r["overflow"])) for r in records]
-        check(all(o == 0 for o in overflow), f"pooling overflow {overflow}")
-        model_dir = os.path.join(trainer.cfg.save_path, "model")
-        check(os.path.exists(os.path.join(model_dir, "model_last.pth")),
-              "no checkpoint written")
-        # the file's own hooks: the evaluator logged each validation set's
-        # fg_mIoU, the saver kept the best epoch, PreciseEvaluator had no tester
-        val = {f"val{i}/{m}": hist(f"val{i}/{m}").values()
-               for i in range(len(trainer.cfg.data.val)) for m in ("mIoU", "fg_mIoU")}
-        check(all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in val.values()),
-              f"validation metrics not logged once per set: {val}")
-        check(trainer.comm_info.get("current_metric_name") == "fg_mIoU",
-              "the evaluator hook set no checkpoint metric")
-        check(os.path.exists(os.path.join(model_dir, "model_best.pth")), "no model_best.pth")
-        precise = [h for h in trainer.hooks if isinstance(h, PreciseEvaluator)]
-        check(len(precise) == 1 and precise[0].results == [],
-              "PreciseEvaluator ran a tester the config does not name")
-        checkpoint = shutil.copy(os.path.join(model_dir, "model_best.pth"),
+        record = check_flagship_run("train", trainer, probe, records, k1_counts)
+        checkpoint = shutil.copy(os.path.join(trainer.cfg.save_path, "model", "model_best.pth"),
                                  os.path.join(work, "model_best.pth"))
-        sizes = [[(n, v.tolist()) for n, v in r["sizes"]] for r in records]
-        emit(dict(phase="train", batch_size=batch, points=TRAIN_POINTS, oom=oom,
-                  steps=steps, loss=losses, grad_norm=grad_norms, lr=hist("lr").values(),
-                  cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
-                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
-                  k1_launches=k1, k2_launches=k2, k2_variant_launches=dict(k2_variants),
-                  k1_variant_launches=k1_counts["train_variants"],
-                  validation_forwards=val_forwards,
-                  validation_k1_launches=k1_val,
-                  validation_k1_variant_launches=k1_counts["val_variants"],
-                  peak_mem_gib=peak_gib,
-                  n_overflow=overflow, stage_slots_valid=sizes[-1],
-                  dataset_write_s=data_s, validation={k: v[0] for k, v in val.items()},
-                  best_metric=trainer.comm_info.get("best_metric_value"),
-                  profile=probe.profile))
+        emit(dict(phase="train", batch_size=batch, oom=oom, dataset_write_s=data_s, **record))
         del trainer
     torch.cuda.empty_cache()
     shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
     k1_vars = dict(train=k1_counts["train_variants"], validation=k1_counts["val_variants"])
-    return shapes, k1, k1_val, k1_vars, dict(k2_variants), checkpoint
+    return (shapes, record["k1_launches"], record["validation_k1_launches"], k1_vars,
+            record["k2_variant_launches"], checkpoint, record)
 
 
 def bwd_bound_ms(n, valids, k, c, h):
@@ -1182,26 +1256,36 @@ def compare_train_steps(phase, step, blocks, **record):
     one under "loss", gradients by name, pooling overflow of each stage)
     runs one train step from fixed weights and generator seeds; it runs
     with the kernels (``blocks`` K1 and K2 launches, or a pair of counts
-    (K1, K2)) and with the plain attention (none). The losses must agree to
-    TRAIN_LOSS_RTOL (each term's difference is recorded) and each gradient
-    to TRAIN_GRAD_RTOL of its own norm (or both be zero, see ZERO_GRAD),
-    the whole gradient too; no stage may overflow. Gradients named
-    ``<term>/<parameter>`` are one loss term's: each term is its own whole
-    gradient. Emits ``phase`` with ``record``."""
+    (K1, K2)) and with the plain attention (none); compare_steps holds the
+    two. Emits ``phase`` with ``record``."""
     before = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
-    loss_k, grads_k, overflow_k = step(None)
+    kernel = step(None)
     after = (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
     k1, k2 = blocks if isinstance(blocks, tuple) else (blocks, blocks)
     check(after == (before[0] + k1, before[1] + k2),
           f"{phase}: kernel path not taken: {before} {after}, expected {k1} and {k2} more")
-    loss_p, grads_p, overflow_p = step(False)
+    plain = step(False)
     check((fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches)
           == after, f"{phase}: plain path launched a kernel")
+    compare_steps(phase, kernel, plain, **record)
+
+
+def compare_steps(phase, got, ref, names=("kernel", "plain"), **record):
+    """Holds one train step's (loss or loss terms, gradients by name, pooling
+    overflow) ``got`` to ``ref``: the losses to TRAIN_LOSS_RTOL (each
+    term's difference is recorded) and each gradient to TRAIN_GRAD_RTOL of
+    its own norm (or both zero, see ZERO_GRAD), the whole gradient too; no
+    stage may overflow. Gradients named ``<term>/<parameter>`` are one loss
+    term's: each term is its own whole gradient. Emits ``phase`` with
+    ``record``, the two losses under loss_<names>."""
+    loss_k, grads_k, overflow_k = got
+    loss_p, grads_p, overflow_p = ref
     term = {name: name.split("/")[0] if "/" in name else "" for name in grads_p}
     total = {t: torch.linalg.vector_norm(torch.stack(
         [g.norm() for name, g in grads_p.items() if term[name] == t])).item()
         for t in set(term.values())}
     worst, zero, by_share, diff_sq = 0.0, [], {}, dict.fromkeys(total, 0.0)
+    check(sorted(grads_k) == sorted(grads_p), f"{phase}: gradients of other parameters")
     for name, gp in grads_p.items():
         gk, whole = grads_k[name], total[term[name]]
         check(torch.isfinite(gk).all().item(), f"{phase}: non-finite gradient {name}")
@@ -1215,7 +1299,7 @@ def compare_train_steps(phase, step, blocks, **record):
         if norm < ZERO_GRAD * whole:
             zero.append(name)
             check(gk.norm().item() < ZERO_GRAD * whole,
-                  f"{phase}: gradient of {name} is zero on the plain path only")
+                  f"{phase}: gradient of {name} is zero on the {names[1]} path only")
             continue
         worst = max(worst, diff / norm)
         check(diff / norm <= TRAIN_GRAD_RTOL,
@@ -1225,8 +1309,8 @@ def compare_train_steps(phase, step, blocks, **record):
     loss_rel = {k: abs(losses_k[k] - v) / abs(v) for k, v in losses_p.items()}
     whole_rel = {t: math.sqrt(diff_sq[t]) / total[t] for t in total}
     emit(dict(phase=phase, dtype="float32", **record, n_overflow=[overflow_k, overflow_p],
-              loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel["loss"],
-              term_rel_diff=loss_rel,
+              **{f"loss_{names[0]}": loss_k, f"loss_{names[1]}": loss_p},
+              loss_rel_diff=loss_rel["loss"], term_rel_diff=loss_rel,
               loss_rtol=TRAIN_LOSS_RTOL, grad_tensors=len(grads_p), worst_grad_rel_l2=worst,
               grad_rtol=TRAIN_GRAD_RTOL, zero_grad_tensors=zero,
               global_grad_norm=total[""] if "" in total else total,
@@ -1239,36 +1323,50 @@ def compare_train_steps(phase, step, blocks, **record):
     check(not any(overflow_k + overflow_p), f"{phase}: pooling overflow {overflow_k}")
 
 
+def agree_rows(n, seeds):
+    """One batch row of ``n`` points per seed: a room small enough that its
+    4 cm cells fit the first pooling's capacity (a 3 m room's 24,891 would
+    overflow 0.5 x 49,152), 20 classes by angle and height, 768-d fp16
+    lang_feat (a unit embedding per class plus noise) and valid_feat_mask;
+    numpy arrays [rows, n, ...]."""
+    rows = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        coord, feat_in, grid = room_scene(rng, n, (2.4, 2.4, 2.4))
+        angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
+        seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
+        seg = seg + 10 * (coord[:, 2] > 1.0)
+        emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)  # SigLIP2 features are unit rows
+        lang = emb[seg] + 0.05 * rng.normal(size=(n, LANG_DIM)).astype(np.float32)
+        rows.append(dict(coord=coord, feat=feat_in, grid_coord=grid, mask=np.ones(n, bool),
+                         segment=seg, lang_feat=lang.astype(np.float16),
+                         valid_feat_mask=rng.random(n) > 0.1))
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def cuda_batch(rows):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in rows.items()}
+
+
+def flagship_fp32_model(**backbone):
+    """The flagship config file's LangPretrainer in fp32 from seed 1, on the
+    card in train mode, and the file's criteria."""
+    cfg = Config.fromfile(FLAGSHIP_CONFIG)
+    model = build_model(dict(type="LangPretrainer", backbone=dict(
+        cfg.model.backbone, dtype="float32", seed=1, **backbone)))
+    return model.cuda().train(), build_criteria(cfg.model.criteria)
+
+
 def phase_train_agree(n=49152):
     """One fp32 train step of the flagship config file's model (decoder
     windows of 48, ragged) at ``n`` points with the kernels and one with the
     plain attention, from the same weights and generator seeds."""
-    cfg = Config.fromfile(FLAGSHIP_CONFIG)
-    backbone = dict(cfg.model.backbone)
-    rng = np.random.default_rng(7)
-    # a room small enough that its 4 cm cells fit the first pooling's
-    # capacity (a 3 m room's 24,891 would overflow 0.5 x 49,152)
-    coord, feat_in, grid = room_scene(rng, n, (2.4, 2.4, 2.4))
-    angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
-    seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
-    seg = seg + 10 * (coord[:, 2] > 1.0)
-    emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
-    emb /= np.linalg.norm(emb, axis=1, keepdims=True)  # SigLIP2 features are unit rows
-    lang = emb[seg] + 0.05 * rng.normal(size=(n, LANG_DIM)).astype(np.float32)
-
-    def dev(x):
-        return torch.from_numpy(np.asarray(x))[None].cuda()
-
-    batch = dict(coord=dev(coord), feat=dev(feat_in), grid_coord=dev(grid),
-                 mask=torch.ones(1, n, dtype=torch.bool, device="cuda"),
-                 segment=dev(seg), lang_feat=dev(lang.astype(np.float16)),
-                 valid_feat_mask=dev(rng.random(n) > 0.1))
-    criteria = build_criteria(cfg.model.criteria)
+    backbone = dict(Config.fromfile(FLAGSHIP_CONFIG).model.backbone)
+    batch = cuda_batch(agree_rows(n, (7,)))
 
     def step(use_kernel):
-        model = build_model(dict(type="LangPretrainer", backbone=dict(
-            backbone, dtype="float32", seed=1, use_kernel=use_kernel)))
-        model = model.cuda().train()
+        model, criteria = flagship_fp32_model(use_kernel=use_kernel)
         gen = torch.Generator(device="cuda").manual_seed(11)
         loss, out = lang_loss(model, criteria, batch, gen, epoch_progress=1.0)
         loss.backward()
@@ -1277,6 +1375,377 @@ def phase_train_agree(n=49152):
 
     compare_train_steps("train_agree", step, sum(depth_split(backbone)), points=n,
                         dec_patch_size=backbone.get("dec_patch_size", "default (48)"))
+
+
+# ---- data parallel ---------------------------------------------------------
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(rank, world, port, local_rank=0):
+    """The environment torchrun gives a process, for the block (the ranks
+    that share the one card all have LOCAL_RANK 0)."""
+    env = dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def train_step_fp32(batch, wrap=lambda m: m):
+    """One train_step of the flagship fp32 model (drop-path 0.3, the curve
+    shuffle and the contrastive split drawn from a generator seeded 11;
+    SGD at lr 0, so the step leaves the weights) on ``batch``, the model
+    wrapped by ``wrap``. Returns (loss, grad_norm, gradients and BatchNorm
+    running statistics by name, each stage's pooling overflow)."""
+    model, criteria = flagship_fp32_model()
+    overflow, forward = [], model.forward
+
+    def recording(point, generator=None):
+        out = forward(point, generator=generator)
+        overflow.extend(int(p.n_overflow.max()) for p in out.plans)
+        return out
+
+    model.forward = recording
+    metrics = train_step(wrap(model), criteria, torch.optim.SGD(model.parameters(), lr=0.0),
+                         None, batch, generator=torch.Generator(device="cuda").manual_seed(11),
+                         epoch_progress=1.0, task="lang")
+    stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return (metrics["loss"].item(), metrics["grad_norm"].item(),
+            {k: p.grad for k, p in model.named_parameters()}, stats, overflow)
+
+
+def phase_ddp_train(work, plain, n_agree=49152):
+    """The flagship trainer as phase_train runs it (its data, batch 2, 1 + 5
+    steps, its own hooks with the evaluator on the scene-sharded path),
+    under a one-process NCCL group, so through DistributedDataParallel,
+    beside phase_train's plain trainer; then one fp32 step at ``n_agree``
+    points under DDP against the same step without it. Returns the run's
+    record and its best checkpoint, copied into ``work``."""
+    with torchrun_env(0, 1, free_port()), process_group("cuda"):
+        check(torch.distributed.get_backend() == "nccl" and world() == 1,
+              "ddp_train: no one-process NCCL group")
+        with tempfile.TemporaryDirectory() as tmp:
+            root, data_s = write_flagship_data(tmp)
+            reset_k1_counts()
+            reset_k2_counts()
+            trainer, probe, records, k1_counts = run_training(
+                flagship_train_config(root, os.path.join(tmp, "exp"), 2))
+            check(isinstance(trainer.train_model, torch.nn.parallel.DistributedDataParallel),
+                  "ddp_train: the trainer's step does not run under DDP")
+            record = check_flagship_run("ddp_train", trainer, probe, records, k1_counts)
+            best = os.path.join(trainer.cfg.save_path, "model", "model_best.pth")
+            state = torch.load(best, map_location="cpu", weights_only=False)["state_dict"]
+            check(not any(k.startswith("module.") for k in state),
+                  "ddp_train: the checkpoint holds DDP's names")
+            model_cfg = dict(trainer.cfg.model)
+            model_cfg.pop("criteria")
+            build_model(model_cfg).load_state_dict(state, strict=True)
+            checkpoint = shutil.copy(best, os.path.join(work, "ddp_model_best.pth"))
+            del trainer
+        torch.cuda.empty_cache()
+        warm, plain_warm = (float(np.mean(r["warm_step_ms"])) for r in (record, plain))
+        emit(dict(phase="ddp_train", world=1, backend="nccl", batch_size=2,
+                  dataset_write_s=data_s, **record, warm_step_ms_mean=warm,
+                  plain=dict({k: plain[k] for k in (
+                      "steps", "loss", "cold_step_ms", "warm_step_ms", "data_wait_s",
+                      "peak_mem_gib")}, warm_step_ms_mean=plain_warm),
+                  ddp_over_plain_warm_step=warm / plain_warm))
+
+        batch = cuda_batch(agree_rows(n_agree, (7,)))
+        loss, norm, grads, _, overflow = train_step_fp32(
+            batch, data_parallel)
+        got = (loss, grads, overflow)
+        loss, plain_norm, grads, _, overflow = train_step_fp32(batch)
+        compare_steps("ddp_train_agree", got, (loss, grads, overflow), names=("ddp", "plain"),
+                      points=n_agree, world=1, backend="nccl", grad_norm=[norm, plain_norm])
+        check(abs(norm - plain_norm) <= TRAIN_GRAD_RTOL * plain_norm,
+              f"ddp_train_agree: gradient norms {norm} and {plain_norm}")
+    return record, checkpoint
+
+
+def rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm().clamp(min=1e-30)).item()
+
+
+def spawn_ranks(target, world, job_file, timeout_s=600):
+    """Runs ``target(rank, world, port, job_file)`` in ``world`` spawned
+    processes and waits for them (killed past ``timeout_s``); fails unless
+    every one exits 0. Returns the seconds they took."""
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=target, args=(r, world, port, job_file)) for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=timeout_s)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"{target.__name__}: rank exit codes {[p.exitcode for p in procs]}")
+    return time.perf_counter() - t0
+
+
+def ddp_agree_rank(rank, world, port, job_file):
+    """One rank of phase_ddp_agree (a spawned process): its row of the
+    global batch through the fp32 step under DDP, then the zero-shot test
+    entry on its share of the scenes; writes what it saw, with its K1 and
+    K2 launches, to the job's ``out`` file. On one card the ranks share it
+    over gloo, on CUDA tensors (NCCL refuses two ranks on one card); on
+    several, each has its own over NCCL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_file, weights_only=False)
+    cards = job["cards"]
+    with torchrun_env(rank, world, port, local_rank=rank if cards > 1 else 0):
+        init_distributed("cuda", backend="nccl" if cards > 1 else "gloo")
+        try:
+            reset_k1_counts()
+            reset_k2_counts()
+            rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
+            loss, norm, grads, stats, overflow = train_step_fp32(cuda_batch(rows),
+                                                                  data_parallel)
+            out = dict(loss=loss, grad_norm=norm, overflow=overflow,
+                       grads={k: g.cpu() for k, g in grads.items()},
+                       stats={k: v.cpu() for k, v in stats.items()},
+                       k1_step=fwa.flash_window_attention.launches,
+                       k1_step_variants=k1_lse_variants(),
+                       k2_step=fwa.flash_window_attention_bwd.launches,
+                       k2_step_variants=dict(fwa.flash_window_attention_bwd.variant_launches))
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_k1_counts()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            (out["test"],) = test_entry.main(job["test_argv"])
+            out.update(k1_test=fwa.flash_window_attention.launches, k1_test_variants=k1_variants())
+            torch.save(out, job["out"].format(rank=rank))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def phase_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, world=2, cards=1):
+    """``world`` ranks (one row each) against one process on the first
+    card: the fp32 step of a global batch of ``world`` rows of ``n`` points
+    (drop-path 0.3, the contrastive term on) and the zero-shot test entry
+    over 3 scenes with ``checkpoint`` (at 4 ranks one draws no scene). The
+    ranks share the one card over gloo, or with ``cards`` > 1 each has a
+    card over NCCL. Returns the ranks' K1 and K2 launches."""
+    phase = "ddp_agree" if cards == 1 else "ddp_cards_agree"
+    backend = "gloo" if cards == 1 else "nccl"
+    rows = agree_rows(n, tuple(range(7, 7 + world)))
+    loss, norm, grads, stats, overflow = train_step_fp32(cuda_batch(rows))
+    ref = (loss, {k: g.cpu() for k, g in grads.items()}, overflow)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    data_root = os.path.join(work, f"{phase}_scenes")
+    n_points = write_test_scenes(data_root, 3, n_voxels, seed=21, pc_points=n_voxels // 2)
+    cfg_file = os.path.join(work, f"{phase}_test.py")
+    with open(cfg_file, "w") as f:
+        f.write(TEST_CONFIG.format(flagship=os.path.abspath(FLAGSHIP_CONFIG),
+                                   pipelines=os.path.abspath(PIPELINES),
+                                   data_root=data_root, meta_root=meta_root))
+    argv = ["--config-file", cfg_file, "--options", f"weight={checkpoint}", "bitonic_sort=False"]
+    one_dir, two_dir = (os.path.join(work, f"{phase}_{name}") for name in ("one", "ranks"))
+    # the pooling's scatter-adds in one order in every run (see run_test_entry)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_k1_counts()
+        (one,) = test_entry.main(argv + [f"test.save_path={one_dir}"])
+        k1_one = fwa.flash_window_attention.launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    job_file = os.path.join(work, f"{phase}_job.pt")
+    torch.save(dict(rows=rows, test_argv=argv + [f"test.save_path={two_dir}"], cards=cards,
+                    out=os.path.join(work, f"{phase}_rank{{rank}}.pt")), job_file)
+    ranks_s = spawn_ranks(ddp_agree_rank, world, job_file)
+    ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+
+    blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
+    for r, got in enumerate(ranks):
+        compare_steps(f"{phase}_rank{r}", (got["loss"], got["grads"], got["overflow"]), ref,
+                      names=("ranks", "one"), points=n, rows=world, world=world,
+                      backend=backend, grad_norm=[got["grad_norm"], norm])
+        check(abs(got["grad_norm"] - norm) <= TRAIN_GRAD_RTOL * norm,
+              f"{phase}: rank {r}'s gradient norm {got['grad_norm']} against {norm}")
+        stat_err = {k: rel_l2(v, stats[k].cpu()) for k, v in got["stats"].items()}
+        check(sorted(stat_err) == sorted(stats) and max(stat_err.values()) <= TRAIN_GRAD_RTOL,
+              f"{phase}: rank {r}'s BatchNorm statistics differ by {max(stat_err.values())}")
+        check(got["k1_step"] == got["k2_step"] == blocks,
+              f"{phase}: rank {r} launched K1 {got['k1_step']} and K2 {got['k2_step']} "
+              f"times in its step, expected {blocks}")
+        got["stat_worst_rel_l2"] = max(stat_err.values())
+        for key, g in ranks[0]["grads"].items():
+            check(torch.equal(g, got["grads"][key]), f"{phase}: rank {r}'s {key} gradient "
+                  "differs from rank 0's")
+
+    one_preds = {f: np.load(os.path.join(one_dir, f)) for f in os.listdir(one_dir)
+                 if f.endswith("_pred.npy")}
+    two_preds = {f: np.load(os.path.join(two_dir, f)) for f in os.listdir(two_dir)
+                 if f.endswith("_pred.npy")}
+    check(len(one_preds) == 3 and sorted(one_preds) == sorted(two_preds),
+          f"{phase}: scenes {sorted(one_preds)} and {sorted(two_preds)}")
+    for name, pred in one_preds.items():
+        check(np.array_equal(pred, two_preds[name]), f"{phase}: {name} predictions differ")
+    for r, got in enumerate(ranks):
+        check(sorted(got["test"]) == sorted(one) and all(
+            np.array_equal(got["test"][k], one[k]) for k in one),
+              f"{phase}: rank {r}'s test metrics differ from one process's")
+        check((got["k1_test"] > 0) == (r < 3), f"{phase}: rank {r} launched K1 "
+              f"{got['k1_test']} times in testing (3 scenes round-robin)")
+    k1_test = sum(got["k1_test"] for got in ranks)
+    check(k1_test == k1_one, f"{phase}: the ranks launched K1 "
+          f"{[got['k1_test'] for got in ranks]} times in testing, one process {k1_one}")
+    with open(os.path.join(two_dir, "scene_log.json")) as f:
+        check(len(json.load(f)) == 3, f"{phase}: rank 0's scene log lacks scenes")
+    emit(dict(phase=phase, world=world, backend=backend, cards=cards, points=n, rows=world,
+              dtype="float32", drop_path=0.3, loss=[got["loss"] for got in ranks],
+              loss_one=loss, grad_norm=[got["grad_norm"] for got in ranks], grad_norm_one=norm,
+              stat_worst_rel_l2=[got["stat_worst_rel_l2"] for got in ranks],
+              stat_tensors=len(stats), ranks_s=ranks_s,
+              k1_step=[got["k1_step"] for got in ranks],
+              k2_step=[got["k2_step"] for got in ranks],
+              test_scenes=3, test_points_per_scene=n_points,
+              test_metrics={k: one[k] for k in ("mIoU", "fg_mIoU", "mAcc", "allAcc")},
+              test_metrics_equal=True, predictions_equal=True,
+              k1_test=[got["k1_test"] for got in ranks], k1_test_one_process=k1_one))
+    return dict(k1_lse=sum(got["k1_step"] for got in ranks),
+                k2=sum(got["k2_step"] for got in ranks), k1_test=k1_test,
+                k1_lse_variants=sum_counts(got["k1_step_variants"] for got in ranks),
+                k2_variants=sum_counts(got["k2_step_variants"] for got in ranks),
+                k1_test_variants=sum_counts(got["k1_test_variants"] for got in ranks))
+
+
+def ddp_train_rank(rank, world, port, job_file):
+    """One rank of phase_ddp_cards_train (a spawned process, its own card,
+    NCCL): the flagship trainer at the job's global batch; writes its
+    per-step losses, gradient norms, step times, loader waits, peak memory,
+    K1 / K2 launches, pooling overflow, validation and profile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_file, weights_only=False)
+    with torchrun_env(rank, world, port, local_rank=rank):
+        init_distributed("cuda")
+        try:
+            reset_k1_counts()
+            reset_k2_counts()
+            trainer, probe, records, k1_counts = run_training(flagship_train_config(
+                job["root"], job["exp"], job["batch_size"]))
+            hist = trainer.storage.history
+            step_ms = probe.step_ms()
+            torch.save(dict(
+                loss=hist("loss").values(), grad_norm=hist("grad_norm").values(),
+                data_wait_s=hist("data_time").values(), cold_step_ms=step_ms[0],
+                warm_step_ms=step_ms[1:-1], profiled_step_ms=step_ms[-1],
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                k1=k1_counts["train_launches"], k1_val=k1_counts["val_launches"],
+                val_forwards=k1_counts["val_forwards"],
+                k2=fwa.flash_window_attention_bwd.launches,
+                overflow=[int(max(int(o.max()) for o in r["overflow"])) for r in records],
+                validation={k: hist(k).values() for k in ("val0/fg_mIoU", "val/fg_mIoU")},
+                profile=probe.profile, train_steps=len(trainer.train_loader)),
+                job["out"].format(rank=rank))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def phase_ddp_cards_train(work, cards):
+    """The flagship file as it ships it: its global batch of 8, 2 rows a
+    card on ``cards`` cards, each rank a spawned process on its own card
+    over NCCL, at 196,608 points over the train phase's rooms (each listed
+    4 times, so that every dataset fills batches of 16 Mix3D samples), for
+    its steps of one epoch and one sharded validation. Every rank holds the
+    same loss and gradient norm at every step, K1 and K2 launch once a block
+    a step, rank 0 alone writes the checkpoint. Each rank's pooling
+    overflow is recorded, not refused: with 16 Mix3D samples a batch some
+    rank draws a pair of augmented rooms whose 4 cm clusters overflow the
+    file's first capacity (497 over 98,304 in one run), as one card would
+    with these draws."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root, data_s = write_flagship_data(tmp, copies=4)
+        exp = os.path.join(tmp, "exp")
+        job_file = os.path.join(work, "ddp_cards_train_job.pt")
+        torch.save(dict(root=root, exp=exp, batch_size=2 * cards,
+                        out=os.path.join(work, "ddp_cards_train_rank{rank}.pt")), job_file)
+        ranks_s = spawn_ranks(ddp_train_rank, cards, job_file, timeout_s=900)
+        ranks = [torch.load(os.path.join(work, f"ddp_cards_train_rank{r}.pt"),
+                            weights_only=False) for r in range(cards)]
+        best = os.path.join(exp, "model", "model_best.pth")
+        check(os.path.exists(best), "ddp_cards_train: no checkpoint")
+        checkpoint = shutil.copy(best, os.path.join(work, "ddp_cards_model_best.pth"))
+    blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
+    steps = len(ranks[0]["loss"])
+    emit(dict(phase="ddp_cards_train", world=cards, backend="nccl", batch_size=2 * cards,
+              rows_per_card=2, points=TRAIN_POINTS, steps=steps, dataset_write_s=data_s,
+              ranks_s=ranks_s, loss=ranks[0]["loss"], grad_norm=ranks[0]["grad_norm"],
+              validation=ranks[0]["validation"],
+              per_rank=[dict({k: got[k] for k in (
+                  "cold_step_ms", "warm_step_ms", "profiled_step_ms", "data_wait_s",
+                  "peak_mem_gib", "k1", "k1_val", "val_forwards", "k2", "overflow")},
+                  profile={k: v for k, v in (got["profile"] or {}).items()
+                           if k != "top_kernels"}) for got in ranks]))
+    check(steps >= 6, f"ddp_cards_train: {steps} steps")
+    for r, got in enumerate(ranks):
+        check(got["loss"] == ranks[0]["loss"] and got["grad_norm"] == ranks[0]["grad_norm"],
+              f"ddp_cards_train: rank {r}'s losses {got['loss']} against rank 0's")
+        check(all(math.isfinite(v) for v in got["loss"] + got["grad_norm"]),
+              f"ddp_cards_train: rank {r}: non-finite losses")
+        check(got["k1"] == got["k2"] == blocks * steps,
+              f"ddp_cards_train: rank {r} launched K1 {got['k1']} and K2 {got['k2']} times "
+              f"in {steps} steps")
+        check(got["validation"] == ranks[0]["validation"],
+              f"ddp_cards_train: rank {r}'s validation differs from rank 0's")
+    return dict(k1_lse=sum(got["k1"] for got in ranks), k2=sum(got["k2"] for got in ranks),
+                k1_val=sum(got["k1_val"] for got in ranks)), checkpoint
+
+
+def main_cards(cards) -> int:
+    """``python3 chip_smoke.py --cards N``: data parallel across ``N`` cards
+    of one host (not the one-card smoke test): the kernels' build, the
+    flagship file at its global batch of 8 (ddp_cards_train), and N ranks
+    over NCCL against one process (ddp_cards_agree, whose one-process
+    test runs on ddp_cards_train's checkpoint)."""
+    check(torch.cuda.device_count() >= cards,
+          f"--cards {cards}: {torch.cuda.device_count()} cards")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        meta_root = os.path.join(work, "metadata")
+        write_meta(meta_root)
+        os.environ["SCENESPLAT_META_ROOT"] = meta_root
+        smi = phase_device()
+        train, checkpoint = phase_ddp_cards_train(work, cards)
+        agree = phase_ddp_agree(work, checkpoint, meta_root, world=cards, cards=cards)
+    emit(dict(phase="done", seconds=time.perf_counter() - t0))
+    print(smi, flush=True)
+    emit(dict(cards=cards, k1_lse_launches=train["k1_lse"] + agree["k1_lse"],
+              k2_launches=train["k2"] + agree["k2"], k1_test_launches=agree["k1_test"]))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def sum_counts(dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
 
 SORT_ROWS = (1000, 1024, 5000, 4095, 4097, 24576, 196608, 1 << 20)
 # (operands, keys, heavy ties): the last operand is the element index
@@ -2302,10 +2771,12 @@ def main() -> int:
         phase_shipped(text)
         phase_agree(text)
         worst_bwd, worst_fwd_lse = phase_kernel_bwd()
-        train_shapes, k1_train, k1_val, k1_variants_train, k2_variants, checkpoint = \
+        train_shapes, k1_train, k1_val, k1_variants_train, k2_variants, checkpoint, plain = \
             phase_train(work)
         tot_bwd = phase_timing_bwd(train_shapes)
         phase_train_agree()
+        ddp_record, ddp_checkpoint = phase_ddp_train(work, plain)
+        ddp_ranks = phase_ddp_agree(work, ddp_checkpoint, meta_root)
         worst_sort = phase_kernel_sort()
         sort_calls, sort_kernels, fragments, sort_sizes, test_variants, test_shapes = \
             phase_test(work, checkpoint, meta_root)
@@ -2357,6 +2828,11 @@ def main() -> int:
     # counted apart
     ssl_train = dict(path="ssl train", ms_per="train step", steps=ssl_counts["steps"])
     ssl_small = ssl_bwd["fwd_by_variant"]["bf16_small"]
+    # "ddp": data parallel, the flagship trainer under DDP at one process
+    # (NCCL, 6 steps and one validation, as "train") and the two ranks of
+    # ddp_agree on the one card (gloo: one fp32 step each, then their share
+    # of the 3 test scenes' fragment forwards), launches summed over ranks
+    ddp = dict(path="ddp train", ms_per="train step", world1_steps=ddp_record["steps"])
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
@@ -2381,7 +2857,15 @@ def main() -> int:
                       variant_launches=ssl_counts["student_lse"],
                       teacher_launches_without_lse=sum(ssl_counts["teacher"].values()),
                       teacher_variant_launches=ssl_counts["teacher"],
-                      by_variant=ssl_bwd["fwd_by_variant"], **times(ssl_bwd, "fwd_"))),
+                      by_variant=ssl_bwd["fwd_by_variant"], **times(ssl_bwd, "fwd_")),
+             ddp=dict(ddp, launches=ddp_record["k1_launches"] + ddp_ranks["k1_lse"],
+                      world1_launches=ddp_record["k1_launches"],
+                      world1_variant_launches=ddp_record["k1_variant_launches"],
+                      world1_validation_launches=ddp_record["validation_k1_launches"],
+                      two_rank_launches=ddp_ranks["k1_lse"],
+                      two_rank_variant_launches=ddp_ranks["k1_lse_variants"],
+                      two_rank_test_launches_without_lse=ddp_ranks["k1_test"],
+                      two_rank_test_variant_launches=ddp_ranks["k1_test_variants"])),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -2413,7 +2897,12 @@ def main() -> int:
              semseg=dict(semseg_train, launches=sum(semseg_k2_variants.values()),
                          variant_launches=semseg_k2_variants, **times(semseg_bwd)),
              ssl=dict(ssl_train, launches=sum(ssl_counts["k2"].values()),
-                      variant_launches=ssl_counts["k2"], **times(ssl_bwd))),
+                      variant_launches=ssl_counts["k2"], **times(ssl_bwd)),
+             ddp=dict(ddp, launches=ddp_record["k2_launches"] + ddp_ranks["k2"],
+                      world1_launches=ddp_record["k2_launches"],
+                      world1_variant_launches=ddp_record["k2_variant_launches"],
+                      two_rank_launches=ddp_ranks["k2"],
+                      two_rank_variant_launches=ddp_ranks["k2_variants"])),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -2435,4 +2924,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--cards" and torch.cuda.is_available():
+        sys.exit(main_cards(int(sys.argv[2])))
     sys.exit(main())

@@ -11,6 +11,12 @@ validation dataset and hands the mean fg_mIoU to the checkpoint saver
 ``SemSegEvaluator``: after every epoch it runs each whole validation scene
 through the segmentor, takes the argmax of the logits and hands the mIoU
 over the classes the scenes hold to the checkpoint saver.
+
+Under data parallel each process evaluates its round-robin share of the
+scenes (``parallel/dist_eval.py``) with the module itself, not its DDP
+wrapper (whose forward syncs buffers across processes, which run different
+numbers of forwards here), and the confusion sums add up over the
+processes, so every process logs the same metrics.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from scenesplat_tpu_torch.engines.eval import (
     load_text_embeddings,
 )
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
+from scenesplat_tpu_torch.parallel.dist_eval import allreduce_sum_arrays, partition_indices
 from scenesplat_tpu_torch.utils.misc import intersection_and_union
 
 from .default import HOOKS, HookBase
@@ -89,7 +96,7 @@ class LangPretrainZeroShotSemSegEvalMulti(HookBase):
             n_scenes = len(dataset)
             if self.max_scenes:
                 n_scenes = min(n_scenes, self.max_scenes)
-            for i in range(n_scenes):
+            for i in partition_indices(n_scenes):
                 seed_transforms((self._seed(), di, i))
                 sample = dataset[i]
 
@@ -104,6 +111,8 @@ class LangPretrainZeroShotSemSegEvalMulti(HookBase):
                     vote_k=self.vote_k, enable_voting=self.enable_voting,
                     confidence_threshold=self.confidence_threshold,
                     ignore_index=self.ignore_index, device=trainer.device)
+            metric.intersection, metric.union, metric.target = allreduce_sum_arrays(
+                (metric.intersection, metric.union, metric.target))
             res = metric.results()
             fg_mious.append(res["fg_mIoU"])
             trainer.logger.info(
@@ -154,15 +163,17 @@ class SemSegEvaluator(HookBase):
         if self.max_scenes:
             n_scenes = min(n_scenes, self.max_scenes)
         counts = []  # per scene: (intersection, union, target) of each class
-        for i in range(n_scenes):
+        for i in partition_indices(n_scenes):
             seed_transforms((self._seed(), i))
             sample = self.dataset[i]
             logits = self.extractor(sample)
             counts.append(intersection_and_union(
                 logits.argmax(-1).astype(np.int32), np.asarray(sample["segment"]),
                 logits.shape[-1], self.ignore_index))
-        inter, union, target = ((sum(c) for c in zip(*counts)) if counts
-                                else [np.zeros(self.num_classes or 1)] * 3)
+        # a process that drew no scene adds zeros
+        inter, union, target = allreduce_sum_arrays(
+            tuple(sum(c) for c in zip(*counts)) if counts
+            else (np.zeros(self.num_classes or 1),) * 3)
         iou = inter / np.maximum(union, 1e-10)
         seen = target > 0
         miou = float(iou[seen].mean()) if seen.any() else 0.0

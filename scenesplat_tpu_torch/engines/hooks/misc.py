@@ -2,7 +2,9 @@
 the iteration timer, the metrics writer, checkpoint save and load as torch
 state dicts (model, optimizer, scheduler, the training generator's state,
 step, epoch and best metric), the evaluators' run before training and the
-testers' run after it."""
+testers' run after it. Under data parallel rank 0 alone writes the metrics
+file and the checkpoints, which hold the module's own names (no DDP
+``module.`` prefix), and every rank loads them."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import time
 import torch
 
 from scenesplat_tpu_torch.engines.test import build_tester
+from scenesplat_tpu_torch.parallel.dist import barrier, rank
 from scenesplat_tpu_torch.utils.events import JSONWriter
 
 from .default import HOOKS, HookBase
@@ -92,7 +95,9 @@ class CheckpointSaver(HookBase):
     """Writes ``model/model_last.pth`` after every epoch (atomically),
     copies it to ``model_best.pth`` when an evaluator hook's
     ``current_metric_value`` improves and, with ``save_freq``, keeps
-    ``epoch_<n>.pth`` every ``save_freq`` epochs."""
+    ``epoch_<n>.pth`` every ``save_freq`` epochs. Rank 0 writes; every rank
+    waits for it (the evaluators' metric is the same on every rank, so they
+    agree on the best)."""
 
     def __init__(self, save_freq=None):
         self.save_freq = save_freq
@@ -100,7 +105,8 @@ class CheckpointSaver(HookBase):
     def before_train(self):
         self.ckpt_dir = os.path.abspath(
             os.path.join(self.trainer.cfg.get("save_path", "exp/default"), "model"))
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if rank() == 0:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def _save(self, name: str):
         path = os.path.join(self.ckpt_dir, name)
@@ -115,13 +121,15 @@ class CheckpointSaver(HookBase):
             comm["best_metric_value"] = metric
             self.trainer.logger.info(f"new best {comm.get('current_metric_name', 'metric')}: "
                                      f"{metric:.4f} (epoch {self.trainer.epoch + 1})")
-        self._save("model_last.pth")
-        if is_best:
-            best = os.path.join(self.ckpt_dir, "model_best.pth")
-            shutil.copyfile(os.path.join(self.ckpt_dir, "model_last.pth"), best + ".tmp")
-            os.replace(best + ".tmp", best)
-        if self.save_freq and (self.trainer.epoch + 1) % self.save_freq == 0:
-            self._save(f"epoch_{self.trainer.epoch + 1}.pth")
+        if rank() == 0:
+            self._save("model_last.pth")
+            if is_best:
+                best = os.path.join(self.ckpt_dir, "model_best.pth")
+                shutil.copyfile(os.path.join(self.ckpt_dir, "model_last.pth"), best + ".tmp")
+                os.replace(best + ".tmp", best)
+            if self.save_freq and (self.trainer.epoch + 1) % self.save_freq == 0:
+                self._save(f"epoch_{self.trainer.epoch + 1}.pth")
+        barrier()
 
 
 @HOOKS.register_module()

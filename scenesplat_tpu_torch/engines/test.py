@@ -6,9 +6,13 @@ over complementary voxel fragments into a full-scene buffer, threshold,
 inverse-map to the original points, kNN-vote onto the evaluation point
 cloud, and report mIoU / fg_mIoU. ``SemSegTester`` does the same with a
 segmentor's logits (summed over the fragments of every test-time
-augmentation, no threshold, no kNN vote) and reports mIoU. One process
-evaluates every scene; the other testers of the JAX package are not ported
-yet.
+augmentation, no threshold, no kNN vote) and reports mIoU. Under data
+parallel (``torchrun``) each process tests its round-robin share of the
+scenes (``parallel/dist_eval.py``), writes its scenes' predictions, and the
+per-scene records or the confusion sums are merged over the processes as
+in the JAX package, so every process reports the one-process metrics; rank
+0 writes ``eval_results.txt`` and ``scene_log.json`` (every process's
+scenes). The other testers of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +34,13 @@ from scenesplat_tpu_torch.engines.eval import (
     load_text_embeddings,
 )
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
+from scenesplat_tpu_torch.parallel.dist import rank
+from scenesplat_tpu_torch.parallel.dist_eval import (
+    allgather_pyobjects,
+    allreduce_sum_arrays,
+    broadcast_pyobject,
+    partition_indices,
+)
 from scenesplat_tpu_torch.utils.logger import get_root_logger
 from scenesplat_tpu_torch.utils.misc import (
     clustering_voting,
@@ -39,12 +50,6 @@ from scenesplat_tpu_torch.utils.misc import (
 from scenesplat_tpu_torch.utils.registry import Registry
 
 TESTERS = Registry("testers")
-
-
-def partition_indices(n: int) -> range:
-    """The scenes this process evaluates: all of them (the port runs one
-    process; the JAX package shards scenes round-robin over hosts)."""
-    return range(n)
 
 
 class TesterBase:
@@ -67,7 +72,11 @@ class TesterBase:
         Cached *_pred.npy files carry no provenance of their own, so a
         sidecar records the weights fingerprint; rerunning with different
         weights at the same save_path invalidates (and re-stamps) the cache
-        instead of silently reporting stale predictions."""
+        instead of silently reporting stale predictions. Rank 0 checks and
+        cleans; every process takes its answer once it is done."""
+        return broadcast_pyobject(self._check_pred_cache(save_path) if rank() == 0 else None)
+
+    def _check_pred_cache(self, save_path) -> bool:
         if not save_path:
             return False
         os.makedirs(save_path, exist_ok=True)
@@ -96,6 +105,15 @@ class TesterBase:
         with open(sidecar, "w") as f:
             f.write(fp + "\n")
         return True
+
+
+    def _write_scene_log(self):
+        """``<save_path>/scene_log.json``: every process's scene records, in
+        rank order, written by rank 0."""
+        scene_log = allgather_pyobjects(self.scene_log)
+        if self.save_path and scene_log and rank() == 0:
+            with open(os.path.join(self.save_path, "scene_log.json"), "w") as f:
+                json.dump(scene_log, f)
 
 
 @TESTERS.register_module()
@@ -262,9 +280,14 @@ class ZeroShotSemSegTester(TesterBase):
         if cache_hits:
             self.logger.warning(f"{cache_hits} scene(s) reported from cached predictions at "
                                 f"{self.save_path} (delete *_pred.npy to force recompute)")
-        if self.save_path and self.scene_log:
-            with open(os.path.join(self.save_path, "scene_log.json"), "w") as f:
-                json.dump(self.scene_log, f)
+        self._write_scene_log()
+        # the totals anew from every process's per-scene records, in rank
+        # order (the JAX tester's merge)
+        merged = dict(allgather_pyobjects(list(record.items())))
+        if not self.skip_eval and merged:
+            for key in ("intersection", "union", "target"):
+                setattr(metric, key, np.sum([v[key] for v in merged.values()],
+                                            axis=0).astype(np.float64))
         results = metric.results(protocol="tester") if not self.skip_eval else {}
         if results:
             self._log_final_metrics(results)
@@ -286,7 +309,7 @@ class ZeroShotSemSegTester(TesterBase):
             ci, cname, iou[ci], acc[ci]) for ci, cname in enumerate(self.class_names)]
         for line in lines + per_class:
             self.logger.info(line)
-        if not self.save_path:
+        if not self.save_path or rank() != 0:
             return
         os.makedirs(self.save_path, exist_ok=True)
         with open(os.path.join(self.save_path, "eval_results.txt"), "w") as f:
@@ -374,9 +397,8 @@ class SemSegTester(TesterBase):
                 f"Test: {name} [{i + 1}/{n_scenes}]-{len(segment)} "
                 f"Accuracy {i_.sum() / (t_.sum() + 1e-10):.4f} "
                 f"mIoU ({run_iou.mean() if run_iou.size else 0.0:.4f})")
-        if self.save_path and self.scene_log:
-            with open(os.path.join(self.save_path, "scene_log.json"), "w") as f:
-                json.dump(self.scene_log, f)
+        self._write_scene_log()
+        inter, union, target_area = allreduce_sum_arrays((inter, union, target_area))
         iou = inter / np.maximum(union, 1e-10)
         seen = target_area > 0
         miou = float(iou[seen].mean()) if seen.any() else 0.0

@@ -11,6 +11,14 @@ Parameters come from ``cfg.seed``; every training draw (curve shuffle,
 drop-path, the contrastive split) comes from one ``torch.Generator`` on
 the card seeded from it, and the data pipeline seeds its own per-sample
 generators from it, so a run is a function of its config.
+
+Data parallel (``torchrun --nproc_per_node N -m scenesplat_tpu_torch.train``)
+trains the VL task: ``batch_size`` is the global batch, each process loads
+its rows, the model runs under DistributedDataParallel (``train_model``;
+``model`` stays the module itself, which the hooks evaluate and save), and
+the model's reductions over the batch span every process's rows
+(``parallel/dist.py``), so N processes train the model one process would
+train on the whole batch. Rank 0 alone logs and writes files.
 """
 
 from __future__ import annotations
@@ -24,6 +32,13 @@ from scenesplat_tpu_torch.data import ConcatDataset, Loader, MultiDatasetLoader,
 from scenesplat_tpu_torch.engines.hooks import HookBase, build_hooks
 from scenesplat_tpu_torch.engines.train_step import batch_to_device, train_step
 from scenesplat_tpu_torch.models import build_criteria, build_model
+from scenesplat_tpu_torch.parallel.dist import (
+    check_global_batch,
+    data_parallel,
+    init_distributed,
+    rank,
+    world,
+)
 from scenesplat_tpu_torch.utils.events import EventStorage
 from scenesplat_tpu_torch.utils.logger import get_root_logger
 from scenesplat_tpu_torch.utils.optimizer import build_optimizer, build_scheduler
@@ -69,15 +84,24 @@ class TrainerBase:
 
 @TRAINERS.register_module("DefaultTrainer")
 class Trainer(TrainerBase):
-    """Single-dataset trainer on ``device``; the task comes from the model
-    type (``TASKS``), and a type outside it raises."""
+    """Single-dataset trainer on ``device`` (``cuda:LOCAL_RANK`` in a
+    process group); the task comes from the model type (``TASKS``), and a
+    type outside it raises, as does a task of ``NOT_DATA_PARALLEL`` in
+    a group of more than one process."""
 
     TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg"}
+    # what keeps a task from data parallel: a reduction over the global
+    # batch that the port computes over one process's rows
+    NOT_DATA_PARALLEL = {
+        "semseg": "its Lovasz loss sorts the errors of the global batch",
+        "ssl": "its MCR loss takes the feature covariance over the global batch",
+    }
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = init_distributed(device)
+        self.rank, self.world = rank(), world()
         self.logger = get_root_logger(
             log_file=os.path.join(cfg.get("save_path", "exp/default"), "train.log"))
         self.max_epoch = cfg.get("epoch", 100)
@@ -96,6 +120,7 @@ class Trainer(TrainerBase):
         batch_size = cfg.get("batch_size", 1)
         if not isinstance(batch_size, int) or batch_size < 1:
             raise TypeError(f"batch_size must be a positive int, got {batch_size!r}")
+        check_global_batch(batch_size)
 
         model_cfg = dict(cfg.model)
         criteria_cfg = model_cfg.pop("criteria", None)
@@ -103,16 +128,23 @@ class Trainer(TrainerBase):
         if self.task is None:
             raise NotImplementedError(f"model {model_cfg.get('type')} is not ported; the "
                                       f"port trains {', '.join(self.TASKS)}")
+        if self.world > 1 and self.task in self.NOT_DATA_PARALLEL:
+            raise NotImplementedError(
+                f"the {self.task} task does not train data parallel yet "
+                f"({self.NOT_DATA_PARALLEL[self.task]}); run it in one process")
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
         self.model = self.build_model(model_cfg).to(self.device)
+        self.train_model = (self.model if self.task in self.NOT_DATA_PARALLEL
+                            else data_parallel(self.model))
         self.criteria = build_criteria(criteria_cfg)
         self.clip_grad = cfg.get("clip_grad")
 
         self.train_loader = self.build_train_loader()
         self.total_steps = len(self.train_loader) * self.max_epoch
         self.logger.info(f"train loader: {len(self.train_loader)} steps/epoch x "
-                         f"{self.max_epoch} epochs on {self.device}")
+                         f"{self.max_epoch} epochs on {self.device}, process {self.rank} "
+                         f"of {self.world}")
         self.optimizer = build_optimizer(
             dict(cfg.optimizer), self.model,
             param_dicts=[dict(p) for p in cfg.get("param_dicts") or []])
@@ -142,7 +174,7 @@ class Trainer(TrainerBase):
 
     def run_step(self, batch):
         lr = self.optimizer.param_groups[0]["lr"]
-        metrics = train_step(self.model, self.criteria, self.optimizer, self.scheduler,
+        metrics = train_step(self.train_model, self.criteria, self.optimizer, self.scheduler,
                              batch_to_device(batch, self.device), generator=self.generator,
                              epoch_progress=(self.epoch + 1) / max(self.max_epoch, 1),
                              clip_grad=self.clip_grad, task=self.task)

@@ -8,6 +8,13 @@ the semseg loss the logits against ``segment``; the step runs backward,
 clips the gradient's global norm, steps the optimizer and the schedule,
 and returns the loss and the gradient norm before clipping (the JAX step's
 ``optax.global_norm(grads)``).
+
+Under data parallel the step takes the model under DistributedDataParallel.
+The lang loss's reductions span the global batch (``parallel/dist.py``), so
+every process holds the global loss, and its backward gives each process
+``world`` times its rows' share of the global gradient; DDP's mean over the
+processes leaves the global gradient on every one, which the clipping and
+the gradient norm then read.
 """
 
 from __future__ import annotations

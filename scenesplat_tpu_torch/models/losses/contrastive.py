@@ -8,12 +8,17 @@ form is kept: the split is an i.i.d. Bernoulli(0.5) draw per point, classes
 go into a static ``num_classes`` table, classes with fewer than
 ``min_samples`` points (or an empty group) are masked out of both
 directions, and ``schedule="last_<p>"`` gates the term on to the last p
-percent of training (``epoch_progress``)."""
+percent of training (``epoch_progress``). Under data parallel the split
+is this process's rows of one draw at the global batch's shape, and the
+per-class sums and counts add up over the processes before the
+``min_samples`` test, so every process holds the global batch's loss."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from scenesplat_tpu_torch.parallel.dist import all_reduce_sum, batch_rand
 
 from .builder import LOSSES
 
@@ -51,7 +56,7 @@ class AggregatedContrastiveLoss:
         if split is not None:
             in_a = split.reshape(-1).bool()
         elif generator is not None:
-            in_a = torch.rand(seg.shape, generator=generator, device=seg.device) < 0.5
+            in_a = batch_rand(segment.shape, generator, seg.device).reshape(-1) < 0.5
         else:
             raise ValueError("AggregatedContrastiveLoss needs a split or a torch.Generator")
 
@@ -62,8 +67,11 @@ class AggregatedContrastiveLoss:
             out = x.new_zeros((c + 1,) + x.shape[1:])
             return out.index_add_(0, seg_safe, x)[:c]
 
-        agg_a, agg_b = seg_sum(pf * w_a[:, None]), seg_sum(pf * w_b[:, None])
-        cnt_a, cnt_b = seg_sum(w_a), seg_sum(w_b)
+        d = pf.shape[-1]
+        sums = all_reduce_sum(torch.cat([seg_sum(pf * w_a[:, None]), seg_sum(pf * w_b[:, None]),
+                                         seg_sum(torch.stack([w_a, w_b], 1))], 1))
+        agg_a, agg_b = sums[:, :d], sums[:, d:2 * d]
+        cnt_a, cnt_b = sums[:, 2 * d], sums[:, 2 * d + 1]
         used = (cnt_a + cnt_b >= self.min_samples) & (cnt_a > 0) & (cnt_b > 0)
         n_used = used.sum()
         agg_a = agg_a / agg_a.norm(dim=-1, keepdim=True).clamp(min=1e-12)

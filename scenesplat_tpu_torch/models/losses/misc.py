@@ -1,7 +1,8 @@
 """Mask-aware losses for padded batches (counterpart of
 ``scenesplat_tpu/models/losses/misc.py``: CrossEntropyLoss,
 CosineSimilarity, L2Loss). All compute in fp32 whatever the prediction's
-dtype."""
+dtype. A masked mean is over the valid points of the global batch: under
+data parallel its sum and its count add up over the processes."""
 
 from __future__ import annotations
 
@@ -10,12 +11,15 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from scenesplat_tpu_torch.parallel.dist import all_reduce_sum
+
 from .builder import LOSSES
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.to(values.dtype)
-    return (values * m).sum() / m.sum().clamp(min=1.0)
+    total, count = all_reduce_sum(torch.stack([(values * m).sum(), m.sum()]))
+    return total / count.clamp(min=1.0)
 
 
 def _valid(shape, valid_feat_mask, mask, device):

@@ -6,7 +6,9 @@ compute dtype. Parameter and buffer names follow torch's BatchNorm1d and
 LayerNorm so reference checkpoints load as they are. Both go through
 torch's fused norms, which keep one fp32 copy of the input for the
 backward (a norm written out op by op keeps three to five, several GB per
-norm at the flagship dec0).
+norm at the flagship dec0). Under data parallel the BatchNorm moments are
+those of the global batch (``_GlobalMaskedBatchNorm``), as in the JAX
+package, whose step spans the whole batch.
 """
 
 from __future__ import annotations
@@ -15,14 +17,60 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scenesplat_tpu_torch.parallel.dist import world
+
+
+class _GlobalMaskedBatchNorm(torch.autograd.Function):
+    """Training BatchNorm of the valid rows ``x`` [M, C] (fp32) of this
+    process with the moments of every process's valid rows: the count and
+    the sum, then the centred squares about the global mean, each summed
+    over the processes (the JAX package's two passes, not E[x^2] - E[x]^2).
+    Keeps one fp32 copy of the normalized rows for the backward, whose two
+    per-channel sums are also summed over the processes (the sum of every
+    process's loss copy is differentiated; see ``parallel/dist.py``).
+    Returns (y, mean, biased variance, count)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        stats = torch.cat([x.sum(0), x.new_full((1,), x.shape[0])])
+        if world() > 1:
+            torch.distributed.all_reduce(stats)
+        count = stats[-1].clamp(min=1.0)
+        mean = stats[:-1] / count
+        xc = x - mean
+        sq = (xc * xc).sum(0)
+        if world() > 1:
+            torch.distributed.all_reduce(sq)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc.mul_(invstd)
+        ctx.save_for_backward(xhat, invstd, weight, count)
+        ctx.mark_non_differentiable(mean, var, count)
+        return xhat * weight + bias, mean, var, count
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dcount):
+        xhat, invstd, weight, count = ctx.saved_tensors
+        dbias = dy.sum(0)
+        dweight = (dy * xhat).sum(0)
+        sums = torch.cat([dbias * weight, dweight * weight])
+        if world() > 1:
+            torch.distributed.all_reduce(sums)
+        c = weight.shape[0]
+        dx = (dy * weight - sums[:c] / count - xhat * (sums[c:] / count)) * invstd
+        return dx, dweight, dbias, None
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid points of a [B, N, C] buffer.
 
-    Eval uses the running statistics. Training normalizes with the masked
-    batch moments (biased variance) and updates the running statistics
-    torch's way: running = (1 - m) * running + m * batch, with the unbiased
-    variance (eps 1e-3 and momentum 0.01 as PTv3 sets them)."""
+    Eval uses the running statistics, with no collective. Training
+    normalizes with the masked batch moments (biased variance) and updates
+    the running statistics torch's way: running = (1 - m) * running + m *
+    batch, with the unbiased variance (eps 1e-3 and momentum 0.01 as PTv3
+    sets them). Under data parallel the batch is the global one: the
+    moments, the count of the unbiased factor and the gradients' sums span
+    every process's rows."""
 
     def __init__(self, features: int, eps: float = 1e-3, momentum: float = 0.01,
                  dtype: torch.dtype = torch.float32):
@@ -40,9 +88,12 @@ class MaskedBatchNorm(nn.Module):
             # batch moments of the valid points; padding rows come out as
             # zeros (every consumer masks them: attention keys, conv
             # neighbours, pooling's discard bin, the losses)
-            valid = F.batch_norm(xf[mask], self.running_mean, self.running_var,
-                                 self.weight, self.bias, training=True,
-                                 momentum=self.momentum, eps=self.eps)
+            if world() > 1:
+                valid = self._global(xf[mask])
+            else:
+                valid = F.batch_norm(xf[mask], self.running_mean, self.running_var,
+                                     self.weight, self.bias, training=True,
+                                     momentum=self.momentum, eps=self.eps)
             self.num_batches_tracked.add_(1)
             y = xf.new_zeros(xf.shape).index_put((mask,), valid)
         else:
@@ -50,6 +101,14 @@ class MaskedBatchNorm(nn.Module):
                              self.running_var, self.weight, self.bias, training=False,
                              eps=self.eps).view(xf.shape)
         return y.to(self.dtype)
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var, count = _GlobalMaskedBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            unbiased = var * count / (count - 1.0).clamp(min=1.0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(unbiased, self.momentum)
+        return y
 
 
 class LayerNorm(nn.Module):

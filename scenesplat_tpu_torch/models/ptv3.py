@@ -48,6 +48,7 @@ from scenesplat_tpu_torch.ops.subm_conv import (
     subplan,
 )
 from scenesplat_tpu_torch.ops.window_attention import window_attention
+from scenesplat_tpu_torch.parallel.dist import batch_rand
 
 from .builder import MODELS
 from .norm import LayerNorm, MaskedBatchNorm
@@ -62,7 +63,9 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
             per_point: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - p and scale kept
     values by 1 / (1 - p). ``per_point`` draws one value per point and
-    broadcasts it over channels (drop-path, flax ``broadcast_dims=(2,)``)."""
+    broadcasts it over channels (drop-path, flax ``broadcast_dims=(2,)``).
+    Under data parallel the masks are this process's rows of one draw at
+    the global batch's shape (``parallel/dist.py:batch_rand``)."""
     if p <= 0.0:
         return x
     if generator is None:
@@ -71,7 +74,7 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
     if p >= 1.0:
         return torch.zeros_like(x)
     shape = x.shape[:-1] + (1,) if per_point else x.shape
-    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    keep = batch_rand(shape, generator, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
 

@@ -13,6 +13,10 @@ turn; the final metrics go to the log and, with a tester ``save_path``, to
 ``eval_results.txt``. ``--options bitonic_sort=True`` sorts through the
 hand-written bitonic kernel (``SCENESPLAT_BITONIC_SORT=1``). Runs on the
 CUDA card unless ``--device cpu`` is given.
+
+Under ``torchrun --nproc_per_node N -m scenesplat_tpu_torch.test ...`` each
+process tests its share of the scenes on ``cuda:LOCAL_RANK`` (gloo with
+``--device cpu``) and every process returns the metrics of all scenes.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from scenesplat_tpu_torch.engines.test import build_tester
 from scenesplat_tpu_torch.entry import load_weights
 from scenesplat_tpu_torch.models import build_model
 from scenesplat_tpu_torch.ops.bitonic_sort import apply_sort_switch
+from scenesplat_tpu_torch.parallel.dist import process_group, rank
 from scenesplat_tpu_torch.utils.config import Config
 
 
@@ -50,34 +55,35 @@ def main(argv=None) -> list:
     cfg = Config.fromfile(args.config_file)
     cfg.merge_from_options(args.options)
     apply_sort_switch(cfg)
+    with process_group(args.device) as device:
+        model_cfg = dict(cfg.model)
+        model_cfg.pop("criteria", None)
+        model_cfg["backbone"] = dict(model_cfg["backbone"])
+        model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
+        model = build_model(model_cfg).to(device).eval()
+        weight = cfg.get("weight")
+        if weight:
+            load_weights(model, weight)
+            if rank() == 0:
+                print(f"loaded weight: {weight}", flush=True)
 
-    model_cfg = dict(cfg.model)
-    model_cfg.pop("criteria", None)
-    model_cfg["backbone"] = dict(model_cfg["backbone"])
-    model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
-    model = build_model(model_cfg).to(args.device).eval()
-    weight = cfg.get("weight")
-    if weight:
-        load_weights(model, weight)
-        print(f"loaded weight: {weight}", flush=True)
-
-    test_cfgs, data_cfgs = cfg.get("test"), cfg.data.get("test")
-    if not test_cfgs or data_cfgs is None:
-        raise KeyError("the config names no tester: it needs test= and data.test=")
-    test_cfgs = test_cfgs if isinstance(test_cfgs, (list, tuple)) else [test_cfgs]
-    data_cfgs = data_cfgs if isinstance(data_cfgs, (list, tuple)) else [data_cfgs]
-    patch = max(model_cfg["backbone"].get("enc_patch_size", [1024]))
-    results = []
-    for tc, dc in zip(test_cfgs, data_cfgs):
-        tester = build_tester(tc, model, dc, patch_size=patch, seed=cfg.get("seed", 0),
-                              weights_fingerprint=weights_fingerprint(weight) if weight
-                              else None, device=args.device)
-        res = tester.test()
-        results.append(res)
-        if res:  # the scalar metrics (the per-class arrays are in the log)
-            print("test results: " + " ".join(
-                f"{k} {v:.4f}" for k, v in res.items() if np.ndim(v) == 0), flush=True)
-    return results
+        test_cfgs, data_cfgs = cfg.get("test"), cfg.data.get("test")
+        if not test_cfgs or data_cfgs is None:
+            raise KeyError("the config names no tester: it needs test= and data.test=")
+        test_cfgs = test_cfgs if isinstance(test_cfgs, (list, tuple)) else [test_cfgs]
+        data_cfgs = data_cfgs if isinstance(data_cfgs, (list, tuple)) else [data_cfgs]
+        patch = max(model_cfg["backbone"].get("enc_patch_size", [1024]))
+        results = []
+        for tc, dc in zip(test_cfgs, data_cfgs):
+            tester = build_tester(tc, model, dc, patch_size=patch, seed=cfg.get("seed", 0),
+                                  weights_fingerprint=weights_fingerprint(weight) if weight
+                                  else None, device=device)
+            res = tester.test()
+            results.append(res)
+            if res and rank() == 0:  # the scalar metrics (the per-class arrays are in the log)
+                print("test results: " + " ".join(
+                    f"{k} {v:.4f}" for k, v in res.items() if np.ndim(v) == 0), flush=True)
+        return results
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Training event storage and the JSON-lines metrics writer (the port's copy
 of ``scenesplat_tpu/utils/events.py``; its optional TensorBoard writer is
-left out)."""
+left out). Under data parallel only rank 0 writes the metrics file."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import json
 import os
 from collections import defaultdict
 from typing import Dict, Optional
+
+from scenesplat_tpu_torch.parallel.dist import rank
 
 
 class HistoryBuffer:
@@ -81,17 +83,23 @@ class EventStorage:
 
 
 class JSONWriter:
-    """Appends one JSON line of the latest scalars per ``write``."""
+    """Appends one JSON line of the latest scalars per ``write``; on a rank
+    other than 0 it writes nothing."""
 
     def __init__(self, json_file: str):
-        os.makedirs(os.path.dirname(os.path.abspath(json_file)), exist_ok=True)
-        self._file = open(json_file, "a")
+        self._file = None
+        if rank() == 0:
+            os.makedirs(os.path.dirname(os.path.abspath(json_file)), exist_ok=True)
+            self._file = open(json_file, "a")
 
     def write(self, storage: EventStorage):
+        if self._file is None:
+            return
         record = {"iteration": storage.iter}
         record.update(storage.latest)
         self._file.write(json.dumps(record) + "\n")
         self._file.flush()
 
     def close(self):
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
