@@ -97,35 +97,14 @@ Phases, one JSON line each:
      forward, the kernel against its plain version in bf16, then the times
      of the kernel, the plain version and scaled_dot_product_attention, with
      the bound, per call and per fragment forward;
- 17. semseg_train: the trainer on the semantic-segmentation file
-     configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py as it is
-     (DefaultSegmentorV2 over a 5-stage PT-v3m1, 32 heads at stage 4,
-     in_channels 14, 205,824 points, CE + Lovasz, Mix3D 0.8, its own hooks:
-     SemSegEvaluator, CheckpointSaver, PreciseEvaluator with the file's
-     SemSegTester and 9 test-time views) at batch 2 for 6 steps over 4
-     synthetic ScanNet-layout scenes with normals and 20 classes and one
-     validation scene: step times, loader waits, peak memory, val/mIoU, K1
-     and K2 launches of each variant a step, pooling overflow per stage
-     (none allowed); then semseg_timing_bwd, timing_bwd at its stage shapes;
- 18. semseg_agree: one fp32 train step of that model at one block a stage
-     and 49,152 points with the kernels and with the plain attention
-     (losses to 1e-5, gradients to 1e-4 relative);
- 19. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
-     the semseg_train checkpoint over two synthetic scenes of 320,000
-     Gaussians, 9 views each: torch.sort and K3 under deterministic
-     algorithms (equal predictions and mIoU), then as a user runs it, for
-     the seconds per scene (fetch, extract, vote); then semseg_timing_test
-     (every K1 call of the first fragment forward, bf16_large and
-     bf16_small without lse) and semseg_timing_sort (K3 at that forward's
-     sort shapes);
- 20. ssl_train: the trainer on the SimDINO file
+ 17. ssl_train: the trainer on the SimDINO file
      configs/scannet/ssl-pretrain-scannet-all-base.py as it is
      (SimDINOSSL over a 5-stage PT-v3m1 with its mask token, windows of
      1024 in the encoder and 48 in the decoder, the DINO, iBOT and MAE
      heads, the EMA teacher, 2 global crops of 102,400 points with patch
      token masks and 3 local crops of 25,600, the multi-crop transforms
      with the voxel blur, AdamW + OneCycle, its own hooks) at batch 2 (the
-     file's 24 is 8 a card on 3 cards) for 6 steps over 4 synthetic
+     file's 24 is 6 a card on 4 cards) for 6 steps over 4 synthetic
      unlabeled rooms: step times, loader waits, peak memory, every loss
      term (finite), pooling overflow per stage and crop kind (none allowed
      past the first pooling, where the file's capacities overflow on dense
@@ -135,29 +114,84 @@ Phases, one JSON line each:
      at every step within fp32 rounding and its mask token unmoved; then
      ssl_timing_bwd, timing_bwd at the student's stage shapes (the first
      global crop's twice, the first local crop's three times, the locals'
-     decoder forward only);
- 21. ssl_agree: one fp32 SSL loss and its gradients of that model at one
+     decoder forward only), and ssl_timing_teacher, timing at the teacher's
+     shapes (its two passes over the global crops, K1 without lse);
+ 18. ssl_agree: one fp32 SSL loss and its gradients of that model at one
      block a stage with mean pooling (the file's max pooling makes the
      gradient a discontinuous function of the features), batch 2, global
      crops of 24,576 points with injected token masks and local crops of
      6,144, with the kernels and with the plain attention: the loss to
      1e-5, the gradient of each term apart, each tensor and the whole to
      1e-4 relative (the MCR expansion's from one cotangent at the student's
-     DINO heads, given to both paths: its own is ill-conditioned).
+     DINO heads, given to both paths: its own is ill-conditioned);
+ 19. warm_start: python -m scenesplat_tpu_torch.rename_ckpt on ssl_train's
+     checkpoint for the teacher and the student (each backbone bit for bit
+     as backbone.*, no mask token); the train phase's flagship checkpoint
+     into the semseg file's model and the extracted teacher into the
+     flagship file's, as the files' non-strict CheckpointLoader loads them
+     (every encoder tensor of stages 0-3 loaded bit for bit, every other
+     tensor skipped or kept at its initialization, each one named in the
+     log);
+ 20. semseg_train: the trainer on the semantic-segmentation file
+     configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py as it is
+     (DefaultSegmentorV2 over a 5-stage PT-v3m1, 32 heads at stage 4,
+     in_channels 14, 205,824 points, CE + Lovasz, Mix3D 0.8, its own hooks:
+     SemSegEvaluator, CheckpointSaver, PreciseEvaluator with the file's
+     SemSegTester and 9 test-time views), started with weight= the
+     extracted teacher (every backbone tensor but the stem, 11 vs 14
+     channels, equal to the teacher's bit for bit after the file's
+     CheckpointLoader; the stem and seg_head at their initialization; the
+     log names them), at batch 2 for 6 steps over 4 synthetic ScanNet-layout
+     scenes with normals and 20 classes and one validation scene: step
+     times, loader waits, peak memory, val/mIoU, K1 and K2 launches of each
+     variant a step, pooling overflow per stage (none allowed); then
+     semseg_timing_bwd, timing_bwd at its stage shapes;
+ 21. semseg_agree: one fp32 train step of that model at one block a stage
+     and 49,152 points with the kernels and with the plain attention
+     (losses to 1e-5, gradients to 1e-4 relative);
+ 22. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
+     the semseg_train checkpoint over two synthetic scenes of 320,000
+     Gaussians, 9 views each: torch.sort and K3 under deterministic
+     algorithms (equal predictions and mIoU), then as a user runs it, for
+     the seconds per scene (fetch, extract, vote); then semseg_timing_test
+     (every K1 call of the first fragment forward, bf16_large and
+     bf16_small without lse) and semseg_timing_sort (K3 at that forward's
+     sort shapes);
+ 23. semseg_ddp_agree and ssl_ddp_agree: two ranks sharing the card over
+     gloo, one row each, against one process over both rows, fp32, the
+     files' models at one block a stage: semseg at 2 rows of 49,152 points,
+     drop-path 0.3, CE + Lovasz over the gathered global batch (the loss
+     to 1e-5, every gradient to 1e-4 of its norm, the BatchNorm statistics
+     to 1e-6); SSL at crops of 24,576 and 6,144 with mean pooling and token
+     masks drawn at the global shape (every loss term to 1e-5, every
+     student gradient to 1e-4, the statistics to 1e-6, after the SGD step
+     and the EMA the teacher bit-equal on both ranks and within 1e-6 of one
+     process's, its mask token unmoved); K1 with lse and K2 on each rank;
+ 24. remat_agree: one fp32 train step of the flagship file's model at its
+     widths, 2 rows of 49,152 points, with remat_blocks off and on, under
+     deterministic algorithms: the loss bit-equal, every gradient to 1e-5
+     of its norm, each run's peak memory and K1 / K2 launches a step (the
+     recompute launches K1 with lse once more a block).
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
 encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 
-    python3 chip_smoke.py --cards N
+    python3 chip_smoke.py --cards N [flagship] [semseg] [ssl] [fit]
 
 runs data parallel across N cards of one host instead (not the one-card
-smoke test): the kernels' build; ddp_cards_train, the flagship file at its
-own global batch of 8 as 2 rows a card on N = 4 cards (each rank a spawned
-process on its card over NCCL, the train phase's rooms, one epoch's steps
-and one sharded validation; the same losses on every rank); and
-ddp_cards_agree, ddp_agree with one rank a card over NCCL on that run's
-checkpoint.
+smoke test): the kernels' build, then the phases named (all but fit by
+default): flagship, ddp_cards_train, the flagship file at its own global
+batch of 8 as 2 rows a card on N = 4 cards (each rank a spawned process on
+its card over NCCL, the train phase's rooms, one epoch's steps and one
+sharded validation; the same losses on every rank), and ddp_cards_agree,
+ddp_agree with one rank a card over NCCL on that run's checkpoint; semseg
+and ssl, cards_semseg and cards_ssl, those files at their own global
+batches of 48 and 24 (12 and 6 rows a card on 4), remat_blocks as
+CARDS_REMAT says, for a few steps over 4 rooms (every card's warm step,
+peak memory, loader wait and NCCL time; the same losses on every rank);
+fit, cards_fit, on one card, those rows a card with remat_blocks off and
+on, down to the largest batch that fits.
 """
 
 from __future__ import annotations
@@ -166,6 +200,7 @@ import contextlib
 import gc
 import inspect
 import json
+import logging
 import math
 import multiprocessing as mp
 import os
@@ -186,7 +221,12 @@ from scenesplat_tpu_torch.data import metadata
 from scenesplat_tpu_torch.engines.hooks import HookBase
 from scenesplat_tpu_torch.engines.hooks.misc import PreciseEvaluator
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor, bucket_size
-from scenesplat_tpu_torch.engines.pretrain import build_ssl_model, ssl_loss
+from scenesplat_tpu_torch.engines.pretrain import (
+    SSLObjective,
+    build_ssl_model,
+    ssl_loss,
+    ssl_train_step,
+)
 from scenesplat_tpu_torch.engines.train import build_trainer
 from scenesplat_tpu_torch.engines.train_step import lang_loss, semseg_loss, train_step
 from scenesplat_tpu_torch.entry import (
@@ -203,6 +243,7 @@ from scenesplat_tpu_torch.ops import window_attention as window_attention_module
 from scenesplat_tpu_torch.ops.knn import knn
 from scenesplat_tpu_torch.ops.serialization import SENTINEL
 from scenesplat_tpu_torch.parallel.dist import (
+    all_reduce_sum,
     data_parallel,
     init_distributed,
     local_batch_slice,
@@ -600,30 +641,35 @@ def bound_ms(n, n_valid, k, c):
     return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def phase_timing(shapes):
+def phase_timing(shapes, phase="timing"):
     """Kernel against plain (bf16 noise-floor rule), then kernel, plain and
     library times per call at the main path's shapes, and the times' sums
-    over one forward."""
+    over one forward. A shape's valid count is one row's, or a list of the
+    rows' (a batch)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    by_variant = {}  # the sums over each variant's calls
     for n, n_valid, k, c, h, count in shapes:
-        qkv = torch.randn(1, n, 3, c, generator=gen, device="cuda").bfloat16()
-        valid = torch.zeros(1, n, dtype=torch.bool, device="cuda")
-        valid[0, :n_valid] = True
+        valids = n_valid if isinstance(n_valid, (list, tuple)) else [n_valid]
+        b = len(valids)
+        qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
+        valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+        for i, nv in enumerate(valids):
+            valid[i, :nv] = True
         err16, floor16 = check_bf16(qkv, valid, k, h)
         ms = cuda_ms(lambda: fwa.flash_window_attention(qkv, valid, k, h), reps=10)
         plain_ms = cuda_ms(lambda: fwa.flash_window_attention_plain(qkv, valid, k, h),
                            reps=3, warmup=1)
         p, d = -(-n // k), c // h
         pad = p * k - n
-        qkv_w = torch.cat([qkv, qkv.new_zeros(1, pad, 3, c)], 1) if pad else qkv
-        valid_w = torch.cat([valid, valid.new_zeros(1, pad)], 1) if pad else valid
-        q, kk, v = qkv_w.view(p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
-        mask = valid_w.view(p, 1, 1, k)
+        qkv_w = torch.cat([qkv, qkv.new_zeros(b, pad, 3, c)], 1) if pad else qkv
+        valid_w = torch.cat([valid, valid.new_zeros(b, pad)], 1) if pad else valid
+        q, kk, v = qkv_w.view(b * p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+        mask = valid_w.view(b * p, 1, 1, k)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kk, v, attn_mask=mask), reps=10)
-        ops_ms, bytes_ms = bound_ms(n, n_valid, k, c)
+        ops_ms, bytes_ms = (sum(x) for x in zip(*(bound_ms(n, nv, k, c) for nv in valids)))
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms,
                    bytes_ms=bytes_ms)
         tflops = ops_ms * PEAK_BF16_FLOPS / ms / 1e12  # needed operations over the time
@@ -633,12 +679,17 @@ def phase_timing(shapes):
                          variant=fwa.forward_variant(qkv.dtype, k, d), tflops=tflops,
                          library_tflops=ops_ms * PEAK_BF16_FLOPS / lib_ms / 1e12,
                          share_of_bf16_peak=ops_ms / ms))
+        part = by_variant.setdefault(rows[-1]["variant"], dict.fromkeys(tot, 0.0))
         for key, val in row.items():
             tot[key] += count * val
+            part[key] += count * val
+        part["launches"] = part.get("launches", 0) + count
         del qkv, qkv_w, q, kk, v
-    tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
-    tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
-    emit(dict(phase="timing", dtype="bfloat16", per_call=rows, per_forward=tot))
+    for t in (tot, *by_variant.values()):
+        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+    tot["by_variant"] = by_variant
+    emit(dict(phase=phase, dtype="bfloat16", per_call=rows, per_forward=tot))
     return tot
 
 
@@ -895,14 +946,16 @@ def flagship_train_config(root, exp, batch_size):
     return cfg
 
 
-def run_training(cfg):
-    """Trains the config's epoch; returns the trainer, its probe, the
-    per-step records of the training forward (pooling overflow, stage sizes
-    and valid counts) and, read from K1's counter around every forward, the
-    forwards and K1 launches of the train steps and of the hooks'
-    validation and testing, with the largest pooling overflow of each of
-    those forwards."""
+def run_training(cfg, before=None):
+    """Trains the config's epoch (``before(trainer)`` called first); returns
+    the trainer, its probe, the per-step records of the training forward
+    (pooling overflow, stage sizes and valid counts) and, read from K1's
+    counter around every forward, the forwards and K1 launches of the train
+    steps and of the hooks' validation and testing, with the largest
+    pooling overflow of each of those forwards."""
     trainer = build_trainer(cfg, device="cuda")
+    if before is not None:
+        before(trainer)
     steps = len(trainer.train_loader)
     probe = StepProbe(profile_step=steps - 1)
     probe.trainer = trainer
@@ -1399,13 +1452,15 @@ def torchrun_env(rank, world, port, local_rank=0):
             os.environ.pop(key, None)
 
 
-def train_step_fp32(batch, wrap=lambda m: m):
-    """One train_step of the flagship fp32 model (drop-path 0.3, the curve
-    shuffle and the contrastive split drawn from a generator seeded 11;
-    SGD at lr 0, so the step leaves the weights) on ``batch``, the model
-    wrapped by ``wrap``. Returns (loss, grad_norm, gradients and BatchNorm
-    running statistics by name, each stage's pooling overflow)."""
-    model, criteria = flagship_fp32_model()
+def train_step_fp32(batch, wrap=lambda m: m, build=flagship_fp32_model, task="lang", seed=11,
+                    **backbone):
+    """One train_step of task ``task`` of ``build(**backbone)``'s fp32 model
+    (the flagship file's by default; drop-path 0.3, the curve shuffle and
+    the contrastive split drawn from a generator seeded ``seed``; SGD at lr
+    0, so the step leaves the weights) on ``batch``, the model wrapped by
+    ``wrap``. Returns (loss, grad_norm, gradients and BatchNorm running
+    statistics by name, each stage's pooling overflow)."""
+    model, criteria = build(**backbone)
     overflow, forward = [], model.forward
 
     def recording(point, generator=None):
@@ -1415,8 +1470,8 @@ def train_step_fp32(batch, wrap=lambda m: m):
 
     model.forward = recording
     metrics = train_step(wrap(model), criteria, torch.optim.SGD(model.parameters(), lr=0.0),
-                         None, batch, generator=torch.Generator(device="cuda").manual_seed(11),
-                         epoch_progress=1.0, task="lang")
+                         None, batch, generator=torch.Generator(device="cuda").manual_seed(seed),
+                         epoch_progress=1.0, task=task)
     stats = {k: v.detach().clone() for k, v in model.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
     return (metrics["loss"].item(), metrics["grad_norm"].item(),
@@ -1714,26 +1769,191 @@ def phase_ddp_cards_train(work, cards):
                 k1_val=sum(got["k1_val"] for got in ranks)), checkpoint
 
 
-def main_cards(cards) -> int:
-    """``python3 chip_smoke.py --cards N``: data parallel across ``N`` cards
-    of one host (not the one-card smoke test): the kernels' build, the
-    flagship file at its global batch of 8 (ddp_cards_train), and N ranks
-    over NCCL against one process (ddp_cards_agree, whose one-process
-    test runs on ddp_cards_train's checkpoint)."""
-    check(torch.cuda.device_count() >= cards,
-          f"--cards {cards}: {torch.cuda.device_count()} cards")
+# the semseg and SSL files' global batches, and whether their runs on
+# ``--cards`` cards recompute the blocks (remat_blocks): cards_fit on an
+# H100 80GB (700 W) held 8 semseg and 4 SSL rows a card without it, 12
+# and 6 with it, so the files' 12 and 6 rows a card on 4 cards need it
+CARDS_TASKS = dict(semseg=(SEMSEG_CONFIG, 48), ssl=(SSL_CONFIG, 24))
+CARDS_REMAT = dict(semseg=True, ssl=True)
+CARDS_STEPS = 4
+
+
+def task_train_config(task, root, exp, batch_size, steps, remat):
+    """The task's file as semseg_train / ssl_train read it, at
+    ``batch_size`` for ``steps`` steps over 4 rooms, ``remat_blocks`` as
+    given, with the timer and the writer for hooks only (no evaluation, no
+    checkpoint: a run of steps)."""
+    make = semseg_train_config if task == "semseg" else ssl_train_config
+    cfg = make(root, exp, batch_size, steps, 4)
+    cfg.model.backbone["remat_blocks"] = remat
+    cfg.hooks = [h for h in cfg.hooks if h["type"] in ("IterationTimer", "InformationWriter")]
+    return cfg
+
+
+def run_task_steps(task, cfg):
+    """Trains ``cfg``'s steps on the card (under DDP in a group) with a
+    StepProbe that profiles the last step; returns the run's record."""
+    reset_k1_counts()
+    reset_k2_counts()
+    trainer = build_trainer(cfg, device="cuda")
+    probe = StepProbe(profile_step=len(trainer.train_loader) - 1)
+    probe.trainer = trainer
+    trainer.hooks.append(probe)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train()
+    hist = trainer.storage.history
+    step_ms = probe.step_ms()
+    record = dict(task=task, world=trainer.world, batch_size=cfg.batch_size,
+                  rows_per_card=cfg.batch_size // trainer.world,
+                  remat_blocks=cfg.model.backbone["remat_blocks"],
+                  loss=hist("loss").values(), grad_norm=hist("grad_norm").values(),
+                  data_wait_s=hist("data_time").values(), cold_step_ms=step_ms[0],
+                  warm_step_ms=step_ms[1:-1], profiled_step_ms=step_ms[-1],
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  k1_lse=sum(k1_lse_variants().values()),
+                  k1=fwa.flash_window_attention.launches,
+                  k2=fwa.flash_window_attention_bwd.launches,
+                  profile={k: v for k, v in (probe.profile or {}).items() if k != "top_kernels"},
+                  top_kernels=(probe.profile or {}).get("top_kernels", [])[:8])
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def cards_task_rank(rank, world, port, job_file):
+    """One rank of phase_cards_task (a spawned process on its own card over
+    NCCL): the job's task at its global batch; writes the run's record."""
+    job = torch.load(job_file, weights_only=False)
+    with torchrun_env(rank, world, port, local_rank=rank):
+        init_distributed("cuda")
+        try:
+            cfg = task_train_config(job["task"], job["root"], job["exp"], job["batch_size"],
+                                    CARDS_STEPS, job["remat"])
+            torch.save(run_task_steps(job["task"], cfg), job["out"].format(rank=rank))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def write_task_rooms(tmp):
+    """4 synthetic rooms of 200,000 2 cm voxels with normals and 20
+    classes (semseg_train's), under tmp/rooms/train."""
+    root = os.path.join(tmp, "rooms")
+    write_gs_scenes(os.path.join(root, "train"), 4, 200000, seed=21, semseg=True)
+    return root
+
+
+def phase_cards_task(work, cards, task):
+    """cards_semseg / cards_ssl: the task's file at its own global batch
+    (semseg 48, 12 rows a card; SSL 24, 6 a card) on ``cards`` cards, each
+    rank a spawned process on its card over NCCL, ``remat_blocks`` as
+    CARDS_REMAT says, for CARDS_STEPS steps over 4 rooms at the file's
+    points: every card's warm step, peak memory, loader wait and NCCL time
+    (the profiled last step), and the same losses on every rank."""
+    config, batch = CARDS_TASKS[task]
+    phase = f"cards_{task}"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = write_task_rooms(tmp)
+        data_s = time.perf_counter() - t0
+        job_file = os.path.join(work, f"{phase}_job.pt")
+        torch.save(dict(task=task, root=root, exp=os.path.join(tmp, "exp"), batch_size=batch,
+                        remat=CARDS_REMAT[task],
+                        out=os.path.join(work, f"{phase}_rank{{rank}}.pt")), job_file)
+        ranks_s = spawn_ranks(cards_task_rank, cards, job_file, timeout_s=1500)
+        ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
+                 for r in range(cards)]
+    emit(dict(phase=phase, config=config, world=cards, backend="nccl", batch_size=batch,
+              rows_per_card=batch // cards, remat_blocks=CARDS_REMAT[task],
+              dataset_write_s=data_s, ranks_s=ranks_s, loss=ranks[0]["loss"],
+              grad_norm=ranks[0]["grad_norm"],
+              per_rank=[{k: v for k, v in got.items() if k not in ("loss", "grad_norm")}
+                        for got in ranks]))
+    for r, got in enumerate(ranks):
+        check(len(got["loss"]) == CARDS_STEPS, f"{phase}: rank {r} took {len(got['loss'])} steps")
+        check(got["loss"] == ranks[0]["loss"] and got["grad_norm"] == ranks[0]["grad_norm"],
+              f"{phase}: rank {r}'s losses {got['loss']} against rank 0's {ranks[0]['loss']}")
+        check(all(math.isfinite(v) for v in got["loss"] + got["grad_norm"]),
+              f"{phase}: rank {r}: non-finite losses")
+        check(got["k1_lse"] > 0 and got["k2"] > 0, f"{phase}: rank {r} launched no K1 / K2")
+    return dict(k1_lse=sum(got["k1_lse"] for got in ranks), k2=sum(got["k2"] for got in ranks),
+                k1=sum(got["k1"] - got["k1_lse"] for got in ranks))
+
+
+def phase_cards_fit(work, cards):
+    """cards_fit, on one card: the rows a card the semseg and SSL files'
+    global batches give on ``cards`` cards (12 and 6 on 4), trained for 2
+    steps in one process with remat_blocks off and on; when a batch runs out
+    of the card's memory, the next smaller even batch, down to the largest
+    that fits. Records each try's peak memory and step times. (One process:
+    under DDP a card also holds the gradient buckets, and the semseg Lovasz
+    sort spans every card's rows.)"""
+    tries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_task_rooms(tmp)
+        for task, (config, batch) in CARDS_TASKS.items():
+            target = batch // cards
+            for remat in (False, True):
+                for b in range(target, 0, -2):
+                    cfg = task_train_config(task, root, os.path.join(tmp, f"{task}_{b}_{remat}"),
+                                            b, 2, remat)
+                    try:
+                        rec = dict(run_task_steps(task, cfg), fits=True)
+                    except torch.cuda.OutOfMemoryError as e:
+                        rec = dict(task=task, batch_size=b, rows_per_card=b, remat_blocks=remat,
+                                   fits=False, error=str(e).splitlines()[0][:200])
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    emit(dict(phase="cards_fit_try", **{k: v for k, v in rec.items()
+                                                        if k != "top_kernels"}))
+                    tries.append(rec)
+                    if rec["fits"]:
+                        break
+    largest = {f"{task}_remat_{remat}": max(
+        [t["rows_per_card"] for t in tries if t["task"] == task and t["remat_blocks"] == remat
+         and t["fits"]], default=0) for task in CARDS_TASKS for remat in (False, True)}
+    emit(dict(phase="cards_fit", cards=cards, targets={t: b // cards for t, (_, b)
+                                                       in CARDS_TASKS.items()},
+              largest_rows_per_card=largest))
+
+
+def main_cards(cards, phases=()) -> int:
+    """``python3 chip_smoke.py --cards N [phase ...]``: data parallel across
+    ``N`` cards of one host (not the one-card smoke test): the kernels'
+    build, then the phases asked for (all but ``fit`` by default):
+    ``flagship``, the flagship file at its global batch of 8
+    (ddp_cards_train) and N ranks over NCCL against one process
+    (ddp_cards_agree, whose one-process test runs on ddp_cards_train's
+    checkpoint); ``semseg`` and ``ssl``, those files at their global
+    batches of 48 and 24 (cards_semseg, cards_ssl); ``fit``, on one card,
+    the rows a card those batches give on N cards, with remat_blocks off
+    and on (cards_fit)."""
+    phases = tuple(phases) or ("flagship", "semseg", "ssl")
+    unknown = set(phases) - {"flagship", "semseg", "ssl", "fit"}
+    check(not unknown, f"--cards: unknown phases {sorted(unknown)}")
+    if set(phases) - {"fit"}:
+        check(torch.cuda.device_count() >= cards,
+              f"--cards {cards}: {torch.cuda.device_count()} cards")
     t0 = time.perf_counter()
+    launches = {}
     with tempfile.TemporaryDirectory() as work:
         meta_root = os.path.join(work, "metadata")
         write_meta(meta_root)
         os.environ["SCENESPLAT_META_ROOT"] = meta_root
         smi = phase_device()
-        train, checkpoint = phase_ddp_cards_train(work, cards)
-        agree = phase_ddp_agree(work, checkpoint, meta_root, world=cards, cards=cards)
+        if "fit" in phases:
+            phase_cards_fit(work, cards)
+        if "flagship" in phases:
+            train, checkpoint = phase_ddp_cards_train(work, cards)
+            agree = phase_ddp_agree(work, checkpoint, meta_root, world=cards, cards=cards)
+            launches["flagship"] = dict(k1_lse=train["k1_lse"] + agree["k1_lse"],
+                                        k2=train["k2"] + agree["k2"], k1_test=agree["k1_test"])
+        for task in ("semseg", "ssl"):
+            if task in phases:
+                launches[task] = phase_cards_task(work, cards, task)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
-    emit(dict(cards=cards, k1_lse_launches=train["k1_lse"] + agree["k1_lse"],
-              k2_launches=train["k2"] + agree["k2"], k1_test_launches=agree["k1_test"]))
+    emit(dict(cards=cards, phases=list(phases), launches=launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -2267,16 +2487,18 @@ def semseg_train_config(root, exp, batch_size, steps, scenes):
     return cfg
 
 
-def phase_semseg_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6),
+def phase_semseg_train(work, weight, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6),
                        val_points=40000):
     """The semseg trainer on configs/scannet/semseg-gs-scannet-all-w-normal-
     fixed-xyz.py as it is (widths, 205,824 points, losses, optimizer,
     schedule, transforms, Mix3D 0.8 and its own hooks) at batch 2 for
     ``steps`` steps over 4 synthetic ScanNet-layout scenes with normals and
     20 classes, and one validation scene, which PreciseEvaluator's
-    SemSegTester also runs after training with the file's 9 views. Returns
-    the train-step stage shapes, the K1 / K2 launch counts and the best
-    checkpoint, copied into ``work``."""
+    SemSegTester also runs after training with the file's 9 views; started
+    from ``weight`` (the SSL teacher's backbone that warm_start extracted)
+    through the file's CheckpointLoader, whose load WarmStartProbe checks.
+    Returns the train-step stage shapes, the K1 / K2 launch counts and the
+    best checkpoint, copied into ``work``."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         root = os.path.join(tmp, "scannet_gs")
@@ -2290,7 +2512,17 @@ def phase_semseg_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6),
         k2_variants = fwa.flash_window_attention_bwd.variant_launches
         k2_variants.update(dict.fromkeys(k2_variants, 0))
         cfg = semseg_train_config(root, os.path.join(tmp, "exp"), 2, steps, 4)
-        trainer, probe, records, k1_counts = run_training(cfg)
+        cfg.weight = weight
+        source = torch.load(weight, map_location="cpu", weights_only=False)["state_dict"]
+        warm = WarmStartProbe(source)
+        trainer, probe, records, k1_counts = run_training(cfg, before=warm.insert)
+        check(warm.record is not None, "semseg: the warm start was not checked")
+        check(warm.record["kept"] == [STEM, "seg_head.bias", "seg_head.weight"]
+              and warm.record["skipped"] == [STEM],
+              f"semseg: from the teacher, kept {warm.record['kept']}, skipped "
+              f"{warm.record['skipped']}: expected the stem (11 vs 14 channels) and seg_head")
+        emit(dict(phase="warm_start_semseg_train", weight="ssl_train's teacher, extracted",
+                  **warm.record))
         backbone = trainer.cfg.model.backbone
         enc, dec = depth_split(backbone)
         blocks = enc + dec  # 22
@@ -2365,27 +2597,33 @@ def phase_semseg_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6),
     return shapes, k1, variants, dict(k2_variants), checkpoint
 
 
+def semseg_rows(n, seeds):
+    """One semseg batch row of ``n`` points per seed: a room whose 4 cm
+    cells fit the first pooling (see train_agree), 14 input channels (the
+    Gaussian features and the shell's normals), 20 classes by angle and
+    height, 5% ignored; numpy arrays [rows, n, ...]."""
+    rows = []
+    size_m = (2.4, 2.4, 2.4)
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        coord, feat_in, grid = room_scene(rng, n, size_m)
+        normal = shell_normals(grid, [int(round(m / GRID)) for m in size_m], 1)
+        angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
+        seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
+        seg = seg + 10 * (coord[:, 2] > 1.0)
+        seg[rng.random(n) < 0.05] = -1  # ignored points
+        rows.append(dict(coord=coord, feat=np.concatenate([feat_in, normal], 1).astype(
+            np.float32), grid_coord=grid, mask=np.ones(n, bool), segment=seg))
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
 def phase_semseg_agree(n=49152):
     """One fp32 train step of the semseg file's model at one block a stage
     (its widths, heads and windows kept) and ``n`` points, CE + Lovasz, with
     the kernels and with the plain attention."""
     cfg = Config.fromfile(SEMSEG_CONFIG)
     backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4)
-    rng = np.random.default_rng(13)
-    size_m = (2.4, 2.4, 2.4)  # the 4 cm cells fit the first pooling (see train_agree)
-    coord, feat_in, grid = room_scene(rng, n, size_m)
-    normal = shell_normals(grid, [int(round(m / GRID)) for m in size_m], 1)
-    angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
-    seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
-    seg = seg + 10 * (coord[:, 2] > 1.0)
-    seg[rng.random(n) < 0.05] = -1  # ignored points
-
-    def dev(x):
-        return torch.from_numpy(np.asarray(x))[None].cuda()
-
-    batch = dict(coord=dev(coord), feat=dev(np.concatenate([feat_in, normal], 1)),
-                 grid_coord=dev(grid), mask=torch.ones(1, n, dtype=torch.bool, device="cuda"),
-                 segment=dev(seg))
+    batch = cuda_batch(semseg_rows(n, (13,)))
     model_cfg = dict(cfg.model)
     criteria = build_criteria(model_cfg.pop("criteria"))
 
@@ -2628,6 +2866,8 @@ def phase_ssl_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6)):
         model_dir = os.path.join(trainer.cfg.save_path, "model")
         check(os.path.exists(os.path.join(model_dir, "model_last.pth")),
               "ssl: no checkpoint written")
+        checkpoint = shutil.copy(os.path.join(model_dir, "model_last.pth"),
+                                 os.path.join(work, "ssl_model_last.pth"))
         last = student["passes"][-(2 + locals_):]
         stage_slots_valid = [[(n, v.tolist()) for n, v in p["sizes"]] for p in last]
         emit(dict(phase="ssl_train", config=SSL_CONFIG, batch_size=batch,
@@ -2658,12 +2898,34 @@ def phase_ssl_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6)):
         print(f"ssl_train: loss {logged['loss'][-1]:.4f} after {steps} steps, warm step "
               f"{min(warm):.0f}-{max(warm):.0f} ms, peak {peak_gib:.2f} GiB", flush=True)
         shapes = ssl_stage_shapes(backbone, student, locals_)
+        # the teacher's K1 calls, without lse: the last step's first global
+        # crop's stages, for both of its passes
+        first = teacher["passes"][-2]
+        teacher_shapes = [sh[:5] + (2 * sh[5],) for sh in stage_shapes(
+            backbone, [(n, v.tolist()) for n, v in first["sizes"]])]
         counts = dict(student_lse=student["lse_variants"], teacher=teacher["variants"],
                       k1=k1, k2=dict(k2_variants), steps=steps)
         del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return shapes, counts
+    return shapes, counts, checkpoint, teacher_shapes
+
+
+def ssl_rows(n, n_local, seed=19):
+    """Two rows of the SSL batch: 2 global crops of ``n`` points and 3
+    local crops of ``n_local``, each a room small enough that its 4 cm
+    cells fit the first pooling; numpy arrays [2, points, ...] under
+    ``<crop>_<key>``."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    for prefix, points, size in (("global_crop0", n, 1.8), ("global_crop1", n, 1.8),
+                                 ("local_crop0", n_local, 0.9), ("local_crop1", n_local, 0.9),
+                                 ("local_crop2", n_local, 0.9)):
+        rows = [room_scene(rng, points, (size,) * 3) for _ in range(2)]
+        for i, key in enumerate(("coord", "feat", "grid_coord")):
+            batch[f"{prefix}_{key}"] = np.stack([r[i] for r in rows])
+        batch[f"{prefix}_mask"] = np.ones((2, points), bool)
+    return batch
 
 
 def phase_ssl_agree(n=24576, n_local=6144):
@@ -2681,16 +2943,7 @@ def phase_ssl_agree(n=24576, n_local=6144):
     # tests/test_torch_ssl.py
     backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4,
                     pool_reduce="mean")
-    rng = np.random.default_rng(19)
-    batch = {}
-    for prefix, points, size in (("global_crop0", n, 1.8), ("global_crop1", n, 1.8),
-                                 ("local_crop0", n_local, 0.9), ("local_crop1", n_local, 0.9),
-                                 ("local_crop2", n_local, 0.9)):
-        # rooms small enough that their 4 cm cells fit the first pooling
-        rows = [room_scene(rng, points, (size,) * 3) for _ in range(2)]
-        for i, key in enumerate(("coord", "feat", "grid_coord")):
-            batch[f"{prefix}_{key}"] = torch.from_numpy(np.stack([r[i] for r in rows])).cuda()
-        batch[f"{prefix}_mask"] = torch.ones(2, points, dtype=torch.bool, device="cuda")
+    batch = cuda_batch(ssl_rows(n, n_local))
     gen = torch.Generator(device="cuda").manual_seed(5)
     for prefix in ("global_crop0", "global_crop1"):
         tm, w = generate_token_masks(gen, batch[f"{prefix}_coord"], batch[f"{prefix}_mask"],
@@ -2746,6 +2999,420 @@ def phase_ssl_agree(n=24576, n_local=6144):
                         dec_depths=backbone["dec_depths"], token_masks="injected",
                         passes="2 teacher, 2 masked global, 3 local",
                         grads="per term; the expansion's from one cotangent at the heads")
+    gc.collect()  # the recorders' closures hold the models in cycles
+    torch.cuda.empty_cache()
+
+
+# ---- pretraining to fine-tuning, data parallel semseg and SSL, remat ----------
+
+STEM = "backbone.embedding.stem.conv.weight"
+SSL_DDP_LR = 0.01  # SGD, so a step's student (and the EMA'd teacher) moves smoothly
+
+
+class LogLines(logging.Handler):
+    """The messages a logger emits while the handler is attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def check_warm_start(phase, after, init, source, lines):
+    """A non-strict load of ``source`` into a model whose state was ``init``
+    and is ``after``: every source tensor whose name and shape the model
+    has is loaded bit for bit, every other model tensor kept its
+    initialization, and ``lines`` (the loader's log) name each tensor
+    skipped and each one kept. Returns the record."""
+    loaded = sorted(k for k, v in source.items()
+                    if k in after and tuple(v.shape) == tuple(after[k].shape))
+    skipped = sorted(k for k in source if k not in set(loaded))
+    kept = sorted(k for k in after if k not in set(loaded))
+    for k in loaded:
+        check(torch.equal(after[k].cpu(), source[k].cpu()), f"{phase}: {k} not loaded bit for bit")
+    for k in kept:
+        check(torch.equal(after[k].cpu(), init[k].cpu()), f"{phase}: {k} left its initialization")
+    text = "\n".join(lines)
+    unlogged = [k for k in skipped if f"skipped {k}:" not in text] + [
+        k for k in kept if f"kept the initialization of {k}" not in text]
+    check(not unlogged, f"{phase}: the log does not name {unlogged[:5]}")
+    return dict(loaded=len(loaded), model_tensors=len(after), skipped=skipped, kept=kept)
+
+
+class WarmStartProbe(HookBase):
+    """Inserted right after the trainer's CheckpointLoader: reads the
+    model's state after the load (check_warm_start against ``source`` and
+    the state the trainer built) and the loader's log lines."""
+
+    def __init__(self, source):
+        self.source, self.record = source, None
+
+    def insert(self, trainer):
+        self.trainer = trainer
+        self.init = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        (i,) = [i for i, h in enumerate(trainer.hooks) if type(h).__name__ == "CheckpointLoader"]
+        trainer.hooks.insert(i + 1, self)
+        self.log = LogLines()
+        trainer.logger.addHandler(self.log)
+
+    def before_train(self):
+        self.trainer.logger.removeHandler(self.log)
+        after = {k: v.detach().cpu() for k, v in self.trainer.model.state_dict().items()}
+        self.record = check_warm_start("warm_start", after, self.init, self.source,
+                                       self.log.lines)
+
+
+def phase_warm_start(work, ssl_checkpoint, flagship_checkpoint):
+    """``python -m scenesplat_tpu_torch.rename_ckpt`` on ssl_train's last
+    checkpoint (the SSL file at its widths) for the teacher and for the
+    student: each output holds that backbone's tensors as ``backbone.*``,
+    bit for bit, without the mask token. Then non-strict loads as the
+    files' CheckpointLoader makes them: the train phase's flagship
+    checkpoint into the semseg file's model and the extracted teacher into
+    the flagship file's (every encoder tensor of stages 0-3 loads; the rest
+    are skipped or kept, and logged). semseg_train starts from the teacher.
+    Returns the teacher's file."""
+    from scenesplat_tpu_torch import rename_ckpt
+    from scenesplat_tpu_torch.engines.hooks.misc import load_matching
+
+    ssl_state = torch.load(ssl_checkpoint, map_location="cpu", weights_only=False)["state_dict"]
+    out, record = {}, dict(phase="warm_start", ssl_checkpoint="ssl_train's model_last.pth")
+    for source, prefix in (("teacher", "teacher."), ("student", "backbone.")):
+        path = os.path.join(work, f"ssl_{source}_backbone.pth")
+        t0 = time.perf_counter()
+        check(rename_ckpt.main(["--input", ssl_checkpoint, "--output", path,
+                                "--source", source]) == 0, f"warm_start: {source} extraction")
+        record[f"{source}_extract_s"] = time.perf_counter() - t0
+        got = torch.load(path, map_location="cpu", weights_only=False)["state_dict"]
+        want = {"backbone." + k[len(prefix):]: v for k, v in ssl_state.items()
+                if k.startswith(prefix) and k != prefix + "mask_token"}
+        check(sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want),
+              f"warm_start: the {source} extraction differs from the checkpoint's {prefix}*")
+        record[f"{source}_tensors"] = len(got)
+        out[source] = got
+    check(any(not torch.equal(v, out["student"][k]) for k, v in out["teacher"].items()),
+          "warm_start: the teacher equals the student after ssl_train's steps")
+    logger = logging.getLogger("chip_smoke.warm_start")
+    logger.setLevel(logging.INFO)
+    encoders = tuple(f"backbone.enc.enc{s}." for s in range(4))
+    for name, weight, config in (("flagship_to_semseg", flagship_checkpoint, SEMSEG_CONFIG),
+                                 ("teacher_to_flagship", os.path.join(
+                                     work, "ssl_teacher_backbone.pth"), FLAGSHIP_CONFIG)):
+        model_cfg = dict(Config.fromfile(config).model)
+        model_cfg.pop("criteria", None)
+        model = build_model(model_cfg)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        source = torch.load(weight, map_location="cpu", weights_only=False)["state_dict"]
+        log = LogLines()
+        logger.addHandler(log)
+        try:
+            load_matching(model, source, logger)
+        finally:
+            logger.removeHandler(log)
+        after = model.state_dict()
+        rec = check_warm_start(name, after, init, source, log.lines)
+        missing = [k for k in after if k.startswith(encoders) and k in rec["kept"]]
+        check(not missing, f"{name}: encoder tensors not loaded: {missing[:5]}")
+        record[name] = dict(rec, skipped=len(rec["skipped"]), kept=len(rec["kept"]),
+                            stem_loaded=STEM not in rec["kept"],
+                            first_skipped=rec["skipped"][:8], first_kept=rec["kept"][:8])
+        del model
+    emit(record)
+    return os.path.join(work, "ssl_teacher_backbone.pth")
+
+
+def semseg_fp32_model(**backbone):
+    """The semseg file's DefaultSegmentorV2 at one block a stage (its
+    widths, heads, windows and drop-path kept) in fp32 from seed 1, on the
+    card in train mode, and the file's criteria (CE + Lovasz)."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    model_cfg = dict(cfg.model)
+    criteria = build_criteria(model_cfg.pop("criteria"))
+    model = build_model(dict(model_cfg, backbone=dict(
+        cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4, dtype="float32", seed=1,
+        **backbone)))
+    return model.cuda().train(), criteria
+
+
+def ssl_fp32_model():
+    """The SSL file's SimDINOSSL at one block a stage with mean pooling (as
+    ssl_agree), drop-path 0.3 as the file sets it, fp32 from seed 1, on the
+    card; and the loss's keyword arguments."""
+    cfg = Config.fromfile(SSL_CONFIG)
+    backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4,
+                    pool_reduce="mean", dtype="float32", seed=1)
+    model, loss_kwargs = build_ssl_model(dict(cfg.model, backbone=backbone))
+    return model.cuda().train(), loss_kwargs, cfg.model.get("momentum_base", 0.994)
+
+
+def expansion_cotangent(batch):
+    """The MCR expansion term's gradient at the student's DINO head outputs
+    (one [rows, D] a crop, zeros for the local crops, which it does not
+    read) in one process's forward of ssl_fp32_model over ``batch`` with
+    the generator ssl_step_fp32 seeds."""
+    model, loss_kwargs, _ = ssl_fp32_model()
+    heads, head = [], model.dino_head.forward
+
+    def recording(x):
+        y = head(x)
+        if torch.is_grad_enabled():  # the student's
+            heads.append(y)
+        return y
+
+    model.dino_head.forward = recording
+    _, metrics = ssl_loss(model, batch, torch.Generator(device="cuda").manual_seed(13),
+                          **loss_kwargs)
+    got = torch.autograd.grad(metrics["mcr_expa_loss"], heads, allow_unused=True)
+    return [torch.zeros_like(h) if g is None else g.detach() for h, g in zip(heads, got)]
+
+
+@contextlib.contextmanager
+def given_expansion_cotangent(cotangent):
+    """The SSL loss's MCR with the expansion term's backward replaced by
+    ``cotangent`` (expansion_cotangent's, rows of the global batch; each
+    process takes its rows): the same values, and the same well-posed
+    gradient on every path. The expansion's own gradient goes through the
+    inverse of I + p / (m eps) cov, whose condition number (about 5,100 at
+    two rows, see ssl_agree) turns the summation-order differences of two
+    ranks against one process into gradient differences above 1e-4; what
+    ssl_ddp_agree compares is the data-parallel backward of the heads and
+    the backbones. The loss's own reduction over the ranks is held to JAX
+    in tests/test_torch_dist_tasks.py."""
+    import scenesplat_tpu_torch.engines.pretrain as pretrain
+
+    real = pretrain.mcr_loss
+
+    def mcr(student_feats, teacher_feats):
+        _, metrics = real(student_feats, teacher_feats)
+        rows = local_batch_slice(cotangent[0].shape[0])
+        lin = all_reduce_sum(sum((s * c[rows]).sum() for s, c in zip(student_feats, cotangent)))
+        expa = metrics["mcr_expa_loss"].detach() + lin - lin.detach()
+        return -0.1 * metrics["mcr_comp_loss"] - expa, metrics  # mcr_loss's coeff 0.1
+
+    pretrain.mcr_loss = mcr
+    try:
+        yield
+    finally:
+        pretrain.mcr_loss = real
+
+
+def ssl_step_fp32(batch, cotangent, wrap=lambda m: m):
+    """One ssl_train_step of ssl_fp32_model (token masks, the curve shuffle
+    and drop-path drawn from a generator seeded 13; SGD at SSL_DDP_LR; the
+    EMA at the file's first momentum) through its SSLObjective wrapped by
+    ``wrap``, the MCR expansion's cotangent given
+    (given_expansion_cotangent). Returns (loss terms, student gradients,
+    BatchNorm running statistics, teacher parameters after the EMA, whether
+    the teacher's mask token stayed, pooling overflow)."""
+    model, loss_kwargs, momentum = ssl_fp32_model()
+    token = model.teacher.mask_token.detach().clone()
+    passes = record_passes(model)
+    optimizer = torch.optim.SGD([p for p in model.parameters() if p.requires_grad],
+                                lr=SSL_DDP_LR)
+    with given_expansion_cotangent(cotangent):
+        metrics = ssl_train_step(wrap(SSLObjective(model)), optimizer, None, batch, momentum,
+                                 generator=torch.Generator(device="cuda").manual_seed(13),
+                                 **loss_kwargs)
+    overflow = [max(int(o.max()) for p in r["passes"] for o in p["overflow"])
+                for r in passes.values()]
+    return ({k: v.item() for k, v in metrics.items()},
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None},
+            {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))},
+            {k: p.detach().clone() for k, p in model.teacher.named_parameters()},
+            torch.equal(model.teacher.mask_token, token), overflow)
+
+
+def task_agree_rank(rank, world, port, job_file):
+    """One rank of phase_task_ddp_agree (a spawned process sharing the one
+    card over gloo): its rows of the job's global batch through one fp32
+    step under DDP; writes the step's results and its K1 / K2 launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_file, weights_only=False)
+    with torchrun_env(rank, world, port):
+        init_distributed("cuda", backend="gloo")
+        try:
+            reset_k1_counts()
+            reset_k2_counts()
+            rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
+            if job["task"] == "semseg":
+                loss, norm, grads, stats, overflow = train_step_fp32(
+                    cuda_batch(rows), data_parallel, build=semseg_fp32_model, task="semseg",
+                    seed=12)
+                out = dict(loss=loss, grad_norm=norm, overflow=overflow)
+            else:
+                terms, grads, stats, teacher, token_kept, overflow = ssl_step_fp32(
+                    cuda_batch(rows), [c.cuda() for c in job["cotangent"]], data_parallel)
+                out = dict(terms=terms, teacher={k: v.cpu() for k, v in teacher.items()},
+                           token_kept=token_kept, overflow=overflow)
+            out.update(grads={k: g.cpu() for k, g in grads.items()},
+                       stats={k: v.cpu() for k, v in stats.items()},
+                       k1_lse=k1_lse_variants(), k1=k1_variants(),
+                       k2=dict(fwa.flash_window_attention_bwd.variant_launches))
+            torch.save(out, job["out"].format(rank=rank))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+STAT_RTOL_DDP = 1e-6
+
+
+def check_ranks_stats(phase, r, got, ref):
+    """Each BatchNorm running statistic of rank ``r`` within STAT_RTOL_DDP
+    (relative L2) of one process's; returns the worst."""
+    err = {k: rel_l2(v, ref[k].cpu()) for k, v in got.items()}
+    check(sorted(err) == sorted(ref) and max(err.values()) <= STAT_RTOL_DDP,
+          f"{phase}: rank {r}'s BatchNorm statistics differ by {max(err.values())}")
+    return max(err.values())
+
+
+def phase_task_ddp_agree(work, task, world=2):
+    """semseg_ddp_agree / ssl_ddp_agree: two ranks sharing the one card over
+    gloo, one row each, against one process over both rows, fp32 at the
+    file's widths with one block a stage. semseg: CE + Lovasz (the gather of
+    every rank's probabilities), 2 rows of 49,152 points, drop-path 0.3, no
+    Mix3D; the loss to 1e-5, every gradient to 1e-4 of its norm, the
+    BatchNorm statistics to 1e-6. ssl: crops of 24,576 and 6,144 (as
+    ssl_agree), token masks drawn at the global batch's shape; every loss
+    term to 1e-5, every student gradient to 1e-4 of its norm, the
+    statistics to 1e-6, and after the SGD step and the EMA the teacher
+    bit-equal on both ranks and within 1e-6 of one process's, its mask token
+    unmoved (the MCR expansion's cotangent at the heads given to both sides,
+    as in ssl_agree: given_expansion_cotangent). K1 with lse and K2 launch
+    on each rank."""
+    phase = f"{task}_ddp_agree"
+    rows = semseg_rows(49152, (13, 14)) if task == "semseg" else ssl_rows(24576, 6144)
+    batch = cuda_batch(rows)
+    if task == "semseg":
+        loss, norm, grads, stats, overflow = train_step_fp32(batch, build=semseg_fp32_model,
+                                                             task="semseg", seed=12)
+        ref = (loss, {k: g.cpu() for k, g in grads.items()}, overflow)
+    else:
+        cotangent = expansion_cotangent(batch)
+        terms, grads, stats, teacher, token_kept, overflow = ssl_step_fp32(batch, cotangent)
+        check(token_kept, f"{phase}: one process's teacher mask token moved")
+        ref = (terms, {k: g.cpu() for k, g in grads.items()}, overflow)
+        teacher = {k: v.cpu() for k, v in teacher.items()}
+    del grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    job_file = os.path.join(work, f"{phase}_job.pt")
+    torch.save(dict(task=task, rows=rows, out=os.path.join(work, f"{phase}_rank{{rank}}.pt"),
+                    cotangent=None if task == "semseg" else [c.cpu() for c in cotangent]),
+               job_file)
+    ranks_s = spawn_ranks(task_agree_rank, world, job_file)
+    ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    record = dict(phase=phase, world=world, backend="gloo", rows=world, dtype="float32",
+                  drop_path=0.3, ranks_s=ranks_s, stat_rtol=STAT_RTOL_DDP)
+    for r, got in enumerate(ranks):
+        loss_r = got["loss"] if task == "semseg" else got["terms"]
+        compare_steps(f"{phase}_rank{r}", (loss_r, got["grads"], got["overflow"]), ref,
+                      names=("ranks", "one"), world=world, backend="gloo")
+        if task == "ssl":
+            for key, value in ref[0].items():
+                check(abs(loss_r[key] - value) <= TRAIN_LOSS_RTOL * abs(value),
+                      f"{phase}: rank {r}'s {key} {loss_r[key]} against {value}")
+            err = max((got["teacher"][k] - v).abs().max().item() for k, v in teacher.items())
+            check(err <= 1e-6, f"{phase}: rank {r}'s teacher differs by {err} from one process's")
+            check(got["token_kept"], f"{phase}: rank {r}'s teacher mask token moved")
+            record.setdefault("teacher_max_abs_diff", []).append(err)
+            for k, v in ranks[0]["teacher"].items():
+                check(torch.equal(v, got["teacher"][k]),
+                      f"{phase}: rank {r}'s teacher {k} differs from rank 0's")
+        record.setdefault("stat_worst_rel_l2", []).append(
+            check_ranks_stats(phase, r, got["stats"], stats))
+        k1_lse, k2 = sum(got["k1_lse"].values()), sum(got["k2"].values())
+        check(k1_lse > 0 and k2 > 0, f"{phase}: rank {r} launched K1 with lse {k1_lse} and K2 "
+              f"{k2} times")
+        record.setdefault("k1_lse", []).append(k1_lse)
+        record.setdefault("k1_without_lse", []).append(sum(got["k1"].values()) - k1_lse)
+        record.setdefault("k2", []).append(k2)
+        for key, g in ranks[0]["grads"].items():
+            check(torch.equal(g, got["grads"][key]),
+                  f"{phase}: rank {r}'s {key} gradient differs from rank 0's")
+    record.update(loss=[got.get("loss", got.get("terms")) for got in ranks], loss_one=ref[0])
+    emit(record)
+    return dict(k1_lse=sum(record["k1_lse"]), k1=sum(record["k1_without_lse"]),
+                k2=sum(record["k2"]),
+                k1_lse_variants=sum_counts(got["k1_lse"] for got in ranks),
+                k2_variants=sum_counts(got["k2"] for got in ranks))
+
+
+REMAT_GRAD_RTOL = 1e-5
+
+
+def phase_remat_agree(n=49152):
+    """The flagship file at its widths, one fp32 train step of 2 rows of
+    ``n`` points (drop-path 0.3, the curve shuffle and the contrastive split
+    drawn) with remat_blocks off and on, from the same weights and
+    generator seed, both under deterministic algorithms (the pooling's
+    scatter-adds in one order): the loss bit-equal, every gradient within
+    REMAT_GRAD_RTOL of its norm, K1 / K2 launches (with remat, each block's
+    recompute in the backward launches K1 with lse once more); then each
+    model's step again without the deterministic mode for its time (CUDA
+    events) and peak memory (the model's parameters included)."""
+    batch = cuda_batch(agree_rows(n, (7, 8)))
+    blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, True):
+            built = flagship_fp32_model(remat_blocks=remat)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_k1_counts()
+            reset_k2_counts()
+            loss, norm, grads, _, overflow = train_step_fp32(batch, build=lambda: built)
+            runs[remat] = dict(loss=loss, grad_norm=norm, overflow=overflow,
+                               grads={k: g.detach().clone() for k, g in grads.items()},
+                               k1_lse=sum(k1_lse_variants().values()),
+                               k1=fwa.flash_window_attention.launches,
+                               k2=fwa.flash_window_attention_bwd.launches)
+            del grads
+            # the same step again as a user runs it (not deterministic): its
+            # time (CUDA events) and peak memory (the model's parameters
+            # included)
+            torch.use_deterministic_algorithms(False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            train_step_fp32(batch, build=lambda: built)
+            end.record()
+            torch.cuda.synchronize()
+            runs[remat].update(step_ms=start.elapsed_time(end),
+                               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            del built
+    finally:
+        torch.use_deterministic_algorithms(False)
+    off, on = runs[False], runs[True]
+    worst = max(rel_l2(on["grads"][k], g) for k, g in off["grads"].items()
+                if g.norm() > ZERO_GRAD * off["grad_norm"])
+    record = dict(phase="remat_agree", config=FLAGSHIP_CONFIG, dtype="float32", points=n,
+                  rows=2, deterministic_algorithms=True, grad_rtol=REMAT_GRAD_RTOL,
+                  worst_grad_rel_l2=worst, loss_bit_equal=on["loss"] == off["loss"],
+                  **{f"remat_{name}": {k: v for k, v in run.items() if k != "grads"}
+                     for name, run in (("off", off), ("on", on))})
+    emit(record)
+    check(on["loss"] == off["loss"], f"remat_agree: loss {on['loss']} against {off['loss']}")
+    check(worst <= REMAT_GRAD_RTOL, f"remat_agree: a gradient differs by {worst}")
+    check(not any(on["overflow"] + off["overflow"]), "remat_agree: pooling overflow")
+    check(off["k1_lse"] == off["k2"] == blocks and on["k2"] == blocks
+          and on["k1_lse"] == 2 * blocks,
+          f"remat_agree: K1 with lse {off['k1_lse']} / {on['k1_lse']} and K2 {off['k2']} / "
+          f"{on['k2']} a step without / with remat, expected {blocks} / {2 * blocks} and "
+          f"{blocks}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(off=dict(k1_lse=off["k1_lse"], k2=off["k2"]),
+                on=dict(k1_lse=on["k1_lse"], k2=on["k2"]))
 
 
 def main() -> int:
@@ -2782,17 +3449,21 @@ def main() -> int:
             phase_test(work, checkpoint, meta_root)
         tot_sort = phase_timing_sort(sort_sizes)
         tot_test = phase_timing_test(test_shapes)
+        ssl_shapes, ssl_counts, ssl_checkpoint, teacher_shapes = phase_ssl_train(work)
+        ssl_bwd = phase_timing_bwd(ssl_shapes, phase="ssl_timing_bwd")
+        ssl_teacher = phase_timing(teacher_shapes, phase="ssl_timing_teacher")
+        phase_ssl_agree()
+        teacher_weight = phase_warm_start(work, ssl_checkpoint, checkpoint)
         semseg_shapes, semseg_k1, semseg_k1_variants, semseg_k2_variants, semseg_checkpoint = \
-            phase_semseg_train(work)
+            phase_semseg_train(work, teacher_weight)
         semseg_bwd = phase_timing_bwd(semseg_shapes, phase="semseg_timing_bwd")
         phase_semseg_agree()
         semseg_on, semseg_fragments, semseg_sort_sizes, semseg_calls = \
             phase_semseg_test(work, semseg_checkpoint)
         semseg_fwd = phase_timing_test(semseg_calls, phase="semseg_timing_test")
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
-        ssl_shapes, ssl_counts = phase_ssl_train(work)
-        ssl_bwd = phase_timing_bwd(ssl_shapes, phase="ssl_timing_bwd")
-        phase_ssl_agree()
+        tasks_ddp = {task: phase_task_ddp_agree(work, task) for task in ("semseg", "ssl")}
+        remat = phase_remat_agree()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -2833,6 +3504,14 @@ def main() -> int:
     # ddp_agree on the one card (gloo: one fp32 step each, then their share
     # of the 3 test scenes' fragment forwards), launches summed over ranks
     ddp = dict(path="ddp train", ms_per="train step", world1_steps=ddp_record["steps"])
+    # the semseg and SSL files' fp32 steps under two ranks on the one card
+    # (semseg_ddp_agree, ssl_ddp_agree), launches summed over the ranks; and
+    # remat_agree's flagship fp32 step without and with remat_blocks (the
+    # recompute launches K1 with lse once more a block)
+    ddp_tasks = {f"{task}_two_rank_launches": tasks_ddp[task]["k1_lse"] for task in tasks_ddp}
+    ddp_tasks_k2 = {f"{task}_two_rank_launches": tasks_ddp[task]["k2"] for task in tasks_ddp}
+    teacher_large = ssl_teacher["by_variant"]["bf16_large"]
+    teacher_small = ssl_teacher["by_variant"]["bf16_small"]
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
@@ -2841,7 +3520,11 @@ def main() -> int:
              plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
              library_ms=tot["library_ms"],
              semseg=dict(semseg_test, launches=semseg_on["k1_variants"]["bf16_large"],
-                         **times(semseg_fwd["by_variant"]["bf16_large"]))),
+                         **times(semseg_fwd["by_variant"]["bf16_large"])),
+             ssl_teacher=dict(ssl_train, ms_per="train step (the teacher's 2 passes over the "
+                              "global crops, no lse; its encoder's windows of 1024)",
+                              launches=ssl_counts["teacher"]["bf16_large"],
+                              **times(teacher_large))),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source_small,
              sources=[source_small, source_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
@@ -2865,7 +3548,11 @@ def main() -> int:
                       two_rank_launches=ddp_ranks["k1_lse"],
                       two_rank_variant_launches=ddp_ranks["k1_lse_variants"],
                       two_rank_test_launches_without_lse=ddp_ranks["k1_test"],
-                      two_rank_test_variant_launches=ddp_ranks["k1_test_variants"])),
+                      two_rank_test_variant_launches=ddp_ranks["k1_test_variants"],
+                      **ddp_tasks),
+             remat=dict(path="remat_agree", ms_per="fp32 train step",
+                        launches_per_step_off=remat["off"]["k1_lse"],
+                        launches_per_step_on=remat["on"]["k1_lse"])),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -2885,7 +3572,10 @@ def main() -> int:
                       ms_per="train step (the student's decoder launches, with lse)",
                       ms=ssl_small["fwd_lse_ms"], plain_ms=ssl_small["fwd_plain_ms"],
                       bound_ms=ssl_small["fwd_bound_ms"], bound_by=ssl_small["fwd_bound_by"],
-                      library_ms=ssl_small["fwd_library_ms"])),
+                      library_ms=ssl_small["fwd_library_ms"]),
+             ssl_teacher=dict(ssl_train, ms_per="train step (the teacher's 2 passes' decoder "
+                              "launches, no lse)", launches=ssl_counts["teacher"]["bf16_small"],
+                              **times(teacher_small))),
         dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
              sources=[source_bwd, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
@@ -2902,7 +3592,10 @@ def main() -> int:
                       world1_launches=ddp_record["k2_launches"],
                       world1_variant_launches=ddp_record["k2_variant_launches"],
                       two_rank_launches=ddp_ranks["k2"],
-                      two_rank_variant_launches=ddp_ranks["k2_variants"])),
+                      two_rank_variant_launches=ddp_ranks["k2_variants"], **ddp_tasks_k2),
+             remat=dict(path="remat_agree", ms_per="fp32 train step",
+                        launches_per_step_off=remat["off"]["k2"],
+                        launches_per_step_on=remat["on"]["k2"])),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -2924,6 +3617,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--cards" and torch.cuda.is_available():
-        sys.exit(main_cards(int(sys.argv[2])))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--cards" and torch.cuda.is_available():
+        sys.exit(main_cards(int(sys.argv[2]), sys.argv[3:]))
     sys.exit(main())

@@ -134,12 +134,19 @@ class CheckpointSaver(HookBase):
 
 @HOOKS.register_module()
 class CheckpointLoader(HookBase):
-    """Loads ``cfg.weight`` before training: the model's state dict (a
-    Pointcept ``module.`` prefix dropped, ``keywords`` in names replaced by
-    ``replacement``), and with ``cfg.resume`` also the optimizer, the
-    schedule, the generator, the step and the epoch to continue from."""
+    """Loads ``cfg.weight`` before training (the reference's loader): the
+    state dict's names lose a DDP ``module.`` prefix and have ``keywords``
+    replaced by ``replacement``. Non-strict by default, as the reference
+    and the JAX hook declare it, which is how a fine-tune starts from a
+    pretrained backbone: every tensor that the model lacks or whose shape
+    differs is skipped, and every model tensor the checkpoint does not
+    give keeps its initialization, each one logged; the load raises if not
+    one ``backbone.*`` parameter loaded (a checkpoint of something else is
+    no warm start). ``strict=True`` loads name for name. ``cfg.resume`` loads
+    strictly and also restores the optimizer, the schedule, the generator,
+    the step and the epoch to continue from."""
 
-    def __init__(self, keywords: str = "", replacement=None, strict: bool = True):
+    def __init__(self, keywords: str = "", replacement=None, strict: bool = False):
         self.keywords = keywords
         self.replacement = replacement if replacement is not None else keywords
         self.strict = strict
@@ -156,8 +163,11 @@ class CheckpointLoader(HookBase):
         state = ckpt.get("state_dict", ckpt)
         state = {k.removeprefix("module.").replace(self.keywords, self.replacement)
                  if self.keywords else k.removeprefix("module."): v for k, v in state.items()}
-        trainer.model.load_state_dict(state, strict=self.strict)
         resume = trainer.cfg.get("resume", False)
+        if self.strict or resume:
+            trainer.model.load_state_dict(state, strict=True)
+        else:
+            load_matching(trainer.model, state, trainer.logger)
         if resume:
             trainer.optimizer.load_state_dict(ckpt["optimizer"])
             if trainer.scheduler is not None:
@@ -168,6 +178,31 @@ class CheckpointLoader(HookBase):
             trainer.comm_info["best_metric_value"] = float(ckpt.get("best_metric", -1.0))
         trainer.logger.info(f"checkpoint loaded (resume={resume}, "
                             f"epoch={trainer.start_epoch})")
+
+
+def load_matching(model: torch.nn.Module, state: dict, logger) -> list:
+    """Loads the tensors of ``state`` whose name and shape the model's state
+    dict has; logs every one skipped and every model tensor left as it was.
+    Raises if no ``backbone.*`` parameter loaded (a BatchNorm's scalar
+    ``num_batches_tracked`` matches any model). Returns the loaded names."""
+    own = model.state_dict()
+    loaded = {k: v for k, v in state.items() if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    for k, v in state.items():
+        if k not in own:
+            logger.info(f"skipped {k}: not in the model")
+        elif k not in loaded:
+            logger.info(f"skipped {k}: shape {tuple(v.shape)} in the checkpoint, "
+                        f"{tuple(own[k].shape)} in the model")
+    for k in own:
+        if k not in loaded:
+            logger.info(f"kept the initialization of {k}")
+    params = dict(model.named_parameters())
+    if not any(k.startswith("backbone.") and k in params for k in loaded):
+        raise ValueError("the checkpoint gives no backbone.* parameter of the model's name "
+                         "and shape: it is no warm start for this model")
+    model.load_state_dict(loaded, strict=False)
+    logger.info(f"loaded {len(loaded)} of the model's {len(own)} tensors")
+    return sorted(loaded)
 
 
 @HOOKS.register_module()

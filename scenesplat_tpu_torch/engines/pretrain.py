@@ -15,6 +15,12 @@ student backbone into the teacher at the host-scheduled momentum
 ``mask_token`` left as it is. Every draw (masks, curve shuffle, drop-path)
 comes from the trainer's ``torch.Generator``. The JAX trainer also builds a
 teacher-temperature schedule that nothing reads; the port has none.
+
+Under data parallel (``torchrun``) the loss runs as ``SSLObjective``'s
+forward under DistributedDataParallel; its reductions over the batch (the
+BatchNorm moments, MCR's similarities and covariances, the iBOT sum, the
+MAE mean) span the global batch and the token masks are drawn at its
+shape, so N processes train what one process trains on the whole batch.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from scenesplat_tpu_torch.data import Loader, build_dataset
 from scenesplat_tpu_torch.data.collate import collate_ssl
@@ -36,6 +43,7 @@ from scenesplat_tpu_torch.models.ssl import (
 )
 from scenesplat_tpu_torch.models.structure import PointBatch
 from scenesplat_tpu_torch.ops.segops import masked_mean_pool
+from scenesplat_tpu_torch.parallel.dist import all_reduce_sum
 
 from .train import TRAINERS, Trainer
 from .train_step import apply_gradients, batch_to_device
@@ -126,7 +134,8 @@ def ssl_loss(model: SimDINOSSL, batch: Dict[str, torch.Tensor],
     if enable_mae:
         pred = model.mae_head(s_dec0.feat)
         se = ((pred - batch["global_crop0_feat"].float()) ** 2).mean(-1)
-        mae = (se * tm0).sum() / tm0.sum().clamp(min=1)
+        total, count = all_reduce_sum(torch.stack([(se * tm0).sum(), tm0.sum().float()]))
+        mae = total / count.clamp(min=1)
         loss = loss + mae_weight * mae
         metrics["global_mae_loss"] = mae
 
@@ -148,18 +157,38 @@ def ema_update(model: SimDINOSSL, momentum: float) -> None:
     torch._foreach_add_(t, [student[n] for n in names], alpha=float(np.float32(1) - m))
 
 
-def ssl_train_step(model: SimDINOSSL, optimizer, scheduler, batch: Dict[str, torch.Tensor],
+class SSLObjective(nn.Module):
+    """``ssl_loss`` of ``model`` as one module's forward: under
+    DistributedDataParallel every student pass then runs inside the one
+    forward whose backward DDP reduces (DDP sees only calls through its
+    wrapper). The teacher's parameters take no gradient, so they stay out
+    of DDP's buckets."""
+
+    def __init__(self, model: SimDINOSSL):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None, **loss_kwargs):
+        return ssl_loss(self.model, batch, generator, **loss_kwargs)
+
+
+def ssl_train_step(model, optimizer, scheduler, batch: Dict[str, torch.Tensor],
                    momentum: float, generator: Optional[torch.Generator] = None,
                    clip_grad: Optional[float] = None, **loss_kwargs) -> Dict[str, torch.Tensor]:
-    """One SSL step in train mode; returns the loss terms and ``grad_norm``
-    (before clipping) as 0-d tensors on the model's device (no host
-    sync)."""
-    model.train()
-    loss, metrics = ssl_loss(model, batch, generator, **loss_kwargs)
+    """One SSL step in train mode of ``model``: a SimDINOSSL, or its
+    ``SSLObjective`` under DistributedDataParallel (every process then
+    holds the global loss and DDP's mean is the global gradient, which
+    every process applies: the EMA leaves the same teacher on each).
+    Returns the loss terms and ``grad_norm`` (before clipping) as 0-d
+    tensors on the model's device (no host sync)."""
+    objective = SSLObjective(model) if isinstance(model, SimDINOSSL) else model
+    ssl_model = getattr(objective, "module", objective).model
+    objective.train()
+    loss, metrics = objective(batch, generator, **loss_kwargs)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     metrics["grad_norm"] = apply_gradients(optimizer, scheduler, clip_grad)
-    ema_update(model, momentum)
+    ema_update(ssl_model, momentum)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -208,6 +237,9 @@ class DefaultSSLPreTrainer(Trainer):
         model, self.loss_kwargs = build_ssl_model(model_cfg)
         return model
 
+    def train_module(self) -> nn.Module:
+        return SSLObjective(self.model)
+
     def build_train_loader(self):
         data = self.cfg.data
         num_points = data.get("num_points", 65536)
@@ -220,7 +252,7 @@ class DefaultSSLPreTrainer(Trainer):
 
     def run_step(self, batch):
         lr = self.optimizer.param_groups[0]["lr"]
-        metrics = ssl_train_step(self.model, self.optimizer, self.scheduler,
+        metrics = ssl_train_step(self.train_model, self.optimizer, self.scheduler,
                                  batch_to_device(batch, self.device),
                                  self.momentum_schedule(self.storage.iter),
                                  generator=self.generator, clip_grad=self.clip_grad,

@@ -2,8 +2,8 @@
 hook-driven epoch and step loop around ``engines/train_step.py``.
 
 The port trains the VL pretraining task (``LangPretrainer``) and semantic
-segmentation (``DefaultSegmentorV2``) on one card; the model's type picks
-the task, as ``Trainer.TASKS`` does in the JAX package. SimDINO
+segmentation (``DefaultSegmentorV2``); the model's type picks the task, as
+``Trainer.TASKS`` does in the JAX package. SimDINO
 self-supervised pretraining has a trainer of its own
 (``engines/pretrain.py:DefaultSSLPreTrainer``, ``train =
 dict(type="DefaultSSLPreTrainer")`` in a config).
@@ -13,12 +13,14 @@ the card seeded from it, and the data pipeline seeds its own per-sample
 generators from it, so a run is a function of its config.
 
 Data parallel (``torchrun --nproc_per_node N -m scenesplat_tpu_torch.train``)
-trains the VL task: ``batch_size`` is the global batch, each process loads
-its rows, the model runs under DistributedDataParallel (``train_model``;
-``model`` stays the module itself, which the hooks evaluate and save), and
-the model's reductions over the batch span every process's rows
-(``parallel/dist.py``), so N processes train the model one process would
-train on the whole batch. Rank 0 alone logs and writes files.
+trains every task: ``batch_size`` is the global batch, each process loads
+its rows, the step runs under DistributedDataParallel (``train_model``: the
+model, or for SSL its ``SSLObjective``; ``model`` stays the module itself,
+which the hooks evaluate and save), and the reductions over the batch (the
+BatchNorm moments, the losses' sums, Lovasz's sort, MCR's covariance) span
+every process's rows (``parallel/dist.py``), so N processes train the model
+one process would train on the whole batch. Rank 0 alone logs and writes
+files.
 """
 
 from __future__ import annotations
@@ -86,16 +88,9 @@ class TrainerBase:
 class Trainer(TrainerBase):
     """Single-dataset trainer on ``device`` (``cuda:LOCAL_RANK`` in a
     process group); the task comes from the model type (``TASKS``), and a
-    type outside it raises, as does a task of ``NOT_DATA_PARALLEL`` in
-    a group of more than one process."""
+    type outside it raises."""
 
     TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg"}
-    # what keeps a task from data parallel: a reduction over the global
-    # batch that the port computes over one process's rows
-    NOT_DATA_PARALLEL = {
-        "semseg": "its Lovasz loss sorts the errors of the global batch",
-        "ssl": "its MCR loss takes the feature covariance over the global batch",
-    }
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
@@ -128,15 +123,10 @@ class Trainer(TrainerBase):
         if self.task is None:
             raise NotImplementedError(f"model {model_cfg.get('type')} is not ported; the "
                                       f"port trains {', '.join(self.TASKS)}")
-        if self.world > 1 and self.task in self.NOT_DATA_PARALLEL:
-            raise NotImplementedError(
-                f"the {self.task} task does not train data parallel yet "
-                f"({self.NOT_DATA_PARALLEL[self.task]}); run it in one process")
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
         self.model = self.build_model(model_cfg).to(self.device)
-        self.train_model = (self.model if self.task in self.NOT_DATA_PARALLEL
-                            else data_parallel(self.model))
+        self.train_model = data_parallel(self.train_module())
         self.criteria = build_criteria(criteria_cfg)
         self.clip_grad = cfg.get("clip_grad")
 
@@ -156,6 +146,10 @@ class Trainer(TrainerBase):
 
     def build_model(self, model_cfg: dict) -> torch.nn.Module:
         return build_model(model_cfg)
+
+    def train_module(self) -> torch.nn.Module:
+        """What the step runs (under DDP in a process group)."""
+        return self.model
 
     def build_train_loader(self):
         return Loader(build_dataset(dict(self.cfg.data.train)),

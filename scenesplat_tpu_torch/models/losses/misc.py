@@ -68,7 +68,8 @@ class L2Loss:
 class CrossEntropyLoss:
     """Cross-entropy over the points that are valid (``mask``) and not
     ``ignore_index``. With ``weight`` (one per class) the loss is the
-    weighted sum over those points divided by the sum of their weights;
+    weighted sum over those points divided by the sum of their weights,
+    both over the global batch;
     ``label_smoothing`` mixes the one-hot target with the uniform one."""
 
     def __init__(self, weight: Optional[Sequence[float]] = None, reduction: str = "mean",
@@ -95,9 +96,9 @@ class CrossEntropyLoss:
         else:
             nll = -logp.gather(-1, safe_t[..., None])[..., 0]
         if self.weight is not None:
-            w = self.weight.to(nll.device)[safe_t]
-            nll = nll * w
-            loss = (nll * valid).sum() / (w * valid).sum().clamp(min=1e-12)
+            w = self.weight.to(nll.device)[safe_t] * valid
+            total, weight = all_reduce_sum(torch.stack([(nll * w).sum(), w.sum()]))
+            loss = total / weight.clamp(min=1e-12)
         elif self.reduction == "mean":
             loss = _masked_mean(nll, valid)
         else:

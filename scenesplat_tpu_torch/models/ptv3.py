@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scenesplat_tpu_torch.ops.segops import (
     PoolingPlan,
@@ -323,7 +324,9 @@ class PointTransformerV3(nn.Module):
     as in the JAX package, never applied (neither attention kernel drops
     probabilities); ``upcast_softmax`` is accepted for config
     compatibility, the softmax always runs in fp32. ``use_kernel`` is
-    passed to ops.window_attention. Parameters are drawn from ``seed``."""
+    passed to ops.window_attention. ``remat_blocks`` recomputes each
+    block in the backward instead of keeping its activations
+    (``_block``). Parameters are drawn from ``seed``."""
 
     def __init__(
         self,
@@ -352,12 +355,14 @@ class PointTransformerV3(nn.Module):
         stage_capacity: Optional[Sequence[float]] = None,
         use_kernel: Optional[bool] = None,
         enable_mask_token: bool = False,
+        remat_blocks: bool = False,
         dtype="float32",
         seed: int = 0,
     ):
         super().__init__()
         dtype = as_dtype(dtype)
         self.dtype = dtype
+        self.remat_blocks = remat_blocks
         self.order = (order,) if isinstance(order, str) else tuple(order)
         self.stride = tuple(stride)
         self.enc_patch_size = tuple(enc_patch_size)
@@ -407,6 +412,11 @@ class PointTransformerV3(nn.Module):
             blocks = [block(dec_ch[s], dec_num_head[s], dec_patch_size[s], i, rates[i])
                       for i in range(dec_depths[s])]
             self.dec[f"dec{s}"] = _Stage(blocks, up=up)
+        if remat_blocks and any(isinstance(m, MaskedBatchNorm) for stage in
+                                (*self.enc.values(), *self.dec.values())
+                                for blk in stage.blocks() for m in blk.modules()):
+            raise ValueError("remat_blocks recomputes each block: a BatchNorm in a block "
+                             "would update its statistics twice")
         self.reset_parameters(seed)
 
     def reset_parameters(self, seed: int):
@@ -417,6 +427,34 @@ class PointTransformerV3(nn.Module):
         if self.mask_token is not None:  # flax's truncated_normal(0.02): 2 std
             nn.init.trunc_normal_(self.mask_token.data, std=0.02, a=-0.04, b=0.04,
                                   generator=gen)
+
+    def _block(self, blk: Block, feat, state: StageState, cpe_feat, generator):
+        """``blk`` on ``feat``; with ``remat_blocks``, in a training forward
+        that records gradients, under non-reentrant activation checkpointing
+        (the JAX package's ``nn.remat(Block)``): the block keeps only its
+        inputs and runs again in the backward. The recompute draws its
+        dropout and drop-path masks from ``generator`` set back to the
+        state it had at the block's entry, then leaves the generator where
+        it was, so the forward, the masks and the draws after it are those
+        of a run without ``remat_blocks``. A block holds no BatchNorm (its
+        norms are LayerNorms), so a recompute updates no statistics."""
+        if not (self.remat_blocks and self.training and torch.is_grad_enabled()):
+            return blk(feat, state, cpe_feat=cpe_feat, generator=generator)
+        entry = None if generator is None else generator.get_state()
+        calls = [0]
+
+        def run(feat, cpe_feat):
+            calls[0] += 1
+            if calls[0] == 1 or entry is None:
+                return blk(feat, state, cpe_feat=cpe_feat, generator=generator)
+            now = generator.get_state()
+            generator.set_state(entry)
+            try:
+                return blk(feat, state, cpe_feat=cpe_feat, generator=generator)
+            finally:
+                generator.set_state(now)
+
+        return checkpoint(run, feat, cpe_feat, use_reentrant=False)
 
     def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None,
                 token_mask: Optional[torch.Tensor] = None, return_enc: bool = False):
@@ -462,7 +500,7 @@ class PointTransformerV3(nn.Module):
                 state = StageState(coord, grid_coord, mask, ser,
                                    build_subm_conv_plan(grid_coord, mask, 3, depth))
             for blk in stage.blocks():
-                feat = blk(feat, state, generator=generator)
+                feat = self._block(blk, feat, state, None, generator)
         enc_feat, enc_mask = feat, state.mask
 
         for s in reversed(range(self.num_stages - 1)):
@@ -472,8 +510,7 @@ class PointTransformerV3(nn.Module):
                                        state.mask, plan)
             state = parent_state
             for i, blk in enumerate(stage.blocks()):
-                feat = blk(feat, state, cpe_feat=skip_feat if i == 0 else None,
-                           generator=generator)
+                feat = self._block(blk, feat, state, skip_feat if i == 0 else None, generator)
 
         out = point.replace(feat=feat, coord=state.coord, grid_coord=state.grid_coord,
                             mask=state.mask, ser=state.ser, plans=tuple(plans))

@@ -6,8 +6,11 @@
     it against fp32 parameters.
   - ``mcr_loss``: the coding-rate expansion (a Cholesky log-determinant of
     each teacher view's ``I + p / (m eps) cov``) plus cosine compression
-    between student and teacher crops, the teacher side detached.
-  - ``cosine_patch_loss``: the masked iBOT-style cosine loss.
+    between student and teacher crops, the teacher side detached; its
+    row sums (similarities, covariances, m) span the global batch under
+    data parallel (``parallel/dist.py:all_reduce_sum``).
+  - ``cosine_patch_loss``: the masked iBOT-style cosine loss, summed over
+    the global batch.
   - ``generate_token_masks``: per-point Bernoulli ("splats") or voxel-patch
     ("patch") token masks with per-point weights, split into the random
     draws (``draw_token_mask_randoms``) and the function of them
@@ -32,6 +35,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from scenesplat_tpu_torch.parallel.dist import all_reduce_sum, batch_rand, batch_randint, world
 
 from .builder import MODELS, build_model
 from .norm import LayerNorm
@@ -90,15 +95,21 @@ def mcr_loss(student_feats: Sequence[torch.Tensor], teacher_feats: Sequence[torc
     t = torch.stack(list(teacher_feats)).float().detach()  # [T, M, D]
     n_s, n_t = s.shape[0], t.shape[0]
 
-    sim = torch.einsum("tmd,smd->ts", t, s) / s.shape[1]
+    expa_feat = (s[:n_t] + t) / 2 if expa_type == 1 else s[:n_t]
+    p = expa_feat.shape[2]
+    # sums over the rows of the global batch (every process holds as many):
+    # the similarities and the covariances in one reduction
+    m = s.shape[1] * world()
+    sums = all_reduce_sum(torch.cat([
+        torch.einsum("tmd,smd->ts", t, s).reshape(-1),
+        torch.einsum("nbc,nbd->ncd", expa_feat, expa_feat).reshape(-1)]))
+    sim = sums[:n_t * n_s].reshape(n_t, n_s) / m
+    cov = sums[n_t * n_s:].reshape(n_t, p, p)
     if no_diag:
         eye = torch.eye(n_t, n_s, dtype=torch.bool, device=sim.device)
         sim = torch.where(eye, torch.zeros((), device=sim.device), sim)
     comp_loss = sim.sum() / (n_t * n_s - min(n_t, n_s))
 
-    expa_feat = (s[:n_t] + t) / 2 if expa_type == 1 else s[:n_t]
-    m, p = expa_feat.shape[1], expa_feat.shape[2]
-    cov = torch.einsum("nbc,nbd->ncd", expa_feat, expa_feat)
     eye = torch.eye(p, device=cov.device)
     expa = half_logdet(eye + (p / (m * eps)) * cov).sum() / n_t
     expa = expa * (p + m) / (p * m)
@@ -111,7 +122,7 @@ def cosine_patch_loss(student_tokens: torch.Tensor, teacher_tokens: torch.Tensor
                       weights: torch.Tensor, view_nums: int = 1) -> torch.Tensor:
     """[M, D] head outputs (L2-normalized); weights zero for unmasked slots."""
     cos = (teacher_tokens.detach().float() * student_tokens.float()).sum(-1)
-    return -(cos * weights).sum() / view_nums
+    return -all_reduce_sum((cos * weights).sum()) / view_nums
 
 
 # the patch hash's primes (int32 products that wrap, as the JAX function's)
@@ -134,16 +145,16 @@ def draw_token_mask_randoms(generator: Optional[torch.Generator], shape: Tuple[i
     """The random draws of ``generate_token_masks`` for a [B, N] batch:
     (sample_on [B, 1] bool, rate [B, 1] f32, unit), where unit is a [B, N]
     uniform for "splats" and a [B, 1] int32 seed in [0, 2^30) for
-    "patch"."""
+    "patch". Under data parallel each is this process's rows of the draw at
+    the global batch's shape (``parallel/dist.py:batch_rand``)."""
     b, n = shape
-    sample_on = torch.rand(b, 1, generator=generator, device=device) < mask_sample_probability
+    sample_on = batch_rand((b, 1), generator, device) < mask_sample_probability
     lo, hi = mask_ratio_min_max
-    rate = lo + (hi - lo) * torch.rand(b, 1, generator=generator, device=device)
+    rate = lo + (hi - lo) * batch_rand((b, 1), generator, device)
     if mask_type == "splats":
-        unit = torch.rand(b, n, generator=generator, device=device)
+        unit = batch_rand((b, n), generator, device)
     elif mask_type == "patch":
-        unit = torch.randint(0, 2 ** 30, (b, 1), generator=generator, device=device,
-                             dtype=torch.int32)
+        unit = batch_randint(0, 2 ** 30, (b, 1), generator, device, dtype=torch.int32)
     else:
         raise ValueError(f"unknown mask_type {mask_type!r}")
     return sample_on, rate, unit

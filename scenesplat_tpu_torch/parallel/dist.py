@@ -119,14 +119,61 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return all_reduce(x)
 
 
-def batch_rand(shape: Sequence[int], generator: torch.Generator,
+def all_gather_rows(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """Every process's ``x`` [n_r, ...] stacked in rank order as
+    [sum_r n_r, ...] (``x`` itself at one process), differentiable; a
+    process's rows may differ in number. Built from sums only, so that it
+    runs on every backend (gloo carries no all_gather of CUDA tensors): the
+    row counts come from the sum of a one-hot vector, then each
+    process puts its rows, padded with ``fill`` to the largest count, in
+    its slot of a zero [world, n_max, ...] buffer, whose sum over the
+    processes (``all_reduce_sum``) holds every slot. Its backward is that
+    of the sum: each process keeps its own slot's cotangents, summed over
+    the processes, as every other use of ``all_reduce_sum``."""
+    n = world()
+    if n == 1:
+        return x
+    counts = torch.zeros(n, dtype=torch.float64, device=x.device)
+    counts[rank()] = x.shape[0]
+    dist.all_reduce(counts)
+    counts = counts.long().tolist()
+    n_max = max(counts)
+    if x.shape[0] < n_max:
+        pad = x.new_full((n_max - x.shape[0],) + x.shape[1:], fill)
+        x = torch.cat([x, pad])
+    slots = [x if r == rank() else torch.zeros_like(x) for r in range(n)]
+    full = all_reduce_sum(torch.stack(slots))
+    return torch.cat([full[r, :counts[r]] for r in range(n)])
+
+
+def _draw_device(generator: Optional[torch.Generator], device):
+    if device is not None:
+        return device
+    return None if generator is None else generator.device
+
+
+def batch_rand(shape: Sequence[int], generator: Optional[torch.Generator],
                device=None) -> torch.Tensor:
     """U[0, 1) draws of ``shape`` = [B_local, ...]: this process's rows of
     one draw at the global batch's shape [B_local * world, ...]."""
     shape = tuple(shape)
-    device = generator.device if device is None else device
+    device = _draw_device(generator, device)
     n = world()
     if n == 1:
         return torch.rand(shape, generator=generator, device=device)
     full = torch.rand((shape[0] * n,) + shape[1:], generator=generator, device=device)
     return full[rank() * shape[0]:(rank() + 1) * shape[0]]
+
+
+def batch_randint(low: int, high: int, shape: Sequence[int],
+                  generator: Optional[torch.Generator],
+                  device=None, dtype=torch.int64) -> torch.Tensor:
+    """``torch.randint(low, high)`` draws of ``shape`` = [B_local, ...]: this
+    process's rows of one draw at the global batch's shape, as
+    ``batch_rand``."""
+    shape = tuple(shape)
+    device = _draw_device(generator, device)
+    n = world()
+    full = torch.randint(low, high, (shape[0] * n,) + shape[1:], generator=generator,
+                         device=device, dtype=dtype)
+    return full if n == 1 else full[rank() * shape[0]:(rank() + 1) * shape[0]]

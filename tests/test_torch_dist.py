@@ -21,8 +21,10 @@ thread, a free port and a time limit of its own.
    on that shard (``SCENESPLAT_EVAL_RANK`` / ``SCENESPLAT_EVAL_WORLD``) to
    the tolerance of tests/test_torch_test.py.
 4. The trainer: two ranks of the train entry on the flagship file write
-   one checkpoint that loads strictly into a one-process model; semseg and
-   SSL refuse a group of two; a group that cannot start raises."""
+   one checkpoint that loads strictly into a one-process model; the
+   shipped semseg and SSL files train a step under a group of two (their
+   steps against one process: tests/test_torch_dist_tasks.py); a group that
+   cannot start raises."""
 
 import copy
 import json
@@ -389,19 +391,71 @@ def test_two_ranks_step_equals_jax_global_batch(rows, tmp_path):
 
 # ---- the trainer ------------------------------------------------------------------
 
-def test_semseg_and_ssl_refuse_two_ranks(tmp_path):
+# the semseg and SSL files' 5 stages at narrow widths (the README's CPU cut)
+TINY_WIDTHS = dict(enc_channels=(16, 16, 32, 32, 32), enc_num_head=(1, 1, 2, 2, 2),
+                   enc_depths=(1, 1, 1, 1, 1), dec_channels=(16, 16, 32, 32),
+                   dec_num_head=(1, 1, 2, 2), dec_depths=(1, 1, 1, 1), enc_patch_size=(64,) * 5)
+
+
+def _write_gs_rooms(root, rng, count, n, semseg):
+    """root/train/scene<i>_00/<asset>.npy: ``n`` Gaussians on a 1 cm lattice
+    in a 0.4 m cube; with ``semseg`` also normals and ``segment20``."""
+    for i in range(count):
+        scene = root / "train" / f"scene{i:04d}_00"
+        scene.mkdir(parents=True)
+        cells = rng.choice(40 ** 3, n, replace=False)
+        coord = (np.stack(np.unravel_index(cells, (40,) * 3), -1) * 0.01 + 0.005)
+        assets = dict(coord=coord, color=rng.uniform(0, 255, (n, 3)),
+                      quat=rng.normal(size=(n, 4)), scale=rng.uniform(0.01, 0.5, (n, 3)),
+                      opacity=rng.uniform(0.1, 1, n))
+        if semseg:
+            normal = rng.normal(size=(n, 3))
+            assets["normal"] = normal / np.linalg.norm(normal, axis=1, keepdims=True)
+        for key, value in assets.items():
+            np.save(scene / f"{key}.npy", value.astype(np.float32))
+        if semseg:
+            np.save(scene / "segment20.npy", rng.integers(-1, 20, n).astype(np.int16))
+
+
+def test_semseg_and_ssl_files_train_two_ranks(tmp_path):
+    """The shipped semseg and SSL files train under a group of two: each
+    builds a two-rank trainer on the CPU (the step under DDP; SSL's through
+    its SSLObjective) and takes one step of a global batch of 2, the same
+    finite loss on both ranks. Cut by options as a user cuts them on the
+    CPU: narrow widths and windows of 64 (``TINY_WIDTHS``), small rooms,
+    1,024 points a semseg row (Mix3D as the file sets it), SSL crops of
+    1,024 and 256."""
     from scenesplat_tpu_torch.utils.config import Config
 
-    cfgs = []
-    for path in ("configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py",
-                 "configs/scannet/ssl-pretrain-scannet-all-base.py"):
+    rng = np.random.default_rng(13)
+    jobs = {}
+    for name, path, semseg in (
+            ("semseg", "configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py", True),
+            ("ssl", "configs/scannet/ssl-pretrain-scannet-all-base.py", False)):
+        root = tmp_path / f"{name}_root"
+        _write_gs_rooms(root, rng, 4 if semseg else 2, 1500, semseg)  # Mix3D: 2 a row
         cfg = Config.fromfile(str(ROOT / path))
-        cfg.merge_from_options(dict(save_path=str(tmp_path / "exp"), batch_size=2, hooks=[]))
-        cfgs.append(cfg.to_dict())
-    for cfg, why in zip(cfgs, ("Lovasz", "MCR")):
+        cfg.merge_from_options(dict(save_path=str(tmp_path / name), batch_size=2, epoch=1,
+                                    eval_epoch=1, num_worker=1, hooks=[]))
+        cfg.data.train.data_root = str(root)
+        cfg.model.backbone.update(TINY_WIDTHS)
+        if semseg:
+            cfg.model.backbone_out_channels = TINY_WIDTHS["dec_channels"][0]
+            cfg.data.num_points = 1024
+            for t in cfg.data.train.transform:
+                if t["type"] == "SphereCrop":
+                    t["point_max"] = 1000
+        else:
+            cfg.data.num_points, cfg.data.num_points_local = 1024, 256
+            cfg.model.dino_hidden_dim, cfg.model.ibot_hidden_dim = 64, 32
+        jobs[name] = cfg.to_dict()
+    for name, cfg in jobs.items():
         got = run_ranks(tmp_path, dict(kind="trainer", cfg=cfg))
         for res in got:
-            assert res["raised"] and why in res["raised"], res
+            assert res["world"] == 2 and res["task"] == name, res
+            assert res["train_model"] == "DistributedDataParallel"
+            assert len(res["losses"]) == 1 and np.isfinite(res["losses"]).all()
+        assert got[0]["losses"] == got[1]["losses"]
 
 
 def test_failed_group_start_raises(monkeypatch):
