@@ -171,7 +171,38 @@ Phases, one JSON line each:
      widths, 2 rows of 49,152 points, with remat_blocks off and on, under
      deterministic algorithms: the loss bit-equal, every gradient to 1e-5
      of its norm, each run's peak memory and K1 / K2 launches a step (the
-     recompute launches K1 with lse once more a block).
+     recompute launches K1 with lse once more a block);
+ 25. ppt_train: Point Prompt Training, MultiDatasetTrainer over the semseg
+     file with a PPT-v1m1 model over its backbone (bf16, 205,824 points,
+     PDNorm BatchNorms and LayerNorms, two conditions, ScanNetGS with 20
+     classes and ScanNetPPGS with 100, the backbone's pdnorm_conditions in
+     the other order, the ScanNet200 SigLIP2 table as class embeddings) at
+     batch 2 for 6 steps over 4 synthetic rooms read by both datasets
+     (loops 2 and 1: conditions A A B A A B), then SemSegEvaluator over one
+     validation room a condition: each step's condition, only its PDNorm
+     statistics moved, K1 / K2 launches by variant, losses, step times,
+     loader waits, peak memory, one profiled step, each condition's
+     val/mIoU; then ppt_timing_bwd, timing_bwd at its stage shapes;
+ 26. ppt_test: the test entry point on that config with ppt_train's
+     checkpoint, one SemSegTester a condition over a 320,001-Gaussian room
+     (9 views), as a user runs it: seconds per scene (fetch, extract,
+     vote), K1 per fragment forward; then ppt_timing_test (every K1 call of
+     the first fragment forward);
+ 27. ppt_agree: one fp32 loss of PPT-v1m1 and of PPT-v1m2 at one block a
+     stage and 49,152 points on each condition, kernels against plain
+     (losses to 1e-5, gradients to 1e-4 relative), only the active
+     condition's norms (and v1m2's head) with gradients;
+ 28. ppt_ddp_agree: two ranks sharing the card over gloo against one
+     process, PPT-v1m2 at one block a stage, 2 rows of 49,152, two steps
+     through a change of condition under DDP with find_unused_parameters:
+     each step's loss to 1e-5, every gradient to 1e-4 of its norm, the
+     inactive head without gradient, statistics to 1e-6;
+ 29. rpe_agree: the semseg file's backbone with enable_rpe at 205,824
+     points in bf16: zero tables against the K1 path of the same weights
+     under the noise-floor rule (both against the fp32 K1 forward), each
+     forward's time and peak memory; one bf16 train step of the semseg
+     model with random tables: finite loss and gradients, every table's
+     gradient nonzero, no K1 or K2 launch.
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
 encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
@@ -204,6 +235,7 @@ import logging
 import math
 import multiprocessing as mp
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -228,13 +260,19 @@ from scenesplat_tpu_torch.engines.pretrain import (
     ssl_train_step,
 )
 from scenesplat_tpu_torch.engines.train import build_trainer
-from scenesplat_tpu_torch.engines.train_step import lang_loss, semseg_loss, train_step
+from scenesplat_tpu_torch.engines.train_step import (
+    lang_loss,
+    ppt_loss,
+    semseg_loss,
+    train_step,
+)
 from scenesplat_tpu_torch.entry import (
     FLAGSHIP_BACKBONE,
     SHIPPED_INFERENCE_BACKBONE,
     build_lang_model,
 )
 from scenesplat_tpu_torch.models import PointBatch, build_criteria, build_model
+from scenesplat_tpu_torch.models.ppt import valid_index_by_name
 from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3, _round_capacity
 from scenesplat_tpu_torch.models.ssl import generate_token_masks
 from scenesplat_tpu_torch.ops import bitonic_sort as bs
@@ -821,7 +859,7 @@ def shell_normals(grid, extent, thickness):
 
 
 def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0,
-                    semseg=False):
+                    semseg=False, ppt=False):
     """``n_scenes`` synthetic 3DGS scenes of ``n`` unique 2 cm voxels on the
     4 cm thick floor and walls of a room of ``size_m`` metres (81% of its
     247,072 surface voxels at the default size), in the GS datasets'
@@ -833,7 +871,9 @@ def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0
     stages inside their capacities after Mix3D merges two rooms and halves
     each one's density. With ``pc_points`` a scene also gets an evaluation
     point cloud (that many of its points, moved by a few millimetres, with
-    their labels)."""
+    their labels). With ``ppt`` (and ``semseg``) a scene also holds 100
+    ScanNet++ classes as ``segment`` (ppt_labels), so that the ScanNet and
+    the ScanNet++ dataset read one scene as two conditions."""
     rng = np.random.default_rng(seed)
     if not semseg:
         emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
@@ -855,6 +895,8 @@ def write_gs_scenes(root, n_scenes, n, seed, size_m=(3.6, 3.6, 2.6), pc_points=0
         if semseg:
             extent = [int(round(m / GRID)) for m in size_m]
             assets.update(segment20=seg, normal=shell_normals(grid, extent, 2))
+            if ppt:
+                assets["segment"] = ppt_labels(seg, coord)
         else:
             assets.update(
                 segment=seg, segment200=seg,
@@ -966,9 +1008,9 @@ def run_training(cfg, before=None):
               val_variants=dict.fromkeys(fwa.VARIANTS, 0), val_overflow=[])
     forward = trainer.model.forward
 
-    def recording_forward(point, generator=None):
+    def recording_forward(point, generator=None, **kwargs):  # PPT: condition=
         before, variants = fwa.flash_window_attention.launches, k1_variants()
-        out = forward(point, generator=generator)
+        out = forward(point, generator=generator, **kwargs)
         mode = "train" if trainer.model.training else "val"
         k1[mode + "_forwards"] += 1
         k1[mode + "_launches"] += fwa.flash_window_attention.launches - before
@@ -979,7 +1021,7 @@ def run_training(cfg, before=None):
                                           default=0))
             return out
         records.append(dict(
-            overflow=[p.n_overflow for p in out.plans],
+            condition=kwargs.get("condition"), overflow=[p.n_overflow for p in out.plans],
             sizes=[(point.mask.shape[1], point.mask.sum(1))]
             + [(p.out_mask.shape[1], p.out_mask.sum(1)) for p in out.plans]))
         return out
@@ -2061,7 +2103,15 @@ def phase_kernel_sort():
     return worst
 
 
-def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000, semseg=False):
+def ppt_labels(seg20, coord):
+    """100 ScanNet++ classes from the 20 (angle and height) and the
+    quadrant of the x-y plane (5 per ScanNet class, the fifth never used)."""
+    quadrant = 2 * (coord[:, 0] > coord[:, 0].mean()) + (coord[:, 1] > coord[:, 1].mean())
+    return (5 * seg20.astype(np.int64) + quadrant).astype(np.int16)
+
+
+def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000, semseg=False,
+                      ppt=False):
     """``n_scenes`` ScanNet-layout scenes under root/val: ``n_voxels``
     unique 2 cm voxels on the floor and walls of a 6 x 6 x 3 m room, each
     holding two Gaussians 1 cm apart on its diagonal, plus one Gaussian at
@@ -2071,8 +2121,9 @@ def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000, semseg=F
     classes by position as ``segment200``, valid_feat_mask and an
     evaluation point cloud of ``pc_points`` of the Gaussians moved by a few
     millimetres; with ``semseg`` the semseg files' assets instead: normals
-    and 20 classes by angle and height as ``segment20``. Returns the
-    Gaussians a scene holds."""
+    and 20 classes by angle and height as ``segment20``, with ``ppt`` also
+    the 100 of ppt_labels as ``segment``. Returns the Gaussians a scene
+    holds."""
     rng = np.random.default_rng(seed)
     extent = [int(round(m / GRID)) for m in (6.0, 6.0, 3.0)]
     ex, ey, _ = extent
@@ -2106,6 +2157,8 @@ def write_test_scenes(root, n_scenes, n_voxels, seed, pc_points=100000, semseg=F
         if semseg:
             cells = np.concatenate([grid, grid, anchor[None]])
             assets.update(segment20=seg, normal=shell_normals(cells, extent, 1))
+            if ppt:
+                assets["segment"] = ppt_labels(seg, coord)
         else:
             assets.update(
                 segment200=seg, valid_feat_mask=rng.random(n) > 0.1,
@@ -3415,6 +3468,516 @@ def phase_remat_agree(n=49152):
                 on=dict(k1_lse=on["k1_lse"], k2=on["k2"]))
 
 
+# ---- Point Prompt Training and the RPE switch --------------------------------
+
+# the PPT model's conditions and, in another order as in the published PPT
+# file, the backbone's PDNorm conditions: a name looked up by index would
+# pick the other dataset's norms
+PPT_CONDITIONS = ("ScanNetGS", "ScanNetPPGS")
+PPT_PDNORM_CONDITIONS = ("ScanNetPPGS", "ScanNetGS")
+PPT_CLASSES = dict(ScanNetGS=20, ScanNetPPGS=100)
+PPT_DATASETS = dict(ScanNetGS="ScanNetGSDataset", ScanNetPPGS="ScanNetPPGSDataset")
+
+
+def ppt_model_config(backbone, kind="v1m1"):
+    """PPT over the semseg file's PT-v3m1 with the published PPT switches
+    (pdnorm bn, ln and decouple on, adaptive off, context 256): PPT-v1m1
+    over the port's ScanNet200 SigLIP2 table, each condition's classes
+    matched to its rows by name (valid_index_by_name), or PPT-v1m2 with
+    one head per condition (20 and 100 classes)."""
+    bb = dict(backbone, pdnorm_conditions=PPT_PDNORM_CONDITIONS, pdnorm_bn=True,
+              pdnorm_ln=True, pdnorm_decouple=True, pdnorm_adaptive=False,
+              context_channels=256)
+    common = dict(backbone=bb, backbone_out_channels=64, context_channels=256,
+                  conditions=PPT_CONDITIONS)
+    if kind == "v1m2":
+        return dict(type="PPT-v1m2", num_classes=tuple(PPT_CLASSES[c] for c in PPT_CONDITIONS),
+                    **common)
+    return dict(type="PPT-v1m1", class_name="builtin:scannet200",
+                class_embedding_path="builtin:scannet200",
+                valid_index=valid_index_by_name("builtin:scannet200", (
+                    "builtin:scannet20", "builtin:scannetpp_top100")), **common)
+
+
+def with_condition(transform, name):
+    """A pipeline ending in Collect, with Add(condition=name) before its
+    ToTensor and ``condition`` collected."""
+    transform = [dict(t) for t in transform]
+    collect = transform[-1]
+    check(collect["type"] == "Collect", f"pipeline ends in {collect['type']}")
+    transform[-1] = dict(collect, keys=tuple(collect["keys"]) + ("condition",))
+    transform.insert(len(transform) - 2, dict(type="Add", keys_dict={"condition": name}))
+    return transform
+
+
+def ppt_train_config(root, exp, batch_size, test_root=None):
+    """The semseg file (criteria, optimizer, schedule, param groups, Mix3D,
+    points, its hooks but PreciseEvaluator) with the PPT-v1m1 model over
+    its backbone and MultiDatasetTrainer over two children of the same
+    scenes under ``root``: ScanNetGS (ScanNetGSDataset, ScanNet-20 labels,
+    loop 2) and ScanNetPPGS (ScanNetPPGSDataset, 100 classes, loop 1), each
+    pipeline ending in Add(condition); the concatenation's loop 2. With 4
+    scenes and batch 2 (Mix3D: 4 samples a batch) that is 6 steps, the
+    conditions A, A, B, A, A, B. Validation: one child per condition over
+    root/val; with ``test_root``, one SemSegTester per condition over it."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    cfg.merge_from_options(dict(save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size))
+    cfg.model = dict(ppt_model_config(cfg.model.backbone), criteria=cfg.model.criteria)
+    cfg.train = dict(type="MultiDatasetTrainer")
+    train, val, test, testers = [], [], [], []
+    for name, loop in zip(PPT_CONDITIONS, (2, 1)):
+        dataset = PPT_DATASETS[name]
+        train.append(dict(cfg.data.train, type=dataset, data_root=root, loop=loop,
+                          transform=with_condition(cfg.data.train.transform, name)))
+        val.append(dict(cfg.data.val, type=dataset, data_root=root,
+                        transform=with_condition(cfg.data.val.transform, name)))
+        test_cfg = dict(cfg.data.test.test_cfg)
+        test_cfg["post_transform"] = with_condition(test_cfg["post_transform"], name)
+        test.append(dict(cfg.data.test, type=dataset, data_root=test_root, test_cfg=test_cfg))
+        testers.append(dict(type="SemSegTester", num_classes=PPT_CLASSES[name],
+                            save_path=os.path.join(exp, f"test_{name}")))
+    cfg.data.update(num_classes=max(PPT_CLASSES.values()),
+                    train=dict(type="ConcatDataset", datasets=train, loop=2),
+                    val=dict(type="ConcatDataset", datasets=val))
+    if test_root:
+        cfg.data.test, cfg.test = test, testers
+    cfg.hooks = [h for h in cfg.hooks if h["type"] != "PreciseEvaluator"]
+    return cfg
+
+
+def pdnorm_index(key):
+    """The condition index (in the backbone's order) of a PDNorm's entry
+    ``...norm.{c}.<leaf>``, else None."""
+    m = re.search(r"\.norm\.(\d+)\.(weight|bias|running_mean|running_var)$", key)
+    return None if m is None else int(m.group(1))
+
+
+class PDNormProbe(HookBase):
+    """Around every train step, which conditions' PDNorm BatchNorms moved
+    their running statistics (indices into the backbone's
+    ``pdnorm_conditions``)."""
+
+    def __init__(self, model):
+        self.stats = {k: v for k, v in model.named_buffers()
+                      if k.endswith("running_mean") and pdnorm_index(k) is not None}
+        self.moved, self.before = [], None
+
+    def before_step(self):
+        self.before = {k: v.clone() for k, v in self.stats.items()}
+
+    def after_step(self):
+        self.moved.append(sorted({pdnorm_index(k) for k, v in self.stats.items()
+                                  if not torch.equal(v, self.before[k])}))
+
+
+def phase_ppt_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000):
+    """MultiDatasetTrainer on ppt_train_config: PPT-v1m1 at the semseg
+    file's widths (bf16, 205,824 points, 32 heads at stage 4, encoder
+    windows of 1024, decoder 48), batch 2, 6 steps over 4 synthetic rooms
+    read as two conditions, then SemSegEvaluator over one validation room a
+    condition. Checks each step's condition (A, A, B, A, A, B by the loop
+    ratio), that only that condition's PDNorm statistics moved in it (the
+    name looked up in the backbone's other order), K1 / K2 launches by
+    variant, finite losses, no pooling overflow and each condition's
+    val mIoU. Returns the stage shapes, the K1 / K2 counts and the best
+    checkpoint, copied into ``work``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "rooms")
+        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=31, size_m=room,
+                        semseg=True, ppt=True)
+        write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=32,
+                        size_m=(2.4, 2.4, 2.0), semseg=True, ppt=True)
+        data_s = time.perf_counter() - t0
+        reset_k1_counts()
+        reset_k2_counts()
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
+        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2)
+        probes = []
+
+        def before(trainer):
+            probes.append(PDNormProbe(trainer.model))
+            probes[0].trainer = trainer
+            trainer.hooks.append(probes[0])
+
+        trainer, probe, records, k1_counts = run_training(cfg, before=before)
+        moved = probes[0].moved
+        backbone = trainer.cfg.model.backbone
+        enc, dec = depth_split(backbone)
+        blocks = enc + dec
+        k1, k2 = k1_counts["train_launches"], fwa.flash_window_attention_bwd.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = probe.step_ms()
+        hist = trainer.storage.history
+        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+        conditions = [r["condition"] for r in records]
+        a, b = PPT_CONDITIONS
+        check(conditions == [a, a, b] * (steps // 3),
+              f"ppt_train: step conditions {conditions}, expected {a} {a} {b} twice")
+        want_moved = [[PPT_PDNORM_CONDITIONS.index(c)] for c in conditions]
+        check(moved == want_moved, f"ppt_train: PDNorm statistics of conditions {moved} moved "
+              f"in the steps, expected {want_moved} (the backbone's order)")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses + grad_norms),
+              f"ppt_train: losses {losses}, grad norms {grad_norms}")
+        check(k1_counts["train_forwards"] == steps and k1 == blocks * steps
+              and k2 == blocks * steps,
+              f"ppt_train: {k1} forward and {k2} backward kernel launches in {steps} steps")
+        got = {v: n for v, n in k1_counts["train_variants"].items() if n}
+        check(got == dict(bf16_large=enc * steps, bf16_small=dec * steps),
+              f"ppt_train: train K1 variant launches {got}")
+        check(k2_variants == dict(k2_variants, bf16_small=dec * steps, bf16_large=enc * steps),
+              f"ppt_train: K2 variant launches {k2_variants}")
+        val_forwards, k1_val = k1_counts["val_forwards"], k1_counts["val_launches"]
+        check(val_forwards == 2 and k1_val == 2 * blocks,
+              f"ppt_train: {k1_val} K1 launches in {val_forwards} validation forwards")
+        overflow = [[int(o.max()) for o in r["overflow"]] for r in records]
+        check(not any(map(any, overflow)) and not any(k1_counts["val_overflow"]),
+              f"ppt_train: pooling overflow {overflow} {k1_counts['val_overflow']}")
+        mious = {c: hist(f"val/{c}/mIoU").values() for c in PPT_CONDITIONS}
+        check(all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in mious.values()),
+              f"ppt_train: per-condition val mIoU {mious}")
+        checkpoint = shutil.copy(os.path.join(trainer.cfg.save_path, "model", "model_best.pth"),
+                                 os.path.join(work, "ppt_model_best.pth"))
+        sizes = [[(n, v.tolist()) for n, v in r["sizes"]] for r in records]
+        emit(dict(phase="ppt_train", model="PPT-v1m1", conditions=PPT_CONDITIONS,
+                  pdnorm_conditions=PPT_PDNORM_CONDITIONS, config=SEMSEG_CONFIG + " + PPT",
+                  batch_size=2, points=cfg.data.num_points, steps=len(losses),
+                  step_conditions=conditions, pdnorm_stats_moved=moved, loss=losses,
+                  grad_norm=grad_norms, lr=hist("lr").values(), cold_step_ms=step_ms[0],
+                  warm_step_ms=step_ms[1:-1], profiled_step_ms=step_ms[-1],
+                  data_wait_s=hist("data_time").values(), peak_mem_gib=peak_gib,
+                  val_miou={c: v[0] for c, v in mious.items()},
+                  val_miou_mean=hist("val/mIoU").values()[0],
+                  k1_launches_per_step=k1 / steps, k2_launches_per_step=k2 / steps,
+                  k1_variant_launches=k1_counts["train_variants"],
+                  k2_variant_launches=dict(k2_variants), evaluation_forwards=val_forwards,
+                  evaluation_k1_launches=k1_val, n_overflow_per_stage=overflow,
+                  stage_slots_valid=sizes[-1], dataset_write_s=data_s, profile=probe.profile))
+        print(f"ppt_train: step conditions {conditions}; val mIoU "
+              f"{ {c: round(v[0], 4) for c, v in mious.items()} }; K1 {k1_counts['train_variants']}"
+              f", K2 {dict(k2_variants)} in {steps} steps", flush=True)
+        del trainer
+    torch.cuda.empty_cache()
+    shapes = stage_shapes(backbone, [(n, v.tolist()) for n, v in records[-1]["sizes"]])
+    return shapes, k1, dict(k1_counts["train_variants"]), dict(k2_variants), checkpoint
+
+
+def phase_ppt_test(work, checkpoint, n_voxels=160000):
+    """``python -m scenesplat_tpu_torch.test`` on the PPT config with the
+    ppt_train checkpoint: a SemSegTester a condition (ScanNetGS over 20
+    classes, ScanNetPPGS over 100 with the ScanNet++ top-3 protocol), each
+    over one synthetic room of 320,001 Gaussians with both label sets, 9
+    views, as a user runs it. Checks every scene predicted, finite mIoU
+    and K1 once a block in every fragment forward; prints the seconds per
+    scene (fetch, extract, vote). Returns the K1 counts, the fragment
+    forwards and the shapes of K1's calls in the first one."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "ppt_test")
+    n_points = write_test_scenes(root, 1, n_voxels, seed=33, semseg=True, ppt=True)
+    write_s = time.perf_counter() - t0
+    cfg = ppt_train_config(root, os.path.join(work, "ppt_test_exp"), 2, test_root=root)
+    path = os.path.join(work, "ppt_test_config.py")
+    cfg.dump(path)
+    backbone = cfg.model["backbone"]
+    enc, dec = depth_split(backbone)
+    calls = WindowCalls(limit=enc + dec, max_window=max(backbone["enc_patch_size"]))
+    reset_k1_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with calls:
+        results = test_entry.main(["--config-file", path, "--options", f"weight={checkpoint}"])
+    seconds = time.perf_counter() - t1
+    per_condition = {}
+    for name, tester, res in zip(PPT_CONDITIONS, cfg.test, results):
+        with open(os.path.join(tester["save_path"], "scene_log.json")) as f:
+            scenes = json.load(f)
+        check(len(scenes) == 1 and scenes[0]["points"] == n_points,
+              f"ppt_test: {name}: scenes {[(s['name'], s['points']) for s in scenes]}")
+        check(math.isfinite(res["mIoU"]) and res["iou_per_class"].shape == (PPT_CLASSES[name],),
+              f"ppt_test: {name}: mIoU {res['mIoU']}, {res['iou_per_class'].shape} classes")
+        per_condition[name] = dict(mIoU=res["mIoU"], classes=PPT_CLASSES[name],
+                                   per_scene=scene_split(dict(scenes=scenes)))
+    fragments = sum(sc["fragments"] for r in per_condition.values() for sc in r["per_scene"])
+    variants = {v: n for v, n in k1_variants().items() if n}
+    check(fwa.flash_window_attention.launches == (enc + dec) * fragments
+          and variants == dict(bf16_large=enc * fragments, bf16_small=dec * fragments),
+          f"ppt_test: K1 {variants} in {fragments} fragment forwards")
+    check(len(calls.calls) == enc + dec, f"ppt_test: first fragment's K1 calls {calls.calls}")
+    emit(dict(phase="ppt_test", dtype="bfloat16", points_per_scene=n_points, views=9,
+              fragments=fragments, seconds=seconds, dataset_write_s=write_s,
+              k1_variant_launches=variants, conditions=per_condition,
+              k1_calls_first_fragment=calls.shapes()))
+    for name, r in per_condition.items():
+        for sc in r["per_scene"]:
+            print(f"ppt_test: {name} {sc['name']} {sc['points']} points, {sc['fragments']} "
+                  f"fragments: fetch {sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, "
+                  f"vote {sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
+    return variants, fragments, calls.shapes()
+
+
+def ppt_fp32_model(kind, **backbone):
+    """ppt_model_config of ``kind`` over the semseg file's backbone at one
+    block a stage (widths, heads, windows, drop-path 0.3 kept), fp32 from
+    seed 1, on the card in train mode, and the file's criteria."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    model = build_model(ppt_model_config(dict(
+        cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4, dtype="float32", seed=1,
+        **backbone), kind))
+    return model.cuda().train(), build_criteria(cfg.model.criteria)
+
+
+def ppt_grads(model):
+    """The gradients a step left (the other condition's norms and head
+    have none)."""
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def phase_ppt_agree(n=49152):
+    """One fp32 training loss (CE + Lovasz) of PPT-v1m1 and of PPT-v1m2 at
+    one block a stage on each condition, with the kernels and with the
+    plain attention, from the same weights and generator seeds: losses to
+    1e-5, each gradient to 1e-4 of its norm; the parameters with gradients
+    are the backbone's shared ones, the active condition's norms (its
+    index in the backbone's order) and head."""
+    backbone = dict(Config.fromfile(SEMSEG_CONFIG).model.backbone, enc_depths=(1,) * 5,
+                    dec_depths=(1,) * 4)
+    rows = semseg_rows(n, (41,))
+    for kind in ("v1m1", "v1m2"):
+        for ci, name in enumerate(PPT_CONDITIONS):
+            batch = dict(cuda_batch(rows), condition=name)
+            active = PPT_PDNORM_CONDITIONS.index(name)
+
+            def step(use_kernel):
+                model, criteria = ppt_fp32_model(kind, use_kernel=use_kernel)
+                gen = torch.Generator(device="cuda").manual_seed(12)
+                loss, out = ppt_loss(model, criteria, batch, gen)
+                loss.backward()
+                grads = ppt_grads(model)
+                norms = {pdnorm_index(k) for k in grads} - {None}
+                check(norms == {active}, f"ppt_agree: {kind} {name}: norms of conditions "
+                      f"{norms} took gradients, expected {active}")
+                heads = {k for k in grads if k.startswith("seg_heads.")}
+                check(kind == "v1m1" or heads == {f"seg_heads.{ci}.weight",
+                                                  f"seg_heads.{ci}.bias"},
+                      f"ppt_agree: {name}: head gradients {heads}")
+                return loss.item(), grads, [int(p.n_overflow.max()) for p in out.plans]
+
+            compare_train_steps(f"ppt_agree_{kind}_{name}", step, sum(depth_split(backbone)),
+                                points=n, model=f"PPT-{kind}", condition=name,
+                                pdnorm_index=active)
+
+
+def ppt_steps_fp32(batch, conditions, ddp=False, kind="v1m2"):
+    """train_step of task "ppt" on ppt_fp32_model(kind) (drop-path 0.3,
+    the curve shuffle drawn from a generator seeded 12; SGD at lr 0) once
+    on each of ``conditions`` in turn; with ``ddp`` the model runs under
+    one DDP wrapper with find_unused_parameters, as the trainer builds it
+    for PPT, which sees the change of condition. Returns each step's (loss, grad
+    norm, gradients, pooling overflow) and the BatchNorm statistics
+    after the last."""
+    model, criteria = ppt_fp32_model(kind)
+    overflow, forward = [], model.forward
+
+    def recording(point, generator=None, condition=None):
+        out = forward(point, generator=generator, condition=condition)
+        overflow.append([int(p.n_overflow.max()) for p in out.plans])
+        return out
+
+    model.forward = recording
+    wrapped = data_parallel(model, find_unused_parameters=True) if ddp else model
+    steps = []
+    for name in conditions:
+        metrics = train_step(wrapped, criteria, torch.optim.SGD(model.parameters(), lr=0.0),
+                             None, dict(batch, condition=name),
+                             generator=torch.Generator(device="cuda").manual_seed(12),
+                             task="ppt")
+        steps.append((metrics["loss"].item(), metrics["grad_norm"].item(), ppt_grads(model),
+                      overflow[-1]))
+    stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return steps, stats
+
+
+def ppt_agree_rank(rank, world, port, job_file):
+    """One rank of phase_ppt_ddp_agree (a spawned process sharing the card
+    over gloo): its row of the global batch through ppt_steps_fp32 under
+    DDP with find_unused_parameters; writes the steps and its K1 / K2
+    launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_file, weights_only=False)
+    with torchrun_env(rank, world, port):
+        init_distributed("cuda", backend="gloo")
+        try:
+            reset_k1_counts()
+            reset_k2_counts()
+            rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
+            steps, stats = ppt_steps_fp32(cuda_batch(rows), job["conditions"], ddp=True)
+            torch.save(dict(steps=[(loss, norm, {k: g.cpu() for k, g in grads.items()}, o)
+                                   for loss, norm, grads, o in steps],
+                            stats={k: v.cpu() for k, v in stats.items()},
+                            k1_lse=k1_lse_variants(),
+                            k2=dict(fwa.flash_window_attention_bwd.variant_launches)),
+                       job["out"].format(rank=rank))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def phase_ppt_ddp_agree(work, world=2):
+    """Two ranks sharing the card over gloo, one row each, against one
+    process over both rows: PPT-v1m2 at one block a stage, fp32, 2 rows of
+    49,152 points (semseg_rows: their 4 cm cells fit the first pooling), two steps, on ScanNetGS then ScanNetPPGS, through one
+    DDP wrapper with find_unused_parameters (the inactive condition's
+    norms and head take no gradient, and change with the condition; each
+    step checks that the ranks hold one condition). Each step's loss to
+    1e-5, every gradient to 1e-4 of its norm, the same parameters with
+    gradients on every rank and in one process (the inactive head's
+    none), the BatchNorm statistics after both steps to 1e-6."""
+    phase = "ppt_ddp_agree"
+    conditions = list(PPT_CONDITIONS)
+    rows = semseg_rows(49152, (43, 44))
+    ref_steps, ref_stats = ppt_steps_fp32(cuda_batch(rows), conditions)
+    ref_steps = [(loss, norm, {k: g.cpu() for k, g in grads.items()}, o)
+                 for loss, norm, grads, o in ref_steps]
+    gc.collect()
+    torch.cuda.empty_cache()
+    job_file = os.path.join(work, f"{phase}_job.pt")
+    torch.save(dict(rows=rows, conditions=conditions,
+                    out=os.path.join(work, f"{phase}_rank{{rank}}.pt")), job_file)
+    ranks_s = spawn_ranks(ppt_agree_rank, world, job_file)
+    ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    record = dict(phase=phase, model="PPT-v1m2", world=world, backend="gloo", rows=world,
+                  dtype="float32", drop_path=0.3, conditions=conditions, ranks_s=ranks_s,
+                  find_unused_parameters=True, stat_rtol=STAT_RTOL_DDP)
+    for r, got in enumerate(ranks):
+        for i, (name, (loss, _, grads, overflow)) in enumerate(zip(conditions, got["steps"])):
+            ref_loss, _, ref_grads, ref_overflow = ref_steps[i]
+            inactive = f"seg_heads.{1 - PPT_CONDITIONS.index(name)}.weight"
+            check(inactive not in grads and inactive not in ref_grads,
+                  f"{phase}: rank {r}: step {i} ({name}): the inactive head took a gradient")
+            compare_steps(f"{phase}_rank{r}_step{i}", (loss, grads, overflow),
+                          (ref_loss, ref_grads, ref_overflow), names=("ranks", "one"),
+                          world=world, condition=name)
+            for key, g in ranks[0]["steps"][i][2].items():
+                check(torch.equal(g, grads[key]),
+                      f"{phase}: rank {r}'s step {i} {key} gradient differs from rank 0's")
+        record.setdefault("stat_worst_rel_l2", []).append(
+            check_ranks_stats(phase, r, got["stats"], ref_stats))
+        k1_lse, k2 = sum(got["k1_lse"].values()), sum(got["k2"].values())
+        check(k1_lse > 0 and k2 > 0, f"{phase}: rank {r}: K1 with lse {k1_lse}, K2 {k2}")
+        record.setdefault("k1_lse", []).append(k1_lse)
+        record.setdefault("k2", []).append(k2)
+    record.update(loss=[[s[0] for s in got["steps"]] for got in ranks],
+                  loss_one=[s[0] for s in ref_steps])
+    emit(record)
+    return dict(k1_lse=sum(record["k1_lse"]), k2=sum(record["k2"]))
+
+
+def phase_rpe_agree(n=205824, n_train=49152, reps=3):
+    """enable_rpe on the semseg file's backbone at its widths (bf16, 5
+    stages, encoder windows of 1024, decoder 48), one row of ``n`` points:
+    with every rpe_table zero the RPE path (plain dense attention with the
+    bias, no kernel) against the K1 path of the same weights, both against
+    the fp32 K1 forward, under the noise-floor rule (the RPE path's error
+    at most 2.5x the K1 path's); each forward's time (CUDA events) and
+    peak memory; then one bf16 train step of the semseg file's
+    DefaultSegmentorV2 over that backbone with enable_rpe and its random
+    tables at ``n_train`` points: finite loss and gradients, every table's
+    gradient nonzero, no K1 or K2 launch."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    backbone = dict(cfg.model.backbone)
+    rng = np.random.default_rng(45)
+    coord, feat_in, grid = room_scene(rng, n, (3.6, 3.6, 2.6), thickness=2)
+    normal = shell_normals(grid, [int(round(m / GRID)) for m in (3.6, 3.6, 2.6)], 2)
+    point = PointBatch(coord=torch.from_numpy(coord)[None].cuda(),
+                       feat=torch.from_numpy(np.concatenate([feat_in, normal], 1).astype(
+                           np.float32))[None].cuda(),
+                       grid_coord=torch.from_numpy(grid)[None].long().cuda(),
+                       mask=torch.ones(1, n, dtype=torch.bool, device="cuda"))
+    k1_model = build_model(dict(backbone, seed=3)).cuda().eval()
+    state = k1_model.state_dict()
+    rpe_model = build_model(dict(backbone, seed=3, enable_rpe=True)).cuda().eval()
+    missing, unexpected = rpe_model.load_state_dict(state, strict=False)
+    check(not unexpected and missing and all(k.endswith("attn.rpe.rpe_table") for k in missing),
+          f"rpe_agree: missing {missing}, unexpected {unexpected}")
+    for k in missing:
+        rpe_model.get_parameter(k).data.zero_()
+    truth_model = build_model(dict(backbone, seed=3, dtype="float32")).cuda().eval()
+    truth_model.load_state_dict(state)
+    runs = {}
+    with torch.no_grad():
+        truth = truth_model(point).feat.float()[0]
+        del truth_model
+        for name, model in (("k1", k1_model), ("rpe", rpe_model)):
+            reset_k1_counts()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = model(point).feat.float()[0]
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            launches = fwa.flash_window_attention.launches
+            ms = cuda_ms(lambda: model(point), reps=reps, warmup=1)
+            runs[name] = dict(out=out, ms=ms, peak_gib=peak, k1_launches=launches,
+                              rel_err=((out - truth).norm() / truth.norm()).item())
+    k1, rpe = runs["k1"], runs["rpe"]
+    blocks = sum(depth_split(backbone))
+    check(k1["k1_launches"] == blocks and rpe["k1_launches"] == 0,
+          f"rpe_agree: K1 launches {k1['k1_launches']} (K1 path) and {rpe['k1_launches']} (RPE)")
+    check(torch.isfinite(rpe["out"]).all().item(), "rpe_agree: non-finite RPE output")
+    check_noise_floor(rpe["rel_err"], k1["rel_err"], "zero-table RPE model output",
+                      ("N", n, "blocks", blocks))
+    diff = ((rpe["out"] - k1["out"]).norm() / k1["out"].norm()).item()
+    del runs, k1_model, rpe_model, point
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one bf16 train step with random tables
+    model = build_model(dict(
+        type="DefaultSegmentorV2", num_classes=cfg.model.num_classes,
+        backbone_out_channels=cfg.model.backbone_out_channels,
+        backbone=dict(backbone, seed=3, enable_rpe=True))).cuda().train()
+    criteria = build_criteria(cfg.model.criteria)
+    batch = cuda_batch(semseg_rows(n_train, (46, 47)))
+    reset_k1_counts()
+    reset_k2_counts()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = train_step(model, criteria, optimizer, None, batch,
+                         generator=torch.Generator(device="cuda").manual_seed(48), task="semseg")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    grads = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    tables = {k: g.norm().item() for k, g in grads.items() if k.endswith("rpe_table")}
+    check(math.isfinite(metrics["loss"].item()) and all(torch.isfinite(g).all().item()
+                                                        for g in grads.values()),
+          "rpe_agree: non-finite loss or gradient in the bf16 train step")
+    check(len(tables) == blocks and all(v > 0 for v in tables.values()),
+          f"rpe_agree: rpe_table gradients {tables}")
+    check(fwa.flash_window_attention.launches == 0
+          and fwa.flash_window_attention_bwd.launches == 0,
+          "rpe_agree: the RPE path launched K1 or K2")
+    emit(dict(phase="rpe_agree", config=SEMSEG_CONFIG, dtype="bfloat16", points=n,
+              blocks=blocks, k1_path=dict(ms=k1["ms"], peak_gib=k1["peak_gib"],
+                                          rel_err_vs_fp32=k1["rel_err"],
+                                          k1_launches=k1["k1_launches"]),
+              rpe_path=dict(ms=rpe["ms"], peak_gib=rpe["peak_gib"],
+                            rel_err_vs_fp32=rpe["rel_err"], k1_launches=rpe["k1_launches"]),
+              rpe_vs_k1_rel_l2=diff, noise_factor=BF16_NOISE_FACTOR,
+              train_step=dict(points=n_train, rows=2, loss=metrics["loss"].item(),
+                              grad_norm=metrics["grad_norm"].item(), seconds=step_s,
+                              rpe_table_grad_norms=tables)))
+    print(f"rpe_agree: forward at {n} points, bf16: K1 path {k1['ms']:.1f} ms, "
+          f"{k1['peak_gib']:.2f} GiB; RPE path {rpe['ms']:.1f} ms, {rpe['peak_gib']:.2f} GiB",
+          flush=True)
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3464,6 +4027,14 @@ def main() -> int:
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
         tasks_ddp = {task: phase_task_ddp_agree(work, task) for task in ("semseg", "ssl")}
         remat = phase_remat_agree()
+        ppt_shapes, ppt_k1, ppt_k1_variants, ppt_k2_variants, ppt_checkpoint = \
+            phase_ppt_train(work)
+        ppt_bwd = phase_timing_bwd(ppt_shapes, phase="ppt_timing_bwd")
+        ppt_test_variants, ppt_fragments, ppt_calls = phase_ppt_test(work, ppt_checkpoint)
+        ppt_fwd = phase_timing_test(ppt_calls, phase="ppt_timing_test")
+        phase_ppt_agree()
+        ppt_ddp = phase_ppt_ddp_agree(work)
+        phase_rpe_agree()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -3492,6 +4063,13 @@ def main() -> int:
     semseg_test = dict(path="semseg test", fragment_forwards=semseg_fragments,
                        ms_per="test fragment forward (the first fragment's calls, no lse)")
     semseg_train = dict(path="semseg train", ms_per="train step")
+    # "ppt": PPT-v1m1 over the semseg file's backbone (PDNorm, two
+    # conditions) through MultiDatasetTrainer, 6 train steps of 22 attention
+    # launches, and its test entry's fragment forwards (the first one's 22
+    # launches timed); ppt_ddp_agree's two ranks' PPT-v1m2 steps beside
+    ppt_test = dict(path="ppt test", fragment_forwards=ppt_fragments,
+                    ms_per="test fragment forward (the first fragment's calls, no lse)")
+    ppt_train = dict(path="ppt train", ms_per="train step")
     # "ssl": the SSL file's path, 6 train steps of 7 backbone passes; ms
     # and the other times per step (timing at the student's shapes: the
     # globals' 22 launches twice, the locals' 22 forward and 14 backward
@@ -3524,7 +4102,9 @@ def main() -> int:
              ssl_teacher=dict(ssl_train, ms_per="train step (the teacher's 2 passes over the "
                               "global crops, no lse; its encoder's windows of 1024)",
                               launches=ssl_counts["teacher"]["bf16_large"],
-                              **times(teacher_large))),
+                              **times(teacher_large)),
+             ppt=dict(ppt_test, launches=ppt_test_variants["bf16_large"],
+                      **times(ppt_fwd["by_variant"]["bf16_large"]))),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source_small,
              sources=[source_small, source_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
@@ -3552,7 +4132,10 @@ def main() -> int:
                       **ddp_tasks),
              remat=dict(path="remat_agree", ms_per="fp32 train step",
                         launches_per_step_off=remat["off"]["k1_lse"],
-                        launches_per_step_on=remat["on"]["k1_lse"])),
+                        launches_per_step_on=remat["on"]["k1_lse"]),
+             ppt=dict(ppt_train, launches=ppt_k1, variant_launches=ppt_k1_variants,
+                      by_variant=ppt_bwd["fwd_by_variant"],
+                      two_rank_launches=ppt_ddp["k1_lse"], **times(ppt_bwd, "fwd_"))),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -3575,7 +4158,11 @@ def main() -> int:
                       library_ms=ssl_small["fwd_library_ms"]),
              ssl_teacher=dict(ssl_train, ms_per="train step (the teacher's 2 passes' decoder "
                               "launches, no lse)", launches=ssl_counts["teacher"]["bf16_small"],
-                              **times(teacher_small))),
+                              **times(teacher_small)),
+             ppt=dict(ppt_test, launches=ppt_test_variants["bf16_small"],
+                      train_launches=ppt_k1_variants["bf16_small"],
+                      train_step=ppt_bwd["fwd_by_variant"]["bf16_small"],
+                      **times(ppt_fwd["by_variant"]["bf16_small"]))),
         dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
              sources=[source_bwd, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
@@ -3595,7 +4182,10 @@ def main() -> int:
                       two_rank_variant_launches=ddp_ranks["k2_variants"], **ddp_tasks_k2),
              remat=dict(path="remat_agree", ms_per="fp32 train step",
                         launches_per_step_off=remat["off"]["k2"],
-                        launches_per_step_on=remat["on"]["k2"])),
+                        launches_per_step_on=remat["on"]["k2"]),
+             ppt=dict(ppt_train, launches=sum(ppt_k2_variants.values()),
+                      variant_launches=ppt_k2_variants, two_rank_launches=ppt_ddp["k2"],
+                      **times(ppt_bwd))),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",

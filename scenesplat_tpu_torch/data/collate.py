@@ -6,7 +6,9 @@ consecutive sample pairs with probability ``mix_prob``: a mixed pair's
 points are concatenated into one slot and the batch dimension stays
 static. A sample above ``num_points`` is randomly downsampled. The JAX
 package drops its host-built conv-plan keys on both paths; the port builds
-every plan on the card and has no such keys. ``collate_ssl`` (the port's
+every plan on the card and has no such keys. Point Prompt Training's
+``condition`` (a dataset name) must be one across the batch, as the
+reference asserts, and passes as that string. ``collate_ssl`` (the port's
 copy of the JAX function) pads each crop of the SSL multi-crop samples to
 its own size through ``collate_padded``.
 """
@@ -79,6 +81,10 @@ def collate_padded(samples: List[Dict[str, np.ndarray]], num_points: int,
         if not isinstance(vals[0], np.ndarray):
             if isinstance(vals[0], (int, float)):
                 batch[key] = np.asarray(vals)
+            elif key == "condition":
+                if len(set(vals)) != 1:
+                    raise ValueError(f"one {key} per batch, got {sorted(set(vals))}")
+                batch[key] = vals[0]
             continue
         if any(v.shape[:1] != (n,) for v, n in zip(vals, lengths)) or (
                 key.startswith(("pc_", "origin_"))):

@@ -1,6 +1,8 @@
 """Packaged zero-shot metadata: class names and SigLIP2 text embeddings
 (copied from ``scenesplat_tpu/data/metadata``). Configs name a table as
-``builtin:<name>``."""
+``builtin:<name>``. ScanNet-20 and ScanNet++ top-100 have their class names
+only (Point Prompt Training matches them to the ScanNet200 table's rows by
+name, models/ppt.py:valid_index_by_name)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ _ROOT = Path(__file__).resolve().parent
 #: builtin name -> (labels file, embedding file)
 _BUILTIN = {
     "scannet200": ("scannet200_labels.txt", "scannet200_siglip2.npy"),
+    "scannet20": ("scannet20_labels.txt", None),
+    "scannetpp_top100": ("scannetpp_top100_labels.txt", None),
 }
 
 
@@ -22,9 +26,16 @@ def class_labels(name: str) -> List[str]:
     return [ln.strip() for ln in lines if ln.strip()]
 
 
+def embedding_file(name: str) -> str:
+    """The path of a builtin table's SigLIP2 embeddings (``.npy``, as stored)."""
+    if _BUILTIN[name][1] is None:
+        raise KeyError(f"builtin {name!r} has class names and no text embeddings")
+    return str(_ROOT / "emb" / _BUILTIN[name][1])
+
+
 def text_embeddings(name: str) -> np.ndarray:
     """L2-normalized SigLIP2 text embeddings [num_classes, 768]."""
-    emb = np.load(_ROOT / "emb" / _BUILTIN[name][1]).astype(np.float32)
+    emb = np.load(embedding_file(name)).astype(np.float32)
     emb = emb[: len(class_labels(name))]
     emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
     return emb

@@ -201,6 +201,19 @@ class Copy:
 
 
 @TRANSFORMS.register_module()
+class Add:
+    """Sets each of ``keys_dict``'s keys to its value (Point Prompt
+    Training's per-dataset ``condition``)."""
+
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or dict()
+
+    def __call__(self, data_dict):
+        data_dict.update(self.keys_dict)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class HostConvPlan:
     """Accepted and does nothing. In the JAX package it builds the stem's
     k=5 conv plan on the host, because the TPU's on-device builders hit

@@ -10,7 +10,10 @@ validation dataset and hands the mean fg_mIoU to the checkpoint saver
 
 ``SemSegEvaluator``: after every epoch it runs each whole validation scene
 through the segmentor, takes the argmax of the logits and hands the mIoU
-over the classes the scenes hold to the checkpoint saver.
+over the classes the scenes hold to the checkpoint saver. For a Point
+Prompt Training model each scene runs on its own dataset's ``condition``
+(set by its pipeline's ``Add``) and is scored in that condition's class
+space; each condition's mIoU is logged, and their mean is the metric.
 
 Under data parallel each process evaluates its round-robin share of the
 scenes (``parallel/dist_eval.py``) with the module itself, not its DDP
@@ -135,7 +138,9 @@ class LangPretrainZeroShotSemSegEval(LangPretrainZeroShotSemSegEvalMulti):
 @HOOKS.register_module()
 class SemSegEvaluator(HookBase):
     """Supervised segmentation over ``cfg.data.val``: mIoU over the classes
-    present in the validation scenes, logged as ``val/mIoU``."""
+    present in the validation scenes, logged as ``val/mIoU``; with scenes
+    of several conditions (PPT), each condition's apart as
+    ``val/<condition>/mIoU`` and ``val/mIoU`` their mean."""
 
     def __init__(self, ignore_index: int = -1, max_scenes: Optional[int] = None):
         self.ignore_index = ignore_index
@@ -162,21 +167,31 @@ class SemSegEvaluator(HookBase):
         n_scenes = len(self.dataset)
         if self.max_scenes:
             n_scenes = min(n_scenes, self.max_scenes)
-        counts = []  # per scene: (intersection, union, target) of each class
+        # the model's conditions in its order (PPT), or one unnamed
+        conditions = list(getattr(trainer.model, "conditions", None) or [None])
+        counts = {c: [] for c in conditions}  # per scene: (intersection, union, target)
         for i in partition_indices(n_scenes):
             seed_transforms((self._seed(), i))
             sample = self.dataset[i]
             logits = self.extractor(sample)
-            counts.append(intersection_and_union(
+            counts[sample.get("condition")].append(intersection_and_union(
                 logits.argmax(-1).astype(np.int32), np.asarray(sample["segment"]),
                 logits.shape[-1], self.ignore_index))
-        # a process that drew no scene adds zeros
-        inter, union, target = allreduce_sum_arrays(
-            tuple(sum(c) for c in zip(*counts)) if counts
-            else (np.zeros(self.num_classes or 1),) * 3)
-        iou = inter / np.maximum(union, 1e-10)
-        seen = target > 0
-        miou = float(iou[seen].mean()) if seen.any() else 0.0
+        mious = {}
+        for cond in conditions:
+            # a process that drew no scene of the condition adds zeros
+            inter, union, target = allreduce_sum_arrays(
+                tuple(sum(c) for c in zip(*counts[cond])) if counts[cond]
+                else (np.zeros(self.num_classes or 1),) * 3)
+            iou = inter / np.maximum(union, 1e-10)
+            seen = target > 0
+            if cond is None or seen.any():
+                mious[cond] = float(iou[seen].mean()) if seen.any() else 0.0
+        for cond, value in mious.items():
+            if cond is not None:
+                trainer.logger.info(f"val {cond} mIoU {value:.4f}")
+                trainer.storage.put_scalar(f"val/{cond}/mIoU", value)
+        miou = float(np.mean(list(mious.values()))) if mious else 0.0
         trainer.logger.info(f"val mIoU {miou:.4f}")
         trainer.comm_info["current_metric_value"] = miou
         trainer.comm_info["current_metric_name"] = "mIoU"

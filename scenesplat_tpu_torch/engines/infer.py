@@ -48,7 +48,8 @@ def bucket_size(n: int, patch_size: int,
 class FeatureExtractor:
     """Runs ``model`` (a module taking and returning a PointBatch) on one
     scene at a time on ``device``. ``output_fn`` maps the model output to
-    one [B, N, C] tensor (default: its ``feat``)."""
+    one [B, N, C] tensor (default: its ``feat``). A sample that names its
+    dataset's ``condition`` (Point Prompt Training) hands it to the model."""
 
     def __init__(self, model: torch.nn.Module, patch_size: int = 1024,
                  buckets: Optional[Sequence[int]] = None, chunk_size: int = 524288,
@@ -68,7 +69,7 @@ class FeatureExtractor:
             return self.buckets[-1]
         return bucket_size(n, self.patch_size)
 
-    def _run_chunk(self, coord, feat, grid_coord) -> np.ndarray:
+    def _run_chunk(self, coord, feat, grid_coord, kwargs) -> np.ndarray:
         n = coord.shape[0]
         pad = self._bucket(n) - n
         mask = np.zeros(n + pad, bool)
@@ -82,7 +83,7 @@ class FeatureExtractor:
                            grid_coord=padded(grid_coord),
                            mask=torch.from_numpy(mask)[None].to(self.device))
         with torch.inference_mode():
-            out = self.output_fn(self.model(point))
+            out = self.output_fn(self.model(point, **kwargs))
         return out[0, :n].float().cpu().numpy()
 
     def __call__(self, sample: Dict[str, np.ndarray]) -> np.ndarray:
@@ -91,12 +92,13 @@ class FeatureExtractor:
         feat = np.asarray(sample["feat"], np.float32)
         grid_coord = np.asarray(sample["grid_coord"], np.int64)
         n = coord.shape[0]
+        kwargs = {"condition": sample["condition"]} if "condition" in sample else {}
         if n <= self.chunk_size:
-            return self._run_chunk(coord, feat, grid_coord)
+            return self._run_chunk(coord, feat, grid_coord, kwargs)
         outs = []
         for start in range(0, n, self.chunk_size):
             sl = slice(start, min(start + self.chunk_size, n))
             gc = grid_coord[sl]
             gc = gc - gc.min(axis=0)  # chunks re-quantize independently
-            outs.append(self._run_chunk(coord[sl], feat[sl], gc))
+            outs.append(self._run_chunk(coord[sl], feat[sl], gc, kwargs))
         return np.concatenate(outs, axis=0)

@@ -34,6 +34,7 @@ from scenesplat_tpu_torch.engines.eval import (
     load_text_embeddings,
 )
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
+from scenesplat_tpu_torch.models.ppt import PAD_LOGIT
 from scenesplat_tpu_torch.parallel.dist import rank
 from scenesplat_tpu_torch.parallel.dist_eval import (
     allgather_pyobjects,
@@ -329,7 +330,11 @@ class SemSegTester(TesterBase):
     inverse to ``origin_segment``, and intersection and union add up over
     the scenes. With ``save_path`` each scene's scored prediction goes to
     ``<name>_pred.npy`` and the per-scene seconds (fetch, extract, vote)
-    to ``scene_log.json``."""
+    to ``scene_log.json``. A Point Prompt Training model runs each fragment
+    on the ``condition`` its pipeline's ``Add`` names and gives logits in
+    that condition's class space, padded to its widest condition with
+    -1e9: the first ``num_classes`` columns are scored, and the others
+    must be that padding."""
 
     def __init__(self, num_classes: int, ignore_index: int = -1,
                  max_scenes: Optional[int] = None, top3: Optional[bool] = None,
@@ -367,6 +372,11 @@ class SemSegTester(TesterBase):
                 t0 = time.perf_counter()
                 logits = self.extractor(frag)  # ends with the copy to the host
                 extract_s += time.perf_counter() - t0
+                if logits.shape[1] > self.num_classes:  # a PPT condition's padding
+                    if not (logits[:, self.num_classes:] <= PAD_LOGIT / 2).all():
+                        raise ValueError(f"{logits.shape[1]} logits for {self.num_classes} "
+                                         "classes, and the others are no padding")
+                    logits = logits[:, :self.num_classes]
                 logits_sum[np.asarray(frag["index"]).reshape(-1)] += logits
             t_vote = time.perf_counter()
             if self.top3:  # ScanNet++ protocol: the 3 best classes, best first

@@ -1,8 +1,11 @@
 """Trainers (counterpart of ``scenesplat_tpu/engines/train.py``): a
 hook-driven epoch and step loop around ``engines/train_step.py``.
 
-The port trains the VL pretraining task (``LangPretrainer``) and semantic
-segmentation (``DefaultSegmentorV2``); the model's type picks the task, as
+The port trains the VL pretraining task (``LangPretrainer``), semantic
+segmentation (``DefaultSegmentorV2``) and Point Prompt Training
+(``PPT-v1m1``, ``PPT-v1m2``: semantic segmentation over several datasets,
+each batch from one, usually through ``MultiDatasetTrainer``); the model's
+type picks the task, as
 ``Trainer.TASKS`` does in the JAX package. SimDINO
 self-supervised pretraining has a trainer of its own
 (``engines/pretrain.py:DefaultSSLPreTrainer``, ``train =
@@ -90,7 +93,8 @@ class Trainer(TrainerBase):
     process group); the task comes from the model type (``TASKS``), and a
     type outside it raises."""
 
-    TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg"}
+    TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg",
+             "PPT-v1m1": "ppt", "PPT-v1m2": "ppt"}
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
@@ -126,7 +130,11 @@ class Trainer(TrainerBase):
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
         self.model = self.build_model(model_cfg).to(self.device)
-        self.train_model = data_parallel(self.train_module())
+        # a PPT step leaves the other conditions' parameters without a
+        # gradient: DDP must look for them (the reference's PPT files set
+        # find_unused_parameters too); other tasks use every parameter
+        self.train_model = data_parallel(self.train_module(),
+                                         find_unused_parameters=self.task == "ppt")
         self.criteria = build_criteria(criteria_cfg)
         self.clip_grad = cfg.get("clip_grad")
 
@@ -178,7 +186,11 @@ class Trainer(TrainerBase):
 
 @TRAINERS.register_module("MultiDatasetTrainer")
 class MultiDatasetTrainer(Trainer):
-    """Interleaves the children of a ConcatDataset by their loop ratio."""
+    """Interleaves the children of a ConcatDataset by their loop ratio;
+    each batch comes from one child (so a PPT batch holds one condition).
+    Under data parallel every process draws the same child at every step:
+    each child's loader has the same number of batches on every process
+    (a batch count of the global batch), so the interleave runs in step."""
 
     def build_train_loader(self):
         dataset = build_dataset(dict(self.cfg.data.train))

@@ -4,7 +4,9 @@ of the VL pretraining task (``"lang"``) or of semantic segmentation
 
 bf16 compute comes from the model's compute dtype over fp32 parameters, so
 no GradScaler is needed. The lang loss reads ``lang_feat`` upcast to fp32,
-the semseg loss the logits against ``segment``; the step runs backward,
+the semseg loss the logits against ``segment``; Point Prompt Training
+(``"ppt"``) is semseg with the batch's dataset ``condition`` handed to the
+model, whose logits are in that condition's class space. The step runs backward,
 clips the gradient's global norm, steps the optimizer and the schedule,
 and returns the loss and the gradient norm before clipping (the JAX step's
 ``optax.global_norm(grads)``).
@@ -24,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from scenesplat_tpu_torch.models.structure import PointBatch
+from scenesplat_tpu_torch.parallel.dist import check_same_on_ranks
 
 _INT_KEYS = ("grid_coord", "segment")
 
@@ -70,7 +73,20 @@ def semseg_loss(model, criteria, batch: Dict[str, torch.Tensor],
     return criteria(out.feat, batch["segment"], mask=out.mask), out
 
 
-TASK_LOSSES = {"lang": lang_loss, "semseg": semseg_loss}
+def ppt_loss(model, criteria, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None, epoch_progress=None):
+    """semseg_loss of a PPT model on the batch's one ``condition`` (the name
+    its dataset's ``Add`` set); under data parallel every process must hold
+    the same condition (checked each step), since the model's parameters
+    that take gradients depend on it."""
+    ppt = getattr(model, "module", model)  # under DDP, the model itself
+    index = ppt.condition_index(batch["condition"])
+    check_same_on_ranks(index, len(ppt.conditions), batch["coord"].device, "condition")
+    out = model(point_from_batch(batch), generator=generator, condition=batch["condition"])
+    return criteria(out.feat, batch["segment"], mask=out.mask), out
+
+
+TASK_LOSSES = {"lang": lang_loss, "semseg": semseg_loss, "ppt": ppt_loss}
 
 
 def train_step(model, criteria, optimizer, scheduler, batch: Dict[str, torch.Tensor],

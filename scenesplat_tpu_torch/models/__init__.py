@@ -4,3 +4,4 @@ from . import ptv3  # noqa: F401 (registers PT-v3m1)
 from . import default  # noqa: F401 (registers LangPretrainer, DefaultSegmentorV2)
 from .losses import build_criteria  # noqa: E402,F401
 from . import ssl  # noqa: E402,F401 (registers SimDINOSSL, DefaultContrastiverSimDinoV2)
+from . import ppt  # noqa: E402,F401 (registers PPT-v1m1, PPT-v1m2)

@@ -124,3 +124,60 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
         return y.to(self.dtype)
+
+
+def condition_name(condition) -> str:
+    """The one dataset condition of a batch: a name, or a sequence of
+    names that must all be equal (one condition per batch, as the
+    reference's PPT asserts)."""
+    if isinstance(condition, str):
+        return condition
+    names = set(condition)
+    if len(names) != 1:
+        raise ValueError(f"one condition per batch, got {sorted(names)}")
+    return names.pop()
+
+
+class PDNorm(nn.Module):
+    """Prompt-driven (dataset-conditioned) normalization: one LayerNorm or
+    MaskedBatchNorm per condition (``decouple``; one shared norm
+    otherwise), and with ``adaptive`` a context-conditioned affine,
+    ``modulation`` = SiLU + Linear(context_channels, 2 * features), whose
+    output splits into (shift, scale): y * (1 + scale) + shift.
+
+    The condition is looked up by NAME in ``conditions`` and only its norm
+    runs, so only that norm updates running statistics or gets gradients
+    (the reference's PTv3 PDNorm). The JAX package's PDNorm takes an
+    integer index into its own ``conditions`` and runs every norm, so the
+    inactive BatchNorms absorb the batch's statistics (ROADMAP Queue 3).
+    State-dict names are the reference's: ``norm.{c}.*`` (``norm.*`` when
+    not decoupled) and ``modulation.1.*``."""
+
+    def __init__(self, features: int, conditions=("ScanNet", "S3DIS", "Structured3D"),
+                 norm_type: str = "ln", decouple: bool = True, adaptive: bool = False,
+                 context_channels: int = 256, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if norm_type not in ("ln", "bn"):
+            raise ValueError(f"norm_type {norm_type!r}: 'ln' or 'bn'")
+        from .ptv3 import Linear  # the port's fp32 dense layer
+
+        self.conditions = tuple(conditions)
+        self.norm_type, self.decouple, self.adaptive = norm_type, decouple, adaptive
+        make = (lambda: LayerNorm(features, dtype=dtype)) if norm_type == "ln" else (
+            lambda: MaskedBatchNorm(features, dtype=dtype))
+        self.norm = nn.ModuleList([make() for _ in self.conditions]) if decouple else make()
+        self.modulation = (nn.Sequential(nn.SiLU(), Linear(context_channels, 2 * features))
+                           if adaptive else None)
+
+    def forward(self, x: torch.Tensor, condition, context=None, mask=None) -> torch.Tensor:
+        norm = self.norm
+        if self.decouple:
+            name = condition_name(condition)
+            if name not in self.conditions:
+                raise KeyError(f"condition {name!r} is not one of {self.conditions}")
+            norm = self.norm[self.conditions.index(name)]
+        y = norm(x) if self.norm_type == "ln" else norm(x, mask)
+        if self.modulation is not None and context is not None:
+            shift, scale = self.modulation(context.float()).chunk(2, dim=-1)
+            y = y * (1 + scale[:, None, :]) + shift[:, None, :]
+        return y

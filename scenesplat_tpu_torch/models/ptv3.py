@@ -21,6 +21,16 @@ for its random draws, as the JAX package takes its ``shuffle`` and
 drop-path drops whole points of the attention and of the MLP branch with
 independent draws, and MLP and projection dropout act at ``proj_drop``.
 All of them are identity at eval.
+
+With ``pdnorm_conditions`` every norm (the stem's, pooling's and
+unpooling's BatchNorms with ``pdnorm_bn``, the blocks' LayerNorms with
+``pdnorm_ln``) is a PDNorm (models/norm.py) and the forward takes the
+batch's dataset ``condition`` by name, with an optional ``context``
+[B, context_channels] for the adaptive affine (Point Prompt Training,
+models/ppt.py). ``enable_rpe`` adds the relative-position bias table to
+every attention, which then takes the plain dense path
+(ops/window_attention.py:window_attention_rpe) and not the flash-window
+kernels, as in the JAX package and the reference.
 """
 
 from __future__ import annotations
@@ -48,11 +58,15 @@ from scenesplat_tpu_torch.ops.subm_conv import (
     subm_conv_apply,
     subplan,
 )
-from scenesplat_tpu_torch.ops.window_attention import window_attention
+from scenesplat_tpu_torch.ops.window_attention import (
+    rpe_pos_bnd,
+    window_attention,
+    window_attention_rpe,
+)
 from scenesplat_tpu_torch.parallel.dist import batch_rand
 
 from .builder import MODELS
-from .norm import LayerNorm, MaskedBatchNorm
+from .norm import LayerNorm, MaskedBatchNorm, PDNorm
 from .structure import PointBatch
 
 
@@ -78,6 +92,38 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
     keep = batch_rand(shape, generator, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
+
+
+@dataclass(frozen=True)
+class PDCfg:
+    """The PDNorm switches of a PT-v3m1 (its ``pdnorm_*`` arguments)."""
+
+    conditions: Tuple[str, ...]
+    bn: bool = True
+    ln: bool = True
+    decouple: bool = True
+    adaptive: bool = False
+    context_channels: int = 256
+
+
+def make_norm(features: int, kind: str, dtype, pd: Optional[PDCfg] = None) -> nn.Module:
+    """A LayerNorm (``kind`` "ln") or MaskedBatchNorm ("bn"), or the PDNorm
+    that takes its place when ``pd`` conditions that kind."""
+    if pd is None or not getattr(pd, kind):
+        return LayerNorm(features, dtype=dtype) if kind == "ln" else MaskedBatchNorm(
+            features, dtype=dtype)
+    return PDNorm(features, pd.conditions, norm_type=kind, decouple=pd.decouple,
+                  adaptive=pd.adaptive, context_channels=pd.context_channels, dtype=dtype)
+
+
+def apply_norm(norm: nn.Module, x, cond=None, mask=None):
+    """``norm`` on ``x`` (a BatchNorm with the valid ``mask``); a PDNorm
+    also takes ``cond`` = (condition name, context or None)."""
+    if isinstance(norm, PDNorm):
+        if cond is None or cond[0] is None:
+            raise ValueError("a PDNorm-conditioned backbone needs the batch's condition")
+        return norm(x, cond[0], context=cond[1], mask=mask)
+    return norm(x) if mask is None else norm(x, mask)
 
 
 @dataclass(frozen=True)
@@ -154,13 +200,28 @@ class MLP(nn.Module):
         return dropout(self.fc2(x), p, generator)
 
 
+class RPE(nn.Module):
+    """The relative-position bias table of a window of ``patch_size``:
+    [3 * (2 * pos_bnd + 1), heads], one block of rows per axis."""
+
+    def __init__(self, patch_size: int, num_heads: int):
+        super().__init__()
+        self.rpe_table = nn.Parameter(torch.zeros(3 * (2 * rpe_pos_bnd(patch_size) + 1),
+                                                  num_heads))
+
+    def reset_parameters(self, gen: torch.Generator):
+        # flax's truncated_normal(0.02): cut at 2 std
+        nn.init.trunc_normal_(self.rpe_table.data, std=0.02, a=-0.04, b=0.04, generator=gen)
+
+
 class SerializedAttention(nn.Module):
-    """Window attention over one curve order."""
+    """Window attention over one curve order; with ``enable_rpe``, plus the
+    relative-position bias of the points' grid coordinates (``rpe``)."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int = 0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, proj_drop: float = 0.0,
-                 use_kernel: Optional[bool] = None,
+                 use_kernel: Optional[bool] = None, enable_rpe: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.channels, self.num_heads, self.patch_size = channels, num_heads, patch_size
@@ -168,6 +229,7 @@ class SerializedAttention(nn.Module):
         self.proj_drop = proj_drop
         self.scale = qk_scale or (channels // num_heads) ** -0.5
         self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, dtype=dtype)
+        self.rpe = RPE(patch_size, num_heads) if enable_rpe else None
         self.proj = Linear(channels, channels, dtype=dtype)
 
     def forward(self, feat, state: StageState, generator=None):
@@ -178,9 +240,14 @@ class SerializedAttention(nn.Module):
         b, n = qkv.shape[:2]
         qkv_sorted = take_along_points(qkv, order).view(b, n, 3, c)
         valid_sorted = take_along_points(state.mask, order)
-        out_sorted = window_attention(
-            qkv_sorted, valid_sorted, self.patch_size, self.num_heads,
-            scale=self.scale, use_kernel=self.use_kernel)
+        if self.rpe is not None:
+            out_sorted = window_attention_rpe(
+                qkv_sorted, valid_sorted, take_along_points(state.grid_coord, order),
+                self.rpe.rpe_table, self.patch_size, self.num_heads, scale=self.scale)
+        else:
+            out_sorted = window_attention(
+                qkv_sorted, valid_sorted, self.patch_size, self.num_heads,
+                scale=self.scale, use_kernel=self.use_kernel)
         out = self.proj(take_along_points(out_sorted, inverse))
         return dropout(out, self.proj_drop if self.training else 0.0, generator)
 
@@ -194,6 +261,7 @@ class Block(nn.Module):
                  qk_scale: Optional[float] = None, proj_drop: float = 0.0,
                  drop_path: float = 0.0, pre_norm: bool = True,
                  order_index: int = 0, use_kernel: Optional[bool] = None,
+                 enable_rpe: bool = False, pd: Optional[PDCfg] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         c = channels
@@ -202,38 +270,40 @@ class Block(nn.Module):
         self.cpe = nn.ModuleList([
             SubMConv(c, c, kernel_size=3, dtype=dtype),
             Linear(c, c, dtype=dtype),
-            LayerNorm(c, dtype=dtype),
+            make_norm(c, "ln", dtype, pd),
         ])
-        self.norm1 = nn.ModuleList([LayerNorm(c, dtype=dtype)])
+        self.norm1 = nn.ModuleList([make_norm(c, "ln", dtype, pd)])
         self.attn = SerializedAttention(
             c, num_heads, patch_size, order_index=order_index, qkv_bias=qkv_bias,
-            qk_scale=qk_scale, proj_drop=proj_drop, use_kernel=use_kernel, dtype=dtype)
-        self.norm2 = nn.ModuleList([LayerNorm(c, dtype=dtype)])
+            qk_scale=qk_scale, proj_drop=proj_drop, use_kernel=use_kernel,
+            enable_rpe=enable_rpe, dtype=dtype)
+        self.norm2 = nn.ModuleList([make_norm(c, "ln", dtype, pd)])
         self.mlp = nn.ModuleList([MLP(c, mlp_ratio, drop=proj_drop, dtype=dtype)])
 
-    def forward(self, feat, state: StageState, cpe_feat=None, generator=None):
+    def forward(self, feat, state: StageState, cpe_feat=None, generator=None, cond=None):
         # cpe_feat: the first block after unpooling convolves the proj_skip
-        # features (see SerializedUnpooling)
+        # features (see SerializedUnpooling); cond: (condition, context)
+        # for PDNorms
         conv, linear, norm = self.cpe
         x = conv(feat if cpe_feat is None else cpe_feat, state.conv_plan)
-        feat = feat + norm(linear(x))
+        feat = feat + apply_norm(norm, linear(x), cond)
 
         dp = self.drop_path if self.training else 0.0
         shortcut = feat
         if self.pre_norm:
-            feat = self.norm1[0](feat)
+            feat = apply_norm(self.norm1[0], feat, cond)
         feat = shortcut + dropout(self.attn(feat, state, generator), dp, generator,
                                   per_point=True)
         if not self.pre_norm:
-            feat = self.norm1[0](feat)
+            feat = apply_norm(self.norm1[0], feat, cond)
 
         shortcut = feat
         if self.pre_norm:
-            feat = self.norm2[0](feat)
+            feat = apply_norm(self.norm2[0], feat, cond)
         feat = shortcut + dropout(self.mlp[0](feat, generator), dp, generator,
                                   per_point=True)
         if not self.pre_norm:
-            feat = self.norm2[0](feat)
+            feat = apply_norm(self.norm2[0], feat, cond)
         return feat
 
 
@@ -241,21 +311,22 @@ class SerializedPooling(nn.Module):
     """Grid pooling by right-shifted curve-0 codes."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 2,
-                 reduce: str = "mean", dtype: torch.dtype = torch.float32):
+                 reduce: str = "mean", pd: Optional[PDCfg] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pooling_depth = (math.ceil(stride) - 1).bit_length()
         self.reduce = reduce
         self.proj = Linear(in_channels, out_channels, dtype=dtype)
-        self.norm = nn.ModuleList([MaskedBatchNorm(out_channels, dtype=dtype)])
+        self.norm = nn.ModuleList([make_norm(out_channels, "bn", dtype, pd)])
 
-    def forward(self, feat, state: StageState, out_capacity: int):
+    def forward(self, feat, state: StageState, out_capacity: int, cond=None):
         depth = self.pooling_depth
         plan = build_pooling_plan(state.ser, state.mask, out_capacity, depth)
         x = pool_values(plan, self.proj(feat), self.reduce)
         coord = pool_values(plan, state.coord, "mean")
         grid_coord = take_along_points(state.grid_coord, plan.head_index) >> depth
         ser = pool_serialization(plan, state.ser, depth)
-        x = F.gelu(self.norm[0](x, plan.out_mask))
+        x = F.gelu(apply_norm(self.norm[0], x, cond, plan.out_mask))
         return x, coord, grid_coord, plan.out_mask, ser, plan
 
 
@@ -267,34 +338,35 @@ class SerializedUnpooling(nn.Module):
     decoder block's xCPE conv reads the proj_skip output, not the sum."""
 
     def __init__(self, in_channels: int, skip_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 pd: Optional[PDCfg] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.proj = nn.ModuleList([Linear(in_channels, out_channels, dtype=dtype),
-                                   MaskedBatchNorm(out_channels, dtype=dtype)])
+                                   make_norm(out_channels, "bn", dtype, pd)])
         self.proj_skip = nn.ModuleList([
             Linear(skip_channels, out_channels, dtype=dtype),
-            MaskedBatchNorm(out_channels, dtype=dtype)])
+            make_norm(out_channels, "bn", dtype, pd)])
 
-    def forward(self, feat, parent_feat, parent_mask, mask, plan: PoolingPlan):
-        x = F.gelu(self.proj[1](self.proj[0](feat), mask))
-        skip = F.gelu(self.proj_skip[1](self.proj_skip[0](parent_feat), parent_mask))
+    def forward(self, feat, parent_feat, parent_mask, mask, plan: PoolingPlan, cond=None):
+        x = F.gelu(apply_norm(self.proj[1], self.proj[0](feat), cond, mask))
+        skip = F.gelu(apply_norm(self.proj_skip[1], self.proj_skip[0](parent_feat), cond,
+                                 parent_mask))
         return skip + unpool_values(x, plan.cluster_of_point), skip
 
 
 class Embedding(nn.Module):
     """Stem: submanifold conv k=5 + BN + GELU."""
 
-    def __init__(self, in_channels: int, embed_channels: int,
+    def __init__(self, in_channels: int, embed_channels: int, pd: Optional[PDCfg] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stem = nn.ModuleDict(dict(
             conv=SubMConv(in_channels, embed_channels, kernel_size=5, bias=False,
                           dtype=dtype),
-            norm=MaskedBatchNorm(embed_channels, dtype=dtype),
+            norm=make_norm(embed_channels, "bn", dtype, pd),
         ))
 
-    def forward(self, feat, plan: SubMConvPlan, mask):
-        return F.gelu(self.stem["norm"](self.stem["conv"](feat, plan), mask))
+    def forward(self, feat, plan: SubMConvPlan, mask, cond=None):
+        return F.gelu(apply_norm(self.stem["norm"], self.stem["conv"](feat, plan), cond, mask))
 
 
 def _round_capacity(n: int, frac: float, patch: int) -> int:
@@ -326,7 +398,9 @@ class PointTransformerV3(nn.Module):
     compatibility, the softmax always runs in fp32. ``use_kernel`` is
     passed to ops.window_attention. ``remat_blocks`` recomputes each
     block in the backward instead of keeping its activations
-    (``_block``). Parameters are drawn from ``seed``."""
+    (``_block``). ``enable_rpe`` and the ``pdnorm_*`` switches are the
+    reference's (see the module docstring). Parameters are drawn from
+    ``seed``."""
 
     def __init__(
         self,
@@ -356,11 +430,22 @@ class PointTransformerV3(nn.Module):
         use_kernel: Optional[bool] = None,
         enable_mask_token: bool = False,
         remat_blocks: bool = False,
+        enable_rpe: bool = False,
+        pdnorm_conditions: Optional[Sequence[str]] = None,
+        pdnorm_bn: bool = True,
+        pdnorm_ln: bool = True,
+        pdnorm_decouple: bool = True,
+        pdnorm_adaptive: bool = False,
+        context_channels: int = 256,
         dtype="float32",
         seed: int = 0,
     ):
         super().__init__()
         dtype = as_dtype(dtype)
+        pd = (PDCfg(tuple(pdnorm_conditions), bn=pdnorm_bn, ln=pdnorm_ln,
+                    decouple=pdnorm_decouple, adaptive=pdnorm_adaptive,
+                    context_channels=context_channels) if pdnorm_conditions else None)
+        self.pdnorm_conditions = None if pd is None else pd.conditions
         self.dtype = dtype
         self.remat_blocks = remat_blocks
         self.order = (order,) if isinstance(order, str) else tuple(order)
@@ -380,14 +465,14 @@ class PointTransformerV3(nn.Module):
             return Block(c, heads, patch, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                          qk_scale=qk_scale, proj_drop=proj_drop, drop_path=rate,
                          pre_norm=pre_norm, order_index=i % len(self.order),
-                         use_kernel=use_kernel, dtype=dtype)
+                         use_kernel=use_kernel, enable_rpe=enable_rpe, pd=pd, dtype=dtype)
 
         # drop-path rates: one linspace over the encoder's blocks; the
         # decoder's per-stage slices of a second linspace, reversed
         enc_dp = torch.linspace(0, drop_path, sum(enc_depths), dtype=torch.float64).tolist()
         dec_dp = torch.linspace(0, drop_path, sum(dec_depths), dtype=torch.float64).tolist()
 
-        self.embedding = Embedding(in_channels, enc_channels[0], dtype=dtype)
+        self.embedding = Embedding(in_channels, enc_channels[0], pd=pd, dtype=dtype)
         # SSL: a learnable token that replaces the embedding's output at
         # masked points (Pointcept's [1, C] ``mask_token``)
         self.mask_token = (nn.Parameter(torch.empty(1, enc_channels[0]))
@@ -398,7 +483,7 @@ class PointTransformerV3(nn.Module):
             if s > 0:
                 down["down"] = SerializedPooling(
                     enc_channels[s - 1], enc_channels[s], stride=stride[s - 1],
-                    reduce=pool_reduce, dtype=dtype)
+                    reduce=pool_reduce, pd=pd, dtype=dtype)
             first = sum(enc_depths[:s])
             blocks = [block(enc_channels[s], enc_num_head[s], enc_patch_size[s], i,
                             enc_dp[first + i]) for i in range(enc_depths[s])]
@@ -406,7 +491,7 @@ class PointTransformerV3(nn.Module):
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         self.dec = nn.ModuleDict()
         for s in reversed(range(self.num_stages - 1)):
-            up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s],
+            up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], pd=pd,
                                      dtype=dtype)
             rates = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             blocks = [block(dec_ch[s], dec_num_head[s], dec_patch_size[s], i, rates[i])
@@ -422,13 +507,13 @@ class PointTransformerV3(nn.Module):
     def reset_parameters(self, seed: int):
         gen = torch.Generator().manual_seed(seed)
         for mod in self.modules():
-            if isinstance(mod, (Linear, SubMConv)):
+            if isinstance(mod, (Linear, SubMConv, RPE)):
                 mod.reset_parameters(gen)
         if self.mask_token is not None:  # flax's truncated_normal(0.02): 2 std
             nn.init.trunc_normal_(self.mask_token.data, std=0.02, a=-0.04, b=0.04,
                                   generator=gen)
 
-    def _block(self, blk: Block, feat, state: StageState, cpe_feat, generator):
+    def _block(self, blk: Block, feat, state: StageState, cpe_feat, generator, cond=None):
         """``blk`` on ``feat``; with ``remat_blocks``, in a training forward
         that records gradients, under non-reentrant activation checkpointing
         (the JAX package's ``nn.remat(Block)``): the block keeps only its
@@ -437,27 +522,31 @@ class PointTransformerV3(nn.Module):
         state it had at the block's entry, then leaves the generator where
         it was, so the forward, the masks and the draws after it are those
         of a run without ``remat_blocks``. A block holds no BatchNorm (its
-        norms are LayerNorms), so a recompute updates no statistics."""
+        norms are LayerNorms, or PDNorms of LayerNorms), so a recompute
+        updates no statistics. ``cond`` (the condition and the context
+        tensor) reaches the recompute through the closure, so the context's
+        gradient flows through the checkpoint."""
         if not (self.remat_blocks and self.training and torch.is_grad_enabled()):
-            return blk(feat, state, cpe_feat=cpe_feat, generator=generator)
+            return blk(feat, state, cpe_feat=cpe_feat, generator=generator, cond=cond)
         entry = None if generator is None else generator.get_state()
         calls = [0]
 
         def run(feat, cpe_feat):
             calls[0] += 1
             if calls[0] == 1 or entry is None:
-                return blk(feat, state, cpe_feat=cpe_feat, generator=generator)
+                return blk(feat, state, cpe_feat=cpe_feat, generator=generator, cond=cond)
             now = generator.get_state()
             generator.set_state(entry)
             try:
-                return blk(feat, state, cpe_feat=cpe_feat, generator=generator)
+                return blk(feat, state, cpe_feat=cpe_feat, generator=generator, cond=cond)
             finally:
                 generator.set_state(now)
 
         return checkpoint(run, feat, cpe_feat, use_reentrant=False)
 
     def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None,
-                token_mask: Optional[torch.Tensor] = None, return_enc: bool = False):
+                token_mask: Optional[torch.Tensor] = None, return_enc: bool = False,
+                condition=None, context: Optional[torch.Tensor] = None):
         """Returns the decoder output at the input points; ``plans`` holds
         the pooling plans (their ``n_overflow`` counts clusters lost to the
         stage capacities). In training, ``generator`` (on the points'
@@ -468,7 +557,12 @@ class PointTransformerV3(nn.Module):
         token in place of the embedding at its true points, before the first
         block (whose xCPE sees the masked features, as the reference's
         in-place assignment gives). ``return_enc`` returns (output, the
-        coarsest encoder stage's features, its mask)."""
+        coarsest encoder stage's features, its mask).
+
+        With ``pdnorm_conditions``, ``condition`` names the batch's dataset
+        (a name, or one name a row, all equal) and ``context`` [B,
+        context_channels] feeds the adaptive PDNorms."""
+        cond = None if self.pdnorm_conditions is None else (condition, context)
         depth = self.serialization_depth
         if point.ser is None:
             shuffle = self.training and self.shuffle_orders and len(self.order) > 1
@@ -481,7 +575,7 @@ class PointTransformerV3(nn.Module):
         stem_plan = build_subm_conv_plan(point.grid_coord, point.mask, 5, depth)
         state = StageState(point.coord, point.grid_coord, point.mask, point.ser,
                            subplan(stem_plan, 3))
-        feat = self.embedding(point.feat.to(self.dtype), stem_plan, state.mask)
+        feat = self.embedding(point.feat.to(self.dtype), stem_plan, state.mask, cond)
         if token_mask is not None:
             if self.mask_token is None:
                 raise ValueError("token_mask needs enable_mask_token=True")
@@ -493,24 +587,25 @@ class PointTransformerV3(nn.Module):
             if s > 0:
                 cap = _round_capacity(n0, self.stage_capacity[s - 1],
                                       self.enc_patch_size[s])
-                x, coord, grid_coord, mask, ser, plan = stage.down(feat, state, cap)
+                x, coord, grid_coord, mask, ser, plan = stage.down(feat, state, cap, cond)
                 skips.append((feat, state, plan))
                 plans.append(plan)
                 feat = x
                 state = StageState(coord, grid_coord, mask, ser,
                                    build_subm_conv_plan(grid_coord, mask, 3, depth))
             for blk in stage.blocks():
-                feat = self._block(blk, feat, state, None, generator)
+                feat = self._block(blk, feat, state, None, generator, cond)
         enc_feat, enc_mask = feat, state.mask
 
         for s in reversed(range(self.num_stages - 1)):
             parent_feat, parent_state, plan = skips.pop()
             stage = self.dec[f"dec{s}"]
             feat, skip_feat = stage.up(feat, parent_feat, parent_state.mask,
-                                       state.mask, plan)
+                                       state.mask, plan, cond)
             state = parent_state
             for i, blk in enumerate(stage.blocks()):
-                feat = self._block(blk, feat, state, skip_feat if i == 0 else None, generator)
+                feat = self._block(blk, feat, state, skip_feat if i == 0 else None, generator,
+                                   cond)
 
         out = point.replace(feat=feat, coord=state.coord, grid_coord=state.grid_coord,
                             mask=state.mask, ser=state.ser, plans=tuple(plans))

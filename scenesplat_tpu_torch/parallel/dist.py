@@ -83,14 +83,35 @@ def barrier():
         dist.barrier()
 
 
-def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
+def data_parallel(model: torch.nn.Module, find_unused_parameters: bool = False
+                  ) -> torch.nn.Module:
     """``model`` under DistributedDataParallel when a process group is up
     (any size: at one process it measures DDP's own cost), else ``model``.
     The batch arrives on the device already, so DDP moves no input
-    (``device_ids=None``)."""
+    (``device_ids=None``). ``find_unused_parameters`` is for a model whose
+    steps leave some parameters without a gradient (Point Prompt Training:
+    the other conditions' norms and heads; the reference's PPT configs set
+    it too): DDP then walks each step's autograd graph to find them, and a
+    parameter that no process used keeps ``.grad`` None, so the optimizer
+    skips it. Without it such a model makes DDP raise at its second step."""
     if not (dist.is_available() and dist.is_initialized()):
         return model
-    return torch.nn.parallel.DistributedDataParallel(model, device_ids=None)
+    return torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=None, find_unused_parameters=find_unused_parameters)
+
+
+def check_same_on_ranks(index: int, size: int, device, what: str = "value"):
+    """Raises unless every process holds the same ``index`` in [0, size):
+    one all_reduce of a one-hot vector (a sum, so it runs on every backend)
+    and one read of it on the host."""
+    if world() == 1:
+        return
+    hot = torch.zeros(size, dtype=torch.float32, device=device)
+    hot[index] = 1.0
+    dist.all_reduce(hot)
+    counts = hot.round().long().tolist()
+    if counts[index] != world():
+        raise RuntimeError(f"the processes hold different {what}s: {counts} processes each")
 
 
 def check_global_batch(batch_size: int):

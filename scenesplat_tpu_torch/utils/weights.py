@@ -19,6 +19,16 @@ SimDINOSSL state dict: ``backbone.*`` and ``teacher.*`` in the PTv3 layout
 ``scenesplat_tpu/utils/ckpt_bridge.py`` exports it), the heads'
 ``{dino,ibot}_head.fc{i}.{weight,bias}`` and
 ``mae_fc{1,2}.{weight,bias}``, ``mae_norm.{weight,bias}``.
+
+Point Prompt Training (flax ``PPT-v1m1`` / ``PPT-v1m2`` over a PT-v3m1 with
+``pdnorm_conditions``): each PDNorm's flax ``norm{c}`` becomes the
+reference's ``norm.{c}`` (``norm`` when ``pdnorm_decouple`` is off) and its
+``modulation`` ``modulation.1``; ``embedding_table`` becomes
+``embedding_table.weight``, ``proj_head`` and ``logit_scale`` keep their
+names, the ``constants`` collection's ``class_embedding`` becomes the
+buffer of that name and ``seg_head{i}`` ``seg_heads.{i}``. With
+``enable_rpe`` each attention's ``rpe_table`` becomes
+``attn.rpe.rpe_table``.
 """
 
 from __future__ import annotations
@@ -41,19 +51,22 @@ def _lookup(tree, path):
 
 def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone.",
                          flax_backbone_key: str = "backbone_module",
-                         teacher_params=None, teacher_batch_stats=None
+                         teacher_params=None, teacher_batch_stats=None,
+                         constants=None, pdnorm_decouple: bool = True
                          ) -> Dict[str, np.ndarray]:
-    """Flax PTv3 (or LangPretrainer, DefaultSegmentorV2, SimDINOSSL)
-    variables -> Pointcept-layout numpy state dict; ``teacher_params`` (and
-    its ``teacher_batch_stats``) go under ``teacher.``."""
+    """Flax PTv3 (or LangPretrainer, DefaultSegmentorV2, SimDINOSSL,
+    PPT-v1m1, PPT-v1m2) variables -> Pointcept-layout numpy state dict;
+    ``teacher_params`` (and its ``teacher_batch_stats``) go under
+    ``teacher.``; ``constants`` is PPT-v1m1's collection of that name."""
     params = dict(params)
     batch_stats = dict(batch_stats)
     bb_params = params.get(flax_backbone_key, params) if flax_backbone_key else params
     bb_stats = (batch_stats.get(flax_backbone_key, batch_stats)
                 if flax_backbone_key else batch_stats)
-    out = _backbone_state(bb_params, bb_stats, backbone_prefix)
+    out = _backbone_state(bb_params, bb_stats, backbone_prefix, pdnorm_decouple)
     if teacher_params is not None:
-        out.update(_backbone_state(teacher_params, teacher_batch_stats or {}, "teacher."))
+        out.update(_backbone_state(teacher_params, teacher_batch_stats or {}, "teacher.",
+                                   pdnorm_decouple))
     if not flax_backbone_key:
         return out
     head = params.get("seg_head")
@@ -68,6 +81,19 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
     if "mae_norm" in params:
         out["mae_norm.weight"] = np.asarray(params["mae_norm"]["scale"])
         out["mae_norm.bias"] = np.asarray(params["mae_norm"]["bias"])
+    # Point Prompt Training
+    if "embedding_table" in params:
+        out["embedding_table.weight"] = np.asarray(params["embedding_table"]["embedding"])
+    if "proj_head" in params:
+        _put_dense(out, "proj_head", params["proj_head"])
+    if "logit_scale" in params:
+        out["logit_scale"] = np.asarray(params["logit_scale"])
+    for name in params:
+        m = re.fullmatch(r"seg_head(\d+)", name)
+        if m:
+            _put_dense(out, f"seg_heads.{m.group(1)}", params[name])
+    if constants and "class_embedding" in constants:
+        out["class_embedding"] = np.asarray(constants["class_embedding"])
     return out
 
 
@@ -76,7 +102,8 @@ def _put_dense(out: Dict[str, np.ndarray], key: str, dense) -> None:
     out[key + ".bias"] = np.asarray(dense["bias"])
 
 
-def _backbone_state(bb_params, bb_stats, backbone_prefix: str) -> Dict[str, np.ndarray]:
+def _backbone_state(bb_params, bb_stats, backbone_prefix: str,
+                    pdnorm_decouple: bool = True) -> Dict[str, np.ndarray]:
     """One PTv3's flax params and batch stats -> its state dict entries
     under ``backbone_prefix``."""
     out: Dict[str, np.ndarray] = {}
@@ -117,6 +144,23 @@ def _backbone_state(bb_params, bb_stats, backbone_prefix: str) -> Dict[str, np.n
         if rm is not None or rv is not None:
             put(tkey + ".num_batches_tracked", np.zeros((), np.int64))
 
+    def put_norm(tkey, fpath, bn):
+        """A LayerNorm (a BatchNorm with ``bn``), or the PDNorm at its place:
+        flax ``norm{c}`` -> ``norm.{c}`` (``norm`` undecoupled) and its
+        ``modulation`` -> ``modulation.1``."""
+        # either tree alone may be given (gradients; statistics)
+        node = {**(_lookup(bb_stats, fpath) or {}), **(_lookup(bb_params, fpath) or {})}
+        if not node:
+            return
+        if {"scale", "mean"} & set(node):
+            (put_bn if bn else put_ln)(tkey, fpath)
+            return
+        for key in sorted((k for k in node if re.fullmatch(r"norm\d+", k)),
+                          key=lambda k: int(k[4:])):
+            sub = f"{tkey}.norm.{key[4:]}" if pdnorm_decouple else f"{tkey}.norm"
+            (put_bn if bn else put_ln)(sub, fpath + (key,))
+        put_dense(f"{tkey}.modulation.1", fpath + ("modulation",))
+
     def put_conv(tkey, fpath):
         w = get(fpath + ("kernel",))
         if w is None:
@@ -131,7 +175,7 @@ def _backbone_state(bb_params, bb_stats, backbone_prefix: str) -> Dict[str, np.n
             put(tkey + ".bias", b)
 
     put_conv("embedding.stem.conv", ("embedding", "conv"))
-    put_bn("embedding.stem.norm", ("embedding", "norm"))
+    put_norm("embedding.stem.norm", ("embedding", "norm"), bn=True)
     for name in sorted(bb_params):
         m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)", name)
         if m:
@@ -139,11 +183,14 @@ def _backbone_state(bb_params, bb_stats, backbone_prefix: str) -> Dict[str, np.n
             t = f"{side}.{side}{s}.block{i}"
             put_conv(f"{t}.cpe.0", (name, "cpe_conv"))
             put_dense(f"{t}.cpe.1", (name, "cpe_linear"))
-            put_ln(f"{t}.cpe.2", (name, "cpe_norm"))
-            put_ln(f"{t}.norm1.0", (name, "norm1"))
-            put_ln(f"{t}.norm2.0", (name, "norm2"))
+            put_norm(f"{t}.cpe.2", (name, "cpe_norm"), bn=False)
+            put_norm(f"{t}.norm1.0", (name, "norm1"), bn=False)
+            put_norm(f"{t}.norm2.0", (name, "norm2"), bn=False)
             put_dense(f"{t}.attn.qkv", (name, "attn", "qkv"))
             put_dense(f"{t}.attn.proj", (name, "attn", "proj"))
+            rpe = get((name, "attn", "rpe_table"))
+            if rpe is not None:
+                put(f"{t}.attn.rpe.rpe_table", rpe)
             put_dense(f"{t}.mlp.0.fc1", (name, "mlp", "fc1"))
             put_dense(f"{t}.mlp.0.fc2", (name, "mlp", "fc2"))
             continue
@@ -151,15 +198,15 @@ def _backbone_state(bb_params, bb_stats, backbone_prefix: str) -> Dict[str, np.n
         if m:
             s = m.group(1)
             put_dense(f"enc.enc{s}.down.proj", (name, "proj"))
-            put_bn(f"enc.enc{s}.down.norm.0", (name, "norm"))
+            put_norm(f"enc.enc{s}.down.norm.0", (name, "norm"), bn=True)
             continue
         m = re.fullmatch(r"dec(\d+)_up", name)
         if m:
             s = m.group(1)
             put_dense(f"dec.dec{s}.up.proj.0", (name, "proj"))
-            put_bn(f"dec.dec{s}.up.proj.1", (name, "proj_norm"))
+            put_norm(f"dec.dec{s}.up.proj.1", (name, "proj_norm"), bn=True)
             put_dense(f"dec.dec{s}.up.proj_skip.0", (name, "proj_skip"))
-            put_bn(f"dec.dec{s}.up.proj_skip.1", (name, "proj_skip_norm"))
+            put_norm(f"dec.dec{s}.up.proj_skip.1", (name, "proj_skip_norm"), bn=True)
     mask_token = get(("mask_token",))
     if mask_token is not None:
         put("mask_token", mask_token.reshape(1, -1))

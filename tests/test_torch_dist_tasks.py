@@ -224,6 +224,62 @@ def test_two_ranks_semseg_step_equals_one_process(tmp_path, weighted):
     assert "seg_head.weight" in ranks[0]["grads"]
 
 
+def _ppt_job(conditions, find_unused=True):
+    """PPT-v1m2 over the tiny 5-stage backbone with PDNorms (drop-path 0.3,
+    the backbone's two conditions in the other order than the model's), its
+    own seeded weights, the semseg rows, two steps on ``conditions``."""
+    from scenesplat_tpu_torch.models import build_model
+    from tests.test_torch_semseg import TINY
+
+    batch, _ = _semseg_rows()
+    model = dict(type="PPT-v1m2", backbone_out_channels=TINY["dec_channels"][0],
+                 context_channels=16, conditions=("A", "B"), num_classes=(NUM_CLASSES, 5),
+                 backbone=dict(type="PT-v3m1", **dict(TINY, drop_path=0.3), seed=2,
+                               pdnorm_conditions=("B", "A"), context_channels=16))
+    state = {k: v.numpy() for k, v in build_model(dict(model)).state_dict().items()}
+    return dict(kind="ppt_steps", batch=batch, state=state, seed=7, model=model,
+                criteria=_semseg_criteria(), conditions=conditions, find_unused=find_unused)
+
+
+def test_two_ranks_ppt_steps_equal_one_process(tmp_path):
+    """train_step of task "ppt" under the trainer's DDP (find_unused_parameters)
+    through a change of condition: on each step two ranks of one row each
+    equal one process over both rows, the inactive condition's head and
+    norms without a gradient on every rank, the same gradients on both."""
+    from scenesplat_tpu_torch.engines.train_step import train_step
+    from scenesplat_tpu_torch.models import build_criteria
+    from tests.torch_dist_worker import _model, _step_record, _tensors
+
+    job = _ppt_job(["A", "B"])
+    model = _model(job)
+    one = []
+    for name in job["conditions"]:
+        metrics = train_step(model, build_criteria(job["criteria"]),
+                             torch.optim.SGD(model.parameters(), lr=0.0), None,
+                             dict(_tensors(job["batch"]), condition=name),
+                             generator=torch.Generator().manual_seed(7), task="ppt")
+        one.append(_step_record(model, metrics["loss"], metrics["grad_norm"]))
+    ranks = run_ranks(tmp_path, job)
+    for i, name in enumerate(job["conditions"]):
+        inactive = ("A", "B").index(name) ^ 1
+        assert f"seg_heads.{inactive}.weight" not in one[i]["grads"]
+        for r, got in enumerate(ranks):
+            step = got["steps"][i]
+            np.testing.assert_allclose(step["loss"], one[i]["loss"], rtol=LOSS_RTOL)
+            _assert_grads(step["grads"], one[i]["grads"], f"rank {r} step {i}")
+        for key, g in ranks[0]["steps"][i]["grads"].items():
+            assert torch.equal(g, ranks[1]["steps"][i]["grads"][key]), key
+    _assert_stats(ranks[0]["steps"][1]["stats"], one[1]["stats"], "rank 0")
+
+
+def test_ppt_under_ddp_needs_find_unused_parameters(tmp_path):
+    """Without find_unused_parameters DDP refuses the PPT step whose
+    parameters took no gradient (the inactive condition's norms and head):
+    the ranks fail."""
+    with pytest.raises(AssertionError, match=r"exited with[\s\S]*find_unused_parameters"):
+        run_ranks(tmp_path, _ppt_job(["A", "B"], find_unused=False), timeout=120)
+
+
 SSL_LOSS_KWARGS = dict(local_crop_num=1, enable_mae=True, mask_type="patch",
                        mask_grid_size=0.2, mask_ratio_min_max=(0.2, 0.5),
                        mask_sample_probability=1.0)

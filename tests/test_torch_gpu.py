@@ -8,6 +8,8 @@ involved). Every test skips without a card; on one, run
 (--noconftest: the suite's conftest sets up JAX, which a CUDA machine need
 not have)."""
 
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -530,6 +532,61 @@ def test_grad_fn_only_when_recording(cuda):
     with torch.inference_mode():
         assert fwa.flash_window_attention(x, valid, 64, 4).grad_fn is None
     assert fwa.flash_window_attention_bwd.launches == b0
+
+
+@pytest.mark.parametrize("condition", ["ScanNetGS", "ScanNetPPGS"])
+def test_ppt_step_kernels_match_plain(cuda, condition):
+    """One fp32 Point Prompt Training loss (PPT-v1m2 over a small
+    PDNorm-conditioned PT-v3m1, the backbone's conditions in the other
+    order) with K1 / K2 against the plain attention: the loss to 1e-5 and
+    each gradient to 1e-4 of its norm; the other condition's norms and head
+    take no gradient on either path."""
+    from scenesplat_tpu_torch.engines.train_step import ppt_loss
+    from scenesplat_tpu_torch.models import PointBatch, build_model
+    from scenesplat_tpu_torch.models.losses.misc import CrossEntropyLoss
+
+    gen = torch.Generator().manual_seed(3)
+    grid = torch.unique(torch.randint(0, 40, (3000, 3), generator=gen), dim=0)[:2048]
+    n = grid.shape[0]
+    point = PointBatch(coord=(grid.float() * 0.02)[None].to(cuda),
+                       feat=torch.randn(1, n, 6, generator=gen).to(cuda),
+                       grid_coord=grid[None].to(cuda), mask=torch.ones(1, n, dtype=torch.bool,
+                                                                       device=cuda))
+    segment = torch.randint(0, 5, (1, n), generator=gen).to(cuda)
+
+    def step(use_kernel):
+        model = build_model(dict(
+            type="PPT-v1m2", backbone_out_channels=32, context_channels=32,
+            conditions=("ScanNetGS", "ScanNetPPGS"), num_classes=(5, 8),
+            backbone=dict(type="PT-v3m1", in_channels=6, order=("z", "z-trans"), stride=(2,),
+                          enc_depths=(1, 1), enc_channels=(32, 64), enc_num_head=(2, 4),
+                          enc_patch_size=(128, 128), dec_depths=(1,), dec_channels=(32,),
+                          dec_num_head=(2,), dec_patch_size=(48,), drop_path=0.0,
+                          shuffle_orders=False, stage_capacity=(1.0,),
+                          pdnorm_conditions=("ScanNetPPGS", "ScanNetGS"), context_channels=32,
+                          use_kernel=use_kernel, seed=1))).to(cuda).train()
+        batch = dict(coord=point.coord, feat=point.feat, grid_coord=point.grid_coord,
+                     mask=point.mask, segment=segment, condition=condition)
+        loss, _ = ppt_loss(model, CrossEntropyLoss(ignore_index=-1), batch)
+        loss.backward()
+        return loss.item(), {k: p.grad for k, p in model.named_parameters()
+                             if p.grad is not None}
+
+    before = fwa.flash_window_attention.launches
+    loss_k, grads_k = step(None)
+    assert fwa.flash_window_attention.launches == before + 3
+    loss_p, grads_p = step(False)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert sorted(grads_k) == sorted(grads_p)
+    inactive = 1 - ("ScanNetGS", "ScanNetPPGS").index(condition)
+    assert f"seg_heads.{inactive}.weight" not in grads_k
+    active = ("ScanNetPPGS", "ScanNetGS").index(condition)  # in the backbone's order
+    pdnorms = (re.search(r"\.norm\.(\d+)\.(weight|bias)$", k) for k in grads_k)
+    assert {int(m.group(1)) for m in pdnorms if m} == {active}
+    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_p.values()]))
+    for k, g in grads_p.items():
+        if g.norm() > 1e-7 * total:
+            assert (grads_k[k] - g).norm() <= 1e-4 * g.norm(), k
 
 
 def _sort_operands(cuda, b, n, num_ops, seed, ties=False):

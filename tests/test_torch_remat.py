@@ -40,10 +40,10 @@ def _point(seed, n_parents=96):
                       mask=torch.ones(1, len(grid), dtype=torch.bool))
 
 
-def _run(model_cfg, point, seed=3):
-    """A train-mode forward and backward of a weighted sum of the output;
-    returns the loss, the gradients, the bytes autograd kept for the
-    backward and the generator's next draw."""
+def _run(model_cfg, point, seed=3, **forward_kw):
+    """A train-mode forward (with ``forward_kw``) and backward of a weighted
+    sum of the output; returns the loss, the gradients, the bytes autograd
+    kept for the backward and the generator's next draw."""
     from scenesplat_tpu_torch.models import build_model
 
     model = build_model(model_cfg).train()
@@ -55,7 +55,7 @@ def _run(model_cfg, point, seed=3):
 
     generator = torch.Generator().manual_seed(seed)
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        out = model(point, generator=generator)
+        out = model(point, generator=generator, **forward_kw)
         feat = out.feat.float()
         loss = (feat ** 2 * torch.linspace(0.5, 1.5, feat.shape[-1])).sum()
     loss.backward()
@@ -63,17 +63,30 @@ def _run(model_cfg, point, seed=3):
     return loss.detach(), grads, kept[0], torch.rand(4, generator=generator)
 
 
-@pytest.mark.parametrize("kind", ["lang", "semseg"])
+@pytest.mark.parametrize("kind", ["lang", "semseg", "ppt"])
 def test_remat_equals_no_remat(kind):
+    """``ppt``: PPT-v1m2 over adaptive PDNorms, whose condition and context
+    reach each block's recompute through its closure (the context table's
+    gradient included)."""
     backbone = dict(MINI, type="PT-v3m1", stage_capacity=(0.5,), drop_path=0.3, proj_drop=0.1)
+    forward_kw = {}
     if kind == "lang":
         cfg = dict(type="LangPretrainer", backbone=backbone)
-    else:
+    elif kind == "semseg":
         cfg = dict(type="DefaultSegmentorV2", num_classes=5,
                    backbone_out_channels=MINI["dec_channels"][0], backbone=backbone)
+    else:
+        backbone = dict(backbone, pdnorm_conditions=("B", "A"), pdnorm_adaptive=True,
+                        context_channels=8)
+        cfg = dict(type="PPT-v1m2", backbone_out_channels=MINI["dec_channels"][0],
+                   context_channels=8, conditions=("A", "B"), num_classes=(5, 3),
+                   backbone=backbone)
+        forward_kw = dict(condition="A")
     point = _point(7)
-    off = _run(dict(cfg, backbone=dict(backbone, remat_blocks=False)), point)
-    on = _run(dict(cfg, backbone=dict(backbone, remat_blocks=True)), point)
+    off = _run(dict(cfg, backbone=dict(backbone, remat_blocks=False)), point, **forward_kw)
+    on = _run(dict(cfg, backbone=dict(backbone, remat_blocks=True)), point, **forward_kw)
+    if kind == "ppt":
+        assert "embedding_table.weight" in off[1] and "seg_heads.1.weight" not in off[1]
     assert torch.equal(on[0], off[0])  # the forward, bit for bit
     assert sorted(on[1]) == sorted(off[1])
     for key, g in off[1].items():

@@ -93,6 +93,29 @@ def semseg_step(job) -> dict:
     return _step_record(model, metrics["loss"], metrics["grad_norm"])
 
 
+def ppt_steps(job) -> dict:
+    """This rank's rows of the job's global batch through one ``train_step``
+    of task "ppt" on each of ``conditions`` in turn, under one DDP wrapper
+    built as the trainer builds it for PPT (``find_unused_parameters``,
+    unless the job turns it off)."""
+    from scenesplat_tpu_torch.engines.train_step import train_step
+    from scenesplat_tpu_torch.models import build_criteria
+
+    pdist.init_distributed("cpu")
+    rows = pdist.local_batch_slice(job["batch"]["mask"].shape[0])
+    batch = _tensors({k: v[rows] for k, v in job["batch"].items()})
+    model = _model(job)
+    ddp = pdist.data_parallel(model, find_unused_parameters=job.get("find_unused", True))
+    criteria = build_criteria(job["criteria"])
+    steps = []
+    for name in job["conditions"]:
+        metrics = train_step(ddp, criteria, torch.optim.SGD(model.parameters(), lr=0.0), None,
+                             dict(batch, condition=name),
+                             generator=torch.Generator().manual_seed(job["seed"]), task="ppt")
+        steps.append(_step_record(model, metrics["loss"], metrics["grad_norm"]))
+    return dict(steps=steps)
+
+
 def ssl_record(model, metrics) -> dict:
     """An SSL step's loss terms, the student's gradients, every running
     statistic and the teacher's parameters after the step."""
@@ -194,7 +217,8 @@ def trainer(job) -> dict:
                 losses=t.storage.history("loss").values())
 
 
-JOBS = dict(step=step, semseg_step=semseg_step, ssl_step=ssl_step, gather=gather,
+JOBS = dict(step=step, semseg_step=semseg_step, ppt_steps=ppt_steps, ssl_step=ssl_step,
+            gather=gather,
             losses=losses, reductions=reductions, entry=entry, trainer=trainer)
 
 
