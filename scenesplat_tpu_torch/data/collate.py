@@ -26,9 +26,14 @@ INT_KEYS = ("segment", "instance", "grid_coord", "index", "pc_segment")
 BOOL_KEYS = ("valid_feat_mask",)
 
 
+# one row an instance, not a point (InstanceParser): never merged, cut,
+# padded or stacked, whatever its length (the JAX collate drops it too)
+NOT_PER_POINT = ("bbox",)
+
+
 def _per_point(key, value, n):
     return (isinstance(value, np.ndarray) and value.shape[:1] == (n,)
-            and not key.startswith(("pc_", "origin_")))
+            and not key.startswith(("pc_", "origin_")) and key not in NOT_PER_POINT)
 
 
 def _merge_two(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -86,9 +91,8 @@ def collate_padded(samples: List[Dict[str, np.ndarray]], num_points: int,
                     raise ValueError(f"one {key} per batch, got {sorted(set(vals))}")
                 batch[key] = vals[0]
             continue
-        if any(v.shape[:1] != (n,) for v, n in zip(vals, lengths)) or (
-                key.startswith(("pc_", "origin_"))):
-            continue  # per-scene full-resolution arrays do not batch
+        if not all(_per_point(key, v, n) for v, n in zip(vals, lengths)):
+            continue  # per-scene arrays (full resolution, instances) do not batch
         dtype = vals[0].dtype
         if key in INT_KEYS:
             dtype = np.int32

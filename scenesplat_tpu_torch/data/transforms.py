@@ -246,6 +246,47 @@ class NormalizeColor:
 
 
 @TRANSFORMS.register_module()
+class InstanceParser:
+    """Instance targets for instance segmentation (reference
+    transform.py:1621-1663): points of a ``segment_ignore_index`` class lose
+    their instance; the others' ids are compacted to 0..I-1 (``instance``);
+    ``instance_centroid`` [N, 3] is each point's instance's mean coordinate
+    (``instance_ignore_index`` without one); ``bbox`` [I, 8] is each
+    instance's centre, extent, 0 and class, counted without the ignored
+    classes below it. ``bbox`` is one row an instance, not a point, so
+    collation drops it."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = segment_ignore_index
+        self.instance_ignore_index = instance_ignore_index
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        segment = data_dict["segment"]
+        instance = np.asarray(data_dict["instance"]).copy()
+        mask = ~np.isin(segment, self.segment_ignore_index)
+        instance[~mask] = self.instance_ignore_index
+        unique, inverse = np.unique(instance[mask], return_inverse=True)
+        instance_num = len(unique)
+        instance[mask] = inverse
+        centroid = np.full((coord.shape[0], 3), self.instance_ignore_index, np.float64)
+        bbox = np.full((instance_num, 8), self.instance_ignore_index, np.float64)
+        vacancy = [i for i in self.segment_ignore_index if i >= 0]
+        for inst_id in range(instance_num):
+            m = instance == inst_id
+            c = coord[m]
+            bmin, bmax = c.min(0), c.max(0)
+            cls = np.array([segment[m][0]], dtype=np.float64)
+            cls -= np.greater(cls, vacancy).sum()
+            centroid[m] = c.mean(0)
+            bbox[inst_id] = np.concatenate([(bmax + bmin) / 2, bmax - bmin, np.zeros(1), cls])
+        data_dict["instance"] = instance
+        data_dict["instance_centroid"] = centroid
+        data_dict["bbox"] = bbox
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class CenterShift:
     def __init__(self, apply_z=True):
         self.apply_z = apply_z

@@ -15,6 +15,9 @@ Prompt Training model each scene runs on its own dataset's ``condition``
 (set by its pipeline's ``Add``) and is scored in that condition's class
 space; each condition's mIoU is logged, and their mean is the metric.
 
+``InsSegEvaluator``: PointGroup proposals scored with the ScanNet AP
+protocol; AP50 is the checkpoint metric.
+
 Under data parallel each process evaluates its round-robin share of the
 scenes (``parallel/dist_eval.py``) with the module itself, not its DDP
 wrapper (whose forward syncs buffers across processes, which run different
@@ -24,9 +27,11 @@ processes, so every process logs the same metrics.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from scenesplat_tpu_torch.data import build_dataset
 from scenesplat_tpu_torch.data.transforms import seed_transforms
@@ -37,7 +42,13 @@ from scenesplat_tpu_torch.engines.eval import (
     load_text_embeddings,
 )
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
-from scenesplat_tpu_torch.parallel.dist_eval import allreduce_sum_arrays, partition_indices
+from scenesplat_tpu_torch.models.point_group import proposals_from_predictions
+from scenesplat_tpu_torch.parallel.dist_eval import (
+    allgather_pyobjects,
+    allreduce_sum_arrays,
+    partition_indices,
+)
+from scenesplat_tpu_torch.utils.insseg_eval import associate_instances, evaluate_matches
 from scenesplat_tpu_torch.utils.misc import intersection_and_union
 
 from .default import HOOKS, HookBase
@@ -196,3 +207,79 @@ class SemSegEvaluator(HookBase):
         trainer.comm_info["current_metric_value"] = miou
         trainer.comm_info["current_metric_name"] = "mIoU"
         trainer.storage.put_scalar("val/mIoU", miou)
+
+
+@HOOKS.register_module()
+class InsSegEvaluator(HookBase):
+    """Instance segmentation with the ScanNet AP protocol (reference
+    evaluator.py:249-625): after every epoch each whole validation scene
+    runs through the model (logits and centre bias), the model config's
+    ``cluster_*`` settings make PointGroup proposals on the card
+    (``models/point_group.py:proposals_from_predictions``), and the
+    proposals meet the scene's instances (``utils/insseg_eval.py``). Under
+    data parallel each process takes its share of the scenes and every
+    process's records are gathered before the matching, since AP ranks the
+    proposals' scores over all scenes. Logs ``val/mAP``, ``val/AP50`` and
+    ``val/AP25``; AP50 is the checkpoint metric. ``scene_log`` keeps each of
+    this process's scenes' points, proposals and clustering seconds."""
+
+    def __init__(self, segment_ignore_index=(-1,), instance_ignore_index: int = -1,
+                 max_scenes: Optional[int] = None):
+        self.segment_ignore_index = tuple(segment_ignore_index)
+        self.instance_ignore_index = instance_ignore_index
+        self.max_scenes = max_scenes
+        self.dataset = None
+        self.scene_log = []
+
+    def before_train(self):
+        cfg = self.trainer.cfg
+        val_cfg = cfg.data.get("val")
+        if val_cfg is None:
+            return
+        self.dataset = build_dataset(dict(val_cfg))
+        self.num_classes = cfg.data.get("num_classes")
+        self.names = cfg.data.get("names", [str(i) for i in range(self.num_classes or 0)])
+        self.model_cfg = dict(cfg.model)
+        self.extractor = FeatureExtractor(
+            self.trainer.model, patch_size=1024, device=self.trainer.device,
+            output_fn=lambda out: torch.cat([out[0].feat.float(), out[1].float()], -1))
+
+    def after_epoch(self):
+        if self.dataset is None:
+            return
+        trainer = self.trainer
+        trainer.model.eval()  # the next train step puts it back into training
+        mc = self.model_cfg
+        n_scenes = len(self.dataset)
+        if self.max_scenes:
+            n_scenes = min(n_scenes, self.max_scenes)
+        scenes, self.scene_log = [], []
+        for i in partition_indices(n_scenes):
+            seed_transforms((self._seed(), i))
+            sample = self.dataset[i]
+            out = self.extractor(sample)
+            t0 = time.perf_counter()
+            pred = proposals_from_predictions(
+                np.asarray(sample["coord"], np.float32), out[:, :-3], out[:, -3:],
+                segment_ignore_index=mc.get("segment_ignore_index", self.segment_ignore_index),
+                cluster_thresh=mc.get("cluster_thresh", 1.5),
+                cluster_propose_points=mc.get("cluster_propose_points", 100),
+                cluster_min_points=mc.get("cluster_min_points", 50),
+                voxel_size=mc.get("voxel_size", 0.02), device=trainer.device)
+            self.scene_log.append(dict(points=len(out), proposals=len(pred["pred_classes"]),
+                                       cluster_s=time.perf_counter() - t0))
+            scenes.append(associate_instances(
+                pred["pred_masks"], pred["pred_classes"], pred["pred_scores"],
+                np.asarray(sample["segment"]).reshape(-1),
+                np.asarray(sample["instance"]).reshape(-1), self.num_classes,
+                segment_ignore_index=self.segment_ignore_index,
+                instance_ignore_index=self.instance_ignore_index))
+        scores = evaluate_matches(allgather_pyobjects(scenes), self.num_classes, self.names,
+                                  segment_ignore_index=self.segment_ignore_index)
+        m_ap, ap50, ap25 = scores["all_ap"], scores["all_ap_50%"], scores["all_ap_25%"]
+        trainer.logger.info(f"val mAP/AP50/AP25 {m_ap:.4f}/{ap50:.4f}/{ap25:.4f}")
+        trainer.comm_info["current_metric_value"] = ap50
+        trainer.comm_info["current_metric_name"] = "AP50"
+        trainer.storage.put_scalar("val/mAP", m_ap)
+        trainer.storage.put_scalar("val/AP50", ap50)
+        trainer.storage.put_scalar("val/AP25", ap25)

@@ -2,9 +2,10 @@
 hook-driven epoch and step loop around ``engines/train_step.py``.
 
 The port trains the VL pretraining task (``LangPretrainer``), semantic
-segmentation (``DefaultSegmentorV2``) and Point Prompt Training
+segmentation (``DefaultSegmentorV2``), Point Prompt Training
 (``PPT-v1m1``, ``PPT-v1m2``: semantic segmentation over several datasets,
-each batch from one, usually through ``MultiDatasetTrainer``); the model's
+each batch from one, usually through ``MultiDatasetTrainer``) and
+PointGroup instance segmentation (``PG-v1m1``); the model's
 type picks the task, as
 ``Trainer.TASKS`` does in the JAX package. SimDINO
 self-supervised pretraining has a trainer of its own
@@ -94,7 +95,7 @@ class Trainer(TrainerBase):
     type outside it raises."""
 
     TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg",
-             "PPT-v1m1": "ppt", "PPT-v1m2": "ppt"}
+             "PPT-v1m1": "ppt", "PPT-v1m2": "ppt", "PG-v1m1": "insseg"}
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()

@@ -1,15 +1,17 @@
 """One training step (counterpart of ``scenesplat_tpu/engines/train_step.py``)
-of the VL pretraining task (``"lang"``) or of semantic segmentation
-(``"semseg"``).
+of the VL pretraining task (``"lang"``), of semantic segmentation
+(``"semseg"``) or of PointGroup instance segmentation (``"insseg"``).
 
 bf16 compute comes from the model's compute dtype over fp32 parameters, so
 no GradScaler is needed. The lang loss reads ``lang_feat`` upcast to fp32,
 the semseg loss the logits against ``segment``; Point Prompt Training
 (``"ppt"``) is semseg with the batch's dataset ``condition`` handed to the
-model, whose logits are in that condition's class space. The step runs backward,
-clips the gradient's global norm, steps the optimizer and the schedule,
-and returns the loss and the gradient norm before clipping (the JAX step's
-``optax.global_norm(grads)``).
+model, whose logits are in that condition's class space. The insseg loss
+reads the model's logits and centre biases against ``segment``,
+``instance`` and ``instance_centroid`` (``models/point_group.py``). The
+step runs backward, clips the gradient's global norm, steps the optimizer
+and the schedule, and returns the loss and the gradient norm before
+clipping (the JAX step's ``optax.global_norm(grads)``).
 
 Under data parallel the step takes the model under DistributedDataParallel.
 The lang loss's reductions span the global batch (``parallel/dist.py``), so
@@ -25,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
+from scenesplat_tpu_torch.models.point_group import pointgroup_loss
 from scenesplat_tpu_torch.models.structure import PointBatch
 from scenesplat_tpu_torch.parallel.dist import check_same_on_ranks
 
@@ -86,7 +89,23 @@ def ppt_loss(model, criteria, batch: Dict[str, torch.Tensor],
     return criteria(out.feat, batch["segment"], mask=out.mask), out
 
 
-TASK_LOSSES = {"lang": lang_loss, "semseg": semseg_loss, "ppt": ppt_loss}
+def insseg_loss(model, criteria, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None, epoch_progress=None):
+    """PointGroup's semantic, bias L1 and bias cosine terms of the model's
+    (logits, bias); the semantic term is ``criteria``'s, or the model's
+    cross-entropy with its ``semantic_ignore_index`` when the config sets
+    none. Returns (loss, the backbone output with the logits)."""
+    pg = getattr(model, "module", model)  # under DDP, the model itself
+    out, bias = model(point_from_batch(batch), generator=generator)
+    loss, _ = pointgroup_loss(out.feat, bias, out.coord, batch["segment"], batch["instance"],
+                              batch["instance_centroid"], out.mask, criteria,
+                              semantic_ignore_index=pg.semantic_ignore_index,
+                              instance_ignore_index=pg.instance_ignore_index)
+    return loss, out
+
+
+TASK_LOSSES = {"lang": lang_loss, "semseg": semseg_loss, "ppt": ppt_loss,
+               "insseg": insseg_loss}
 
 
 def train_step(model, criteria, optimizer, scheduler, batch: Dict[str, torch.Tensor],

@@ -5,3 +5,5 @@ from . import default  # noqa: F401 (registers LangPretrainer, DefaultSegmentorV
 from .losses import build_criteria  # noqa: E402,F401
 from . import ssl  # noqa: E402,F401 (registers SimDINOSSL, DefaultContrastiverSimDinoV2)
 from . import ppt  # noqa: E402,F401 (registers PPT-v1m1, PPT-v1m2)
+# registers SpUNet-v1m1, SpUNet-v1m2, SpUNet-v1m3, SpUNetNoSkipBase and PG-v1m1
+from . import spunet, point_group  # noqa: E402,F401

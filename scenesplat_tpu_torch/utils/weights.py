@@ -1,4 +1,4 @@
-"""Carry the JAX package's PTv3 weights into the port.
+"""Carry the JAX package's PTv3 and SpUNet weights into the port.
 
 The port's own copy of the mapping that
 ``scenesplat_tpu/utils/ckpt_bridge.py:export_ptv3_lang_checkpoint`` emits:
@@ -29,6 +29,16 @@ names, the ``constants`` collection's ``class_embedding`` becomes the
 buffer of that name and ``seg_head{i}`` ``seg_heads.{i}``. With
 ``enable_rpe`` each attention's ``rpe_table`` becomes
 ``attn.rpe.rpe_table``.
+
+SpUNet (a flax tree with ``conv_input``): v1m1, v1m2 and NoSkip in the
+reference's spconv_unet_v1m1_base.py names, equal key for key and value for
+value to ``scenesplat_tpu/utils/ckpt_bridge.py:export_spunet_checkpoint``
+(the 1x1 convs ``final`` and a block's ``proj.0`` as [1, 1, 1, Cin, Cout]);
+v1m3 (``pdnorm`` norms) in spconv_unet_v1m3_pdnorm.py's names, the inverse
+of that file's ``convert_spunet_v1m3_checkpoint``. PG-v1m1 (the inverse of
+``convert_pointgroup_checkpoint``): the backbone under ``backbone.``, flax
+``bias_fc1``, ``bias_norm`` and ``bias_fc2`` as ``bias_head.{0,1,3}`` and
+``seg_head``.
 """
 
 from __future__ import annotations
@@ -54,8 +64,9 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
                          teacher_params=None, teacher_batch_stats=None,
                          constants=None, pdnorm_decouple: bool = True
                          ) -> Dict[str, np.ndarray]:
-    """Flax PTv3 (or LangPretrainer, DefaultSegmentorV2, SimDINOSSL,
-    PPT-v1m1, PPT-v1m2) variables -> Pointcept-layout numpy state dict;
+    """Flax PTv3 or SpUNet (or LangPretrainer, DefaultSegmentorV2,
+    SimDINOSSL, PPT-v1m1, PPT-v1m2, PG-v1m1) variables -> Pointcept-layout
+    numpy state dict;
     ``teacher_params`` (and its ``teacher_batch_stats``) go under
     ``teacher.``; ``constants`` is PPT-v1m1's collection of that name."""
     params = dict(params)
@@ -72,6 +83,11 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
     head = params.get("seg_head")
     if head is not None:  # DefaultSegmentorV2's linear head, outside the backbone
         _put_dense(out, "seg_head", head)
+    if "bias_fc1" in params or "bias_norm" in batch_stats:  # PG-v1m1's bias head
+        w = _Writer(out, params, batch_stats, "")
+        w.dense("bias_head.0", ("bias_fc1",))
+        w.bn("bias_head.1", ("bias_norm",))
+        w.dense("bias_head.3", ("bias_fc2",))
     for name in ("dino_head", "ibot_head"):  # SimDINOSSL's projection heads
         for fc, dense in sorted(params.get(name, {}).items()):
             _put_dense(out, f"{name}.{fc}", dense)
@@ -102,115 +118,176 @@ def _put_dense(out: Dict[str, np.ndarray], key: str, dense) -> None:
     out[key + ".bias"] = np.asarray(dense["bias"])
 
 
-def _backbone_state(bb_params, bb_stats, backbone_prefix: str,
-                    pdnorm_decouple: bool = True) -> Dict[str, np.ndarray]:
-    """One PTv3's flax params and batch stats -> its state dict entries
-    under ``backbone_prefix``."""
-    out: Dict[str, np.ndarray] = {}
+class _Writer:
+    """Writes one backbone's flax leaves into ``out`` under ``prefix``:
+    ``params`` and ``stats`` (batch statistics) may each be empty (a
+    gradient tree; statistics alone)."""
 
-    def get(fpath, stats=False):
-        v = _lookup(bb_stats if stats else bb_params, fpath)
+    def __init__(self, out: Dict[str, np.ndarray], params, stats, prefix: str):
+        self.out, self.params, self.stats, self.prefix = out, params, stats, prefix
+
+    def get(self, fpath, stats=False):
+        v = _lookup(self.stats if stats else self.params, fpath)
         return None if v is None else np.asarray(v)
 
-    def put(tkey, value):
-        out[backbone_prefix + tkey] = np.asarray(value)
+    def node(self, fpath) -> dict:
+        return {**(_lookup(self.stats, fpath) or {}), **(_lookup(self.params, fpath) or {})}
 
-    def put_dense(tkey, fpath):
-        w = get(fpath + ("kernel",))
+    def put(self, tkey, value):
+        self.out[self.prefix + tkey] = np.asarray(value)
+
+    def dense(self, tkey, fpath):
+        w = self.get(fpath + ("kernel",))
         if w is None:
             return
-        put(tkey + ".weight", w.T)
-        b = get(fpath + ("bias",))
-        if b is not None:
-            put(tkey + ".bias", b)
+        self.put(tkey + ".weight", w.T)
+        self.bias(tkey, fpath)
 
-    def put_ln(tkey, fpath):
-        w = get(fpath + ("scale",))
+    def bias(self, tkey, fpath):
+        b = self.get(fpath + ("bias",))
+        if b is not None:
+            self.put(tkey + ".bias", b)
+
+    def ln(self, tkey, fpath):
+        w = self.get(fpath + ("scale",))
         if w is None:
             return
-        put(tkey + ".weight", w)
-        b = get(fpath + ("bias",))
-        if b is not None:
-            put(tkey + ".bias", b)
+        self.put(tkey + ".weight", w)
+        self.bias(tkey, fpath)
 
-    def put_bn(tkey, fpath):
-        put_ln(tkey, fpath)
-        rm = get(fpath + ("mean",), stats=True)
-        rv = get(fpath + ("var",), stats=True)
+    def bn(self, tkey, fpath):
+        self.ln(tkey, fpath)
+        rm = self.get(fpath + ("mean",), stats=True)
+        rv = self.get(fpath + ("var",), stats=True)
         if rm is not None:
-            put(tkey + ".running_mean", rm)
+            self.put(tkey + ".running_mean", rm)
         if rv is not None:
-            put(tkey + ".running_var", rv)
+            self.put(tkey + ".running_var", rv)
         if rm is not None or rv is not None:
-            put(tkey + ".num_batches_tracked", np.zeros((), np.int64))
+            self.put(tkey + ".num_batches_tracked", np.zeros((), np.int64))
+
+    def conv(self, tkey, fpath):
+        """[K3, Cin, Cout] -> spconv's [k, k, k, Cin, Cout]; a Dense kernel
+        [Cin, Cout] (a 1x1 conv) -> [1, 1, 1, Cin, Cout]."""
+        w = self.get(fpath + ("kernel",))
+        if w is None:
+            return
+        if w.ndim == 2:
+            w = w[None]
+        k3, cin, cout = w.shape
+        k = round(k3 ** (1 / 3))
+        if k ** 3 != k3:
+            raise ValueError(f"non-cubic conv kernel {w.shape}")
+        self.put(tkey + ".weight", w.reshape(k, k, k, cin, cout))
+        self.bias(tkey, fpath)
+
+
+def _backbone_state(bb_params, bb_stats, backbone_prefix: str,
+                    pdnorm_decouple: bool = True) -> Dict[str, np.ndarray]:
+    """One backbone's (PTv3's or SpUNet's) flax params and batch stats ->
+    its state dict entries under ``backbone_prefix``."""
+    out: Dict[str, np.ndarray] = {}
+    w = _Writer(out, bb_params, bb_stats, backbone_prefix)
+    if "conv_input" in bb_params or "norm_input" in bb_stats:
+        _spunet_state(w, pdnorm_decouple)
+        return out
 
     def put_norm(tkey, fpath, bn):
         """A LayerNorm (a BatchNorm with ``bn``), or the PDNorm at its place:
         flax ``norm{c}`` -> ``norm.{c}`` (``norm`` undecoupled) and its
         ``modulation`` -> ``modulation.1``."""
-        # either tree alone may be given (gradients; statistics)
-        node = {**(_lookup(bb_stats, fpath) or {}), **(_lookup(bb_params, fpath) or {})}
+        node = w.node(fpath)
         if not node:
             return
         if {"scale", "mean"} & set(node):
-            (put_bn if bn else put_ln)(tkey, fpath)
+            (w.bn if bn else w.ln)(tkey, fpath)
             return
         for key in sorted((k for k in node if re.fullmatch(r"norm\d+", k)),
                           key=lambda k: int(k[4:])):
             sub = f"{tkey}.norm.{key[4:]}" if pdnorm_decouple else f"{tkey}.norm"
-            (put_bn if bn else put_ln)(sub, fpath + (key,))
-        put_dense(f"{tkey}.modulation.1", fpath + ("modulation",))
+            (w.bn if bn else w.ln)(sub, fpath + (key,))
+        w.dense(f"{tkey}.modulation.1", fpath + ("modulation",))
 
-    def put_conv(tkey, fpath):
-        w = get(fpath + ("kernel",))
-        if w is None:
-            return
-        k3, cin, cout = w.shape
-        k = round(k3 ** (1 / 3))
-        if k ** 3 != k3:
-            raise ValueError(f"non-cubic conv kernel {w.shape}")
-        put(tkey + ".weight", w.reshape(k, k, k, cin, cout))
-        b = get(fpath + ("bias",))
-        if b is not None:
-            put(tkey + ".bias", b)
-
-    put_conv("embedding.stem.conv", ("embedding", "conv"))
+    w.conv("embedding.stem.conv", ("embedding", "conv"))
     put_norm("embedding.stem.norm", ("embedding", "norm"), bn=True)
     for name in sorted(bb_params):
         m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)", name)
         if m:
             side, s, i = m.groups()
             t = f"{side}.{side}{s}.block{i}"
-            put_conv(f"{t}.cpe.0", (name, "cpe_conv"))
-            put_dense(f"{t}.cpe.1", (name, "cpe_linear"))
+            w.conv(f"{t}.cpe.0", (name, "cpe_conv"))
+            w.dense(f"{t}.cpe.1", (name, "cpe_linear"))
             put_norm(f"{t}.cpe.2", (name, "cpe_norm"), bn=False)
             put_norm(f"{t}.norm1.0", (name, "norm1"), bn=False)
             put_norm(f"{t}.norm2.0", (name, "norm2"), bn=False)
-            put_dense(f"{t}.attn.qkv", (name, "attn", "qkv"))
-            put_dense(f"{t}.attn.proj", (name, "attn", "proj"))
-            rpe = get((name, "attn", "rpe_table"))
+            w.dense(f"{t}.attn.qkv", (name, "attn", "qkv"))
+            w.dense(f"{t}.attn.proj", (name, "attn", "proj"))
+            rpe = w.get((name, "attn", "rpe_table"))
             if rpe is not None:
-                put(f"{t}.attn.rpe.rpe_table", rpe)
-            put_dense(f"{t}.mlp.0.fc1", (name, "mlp", "fc1"))
-            put_dense(f"{t}.mlp.0.fc2", (name, "mlp", "fc2"))
+                w.put(f"{t}.attn.rpe.rpe_table", rpe)
+            w.dense(f"{t}.mlp.0.fc1", (name, "mlp", "fc1"))
+            w.dense(f"{t}.mlp.0.fc2", (name, "mlp", "fc2"))
             continue
         m = re.fullmatch(r"enc(\d+)_down", name)
         if m:
             s = m.group(1)
-            put_dense(f"enc.enc{s}.down.proj", (name, "proj"))
+            w.dense(f"enc.enc{s}.down.proj", (name, "proj"))
             put_norm(f"enc.enc{s}.down.norm.0", (name, "norm"), bn=True)
             continue
         m = re.fullmatch(r"dec(\d+)_up", name)
         if m:
             s = m.group(1)
-            put_dense(f"dec.dec{s}.up.proj.0", (name, "proj"))
+            w.dense(f"dec.dec{s}.up.proj.0", (name, "proj"))
             put_norm(f"dec.dec{s}.up.proj.1", (name, "proj_norm"), bn=True)
-            put_dense(f"dec.dec{s}.up.proj_skip.0", (name, "proj_skip"))
+            w.dense(f"dec.dec{s}.up.proj_skip.0", (name, "proj_skip"))
             put_norm(f"dec.dec{s}.up.proj_skip.1", (name, "proj_skip_norm"), bn=True)
-    mask_token = get(("mask_token",))
+    mask_token = w.get(("mask_token",))
     if mask_token is not None:
-        put("mask_token", mask_token.reshape(1, -1))
+        w.put("mask_token", mask_token.reshape(1, -1))
     return out
+
+
+def _spunet_state(w: _Writer, pdnorm_decouple: bool = True) -> None:
+    """A SpUNet's leaves in the reference's names: v1m1's (the JAX
+    package's ``export_spunet_checkpoint``: ``conv_input.{0,1}``,
+    ``down.{s}.{0,1}``, ``up.{s}.{0,1}``, blocks' ``proj.{0,1}``), or with
+    PDNorm (v1m3, the inverse of ``convert_spunet_v1m3_checkpoint``)
+    ``{conv,bn}`` wrappers, ``proj_conv``/``proj_norm`` and each norm's
+    ``bns.{c}`` (``bn`` undecoupled) and ``modulation.1``."""
+    pd = "pdnorm" in w.node(("norm_input",))
+    conv, norm = ("conv", "bn") if pd else ("0", "1")
+
+    def put_norm(tkey, fpath):
+        """A CondBatchNorm: flax ``norm``, or ``pdnorm`` with ``norm{c}``
+        and ``modulation``."""
+        if not pd:
+            w.bn(tkey, fpath + ("norm",))
+            return
+        base = fpath + ("pdnorm",)
+        for key in sorted((k for k in w.node(base) if re.fullmatch(r"norm\d+", k)),
+                          key=lambda k: int(k[4:])):
+            w.bn(f"{tkey}.bns.{key[4:]}" if pdnorm_decouple else f"{tkey}.bn", base + (key,))
+        w.dense(f"{tkey}.modulation.1", base + ("modulation",))
+
+    w.conv(f"conv_input.{conv}", ("conv_input",))
+    put_norm(f"conv_input.{norm}", ("norm_input",))
+    w.conv("final", ("final",))
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"(down|up)(\d+)", name)
+        if m:
+            side, s = m.groups()
+            w.conv(f"{side}.{s}.{conv}", (name,))
+            put_norm(f"{side}.{s}.{norm}", (f"{name}_norm",))
+            continue
+        m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)", name)
+        if m:
+            t = "{}.{}.block{}".format(*m.groups())
+            w.conv(f"{t}.conv1", (name, "conv1"))
+            w.conv(f"{t}.conv2", (name, "conv2"))
+            put_norm(f"{t}.bn1", (name, "bn1"))
+            put_norm(f"{t}.bn2", (name, "bn2"))
+            w.conv(f"{t}.proj_conv" if pd else f"{t}.proj.0", (name, "proj"))
+            put_norm(f"{t}.proj_norm" if pd else f"{t}.proj.1", (name, "proj_norm"))
 
 
 def load_flax_weights(model: torch.nn.Module, params, batch_stats, **kwargs):

@@ -19,7 +19,9 @@ over gloo with one torch thread each.
    shuffle and the token masks drawn: two ranks equal one process (loss
    1e-5, every gradient 1e-4 of its norm, the BatchNorm statistics 1e-6;
    the teacher bit-equal on both ranks and within 1e-6 of one process, its
-   mask token unmoved)."""
+   mask token unmoved).
+4. One PointGroup step (PG-v1m1 over a tiny SpUNet, the reference's CE and
+   the two bias terms): two ranks equal one process at the same bars."""
 
 import numpy as np
 import pytest
@@ -222,6 +224,42 @@ def test_two_ranks_semseg_step_equals_one_process(tmp_path, weighted):
     for key, g in ranks[0]["grads"].items():
         assert torch.equal(g, ranks[1]["grads"][key]), key
     assert "seg_head.weight" in ranks[0]["grads"]
+
+
+def test_two_ranks_insseg_step_equals_one_process(tmp_path):
+    """train_step of task "insseg" under DDP: the bias head's BatchNorm and
+    the backbone's take the global moments, the CE and the two bias means
+    span the global batch, so two ranks of one row each equal one process
+    over both rows, with the same gradients on both ranks."""
+    from scenesplat_tpu_torch.engines.train_step import train_step
+    from scenesplat_tpu_torch.models import build_criteria, build_model
+    from tests.test_torch_insseg import _pg_cfg, _targets
+    from tests.test_torch_spunet import _scene
+    from tests.torch_dist_worker import _model, _step_record, _tensors
+
+    s = _scene(17)
+    seg, inst, centroid = _targets(s, seed=2)
+    batch = dict(coord=s["coord"], feat=s["feat"], grid_coord=s["grid"].astype(np.int64),
+                 mask=s["mask"], segment=seg, instance=inst, instance_centroid=centroid)
+    model_cfg = _pg_cfg()
+    model_cfg["backbone"]["seed"] = 3
+    state = {k: v.numpy() for k, v in build_model(dict(model_cfg)).state_dict().items()}
+    job = dict(kind="semseg_step", task="insseg", batch=batch, state=state, seed=7,
+               criteria=None, model=model_cfg)
+    model = _model(job)
+    metrics = train_step(model, build_criteria(None), torch.optim.SGD(model.parameters(), lr=0.0),
+                         None, _tensors(batch), generator=torch.Generator().manual_seed(7),
+                         task="insseg")
+    one = _step_record(model, metrics["loss"], metrics["grad_norm"])
+    ranks = run_ranks(tmp_path, job)
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["loss"], one["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["grad_norm"], one["grad_norm"], rtol=GRAD_RTOL)
+        _assert_grads(got["grads"], one["grads"], f"rank {r}")
+        _assert_stats(got["stats"], one["stats"], f"rank {r}")
+    for key, g in ranks[0]["grads"].items():
+        assert torch.equal(g, ranks[1]["grads"][key]), key
+    assert {"bias_head.1.weight", "seg_head.weight"} <= set(ranks[0]["grads"])
 
 
 def _ppt_job(conditions, find_unused=True):

@@ -691,3 +691,69 @@ def test_knn_on_card_equals_ckdtree(cuda):
     assert (got == ref).mean() > 0.999
     assert (np.sort(got, 1) == np.sort(ref, 1)).mean() > 0.9999
     assert knn(data[:7], query, 25, device=cuda).shape == (4000, 7)
+
+
+def _voxel_rows(seed, rows=2, n=6000, extent=48, duplicates=50):
+    """Unique random voxels a row plus ``duplicates`` repeated ones (Mix3D
+    merges hold such) and a padding tail of 64: (grid [rows, n', 3] int64,
+    mask)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    grids, masks = [], []
+    for _ in range(rows):
+        flat = rng.choice(extent ** 3, n, replace=False)
+        g = np.stack(np.unravel_index(flat, (extent,) * 3), -1)
+        g = np.concatenate([g, g[:duplicates], np.zeros((64, 3), np.int64)])
+        grids.append(g)
+        masks.append(np.arange(len(g)) < n + duplicates)
+    return torch.from_numpy(np.stack(grids)), torch.from_numpy(np.stack(masks))
+
+
+def test_sparse_convs_on_card_equal_cpu(cuda):
+    """SpUNet's strided and inverse convs over one pooling plan: values and
+    the gradients of the features and both kernels on the card equal the
+    CPU's within 1e-5 of each tensor's largest magnitude (fp32; the card's
+    scatter-add sums in another order)."""
+    from scenesplat_tpu_torch.ops.segops import build_pooling_plan
+    from scenesplat_tpu_torch.ops.serialization import serialize
+    from scenesplat_tpu_torch.ops.sparse_conv import inverse_conv_apply, strided_conv_apply
+
+    grid, mask = _voxel_rows(3)
+    gen = torch.Generator().manual_seed(4)
+    feat = torch.randn(*mask.shape, 32, generator=gen)
+    k_down, k_up = torch.randn(8, 32, 64, generator=gen), torch.randn(8, 64, 16, generator=gen)
+    cot = torch.randn(*mask.shape, 16, generator=gen)
+
+    def run(device):
+        g, m = grid.to(device), mask.to(device)
+        plan = build_pooling_plan(serialize(g, m, ("z",), 16), m, mask.shape[1], 1)
+        leaves = [t.to(device).requires_grad_() for t in (feat, k_down, k_up)]
+        down = strided_conv_apply(leaves[0], plan, g, leaves[1])
+        up = inverse_conv_apply(down, plan, g, leaves[2], mask=m)
+        (up * cot.to(device)).sum().backward()
+        return [t.detach().cpu() for t in (down, up)] + [t.grad.cpu() for t in leaves]
+
+    for got, ref, what in zip(run(cuda), run("cpu"), ("down", "up", "dfeat", "dk_down", "dk_up")):
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), what
+
+
+def test_pointgroup_cluster_on_card_equals_cpu(cuda, monkeypatch):
+    """Cluster ids and count on the card equal the CPU's exactly (the same
+    float32 cells and distances), on scattered points and on piles of
+    hundreds of points in one cell, in one chunk of pairs and in many."""
+    import numpy as np
+
+    from scenesplat_tpu_torch.ops import cluster
+
+    rng = np.random.default_rng(5)
+    piles = [rng.uniform(0, 40, 3) + 0.3 * rng.random((int(s), 3))
+             for s in rng.integers(20, 900, 40)]
+    coord = np.concatenate(piles + [rng.uniform(0, 40, (20000, 3))]).astype(np.float32)
+    labels = rng.integers(0, 4, len(coord)).astype(np.int32)
+    c, lab = torch.from_numpy(coord), torch.from_numpy(labels)
+    for chunk in (1 << 23, 1 << 16):
+        monkeypatch.setattr(cluster, "PAIRS_PER_CHUNK", chunk)
+        got, n_got = cluster.pointgroup_cluster(c.to(cuda), lab.to(cuda), 1.5, 50)
+        ref, n_ref = cluster.pointgroup_cluster(c, lab, 1.5, 50)
+        assert n_got == n_ref > 10 and torch.equal(got.cpu(), ref)

@@ -1,7 +1,15 @@
 """Port parity, optimizer and schedule: the port's torch AdamW + OneCycleLR
 (param groups by keyword, per-group max_lr, the beta1 cycle, global-norm
 clipping) against the JAX package's optax chain (``build_optimizer``) on
-equal parameters and the same five-step gradient sequence."""
+equal parameters and the same five-step gradient sequence; then SGD
+(momentum, nesterov, weight decay), Adam and every other schedule
+(PolyLR, CosineAnnealingLR, ExpLR, MultiStepLR, MultiStepWithWarmupLR, and
+OneCycleLR's momentum cycle driving SGD) over 20 steps: every parameter
+tensor within 1e-6 of its largest magnitude (float32 rounding alone moves
+an element near 0 by an ulp of the values around it), each group's lr and
+momentum within 1e-5 relative (the JAX schedules compute in float32: a
+OneCycle lr carries about 2e-6 of rounding; the port's in float64, as the
+reference's LambdaLR does)."""
 
 import numpy as np
 import pytest
@@ -120,4 +128,94 @@ def test_grad_norm_without_clipping_and_no_scheduler():
     np.testing.assert_allclose(float(norm), 4.0, rtol=RTOL)
     assert opt.param_groups[0]["lr"] == 0.006
     with pytest.raises(ValueError):
-        topt.build_optimizer(dict(type="SGD", lr=0.1), model)
+        topt.build_optimizer(dict(type="LAMB", lr=0.1), model)
+    with pytest.raises(ValueError):
+        topt.build_scheduler(dict(type="StepLR"), opt, 5)
+
+
+LONG_STEPS, LONG_RTOL, SCHEDULE_RTOL = 20, 1e-6, 1e-5
+PG_SGD = dict(type="SGD", lr=0.1, momentum=0.9, weight_decay=0.0001, nesterov=True)
+
+
+@pytest.mark.parametrize("opt_cfg,sched", [
+    (PG_SGD, dict(type="PolyLR")),  # Pointcept's PointGroup config
+    (dict(type="SGD", lr=0.05, momentum=0.8, weight_decay=0.01), dict(type="PolyLR", power=2.0)),
+    (dict(PG_SGD, nesterov=False), dict(type="CosineAnnealingLR", eta_min=0.001)),
+    (PG_SGD, dict(type="ExpLR", gamma=0.5)),
+    (PG_SGD, dict(type="MultiStepLR", milestones=[0.25, 0.6, 0.333], gamma=0.3)),
+    # a warmup scale whose 1 - scale float32 holds exactly: JAX's float32
+    # 1 - (1 - 1e-3) keeps 4 digits, the reference's (and the port's)
+    # float64 all of them
+    (PG_SGD, dict(type="MultiStepWithWarmupLR", milestones=[0.5, 0.8], gamma=0.2,
+                  warmup_rate=0.15, warmup_scale=0.25)),
+    (dict(PG_SGD, weight_decay=0.0), dict(type="OneCycleLR", max_lr=[0.1, 0.01],
+                                          pct_start=0.2, base_momentum=0.8,
+                                          max_momentum=0.9)),
+    (dict(type="Adam", lr=0.003, weight_decay=0.01, betas=(0.8, 0.99)),
+     dict(type="PolyLR")),
+    (dict(type="Adam", lr=0.003, weight_decay=0.0), dict(type="OneCycleLR", max_lr=[0.003,
+                                                                                   0.0003],
+                                                         pct_start=0.3)),
+    (dict(type="Adam", lr=0.002, weight_decay=0.05), None),
+], ids=["sgd_poly", "sgd_poly_power2", "sgd_cosine", "sgd_exp", "sgd_multistep",
+        "sgd_multistep_warmup", "sgd_onecycle_momentum", "adam_poly", "adam_onecycle",
+        "adam_constant"])
+def test_optimizer_and_schedule_match_optax_chain(opt_cfg, sched):
+    """20 steps from the same parameters and gradients: each group's lr
+    (and SGD's momentum or Adam's beta1 under OneCycle) and the parameters
+    against the JAX package's chain, param groups by keyword (the second
+    group's own lr; OneCycle's max_lr list matches the groups' lrs)."""
+    lr = opt_cfg["lr"]
+    param_dicts = [dict(keyword="block", lr=lr / 10)]
+    params, grads = _problem(11, list(np.linspace(0.3, 3.0, LONG_STEPS)))
+    tx = jopt.build_optimizer(dict(opt_cfg), params, scheduler_cfg=sched and dict(sched),
+                              total_steps=LONG_STEPS, param_dicts=param_dicts, clip_grad=1.0)
+    state = tx.init(params)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    model = _Params(_torch_arrays(params))
+    opt = topt.build_optimizer(dict(opt_cfg), model, param_dicts=param_dicts)
+    base = [g["lr"] for g in opt.param_groups]
+    sch = topt.build_scheduler(sched and dict(sched), opt, LONG_STEPS)
+    lr_fns = [(lambda s, b=b: b) if sched is None else
+              jopt.build_scheduler(dict(sched, max_lr=b), LONG_STEPS, b) for b in base]
+    mom_fn = jopt.build_momentum_schedule(sched and dict(sched), LONG_STEPS)
+    for step, g in enumerate(grads):
+        for group, lr_fn in zip(opt.param_groups, lr_fns):
+            np.testing.assert_allclose(group["lr"], float(lr_fn(step)), rtol=SCHEDULE_RTOL,
+                                       err_msg=f"lr at step {step}")
+            if mom_fn is not None:
+                got = group["momentum"] if opt_cfg["type"] == "SGD" else group["betas"][0]
+                np.testing.assert_allclose(got, float(mom_fn(step)), rtol=SCHEDULE_RTOL)
+        updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for name, value in _torch_arrays(g).items():
+            model.get_parameter(name).grad = torch.from_numpy(value.copy())
+        apply_gradients(opt, sch, clip_grad=1.0)
+        _assert_params(model, jparams, f"step {step}")
+
+
+def _assert_params(model, jparams, where):
+    for name, want in _torch_arrays(jparams).items():
+        got = model.get_parameter(name).detach().numpy()
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= LONG_RTOL, f"{name} {where}: {err}"
+
+
+def test_sgd_group_momentum_from_param_dicts():
+    """A keyword group's own momentum (the reference's param-group rule),
+    against the JAX chain."""
+    params, grads = _problem(12, [1.0] * 6)
+    dicts = [dict(keyword="block", lr=0.02, momentum=0.5)]
+    cfg = dict(type="SGD", lr=0.1, momentum=0.9, weight_decay=0.001)
+    tx = jopt.build_optimizer(dict(cfg), params, total_steps=6, param_dicts=dicts)
+    state, jparams = tx.init(params), jax.tree_util.tree_map(jnp.asarray, params)
+    model = _Params(_torch_arrays(params))
+    opt = topt.build_optimizer(dict(cfg), model, param_dicts=dicts)
+    assert [g["momentum"] for g in opt.param_groups] == [0.9, 0.5]
+    for g in grads:
+        updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for name, value in _torch_arrays(g).items():
+            model.get_parameter(name).grad = torch.from_numpy(value.copy())
+        apply_gradients(opt, None)
+    _assert_params(model, jparams, "after 6 steps")

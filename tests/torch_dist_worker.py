@@ -77,8 +77,9 @@ def step(job) -> dict:
 
 def semseg_step(job) -> dict:
     """This rank's rows of the job's global batch through one ``train_step``
-    of task "semseg" under DDP, drop-path and the curve shuffle drawn from a
-    generator seeded from ``seed``."""
+    of the job's ``task`` ("semseg" by default; "insseg") under DDP,
+    drop-path and the curve shuffle drawn from a generator seeded from
+    ``seed``."""
     from scenesplat_tpu_torch.engines.train_step import train_step
     from scenesplat_tpu_torch.models import build_criteria
 
@@ -89,7 +90,7 @@ def semseg_step(job) -> dict:
     optimizer = torch.optim.SGD(model.parameters(), lr=0.0)
     metrics = train_step(pdist.data_parallel(model), build_criteria(job["criteria"]), optimizer,
                          None, batch, generator=torch.Generator().manual_seed(job["seed"]),
-                         task="semseg")
+                         task=job.get("task", "semseg"))
     return _step_record(model, metrics["loss"], metrics["grad_norm"])
 
 
