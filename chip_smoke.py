@@ -82,7 +82,7 @@ Phases, one JSON line each:
  14. test: scenesplat_tpu_torch.test's main on the flagship config file
      plus test= and data.test= (the fragment test pipeline of
      configs/_base_/gs_pipelines.py), bf16, the train phase's checkpoint,
-     over two synthetic ScanNet200-layout scenes of 320,001 Gaussians at
+     over one synthetic ScanNet200-layout scene of 320,001 Gaussians at
      1 cm spacing (2 fragments of 160,001 points each); once with
      torch.sort and once with SCENESPLAT_BITONIC_SORT=1, both under
      torch.use_deterministic_algorithms: equal predictions and metrics, K3
@@ -104,7 +104,7 @@ Phases, one JSON line each:
      heads, the EMA teacher, 2 global crops of 102,400 points with patch
      token masks and 3 local crops of 25,600, the multi-crop transforms
      with the voxel blur, AdamW + OneCycle, its own hooks) at batch 2 (the
-     file's 24 is 6 a card on 4 cards) for 6 steps over 4 synthetic
+     file's 24 is 6 a card on 4 cards) for 4 steps over 4 synthetic
      unlabeled rooms: step times, loader waits, peak memory, every loss
      term (finite), pooling overflow per stage and crop kind (none allowed
      past the first pooling, where the file's capacities overflow on dense
@@ -141,7 +141,7 @@ Phases, one JSON line each:
      extracted teacher (every backbone tensor but the stem, 11 vs 14
      channels, equal to the teacher's bit for bit after the file's
      CheckpointLoader; the stem and seg_head at their initialization; the
-     log names them), at batch 2 for 6 steps over 4 synthetic ScanNet-layout
+     log names them), at batch 2 for 4 steps over 4 synthetic ScanNet-layout
      scenes with normals and 20 classes and one validation scene: step
      times, loader waits, peak memory, val/mIoU, K1 and K2 launches of each
      variant a step, pooling overflow per stage (none allowed); then
@@ -150,7 +150,7 @@ Phases, one JSON line each:
      and 49,152 points with the kernels and with the plain attention
      (losses to 1e-5, gradients to 1e-4 relative);
  22. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
-     the semseg_train checkpoint over two synthetic scenes of 320,000
+     the semseg_train checkpoint over one synthetic scene of 320,000
      Gaussians, 9 views each: torch.sort and K3 under deterministic
      algorithms (equal predictions and mIoU), then as a user runs it, for
      the seconds per scene (fetch, extract, vote); then semseg_timing_test
@@ -215,7 +215,7 @@ Phases, one JSON line each:
  31. insseg_train: the trainer on the insseg configuration, the semseg
      file made PointGroup as Pointcept's PG config sets it (InstanceParser,
      PG-v1m1 over SpUNet-v1m1, SGD + PolyLR, InsSegEvaluator) at batch 2
-     for 6 steps over 4 rooms of 200,000 points with 12 objects of classes
+     for 4 steps over 4 rooms of 200,000 points with 12 objects of classes
      2-19 each, then the evaluator over 2 rooms of 40,000: finite losses
      and seg terms above 0, no attention kernel, val mAP / AP50 / AP25, AP50
      the checkpoint metric, model_best.pth strict into a fresh PG; step
@@ -230,7 +230,32 @@ Phases, one JSON line each:
  34. insseg_ddp_agree: phase 23's check for PG over SpUNet-v1m1: two ranks
      over gloo against one process at 2 rows of 24,576 (loss 1e-5,
      gradients and statistics 1e-4 and 1e-6 or under phase 30's noise-floor
-     rule), no kernel launch.
+     rule), no kernel launch;
+ 35. msc_agree: Masked Scene Contrast, MSC-v1m1 and MSC-v1m2 (CSC) over
+     SpUNet-v1m1 at its published widths, fp32, 2 rows x 2 views of 24,576
+     points, view 1 mixed, the card's own cross masks and pairs injected
+     through the replay keys: one step's loss terms, gradients and
+     statistics on the card against the CPU (terms to 1e-5 of the loss,
+     gradients and statistics under phase 30's noise-floor rule);
+ 36. msc_train: the trainer on the semseg file made MSC-v1m1 pretraining
+     as Pointcept's published MSC file sets it (two views of 205,824
+     slots, view mixing 0.8, 8,192 pairs), batch 2, 6 steps, a seed whose
+     draws mix view 1 in some steps and not in others: every loss term,
+     pairs, masked shares, kNN ms, pooling overflow, step times, peak;
+ 37. cac_train and cac_test: the semseg file made CAC-v1m1 over the same
+     SpUNet (14 channels, 20 classes, CE), batch 2, 6 steps, val mIoU
+     through SemSegEvaluator, then the test entry point's SemSegTester over
+     one 320,001-Gaussian room (9 views) as a user runs it;
+ 38. cac_agree: CAC over the semseg file's PT-v3m1, one block a stage,
+     fp32, 49,152 points, kernels against plain (losses 1e-5, gradients
+     1e-4 or under the noise floor of 3 point-permuted kernel steps);
+ 39. msc_ddp_agree and cac_ddp_agree: phase 34's check for MSC (the card's
+     draws injected, the pairs global) and CAC (global class sums): the
+     loss to 1e-6;
+ 40. ppt_spunet_train: ppt_train's run with PPT-v1m1 over SpUNet-v1m3
+     (published widths, adaptive PDNorm, context 256): each step's
+     condition and only its norms' statistics moved, each condition's val
+     mIoU, no K1 or K2 launch.
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
 encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
@@ -1058,6 +1083,8 @@ def run_training(cfg, before=None):
         k1[mode + "_launches"] += fwa.flash_window_attention.launches - before
         for v, n in k1_variants().items():
             k1[mode + "_variants"][v] += n - variants[v]
+        if out is None:  # MSC's and CAC's loss terms, no points
+            return result
         if mode == "val":
             k1["val_overflow"].append(max((int(p.n_overflow.max()) for p in out.plans),
                                           default=0))
@@ -1584,9 +1611,12 @@ def train_step_fp32(batch, wrap=lambda m: m, build=flagship_fp32_model, task="la
     model, criteria = build(**backbone)
     overflow, forward = [], model.forward
 
-    def recording(point, generator=None):
-        out = forward(point, generator=generator)
-        overflow.extend(int(p.n_overflow.max()) for p in points_of(out).plans)
+    def recording(point, generator=None, **kwargs):
+        out = forward(point, generator=generator, **kwargs)
+        if points_of(out) is not None:
+            overflow.extend(int(p.n_overflow.max()) for p in points_of(out).plans)
+        elif "n_overflow" in out:  # MSC: the passes' largest
+            overflow.append(int(out["n_overflow"].item()))
         return out
 
     model.forward = recording
@@ -1653,7 +1683,10 @@ def rel_l2(got, ref):
 
 
 def points_of(out):
-    """A model's output points: PointGroup returns (points, bias)."""
+    """A model's output points: PointGroup returns (points, bias); MSC, and
+    CAC in training, return a dict of loss terms (None)."""
+    if isinstance(out, dict):
+        return None
     return out[0] if isinstance(out, tuple) else out
 
 
@@ -3375,11 +3408,13 @@ def task_agree_rank(rank, world, port, job_file):
         try:
             reset_k1_counts()
             reset_k2_counts()
-            rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
-            if job["task"] in ("semseg", "insseg"):
-                build = semseg_fp32_model if job["task"] == "semseg" else insseg_fp32_model
+            # MSC's injected pairs list the global batch's rows: every rank holds them all
+            rows = {k: v if k.startswith("match_") else v[local_batch_slice(len(v))]
+                    for k, v in job["rows"].items()}
+            if job["task"] in FP32_TASK_MODELS:
                 loss, norm, grads, stats, overflow = train_step_fp32(
-                    cuda_batch(rows), data_parallel, build=build, task=job["task"], seed=12)
+                    cuda_batch(rows), data_parallel, build=FP32_TASK_MODELS[job["task"]](),
+                    task=job["task"], seed=12)
                 out = dict(loss=loss, grad_norm=norm, overflow=overflow)
             else:
                 terms, grads, stats, teacher, token_kept, overflow = ssl_step_fp32(
@@ -3396,6 +3431,30 @@ def task_agree_rank(rank, world, port, job_file):
 
 
 STAT_RTOL_DDP = 1e-6
+# the SpUNet tasks' two-rank losses (insseg's come out bit-equal)
+SPUNET_DDP_LOSS_RTOL = 1e-6
+
+
+def msc_fp32_model():
+    """msc_model_cfg's MSC-v1m1 (published widths, fp32, view mixing off:
+    a process merges only its own rows' pairs) on the card in train
+    mode, and no criteria (MSC computes its loss)."""
+    return build_model(msc_model_cfg(view1_mix_prob=0.0)).cuda().train(), build_criteria(None)
+
+
+def cac_fp32_model():
+    """cac_model_cfg's CAC-v1m1 over SpUNet-v1m1 (published widths) in fp32
+    from seed 1 on the card in train mode, and no criteria (CAC holds its
+    own)."""
+    cfg = cac_model_cfg()
+    cfg["backbone"]["seed"] = 1
+    return build_model(cfg).cuda().train(), build_criteria(None)
+
+
+# the fp32 model of each task whose two-rank step runs through train_step_fp32
+FP32_TASK_MODELS = dict(semseg=lambda: semseg_fp32_model, insseg=lambda: insseg_fp32_model,
+                        msc=lambda: msc_fp32_model, cac=lambda: cac_fp32_model)
+SPUNET_TASKS = ("insseg", "msc", "cac")
 
 
 def check_ranks_stats(phase, r, got, ref, floor=0.0):
@@ -3411,9 +3470,10 @@ def check_ranks_stats(phase, r, got, ref, floor=0.0):
 
 
 def phase_task_ddp_agree(work, task, world=2):
-    """semseg_ddp_agree / ssl_ddp_agree / insseg_ddp_agree: two ranks sharing the one card over
-    gloo, one row each, against one process over both rows, fp32 at the
-    file's widths with one block a stage. semseg: CE + Lovasz (the gather of
+    """semseg_ddp_agree / ssl_ddp_agree / insseg_ddp_agree / msc_ddp_agree /
+    cac_ddp_agree: two ranks sharing the one card over gloo, one row each,
+    against one process over both rows, fp32 at the file's widths with one
+    block a stage. semseg: CE + Lovasz (the gather of
     every rank's probabilities), 2 rows of 49,152 points, drop-path 0.3, no
     Mix3D; the loss to 1e-5, every gradient to 1e-4 of its norm, the
     BatchNorm statistics to 1e-6. ssl: crops of 24,576 and 6,144 (as
@@ -3429,19 +3489,28 @@ def phase_task_ddp_agree(work, task, world=2):
     1e-5, every gradient to 1e-4 of its norm or under the noise floor rule
     (compare_steps; the floor of one process's step on the points in 3
     other orders), the statistics to 1e-6 or that rule with their floor; no
-    K1 or K2 launch."""
+    K1 or K2 launch. msc: MSC-v1m1 at its published widths (view mixing
+    off), 2 rows x 2 views of 24,576 points with msc_agree's draws injected
+    (the pairs name global rows, so every rank holds them all): InfoNCE
+    over the summed pair features, the reconstructions over the global
+    batch; cac: CAC-v1m1 over SpUNet-v1m1 at its published widths on
+    insseg's rows, the class sums over the global batch. Both: the loss to
+    1e-6, gradients and statistics as insseg's, no K1 or K2 launch."""
     phase = f"{task}_ddp_agree"
     rows = dict(semseg=lambda: semseg_rows(49152, (13, 14)), ssl=lambda: ssl_rows(24576, 6144),
-                insseg=lambda: insseg_rows(INSSEG_AGREE_POINTS, (41, 42)))[task]()
+                insseg=lambda: insseg_rows(INSSEG_AGREE_POINTS, (41, 42)),
+                msc=lambda: with_msc_draws(msc_rows(MSC_AGREE_POINTS, (61, 62))),
+                cac=lambda: insseg_rows(INSSEG_AGREE_POINTS, (41, 42)))[task]()
     batch = cuda_batch(rows)
     floor, stat_floor = None, 0.0
-    if task in ("semseg", "insseg"):
-        build = semseg_fp32_model if task == "semseg" else insseg_fp32_model
+    if task in FP32_TASK_MODELS:
+        build = FP32_TASK_MODELS[task]()
         loss, norm, grads, stats, overflow = train_step_fp32(batch, build=build, task=task,
                                                              seed=12)
         ref = (loss, {k: g.cpu() for k, g in grads.items()}, overflow)
-        if task == "insseg":  # the noise floor: the points in other orders
-            others = [train_step_fp32(cuda_batch(permuted_rows(rows, 70 + i)), build=build,
+        if task in SPUNET_TASKS:  # the noise floor: the points in other orders
+            permuted = permuted_two_view if task == "msc" else permuted_rows
+            others = [train_step_fp32(cuda_batch(permuted(rows, 70 + i)), build=build,
                                       task=task, seed=12) for i in range(FLOOR_PERMUTATIONS)]
             floor = grad_floor(ref, [(o[0], o[2]) for o in others])
             stat_floor = max(rel_l2(o[3][k].cpu(), v.cpu()) for o in others
@@ -3463,7 +3532,7 @@ def phase_task_ddp_agree(work, task, world=2):
     ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
              for r in range(world)]
     record = dict(phase=phase, world=world, backend="gloo", rows=world, dtype="float32",
-                  drop_path=None if task == "insseg" else 0.3, ranks_s=ranks_s,
+                  drop_path=None if task in SPUNET_TASKS else 0.3, ranks_s=ranks_s,
                   stat_rtol=STAT_RTOL_DDP,
                   stat_noise_floor=stat_floor)
     for r, got in enumerate(ranks):
@@ -3483,9 +3552,13 @@ def phase_task_ddp_agree(work, task, world=2):
                       f"{phase}: rank {r}'s teacher {k} differs from rank 0's")
         record.setdefault("stat_worst_rel_l2", []).append(
             check_ranks_stats(phase, r, got["stats"], stats, stat_floor))
+        if task in ("msc", "cac"):
+            rel = abs(loss_r - ref[0]) / abs(ref[0])
+            check(rel <= SPUNET_DDP_LOSS_RTOL,
+                  f"{phase}: rank {r}'s loss {loss_r} against {ref[0]} ({rel} relative)")
         k1_lse, k2 = sum(got["k1_lse"].values()), sum(got["k2"].values())
-        # SpUNet (insseg) has no attention: neither kernel may launch
-        check((k1_lse > 0 and k2 > 0) if task != "insseg" else
+        # SpUNet (insseg, msc, cac) has no attention: neither kernel may launch
+        check((k1_lse > 0 and k2 > 0) if task not in SPUNET_TASKS else
               k1_lse == k2 == sum(got["k1"].values()) == 0,
               f"{phase}: rank {r} launched K1 with lse {k1_lse} and K2 {k2} times")
         record.setdefault("k1_lse", []).append(k1_lse)
@@ -3653,8 +3726,9 @@ def ppt_train_config(root, exp, batch_size, test_root=None):
 
 def pdnorm_index(key):
     """The condition index (in the backbone's order) of a PDNorm's entry
-    ``...norm.{c}.<leaf>``, else None."""
-    m = re.search(r"\.norm\.(\d+)\.(weight|bias|running_mean|running_var)$", key)
+    ``...norm.{c}.<leaf>`` (SpUNet-v1m3's ``...bns.{c}.<leaf>``), else
+    None."""
+    m = re.search(r"\.(?:norm|bns)\.(\d+)\.(weight|bias|running_mean|running_var)$", key)
     return None if m is None else int(m.group(1))
 
 
@@ -4519,6 +4593,594 @@ def phase_insseg_agree(n=49152):
                 k2_variants=dict(fwa.flash_window_attention_bwd.variant_launches))
 
 
+# ---- Masked Scene Contrast, the Context-Aware Classifier, PPT over SpUNet ----------
+
+MSC_TERMS = ("loss", "nce_loss", "pos_sim", "neg_sim", "color_loss", "normal_loss")
+CAC_TERMS = ("loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
+MSC_AGREE_POINTS = 24576
+MSC_CSC = dict(partitions=4, r1=0.125, r2=2.0)
+MSC_VIEW_KEYS = ("origin_coord", "grid_coord", "coord", "color", "normal")
+
+
+def msc_model_cfg(kind="MSC-v1m1", **extra):
+    """MSC as Pointcept's pretrain-msc-v1m1-0-spunet-base.py sets it, as far
+    as the model's fields and the reference's keys name it: SpUNet-v1m1 at
+    its published widths over 6 input channels (colour and normal), out
+    96, mask grid 0.1 m at rate 0.4, view 1 mixed with probability 0.8,
+    8 neighbours within 3 cm, 8,192 pairs, temperature 0.4, both
+    reconstructions; MSC-v1m2 with CSC's partitions (r1 0.125, r2 2 m)."""
+    return dict(dict(type=kind, backbone=dict(type="SpUNet-v1m1", in_channels=6, num_classes=0,
+                                              **SPUNET_WIDTHS),
+                     backbone_in_channels=6, backbone_out_channels=96, mask_grid_size=0.1,
+                     mask_rate=0.4, view1_mix_prob=0.8, view2_mix_prob=0, matching_max_k=8,
+                     matching_max_radius=0.03, matching_max_pair=8192, nce_t=0.4,
+                     contrast_weight=1, reconstruct_weight=1, reconstruct_color=True,
+                     reconstruct_normal=True, **(MSC_CSC if kind == "MSC-v1m2" else {})),
+                **extra)
+
+
+def msc_config(cfg):
+    """The semseg file ``cfg`` (read as it is) made the MSC pretraining
+    configuration: ``origin_coord`` copied, then ContrastiveViewsGenerator
+    with the file's train augmentations as each view's pipeline (its
+    GridSample carrying ``origin_coord``; Mix3D's place taken by the
+    model's view mixing) ending in ShufflePoint, the views' colour and
+    normal collected as their 6 input channels; msc_model_cfg's MSC-v1m1;
+    Pointcept's SGD (lr 0.1, momentum 0.8, nesterov, weight decay 1e-4)
+    and OneCycleLR (pct 0.01); no param groups, no evaluator. The data
+    root, 2 cm grid, 204,800-point crop and 205,824 slots stay the
+    file's."""
+    views = []
+    for t in cfg.data.train.transform[:-2]:  # ToTensor and Collect go
+        t = dict(t)
+        if t["type"] == "GridSample":
+            t["keys"] = ("origin_coord", "coord", "color", "normal")
+        views.append(t)
+    views.append(dict(type="ShufflePoint"))
+    cfg.data.train.transform = [
+        dict(type="Copy", keys_dict={"coord": "origin_coord"}),
+        dict(type="ContrastiveViewsGenerator",
+             view_keys=("coord", "color", "normal", "origin_coord"), view_trans_cfg=views),
+        dict(type="ToTensor"),
+        dict(type="Collect", keys=tuple(f"view{v}_{k}" for v in (1, 2) for k in MSC_VIEW_KEYS),
+             view1_feat_keys=("view1_color", "view1_normal"),
+             view2_feat_keys=("view2_color", "view2_normal"))]
+    cfg.model = msc_model_cfg()
+    cfg.mix_prob = 0.0
+    cfg.optimizer = dict(type="SGD", lr=0.1, momentum=0.8, weight_decay=0.0001, nesterov=True)
+    cfg.scheduler = dict(type="OneCycleLR", max_lr=0.1, pct_start=0.01, anneal_strategy="cos",
+                         div_factor=10.0, final_div_factor=10000.0)
+    cfg.param_dicts = None
+    cfg.hooks = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+                 dict(type="InformationWriter"), dict(type="CheckpointSaver", save_freq=None)]
+    return cfg
+
+
+def msc_rows(n, seeds):
+    """Two views of one insseg_room a seed (a room whose 4 cm cells fit the
+    first pooling): view 1 its ``n`` points, view 2 the same points in
+    another order, their voxels moved by (1, 2, 0) and each coordinate
+    anywhere inside its voxel, with 5% colour noise; origin coordinates the
+    room's, colour and normal the 6 input channels; row r's room r x 4 m
+    along x, so that merged rows (view mixing) do not share voxels. Every
+    voxel holds one point, so a step is a function of the point sets alone
+    (the noise floor's permutations change only its sums' order). numpy
+    arrays [rows, n, ...] under the views' keys."""
+    rows = []
+    for r, seed in enumerate(seeds):
+        rng = np.random.default_rng(seed)
+        coord, feat, grid, _, _ = insseg_room(rng, n, (1.6, 1.6, 1.4), 4, (0.3, 0.4))
+        shift = np.array([200 * r, 0, 0])
+        grid = grid + shift
+        coord = (coord + shift * GRID).astype(np.float32)
+        color, normal = feat[:, :3], feat[:, 11:14]
+        order = rng.permutation(n)
+        grid2 = grid[order] + np.array([1, 2, 0])
+        coord2 = ((grid2 + rng.uniform(0, 1, (n, 3))) * GRID).astype(np.float32)
+        color2 = (color[order] + 0.05 * rng.normal(size=(n, 3))).astype(np.float32)
+        row = {}
+        for v, c, g, col, nrm, oc in (("view1", coord, grid, color, normal, coord),
+                                      ("view2", coord2, grid2, color2, normal[order],
+                                       coord[order])):
+            row.update({f"{v}_coord": c, f"{v}_grid_coord": g, f"{v}_origin_coord": oc,
+                        f"{v}_color": col, f"{v}_normal": nrm,
+                        f"{v}_feat": np.concatenate([col, nrm], 1).astype(np.float32),
+                        f"{v}_mask": np.ones(n, bool)})
+        rows.append(row)
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def with_msc_draws(rows, seed=63):
+    """``rows`` with the replay keys of one step's draws, made on the card
+    by the model's own cross masks and matching (generator seeded
+    ``seed``), so that every run of a comparison takes the same masks and
+    pairs: ``view{1,2}_point_mask`` and ``match_{scene,i1,i2,valid}``."""
+    model = build_model(msc_model_cfg())
+    batch = cuda_batch(rows)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args = [batch[f"view{v}_{k}"] for v in (1, 2) for k in ("origin_coord", "mask")]
+    pm1, pm2 = model.generate_cross_masks(*args, gen)
+    scene, i1, i2, valid = model.match_contrastive_pair(*args, gen)
+    draws = dict(view1_point_mask=pm1, view2_point_mask=pm2, match_scene=scene, match_i1=i1,
+                 match_i2=i2, match_valid=valid)
+    return dict(rows, **{k: v.cpu().numpy() for k, v in draws.items()})
+
+
+def permuted_two_view(rows, seed):
+    """``rows`` (msc_rows with the replay keys) with each view row's points
+    in a random order, the masks moved with them and the pairs' indices
+    remapped: the same step, summed in other orders."""
+    rng = np.random.default_rng(seed)
+    out, where = dict(rows), {}
+    for v in ("view1", "view2"):
+        b, n = rows[f"{v}_mask"].shape
+        perm = np.stack([rng.permutation(n) for _ in range(b)])
+        where[v] = np.argsort(perm, axis=1)  # an old index's new position
+        for k, val in rows.items():
+            if k.startswith(v + "_"):
+                out[k] = np.take_along_axis(val, perm.reshape(perm.shape + (1,) * (val.ndim - 2)),
+                                            1)
+    out["match_i1"] = where["view1"][rows["match_scene"], rows["match_i1"]]
+    out["match_i2"] = where["view2"][rows["match_scene"], rows["match_i2"]]
+    return out
+
+
+def msc_step(model, batch, generator=None):
+    """One MSC loss and backward of ``model`` on ``batch`` (tensors on the
+    model's device): (the loss terms, gradients by name on the CPU, the
+    passes' largest pooling overflow), and the BatchNorm statistics after."""
+    out = model(batch, generator=generator)
+    out["loss"].backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return ({k: out[k].item() for k in MSC_TERMS}, grads, [int(out["n_overflow"].item())]), stats
+
+
+def check_terms(phase, got, ref):
+    """Each loss term within TRAIN_LOSS_RTOL of the whole loss; returns the
+    worst difference relative to it."""
+    worst = max(abs(got[k] - v) for k, v in ref.items()) / abs(ref["loss"])
+    check(worst <= TRAIN_LOSS_RTOL, f"{phase}: loss terms {got} against {ref}")
+    return worst
+
+
+def agree_runs(phase, cfg, rows, step, permuted, seeds, extra=None):
+    """``step(model, batch)`` of ``cfg``'s model from one initialization on
+    the card and on the CPU over ``rows``, and on the card over
+    ``permuted(rows, seed)`` for each of ``seeds``; compare_steps holds the
+    card to the CPU with the noise floor of the permuted steps, the loss
+    terms each within TRAIN_LOSS_RTOL of the loss, the statistics within
+    STAT_RTOL_DDP relative L2 or NOISE_FLOOR_FACTOR times their own floor.
+    Returns the floor and the card step's seconds."""
+    init = build_model(copy.deepcopy(cfg)).state_dict()
+    runs = [("cuda", rows), ("cpu", rows)] + [(f"permuted{s}", permuted(rows, s)) for s in seeds]
+    steps, stats, seconds = {}, {}, {}
+    for name, batch_rows in runs:
+        model = build_model(copy.deepcopy(cfg))
+        model.load_state_dict(init)
+        where = "cpu" if name == "cpu" else "cuda"
+        model.to(where).train()
+        t0 = time.perf_counter()
+        steps[name], stats[name] = step(model, batch_to_device(batch_rows, where))
+        if where == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        del model
+    floor = grad_floor(steps["cuda"], [steps[name] for name, _ in runs[2:]])
+    stat_floor = max(rel_l2(stats[name][k], v) for name, _ in runs[2:]
+                     for k, v in stats["cuda"].items())
+    stat_err = {k: rel_l2(v, stats["cpu"][k]) for k, v in stats["cuda"].items()}
+    stat_bound = max(STAT_RTOL_DDP, NOISE_FLOOR_FACTOR * stat_floor)
+    worst_term = check_terms(phase, steps["cuda"][0], steps["cpu"][0])
+    compare_steps(phase, steps["cuda"], steps["cpu"], names=("card", "cpu"), floor=floor,
+                  step_s=seconds, stat_worst_rel_l2=max(stat_err.values()),
+                  stat_noise_floor=stat_floor, stat_bound=stat_bound,
+                  worst_term_rel_to_loss=worst_term, **(extra or {}))
+    check(max(stat_err.values()) <= stat_bound,
+          f"{phase}: BatchNorm statistics differ by {max(stat_err.values())} (bound {stat_bound})")
+    return floor, seconds["cuda"]
+
+
+def phase_msc_agree(n=MSC_AGREE_POINTS):
+    """MSC-v1m1 and MSC-v1m2 (msc_model_cfg, published widths, fp32) over 2
+    rows x 2 views of ``n`` points (msc_rows), the card's own draws of the
+    masks and pairs injected through the replay keys and view 1 mixed:
+    one step's loss terms, gradients and statistics on the card against
+    the CPU (agree_runs: terms to 1e-5 of the loss, each gradient to 1e-4
+    of its norm or 2.5 times the floor of 3 point-permuted steps on the
+    card, statistics to 1e-6 or that rule)."""
+    rows = with_msc_draws(msc_rows(n, (61, 62)))
+    pairs = int(rows["match_valid"].sum())
+    check(pairs == 8192, f"msc_agree: {pairs} valid pairs of 8,192")
+    for kind in ("MSC-v1m1", "MSC-v1m2"):
+        cfg = msc_model_cfg(kind, view1_mix_prob=1.0)
+        agree_runs(kind.lower().replace("-", "_") + "_agree", cfg, rows, msc_step,
+                   permuted_two_view, (64, 65, 66),
+                   extra=dict(points=n, rows=2, views=2, model=f"{kind} over SpUNet-v1m1",
+                              widths=SPUNET_WIDTHS, pairs=pairs, view1_mixed=True,
+                              masked_share=[float(rows[f"view{v}_point_mask"].mean())
+                                            for v in (1, 2)]))
+
+
+class MSCProbe:
+    """Around MSC's matching, the kNN's CUDA-event time a step (the model
+    module's ``knn_radius``, wrapped for the block)."""
+
+    def __init__(self):
+        self.ms = []
+
+    @contextlib.contextmanager
+    def on(self):
+        from scenesplat_tpu_torch.models import msc as msc_module
+
+        real = msc_module.knn_radius
+
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kwargs)
+            end.record()
+            self.ms.append((start, end))
+            return out
+
+        msc_module.knn_radius = timed
+        try:
+            yield self
+        finally:
+            msc_module.knn_radius = real
+
+    def knn_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.ms]
+
+
+def mixing_seed(steps, batch_size, n, k=8, prob=0.8, seeds=range(1, 200)):
+    """The first config seed whose trainer generator (seed + 1, on the card)
+    draws both a mixed and an unmixed view 1 in ``steps`` MSC steps: the
+    model's draws a step replayed (the masks' [B, 2n], the mix's scalar,
+    the pair priorities' [B, n, k], the rows' scores [B n])."""
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        mixed = []
+        for _ in range(steps):
+            torch.rand((batch_size, 2 * n), generator=gen, device="cuda")
+            mixed.append(bool(torch.rand((), generator=gen, device="cuda") < prob))
+            torch.rand((batch_size, n, k), generator=gen, device="cuda")
+            torch.rand((batch_size * n,), generator=gen, device="cuda")
+        if any(mixed) and not all(mixed):
+            return seed, mixed
+    raise RuntimeError("no seed mixes some steps and not others")
+
+
+def task_config(cfg, path):
+    cfg.dump(path)
+    return Config.fromfile(path)
+
+
+def phase_msc_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6)):
+    """The trainer on msc_config (the semseg file made MSC-v1m1 pretraining
+    over SpUNet-v1m1 at its published widths, fp32, two views of 205,824
+    slots) at batch 2 for ``steps`` steps over 4 synthetic rooms, with a
+    seed whose draws mix view 1 in some steps and not in others: finite
+    loss terms, every step's pairs (at most 8,192), masked shares, kNN ms,
+    pooling overflow and view mixing; step times, loader waits, peak
+    memory, one profiled step; no K1 or K2 launch (SpUNet has no
+    attention); model_last.pth loads strictly into a fresh MSC."""
+    tmp = tempfile.mkdtemp(dir=work)
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "scannet_gs")
+    write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=71, size_m=room,
+                    semseg=True)
+    data_s = time.perf_counter() - t0
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    seed, want_mixed = mixing_seed(steps, 2, cfg.data.num_points)
+    cfg.merge_from_options(dict(save_path=os.path.join(tmp, "exp"), epoch=1, eval_epoch=1,
+                                batch_size=2, seed=seed))
+    check(steps * 2 % 4 == 0, f"{steps} steps of 2 over 4 rooms")
+    cfg.data.train.update(data_root=root, loop=steps * 2 // 4)
+    cfg = task_config(msc_config(cfg), os.path.join(tmp, "msc.py"))
+    reset_k1_counts()
+    reset_k2_counts()
+    with MSCProbe().on() as knn_probe:
+        trainer, probe, _, _ = run_training(cfg)
+    hist = trainer.storage.history
+    terms = {k: hist(k).values() for k in MSC_TERMS + (
+        "pairs", "view1_mask_share", "view2_mask_share", "view1_mixed", "n_overflow")}
+    check(len(terms["loss"]) == steps and all(math.isfinite(v) for k in MSC_TERMS
+                                              for v in terms[k]),
+          f"msc_train: loss terms {terms}")
+    check(all(0 < p <= 8192 for p in terms["pairs"]), f"msc_train: pairs {terms['pairs']}")
+    mixed = [bool(v) for v in terms["view1_mixed"]]
+    check(mixed == want_mixed, f"msc_train: view 1 mixed {mixed}, the replayed draws "
+          f"{want_mixed}")
+    k1, k2 = fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches
+    check(k1 == k2 == 0, f"msc_train: K1 {k1} and K2 {k2} launches on a SpUNet")
+    last = os.path.join(trainer.cfg.save_path, "model", "model_last.pth")
+    build_model(copy.deepcopy(dict(cfg.model))).load_state_dict(
+        torch.load(last, map_location="cpu", weights_only=False)["state_dict"], strict=True)
+    step_ms, knn_ms = probe.step_ms(), knn_probe.knn_ms()
+    emit(dict(phase="msc_train", config=f"{SEMSEG_CONFIG} made MSC-v1m1 (msc_config)",
+              model="MSC-v1m1 over SpUNet-v1m1", widths=SPUNET_WIDTHS, batch_size=2,
+              points=cfg.data.num_points, steps=steps, seed=seed, **terms,
+              grad_norm=hist("grad_norm").values(), lr=hist("lr").values(),
+              cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+              profiled_step_ms=step_ms[-1], knn_ms=knn_ms,
+              data_wait_s=hist("data_time").values(),
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, k1_launches=k1,
+              k2_launches=k2, dataset_write_s=data_s, profile=probe.profile))
+    print(f"msc_train: nce {[round(v, 3) for v in terms['nce_loss']]}, pairs {terms['pairs']}, "
+          f"mixed {mixed}, warm steps {[round(v) for v in step_ms[1:-1]]} ms", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def cac_model_cfg(backbone=None, backbone_out_channels=96):
+    """CAC-v1m1 over SpUNet-v1m1 at its published widths with the GS files'
+    14 input channels (or over ``backbone``), 20 classes, the cross-entropy
+    as criteria, the JAX package's defaults (cos_temp 15, every weight 1,
+    conf_thresh 0), fp32."""
+    return dict(type="CAC-v1m1", num_classes=TRAIN_CLASSES,
+                backbone_out_channels=backbone_out_channels,
+                backbone=backbone or dict(type="SpUNet-v1m1", in_channels=14, num_classes=0,
+                                          **SPUNET_WIDTHS),
+                criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)],
+                cos_temp=15, main_weight=1, pre_weight=1, pre_self_weight=1, kl_weight=1,
+                conf_thresh=0)
+
+
+def cac_config(cfg):
+    """The semseg file ``cfg`` (read as it is) made a CAC configuration
+    (Pointcept's semseg-cac-v1m1-0-spunet-base.py over the GS data path):
+    cac_model_cfg's model, SGD (lr 0.05, momentum 0.9, nesterov, weight
+    decay 1e-4) with OneCycleLR (pct 0.05), no param groups; the file's
+    data path, Mix3D, clip_grad, hooks and tester."""
+    cfg.model = cac_model_cfg()
+    cfg.optimizer = dict(type="SGD", lr=0.05, momentum=0.9, weight_decay=0.0001, nesterov=True)
+    cfg.scheduler = dict(type="OneCycleLR", max_lr=0.05, pct_start=0.05, anneal_strategy="cos",
+                         div_factor=10.0, final_div_factor=10000.0)
+    cfg.param_dicts = None
+    return cfg
+
+
+def phase_cac_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000):
+    """The trainer on cac_config (CAC-v1m1 over SpUNet-v1m1 at its published
+    widths, fp32, 205,824 points, Mix3D 0.8) at batch 2 for ``steps`` steps
+    over 4 synthetic rooms, then the file's SemSegEvaluator over one
+    validation room (PreciseEvaluator's tester left to cac_test): finite
+    loss terms, the refined logits scored, no K1 or K2 launch; step times,
+    loader waits, peak memory, one profiled step. Returns the config file
+    and the best checkpoint."""
+    tmp = tempfile.mkdtemp(dir=work)
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "scannet_gs")
+    write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=73, size_m=room,
+                    semseg=True)
+    write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=74, size_m=(2.4, 2.4, 2.0),
+                    semseg=True)
+    data_s = time.perf_counter() - t0
+    cfg = cac_config(semseg_train_config(root, os.path.join(tmp, "exp"), 2, steps, 4))
+    cfg.hooks = [h for h in cfg.hooks if h["type"] != "PreciseEvaluator"]
+    path = os.path.join(tmp, "cac.py")
+    cfg = task_config(cfg, path)
+    reset_k1_counts()
+    reset_k2_counts()
+    overflow = []
+
+    def before(trainer):  # each training forward's pooling overflow, from the backbone
+        backbone = trainer.model.backbone
+        forward = backbone.forward
+
+        def recording(point, *args, **kwargs):
+            out = forward(point, *args, **kwargs)
+            if backbone.training:
+                overflow.append([int(p.n_overflow.max()) for p in out.plans])
+            return out
+
+        backbone.forward = recording
+
+    trainer, probe, _, k1_counts = run_training(cfg, before=before)
+    hist = trainer.storage.history
+    terms = {k: hist(k).values() for k in CAC_TERMS}
+    check(len(terms["loss"]) == steps and all(math.isfinite(v) for vs in terms.values()
+                                              for v in vs), f"cac_train: loss terms {terms}")
+    k1 = k1_counts["train_launches"] + k1_counts["val_launches"]
+    k2 = fwa.flash_window_attention_bwd.launches
+    check(k1 == k2 == 0, f"cac_train: K1 {k1} and K2 {k2} launches on a SpUNet")
+    miou = hist("val/mIoU").values()
+    check(len(miou) == 1 and 0.0 <= miou[0] <= 1.0, f"cac_train: val mIoU {miou}")
+    best = os.path.join(trainer.cfg.save_path, "model", "model_best.pth")
+    step_ms = probe.step_ms()
+    emit(dict(phase="cac_train", config=f"{SEMSEG_CONFIG} made CAC-v1m1 (cac_config)",
+              model="CAC-v1m1 over SpUNet-v1m1", widths=SPUNET_WIDTHS, batch_size=2,
+              points=cfg.data.num_points, steps=steps, **terms,
+              grad_norm=hist("grad_norm").values(), lr=hist("lr").values(),
+              cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+              profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, val_miou=miou[0],
+              n_overflow_per_stage=overflow, evaluation_n_overflow=k1_counts["val_overflow"],
+              k1_launches=k1, k2_launches=k2,
+              dataset_write_s=data_s, profile=probe.profile))
+    print(f"cac_train: val mIoU {miou[0]:.4f}, warm steps "
+          f"{[round(v) for v in step_ms[1:-1]]} ms", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return path, best
+
+
+def phase_cac_test(work, config_path, checkpoint, n_voxels=160000):
+    """``python -m scenesplat_tpu_torch.test`` on the CAC config with
+    cac_train's best checkpoint: the file's SemSegTester (9 views, fragment
+    voting of the refined logits) over one synthetic room of 320,001
+    Gaussians, as a user runs it: the room predicted, finite mIoU, the
+    seconds (fetch, extract, vote)."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "cac_test")
+    n_points = write_test_scenes(root, 1, n_voxels, seed=75, semseg=True)
+    write_s = time.perf_counter() - t0
+    save = os.path.join(work, "cac_test_out")
+    reset_k1_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (res,) = test_entry.main(["--config-file", config_path, "--options", f"weight={checkpoint}",
+                              f"data.test.data_root={root}", f"test.save_path={save}"])
+    seconds = time.perf_counter() - t1
+    check(fwa.flash_window_attention.launches == 0,
+          f"cac_test: {fwa.flash_window_attention.launches} K1 launches on a SpUNet")
+    with open(os.path.join(save, "scene_log.json")) as f:
+        scenes = json.load(f)
+    check(len(scenes) == 1 and scenes[0]["points"] == n_points and scenes[0]["fragments"] >= 9,
+          f"cac_test: scenes {[(s['name'], s['points'], s['fragments']) for s in scenes]}")
+    check(math.isfinite(res["mIoU"]), f"cac_test: mIoU {res['mIoU']}")
+    emit(dict(phase="cac_test", model="CAC-v1m1 over SpUNet-v1m1", points_per_scene=n_points,
+              views=9, seconds=seconds, dataset_write_s=write_s, mIoU=res["mIoU"],
+              per_scene=scene_split(dict(scenes=scenes))))
+    sc = scenes[0]
+    print(f"cac_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: fetch "
+          f"{sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, vote {sc['vote_s']:.2f} s, "
+          f"total {sc['total_s']:.2f} s", flush=True)
+
+
+def cac_step(model, batch, generator=None):
+    """One CAC loss and backward (the model's own four-term loss): (its
+    terms, gradients by name on the CPU, each downsample's overflow), and
+    the BatchNorm statistics after."""
+    out = model(point_from_batch(batch), generator=generator, segment=batch["segment"])
+    out["loss"].backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return ({k: out[k].item() for k in CAC_TERMS}, grads, []), stats
+
+
+def phase_cac_agree(n=49152):
+    """CAC-v1m1 over the semseg file's PT-v3m1 (its widths, heads and
+    windows, one block a stage, fp32) at ``n`` points of a semseg room: one
+    step of the four-term loss with the kernels and with the plain
+    attention (losses to 1e-5, each gradient to 1e-4 of its norm or 2.5
+    times the noise floor of the kernel step on the points in 3 other
+    orders: the refined logits' cos_temp 15 and the normalized prototypes
+    carry the kernel's rounding further than semseg's CE does). A tensor's
+    bound is the worst tensor's floor, not its own: the serialization
+    orders a window's points whatever the input order, so the permutations
+    leave the attention's own sums in place and a tensor next to it may
+    show no floor of its own. Returns its K1 with lse and K2 launches."""
+    cfg = Config.fromfile(SEMSEG_CONFIG)
+    backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4)
+    rows = semseg_rows(n, (76,))
+
+    def step(use_kernel, batch_rows=rows):
+        batch = cuda_batch(batch_rows)
+        model = build_model(cac_model_cfg(dict(backbone, dtype="float32", seed=1,
+                                               use_kernel=use_kernel),
+                                          cfg.model.backbone_out_channels)).cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        out = model(point_from_batch(batch), generator=gen, segment=batch["segment"])
+        out["loss"].backward()
+        return ({k: out[k].item() for k in CAC_TERMS},
+                {k: p.grad.detach().cpu() for k, p in model.named_parameters()}, [])
+
+    ref = step(None)
+    per, whole = grad_floor(ref, [step(None, permuted_rows(rows, 77 + i))
+                                  for i in range(FLOOR_PERMUTATIONS)])
+    # the worst floor of the tensors that are not zero in exact arithmetic
+    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in ref[1].values()]))
+    worst = max(per[k] for k, g in ref[1].items() if g.norm() >= ZERO_GRAD * total)
+    floor = (dict.fromkeys(per, worst), whole)
+    reset_k1_counts()
+    reset_k2_counts()
+    compare_train_steps("cac_agree", step, sum(depth_split(backbone)), points=n, floor=floor,
+                        model="CAC-v1m1 over the semseg file's PT-v3m1",
+                        enc_depths=backbone["enc_depths"], dec_depths=backbone["dec_depths"])
+    k1_lse = sum(k1_lse_variants().values())
+    k2 = fwa.flash_window_attention_bwd.launches
+    check(k1_lse == sum(depth_split(backbone)) and k2 == k1_lse,
+          f"cac_agree: K1 with lse {k1_lse}, K2 {k2} launches")
+    return dict(k1_lse=k1_lse, k1_lse_variants=k1_lse_variants(), k2=k2,
+                k2_variants=dict(fwa.flash_window_attention_bwd.variant_launches))
+
+
+def ppt_spunet_model_config():
+    """PPT-v1m1 over SpUNet-v1m3 as Pointcept's PPT SpUNet files set it
+    (the published widths, adaptive and decoupled PDNorm, context 256) with
+    the GS files' 14 input channels, the backbone's conditions in the other
+    order than the model's (as ppt_train), the ScanNet200 SigLIP2 table's
+    rows matched by name, fp32."""
+    return dict(type="PPT-v1m1", backbone=dict(
+        type="SpUNet-v1m3", in_channels=14, num_classes=0, conditions=PPT_PDNORM_CONDITIONS,
+        pd_adaptive=True, context_channels=256, **SPUNET_WIDTHS),
+        backbone_out_channels=96, context_channels=256, conditions=PPT_CONDITIONS,
+        class_name="builtin:scannet200", class_embedding_path="builtin:scannet200",
+        valid_index=valid_index_by_name("builtin:scannet200", (
+            "builtin:scannet20", "builtin:scannetpp_top100")))
+
+
+def phase_ppt_spunet_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6),
+                           val_points=40000):
+    """ppt_train's run (MultiDatasetTrainer over the same 4 rooms read as
+    ScanNetGS and ScanNetPPGS, conditions A A B A A B, one validation room
+    a condition) with ppt_spunet_model_config's PPT-v1m1 over SpUNet-v1m3:
+    each step's condition, only that condition's norms' statistics moved
+    (``bns.{c}`` in the backbone's order), finite losses, no K1 or K2
+    launch, each condition's val mIoU; step times, loader waits, peak
+    memory, one profiled step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "rooms")
+        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=77, size_m=room,
+                        semseg=True, ppt=True)
+        write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=78,
+                        size_m=(2.4, 2.4, 2.0), semseg=True, ppt=True)
+        data_s = time.perf_counter() - t0
+        reset_k1_counts()
+        reset_k2_counts()
+        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2)
+        cfg.model = dict(ppt_spunet_model_config(), criteria=cfg.model["criteria"])
+        probes = []
+
+        def before(trainer):
+            probes.append(PDNormProbe(trainer.model))
+            probes[0].trainer = trainer
+            trainer.hooks.append(probes[0])
+
+        trainer, probe, records, k1_counts = run_training(cfg, before=before)
+        hist = trainer.storage.history
+        losses = hist("loss").values()
+        conditions = [r["condition"] for r in records]
+        a, b = PPT_CONDITIONS
+        check(conditions == [a, a, b] * (steps // 3),
+              f"ppt_spunet_train: step conditions {conditions}")
+        want_moved = [[PPT_PDNORM_CONDITIONS.index(c)] for c in conditions]
+        check(probes[0].moved == want_moved,
+              f"ppt_spunet_train: norms of conditions {probes[0].moved} moved, expected "
+              f"{want_moved} (the backbone's order)")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"ppt_spunet_train: losses {losses}")
+        k1 = k1_counts["train_launches"] + k1_counts["val_launches"]
+        k2 = fwa.flash_window_attention_bwd.launches
+        check(k1 == k2 == 0, f"ppt_spunet_train: K1 {k1} and K2 {k2} launches on a SpUNet")
+        mious = {c: hist(f"val/{c}/mIoU").values() for c in PPT_CONDITIONS}
+        check(all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in mious.values()),
+              f"ppt_spunet_train: per-condition val mIoU {mious}")
+        step_ms = probe.step_ms()
+        emit(dict(phase="ppt_spunet_train", model="PPT-v1m1 over SpUNet-v1m3",
+                  widths=SPUNET_WIDTHS, conditions=PPT_CONDITIONS,
+                  pdnorm_conditions=PPT_PDNORM_CONDITIONS, batch_size=2,
+                  points=cfg.data.num_points, steps=len(losses), step_conditions=conditions,
+                  norms_moved=probes[0].moved, loss=losses, grad_norm=hist("grad_norm").values(),
+                  cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  val_miou={c: v[0] for c, v in mious.items()},
+                  n_overflow_per_stage=[[int(o.max()) for o in r["overflow"]] for r in records],
+                  k1_launches=k1, k2_launches=k2, dataset_write_s=data_s,
+                  profile=probe.profile))
+        print(f"ppt_spunet_train: step conditions {conditions}; val mIoU "
+              f"{ {c: round(v[0], 4) for c, v in mious.items()} }", flush=True)
+        del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4549,21 +5211,24 @@ def main() -> int:
         ddp_record, ddp_checkpoint = phase_ddp_train(work, plain)
         ddp_ranks = phase_ddp_agree(work, ddp_checkpoint, meta_root)
         worst_sort = phase_kernel_sort()
+        # the older phases at a cut depth, to leave time for the MSC and CAC
+        # phases: one test scene where there were two, 4 train steps where
+        # there were 6 (ssl, semseg, insseg)
         sort_calls, sort_kernels, fragments, sort_sizes, test_variants, test_shapes = \
-            phase_test(work, checkpoint, meta_root)
+            phase_test(work, checkpoint, meta_root, n_scenes=1)
         tot_sort = phase_timing_sort(sort_sizes)
         tot_test = phase_timing_test(test_shapes)
-        ssl_shapes, ssl_counts, ssl_checkpoint, teacher_shapes = phase_ssl_train(work)
+        ssl_shapes, ssl_counts, ssl_checkpoint, teacher_shapes = phase_ssl_train(work, steps=4)
         ssl_bwd = phase_timing_bwd(ssl_shapes, phase="ssl_timing_bwd")
         ssl_teacher = phase_timing(teacher_shapes, phase="ssl_timing_teacher")
         phase_ssl_agree()
         teacher_weight = phase_warm_start(work, ssl_checkpoint, checkpoint)
         semseg_shapes, semseg_k1, semseg_k1_variants, semseg_k2_variants, semseg_checkpoint = \
-            phase_semseg_train(work, teacher_weight)
+            phase_semseg_train(work, teacher_weight, steps=4)
         semseg_bwd = phase_timing_bwd(semseg_shapes, phase="semseg_timing_bwd")
         phase_semseg_agree()
         semseg_on, semseg_fragments, semseg_sort_sizes, semseg_calls = \
-            phase_semseg_test(work, semseg_checkpoint)
+            phase_semseg_test(work, semseg_checkpoint, n_scenes=1)
         semseg_fwd = phase_timing_test(semseg_calls, phase="semseg_timing_test")
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
         tasks_ddp = {task: phase_task_ddp_agree(work, task) for task in ("semseg", "ssl")}
@@ -4577,10 +5242,17 @@ def main() -> int:
         ppt_ddp = phase_ppt_ddp_agree(work)
         phase_rpe_agree()
         phase_spunet_agree()
-        insseg_val, insseg_model = phase_insseg_train(work)
+        insseg_val, insseg_model = phase_insseg_train(work, steps=4)
         phase_insseg_oracle(insseg_val, insseg_model)
         insseg_kernels = phase_insseg_agree()
         insseg_ddp = phase_task_ddp_agree(work, "insseg")
+        phase_msc_agree()
+        phase_msc_train(work)
+        cac_config_path, cac_best = phase_cac_train(work)
+        phase_cac_test(work, cac_config_path, cac_best)
+        cac_kernels = phase_cac_agree()
+        spunet_ddp = {task: phase_task_ddp_agree(work, task) for task in ("msc", "cac")}
+        phase_ppt_spunet_train(work)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -4596,7 +5268,7 @@ def main() -> int:
     # steps, the test run's fragment forwards with the sort switch on); ms
     # and the other times: per forward or per step (18 attention launches, 8
     # sorts; the small forward: the decoder's 6 launches of a test fragment
-    # forward). "semseg": the same for the semseg file's path (6 train
+    # forward). "semseg": the same for the semseg file's path (4 train
     # steps of 22 attention launches; the test run's fragment forwards, the
     # first one's 14 encoder and 8 decoder launches timed, 10 sorts)
 
@@ -4616,7 +5288,7 @@ def main() -> int:
     ppt_test = dict(path="ppt test", fragment_forwards=ppt_fragments,
                     ms_per="test fragment forward (the first fragment's calls, no lse)")
     ppt_train = dict(path="ppt train", ms_per="train step")
-    # "ssl": the SSL file's path, 6 train steps of 7 backbone passes; ms
+    # "ssl": the SSL file's path, 4 train steps of 7 backbone passes; ms
     # and the other times per step (timing at the student's shapes: the
     # globals' 22 launches twice, the locals' 22 forward and 14 backward
     # launches three times); the teacher's launches, without lse, are
@@ -4641,6 +5313,15 @@ def main() -> int:
     insseg = dict(path="insseg", spunet_launches=0,
                   spunet_two_rank_launches=insseg_ddp["k1_lse"] + insseg_ddp["k1"],
                   agree_ms_per="fp32 train step of PG over PT-v3m1, one block a stage")
+    # "spunet_tasks": MSC and CAC over SpUNet and PPT over SpUNet-v1m3
+    # (msc_agree, msc_train, cac_train, cac_test, msc_ddp_agree,
+    # cac_ddp_agree, ppt_spunet_train) launch no attention kernel;
+    # cac_agree runs CAC over the semseg file's PT-v3m1, one fp32 step with
+    # the kernels (its launches; no times: fp32 at one block a stage)
+    spunet_tasks = dict(path="msc, cac, ppt over SpUNet-v1m3", spunet_launches=0,
+                        spunet_two_rank_launches=sum(
+                            d["k1_lse"] + d["k1"] for d in spunet_ddp.values()),
+                        agree_ms_per="fp32 train step of CAC over PT-v3m1, one block a stage")
     teacher_large = ssl_teacher["by_variant"]["bf16_large"]
     teacher_small = ssl_teacher["by_variant"]["bf16_small"]
     emit({"kernels": [
@@ -4690,7 +5371,9 @@ def main() -> int:
                       by_variant=ppt_bwd["fwd_by_variant"],
                       two_rank_launches=ppt_ddp["k1_lse"], **times(ppt_bwd, "fwd_")),
              insseg=dict(insseg, agree_launches=insseg_kernels["k1_lse"],
-                         agree_variant_launches=insseg_kernels["k1_lse_variants"])),
+                         agree_variant_launches=insseg_kernels["k1_lse_variants"]),
+             spunet_tasks=dict(spunet_tasks, agree_launches=cac_kernels["k1_lse"],
+                               agree_variant_launches=cac_kernels["k1_lse_variants"])),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -4743,7 +5426,10 @@ def main() -> int:
                       **times(ppt_bwd)),
              insseg=dict(insseg, spunet_two_rank_launches=insseg_ddp["k2"],
                          agree_launches=insseg_kernels["k2"],
-                         agree_variant_launches=insseg_kernels["k2_variants"])),
+                         agree_variant_launches=insseg_kernels["k2_variants"]),
+             spunet_tasks=dict(spunet_tasks, spunet_two_rank_launches=sum(
+                 d["k2"] for d in spunet_ddp.values()), agree_launches=cac_kernels["k2"],
+                 agree_variant_launches=cac_kernels["k2_variants"])),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",

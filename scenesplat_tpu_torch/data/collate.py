@@ -10,7 +10,8 @@ every plan on the card and has no such keys. Point Prompt Training's
 ``condition`` (a dataset name) must be one across the batch, as the
 reference asserts, and passes as that string. ``collate_ssl`` (the port's
 copy of the JAX function) pads each crop of the SSL multi-crop samples to
-its own size through ``collate_padded``.
+its own size through ``collate_padded``, ``collate_two_view`` each view of
+Masked Scene Contrast's samples.
 """
 
 from __future__ import annotations
@@ -137,4 +138,29 @@ def collate_ssl(samples: List[Dict[str, np.ndarray]], global_points: int, local_
             if arr.dtype == np.float16:
                 arr = arr.astype(np.float32)
             batch[f"{prefix}_{key}"] = arr
+    return batch
+
+
+def collate_two_view(samples: List[Dict[str, np.ndarray]], view_points: int
+                     ) -> Dict[str, np.ndarray]:
+    """Masked Scene Contrast's two-view samples (keys prefixed ``view1_`` and
+    ``view2_``, ContrastiveViewsGenerator's) -> ``<view>_<key>`` arrays of
+    [B, view_points, ...] and a ``<view>_mask`` each, through
+    ``collate_padded`` (a view above ``view_points`` randomly cut, view 1's
+    samples first). ``origin_coord`` is per point here and padded like
+    ``coord`` (the port's copy of the JAX package's
+    ``data/collate.py:collate_two_view``)."""
+    batch: Dict[str, np.ndarray] = {}
+    for prefix in ("view1", "view2"):
+        subs = []
+        for s in samples:
+            # origin_* keys do not batch as points; a view's does
+            sub = {("ocoord" if k == f"{prefix}_origin_coord" else k[len(prefix) + 1:]): v
+                   for k, v in s.items() if k.startswith(prefix + "_")}
+            if "coord" not in sub:
+                raise KeyError(f"missing {prefix}_coord in sample")
+            subs.append(sub)
+        for key, arr in collate_padded(subs, view_points).items():
+            if isinstance(arr, np.ndarray) and arr.ndim >= 2:
+                batch[f"{prefix}_{'origin_coord' if key == 'ocoord' else key}"] = arr
     return batch

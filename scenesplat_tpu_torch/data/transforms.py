@@ -8,7 +8,9 @@ The SSL files' multi-crop pipeline is here too: the colour jitter,
 grayscale and solarize transforms, ``SphereCropRandomMaxPoints``,
 ``ContrastiveViewsGenerator_SSL``, ``CollectContrast`` and the opacity-masked
 voxel blur ``GSGaussianBlurVoxelOpc`` (scipy's ``gaussian_filter`` on the
-host, as the JAX package runs it).
+host, as the JAX package runs it). Masked Scene Contrast's two views
+come from ``ContrastiveViewsGenerator``, with ``RandomColorDrop``,
+``HueSaturationTranslation`` and ``ShufflePoint`` of its view pipeline.
 
 All transforms run in numpy on the host and draw from a per-thread
 generator that the loader seeds per sample (``seed_transforms``), so
@@ -73,13 +75,18 @@ PER_POINT_KEYS = (
 )
 
 
-def _subset(data_dict, idx):
+def _subset(data_dict, idx, keys=PER_POINT_KEYS):
     n = data_dict["coord"].shape[0]
-    for key in PER_POINT_KEYS:
+    for key in keys:
         value = data_dict.get(key)
         if isinstance(value, np.ndarray) and value.shape[:1] == (n,):
             data_dict[key] = value[idx]
     return data_dict
+
+
+# an MSC view's pre-augmentation coordinates follow its points through the
+# view's crops and shuffles (ContrastiveViewsGenerator)
+VIEW_POINT_KEYS = PER_POINT_KEYS + ("origin_coord",)
 
 
 def _rotation_matrix(axis: str, angle: float) -> np.ndarray:
@@ -305,6 +312,8 @@ class CenterShift:
 
 @TRANSFORMS.register_module()
 class RandomDropout:
+    subset_keys = PER_POINT_KEYS
+
     def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5):
         self.dropout_ratio = dropout_ratio
         self.dropout_application_ratio = dropout_application_ratio
@@ -313,7 +322,7 @@ class RandomDropout:
         if trng().random() < self.dropout_application_ratio:
             n = len(data_dict["coord"])
             idx = trng().choice(n, int(n * (1 - self.dropout_ratio)), replace=False)
-            _subset(data_dict, idx)
+            _subset(data_dict, idx, self.subset_keys)
         return data_dict
 
 
@@ -539,6 +548,8 @@ class SphereCrop:
     """Crop to at most point_max points around a random/center point
     (reference transform.py:1420+)."""
 
+    subset_keys = PER_POINT_KEYS
+
     def __init__(self, point_max=80000, sample_rate=None, mode="random"):
         self.point_max = point_max
         self.sample_rate = sample_rate
@@ -564,7 +575,7 @@ class SphereCrop:
         # distance-sorted order via O(n) partition of only the kept subset
         part = np.argpartition(d2, point_max - 1)[:point_max]
         idx = part[np.argsort(d2[part])]
-        return _subset(data_dict, idx)
+        return _subset(data_dict, idx, self.subset_keys)
 
 
 def fnv_hash_vec(arr: np.ndarray) -> np.ndarray:
@@ -724,6 +735,33 @@ class RandomColorSolarize:
         return data_dict
 
 
+@TRANSFORMS.register_module()
+class RandomColorDrop:
+    """Scales the colours by ``color_augment`` (0: drops them) with
+    probability ``p`` (reference transform.py, MSC's view pipeline)."""
+
+    def __init__(self, p=0.2, color_augment=0.0):
+        self.p = p
+        self.color_augment = color_augment
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and trng().random() < self.p:
+            data_dict["color"] = data_dict["color"] * self.color_augment
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ShufflePoint:
+    """Permutes the points (every per-point key; in an MSC view
+    ``origin_coord`` too, see ContrastiveViewsGenerator)."""
+
+    subset_keys = PER_POINT_KEYS
+
+    def __call__(self, data_dict):
+        idx = trng().permutation(data_dict["coord"].shape[0])
+        return _subset(data_dict, idx, self.subset_keys)
+
+
 def _rgb_to_hsv(rgb):
     """Vectorized colorsys.rgb_to_hsv over [..., 3] arrays: h and s in
     [0, 1], v the raw largest channel."""
@@ -756,6 +794,27 @@ def _hsv_to_rgb(hsv):
     g = np.select(conditions, [v, v, v, q, p, p], default=t)
     b = np.select(conditions, [v, p, t, v, v, q], default=p)
     return np.stack([r, g, b], axis=-1)
+
+
+@TRANSFORMS.register_module()
+class HueSaturationTranslation:
+    """Random hue rotation and saturation scaling in HSV space over RGB
+    colours in [0, 255] (reference transform.py:1043-1109)."""
+
+    def __init__(self, hue_max=0.5, saturation_max=0.2):
+        self.hue_max = hue_max
+        self.saturation_max = saturation_max
+
+    def __call__(self, data_dict):
+        if "color" in data_dict:
+            color = np.asarray(data_dict["color"])
+            hsv = _rgb_to_hsv(color[:, :3])
+            hue_val = (trng().random() - 0.5) * 2 * self.hue_max
+            sat_ratio = 1 + (trng().random() - 0.5) * 2 * self.saturation_max
+            hsv[..., 0] = (hsv[..., 0] + hue_val) % 1.0
+            hsv[..., 1] = np.clip(sat_ratio * hsv[..., 1], 0, 1)
+            data_dict["color"][:, :3] = np.clip(_hsv_to_rgb(hsv), 0, 255).astype(color.dtype)
+        return data_dict
 
 
 @TRANSFORMS.register_module()
@@ -848,6 +907,35 @@ class SphereCropRandomMaxPoints:
             lo, hi = self.max_points or (80000, 120000)
             budget = int(trng().integers(lo, hi + 1))
         return SphereCrop(point_max=max(budget, 1), mode=self.mode)(data_dict)
+
+
+@TRANSFORMS.register_module()
+class ContrastiveViewsGenerator:
+    """Two views for MSC-style contrastive pretraining (reference
+    transform.py:1596-1618): the same transform stack applied to two
+    copies of ``view_keys``, outputs prefixed ``view1_`` and ``view2_``,
+    view 1's draws first. A view's ``origin_coord`` (its points'
+    coordinates before the view's augmentation) follows its points through
+    the stack's crops, dropouts and shuffles, as it does through a
+    GridSample whose ``keys`` name it. The JAX package's transforms leave
+    it behind (ROADMAP Queue 3), so a cropped or shuffled view pairs its
+    points with other points' origins there."""
+
+    def __init__(self, view_keys=("coord", "color", "normal", "origin_coord"),
+                 view_trans_cfg=None):
+        self.view_keys = view_keys
+        self.view_trans = Compose(view_trans_cfg)
+        for t in self.view_trans.transforms:
+            if hasattr(t, "subset_keys"):
+                t.subset_keys = VIEW_POINT_KEYS
+
+    def __call__(self, data_dict):
+        for prefix in ("view1_", "view2_"):
+            view = self.view_trans({k: np.copy(data_dict[k]) for k in self.view_keys
+                                    if k in data_dict})
+            for key, value in view.items():
+                data_dict[prefix + key] = value
+        return data_dict
 
 
 @TRANSFORMS.register_module()

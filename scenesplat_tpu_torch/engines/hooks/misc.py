@@ -45,8 +45,8 @@ class IterationTimer(HookBase):
 
 @HOOKS.register_module()
 class InformationWriter(HookBase):
-    """Logs loss, grad_norm, timings and lr every ``log_interval`` steps and
-    appends them to ``<save_path>/metrics.json``."""
+    """Logs loss, grad_norm, timings, the loss terms and lr every
+    ``log_interval`` steps and appends them to ``<save_path>/metrics.json``."""
 
     def __init__(self, log_interval: int = 10):
         self.log_interval = log_interval
@@ -65,6 +65,8 @@ class InformationWriter(HookBase):
         for key in ("loss", "grad_norm", "data_time", "batch_time"):
             if key in storage.latest:
                 msgs.append(f"{key}: {storage.latest[key]:.4g}")
+        # the loss terms of a model that returns them (MSC, CAC)
+        msgs += [f"{k}: {v:.4g}" for k, v in storage.latest.items() if k.endswith("_loss")]
         if "lr" in storage.latest:
             msgs.append(f"lr: {storage.latest['lr']:.3e}")
         self.trainer.logger.info("  ".join(msgs))

@@ -4,9 +4,10 @@ hook-driven epoch and step loop around ``engines/train_step.py``.
 The port trains the VL pretraining task (``LangPretrainer``), semantic
 segmentation (``DefaultSegmentorV2``), Point Prompt Training
 (``PPT-v1m1``, ``PPT-v1m2``: semantic segmentation over several datasets,
-each batch from one, usually through ``MultiDatasetTrainer``) and
-PointGroup instance segmentation (``PG-v1m1``); the model's
-type picks the task, as
+each batch from one, usually through ``MultiDatasetTrainer``),
+PointGroup instance segmentation (``PG-v1m1``), Masked Scene Contrast
+pretraining (``MSC-v1m1``, ``MSC-v1m2``) and the Context-Aware Classifier
+(``CAC-v1m1``); the model's type picks the task, as
 ``Trainer.TASKS`` does in the JAX package. SimDINO
 self-supervised pretraining has a trainer of its own
 (``engines/pretrain.py:DefaultSSLPreTrainer``, ``train =
@@ -29,12 +30,14 @@ files.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
 import torch
 
 from scenesplat_tpu_torch.data import ConcatDataset, Loader, MultiDatasetLoader, build_dataset
+from scenesplat_tpu_torch.data.collate import collate_two_view
 from scenesplat_tpu_torch.engines.hooks import HookBase, build_hooks
 from scenesplat_tpu_torch.engines.train_step import batch_to_device, train_step
 from scenesplat_tpu_torch.models import build_criteria, build_model
@@ -95,7 +98,8 @@ class Trainer(TrainerBase):
     type outside it raises."""
 
     TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg",
-             "PPT-v1m1": "ppt", "PPT-v1m2": "ppt", "PG-v1m1": "insseg"}
+             "PPT-v1m1": "ppt", "PPT-v1m2": "ppt", "PG-v1m1": "insseg",
+             "MSC-v1m1": "msc", "MSC-v1m2": "msc", "CAC-v1m1": "cac"}
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
@@ -130,6 +134,8 @@ class Trainer(TrainerBase):
                                       f"port trains {', '.join(self.TASKS)}")
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
+        if self.task == "cac":  # CAC computes its loss with its own criteria
+            model_cfg["criteria"] = criteria_cfg
         self.model = self.build_model(model_cfg).to(self.device)
         # a PPT step leaves the other conditions' parameters without a
         # gradient: DDP must look for them (the reference's PPT files set
@@ -161,11 +167,18 @@ class Trainer(TrainerBase):
         return self.model
 
     def build_train_loader(self):
+        """MSC's batches are two-view (``collate_two_view`` at
+        ``data.num_points`` a view, one sample a row: MSC mixes views in
+        the model, so Mix3D's ``mix_prob`` does not apply)."""
+        num_points = self.cfg.data.get("num_points", 65536)
+        if self.task == "msc":
+            kw = dict(collate_fn=functools.partial(collate_two_view, view_points=num_points))
+        else:
+            kw = dict(mix_prob=self.cfg.get("mix_prob", 0.0))
         return Loader(build_dataset(dict(self.cfg.data.train)),
-                      batch_size=self.cfg.get("batch_size", 1),
-                      num_points=self.cfg.data.get("num_points", 65536),
-                      mix_prob=self.cfg.get("mix_prob", 0.0), seed=self.cfg.get("seed", 0),
-                      num_workers=self.cfg.get("num_worker", 4))
+                      batch_size=self.cfg.get("batch_size", 1), num_points=num_points,
+                      seed=self.cfg.get("seed", 0), num_workers=self.cfg.get("num_worker", 4),
+                      **kw)
 
     def run_epoch(self):
         self.train_loader.set_epoch(self.epoch)
@@ -182,7 +195,8 @@ class Trainer(TrainerBase):
                              epoch_progress=(self.epoch + 1) / max(self.max_epoch, 1),
                              clip_grad=self.clip_grad, task=self.task)
         self.storage.put_scalars(loss=metrics["loss"].item(),
-                                 grad_norm=metrics["grad_norm"].item(), lr=lr)
+                                 grad_norm=metrics["grad_norm"].item(), lr=lr,
+                                 **{k: v.item() for k, v in metrics.get("terms", {}).items()})
 
 
 @TRAINERS.register_module("MultiDatasetTrainer")

@@ -1,6 +1,9 @@
 """One training step (counterpart of ``scenesplat_tpu/engines/train_step.py``)
 of the VL pretraining task (``"lang"``), of semantic segmentation
-(``"semseg"``) or of PointGroup instance segmentation (``"insseg"``).
+(``"semseg"``), of PointGroup instance segmentation (``"insseg"``), of Masked
+Scene Contrast pretraining (``"msc"``: the model takes the raw two-view
+batch and returns its loss terms) or of the Context-Aware Classifier
+(``"cac"``: its four-term loss computed in the model).
 
 bf16 compute comes from the model's compute dtype over fp32 parameters, so
 no GradScaler is needed. The lang loss reads ``lang_feat`` upcast to fp32,
@@ -104,8 +107,26 @@ def insseg_loss(model, criteria, batch: Dict[str, torch.Tensor],
     return loss, out
 
 
+def msc_loss(model, criteria, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None, epoch_progress=None):
+    """Masked Scene Contrast: the model takes the two-view batch and
+    returns its loss and terms (``criteria`` unused); returns (loss, the
+    model's dict)."""
+    out = model(batch, generator=generator)
+    return out["loss"], out
+
+
+def cac_loss(model, criteria, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None, epoch_progress=None):
+    """The Context-Aware Classifier's four-term loss, computed in the model
+    with its own criteria against ``segment``; returns (loss, the model's
+    dict)."""
+    out = model(point_from_batch(batch), generator=generator, segment=batch["segment"])
+    return out["loss"], out
+
+
 TASK_LOSSES = {"lang": lang_loss, "semseg": semseg_loss, "ppt": ppt_loss,
-               "insseg": insseg_loss}
+               "insseg": insseg_loss, "msc": msc_loss, "cac": cac_loss}
 
 
 def train_step(model, criteria, optimizer, scheduler, batch: Dict[str, torch.Tensor],
@@ -114,13 +135,17 @@ def train_step(model, criteria, optimizer, scheduler, batch: Dict[str, torch.Ten
                ) -> Dict[str, torch.Tensor]:
     """One step in train mode of ``task`` (a key of ``TASK_LOSSES``);
     returns {"loss", "grad_norm"} as 0-d tensors on the model's device (no
-    host sync)."""
+    host sync), and for a model that returns its loss terms (MSC, CAC)
+    ``terms``: each of them, detached."""
     model.train()
-    loss, _ = TASK_LOSSES[task](model, criteria, batch, generator, epoch_progress)
+    loss, out = TASK_LOSSES[task](model, criteria, batch, generator, epoch_progress)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grad_norm = apply_gradients(optimizer, scheduler, clip_grad)
-    return dict(loss=loss.detach(), grad_norm=grad_norm)
+    metrics = dict(loss=loss.detach(), grad_norm=grad_norm)
+    if isinstance(out, dict):
+        metrics["terms"] = {k: v.detach() for k, v in out.items() if k != "loss"}
+    return metrics
 
 
 def apply_gradients(optimizer, scheduler, clip_grad: Optional[float] = None) -> torch.Tensor:

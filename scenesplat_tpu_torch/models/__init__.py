@@ -7,3 +7,5 @@ from . import ssl  # noqa: E402,F401 (registers SimDINOSSL, DefaultContrastiverS
 from . import ppt  # noqa: E402,F401 (registers PPT-v1m1, PPT-v1m2)
 # registers SpUNet-v1m1, SpUNet-v1m2, SpUNet-v1m3, SpUNetNoSkipBase and PG-v1m1
 from . import spunet, point_group  # noqa: E402,F401
+# registers MSC-v1m1, MSC-v1m2 and CAC-v1m1
+from . import msc, cac  # noqa: E402,F401

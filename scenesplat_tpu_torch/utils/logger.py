@@ -1,5 +1,6 @@
 """The training logger (the port's copy of ``scenesplat_tpu/utils/logger.py``):
-one named logger to the console and, once given, a log file. Under data
+one named logger to the console and, once given, a log file (the last one
+named). Under data
 parallel a rank other than 0 logs warnings and errors only, to the console."""
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ _FORMAT = "[%(asctime)s %(levelname)s %(filename)s:%(lineno)d] %(message)s"
 
 def get_root_logger(log_file: Optional[str] = None, log_level: int = logging.INFO,
                     name: str = "scenesplat_tpu_torch") -> logging.Logger:
-    """The framework logger; the first call that names a ``log_file`` adds
-    a file handler for it (on rank 0)."""
+    """The framework logger; a call that names a ``log_file`` (on rank 0)
+    writes to it from then on, in place of the file an earlier call named
+    (each trainer of a process logs into its own ``save_path``)."""
     logger = logging.getLogger(name)
     if not logger.handlers:
         logger.setLevel(log_level)
@@ -27,10 +29,16 @@ def get_root_logger(log_file: Optional[str] = None, log_level: int = logging.INF
     if rank() != 0:
         logger.setLevel(max(log_level, logging.WARNING))
         return logger
-    if log_file is not None and not any(
-            isinstance(h, logging.FileHandler) for h in logger.handlers):
-        os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)
-        fh = logging.FileHandler(log_file, mode="a")
-        fh.setFormatter(logging.Formatter(_FORMAT, datefmt="%Y-%m-%d %H:%M:%S"))
-        logger.addHandler(fh)
+    if log_file is None:
+        return logger
+    path = os.path.abspath(log_file)
+    for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+        if h.baseFilename == path:
+            return logger
+        logger.removeHandler(h)
+        h.close()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fh = logging.FileHandler(path, mode="a")
+    fh.setFormatter(logging.Formatter(_FORMAT, datefmt="%Y-%m-%d %H:%M:%S"))
+    logger.addHandler(fh)
     return logger

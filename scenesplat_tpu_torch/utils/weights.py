@@ -38,7 +38,12 @@ v1m3 (``pdnorm`` norms) in spconv_unet_v1m3_pdnorm.py's names, the inverse
 of that file's ``convert_spunet_v1m3_checkpoint``. PG-v1m1 (the inverse of
 ``convert_pointgroup_checkpoint``): the backbone under ``backbone.``, flax
 ``bias_fc1``, ``bias_norm`` and ``bias_fc2`` as ``bias_head.{0,1,3}`` and
-``seg_head``.
+``seg_head``. MSC-v1m1/v1m2 (the inverse of ``convert_msc_checkpoint``):
+``mask_token`` as [1, Cin], ``color_head`` and ``normal_head``. CAC-v1m1
+(the inverse of ``convert_cac_checkpoint``): ``seg_kernel`` / ``seg_bias``
+as ``seg_head``, ``proj_fc{1,2}`` and ``apd_fc{1,2}`` as ``proj.{0,2}`` and
+``apd_proj.{0,2}``, ``feat_fc1``, ``feat_norm`` and ``feat_fc2`` as
+``feat_proj_layer.{0,1,3}``.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
                          constants=None, pdnorm_decouple: bool = True
                          ) -> Dict[str, np.ndarray]:
     """Flax PTv3 or SpUNet (or LangPretrainer, DefaultSegmentorV2,
-    SimDINOSSL, PPT-v1m1, PPT-v1m2, PG-v1m1) variables -> Pointcept-layout
+    SimDINOSSL, PPT-v1m1, PPT-v1m2, PG-v1m1, MSC-v1m1, MSC-v1m2, CAC-v1m1)
+    variables -> Pointcept-layout
     numpy state dict;
     ``teacher_params`` (and its ``teacher_batch_stats``) go under
     ``teacher.``; ``constants`` is PPT-v1m1's collection of that name."""
@@ -110,6 +116,22 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
             _put_dense(out, f"seg_heads.{m.group(1)}", params[name])
     if constants and "class_embedding" in constants:
         out["class_embedding"] = np.asarray(constants["class_embedding"])
+    w = _Writer(out, params, batch_stats, "")
+    # Masked Scene Contrast: the mask token as the reference's [1, Cin]
+    if "mask_token" in params:
+        out["mask_token"] = np.asarray(params["mask_token"]).reshape(1, -1)
+    w.dense("color_head", ("color_head",))
+    w.dense("normal_head", ("normal_head",))
+    # Context-Aware Classifier
+    if "seg_kernel" in params:
+        out["seg_head.weight"] = np.asarray(params["seg_kernel"]).T
+        out["seg_head.bias"] = np.asarray(params["seg_bias"])
+    for flax_name, key in (("proj", "proj"), ("apd", "apd_proj")):
+        w.dense(f"{key}.0", (f"{flax_name}_fc1",))
+        w.dense(f"{key}.2", (f"{flax_name}_fc2",))
+    w.dense("feat_proj_layer.0", ("feat_fc1",))
+    w.bn("feat_proj_layer.1", ("feat_norm",))
+    w.dense("feat_proj_layer.3", ("feat_fc2",))
     return out
 
 

@@ -21,7 +21,12 @@ over gloo with one torch thread each.
    the teacher bit-equal on both ranks and within 1e-6 of one process, its
    mask token unmoved).
 4. One PointGroup step (PG-v1m1 over a tiny SpUNet, the reference's CE and
-   the two bias terms): two ranks equal one process at the same bars."""
+   the two bias terms): two ranks equal one process at the same bars.
+5. MSC-v1m1 (view mixing on, the masks and pairs drawn) and CAC-v1m1 over a
+   tiny SpUNet, two steps each under DDP without find_unused_parameters:
+   two ranks equal one process at the same bars."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -260,6 +265,78 @@ def test_two_ranks_insseg_step_equals_one_process(tmp_path):
     for key, g in ranks[0]["grads"].items():
         assert torch.equal(g, ranks[1]["grads"][key]), key
     assert {"bias_head.1.weight", "seg_head.weight"} <= set(ranks[0]["grads"])
+
+
+def _one_process_step(job):
+    """The job's train step in one process over the whole batch, from the
+    same weights and generator seed, as a step record."""
+    from scenesplat_tpu_torch.engines.train_step import train_step
+    from scenesplat_tpu_torch.models import build_criteria
+    from tests.torch_dist_worker import _model, _step_record, _tensors
+
+    model = _model(job)
+    metrics = train_step(model, build_criteria(job["criteria"]),
+                         torch.optim.SGD(model.parameters(), lr=0.0), None,
+                         _tensors(job["batch"]), generator=torch.Generator().manual_seed(7),
+                         task=job["task"])
+    return _step_record(model, metrics["loss"], metrics["grad_norm"])
+
+
+def _msc_job():
+    """MSC-v1m1 over the tiny SpUNet, 4 rows of two views, every view's two
+    rows of a process merged (view mixing on), the cross masks and pairs
+    drawn; two steps without find_unused_parameters."""
+    from scenesplat_tpu_torch.models import build_model
+    from tests.test_torch_msc_loss import MSC, two_view_batch
+
+    batch = {k: v for k, v in two_view_batch(5, n=(300, 260, 280, 240)).items()
+             if not k.startswith(("match_", "view1_point", "view2_point"))}
+    model = dict(MSC, type="MSC-v1m1", view1_mix_prob=1.0, view2_mix_prob=1.0,
+                 backbone=dict(MSC["backbone"], seed=3))
+    state = {k: v.numpy() for k, v in build_model(copy.deepcopy(model)).state_dict().items()}
+    return dict(kind="semseg_step", task="msc", batch=batch, state=state, seed=7,
+                criteria=None, model=model, steps=2)
+
+
+def _cac_job():
+    """CAC-v1m1 over the tiny SpUNet (its cross-entropy in the model), two
+    rows with a padded tail; two steps without find_unused_parameters."""
+    from scenesplat_tpu_torch.models import build_model
+    from tests.test_torch_cac import CAC, _segment
+    from tests.test_torch_spunet import _scene
+
+    s = _scene(19)
+    batch = dict(coord=s["coord"], feat=s["feat"], grid_coord=s["grid"].astype(np.int64),
+                 mask=s["mask"], segment=_segment(s, 3))
+    model = dict(CAC, backbone=dict(CAC["backbone"], seed=3))
+    state = {k: v.numpy() for k, v in build_model(copy.deepcopy(model)).state_dict().items()}
+    return dict(kind="semseg_step", task="cac", batch=batch, state=state, seed=7,
+                criteria=None, model=model, steps=2)
+
+
+@pytest.mark.parametrize("task", ["msc", "cac"])
+def test_two_ranks_msc_and_cac_steps_equal_one_process(tmp_path, task):
+    """train_step of task "msc" and "cac" under DDP as the trainer builds it
+    (no find_unused_parameters; a second step, which DDP would refuse after
+    a parameter without a gradient, runs): two ranks equal one process over
+    the whole batch, the same gradients on both ranks. MSC: the masks and
+    pair priorities drawn at the global batch's shape, the rows' validity
+    gathered, InfoNCE over the global pairs, the reconstruction sums over
+    the global batch, each process merging its own rows' pairs; CAC: the
+    adaptive perspective's and the distillation's class sums over the
+    global batch, CE and BatchNorms as before."""
+    job = (_msc_job if task == "msc" else _cac_job)()
+    one = _one_process_step(job)
+    ranks = run_ranks(tmp_path, job)
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["loss"], one["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["grad_norm"], one["grad_norm"], rtol=GRAD_RTOL)
+        _assert_grads(got["grads"], one["grads"], f"rank {r}")
+        _assert_stats(got["stats"], one["stats"], f"rank {r}")
+        assert sorted(got["grads"]) == sorted(one["grads"])
+    for key, g in ranks[0]["grads"].items():
+        assert torch.equal(g, ranks[1]["grads"][key]), key
+    assert ("mask_token" if task == "msc" else "feat_proj_layer.0.weight") in one["grads"]
 
 
 def _ppt_job(conditions, find_unused=True):

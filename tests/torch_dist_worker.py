@@ -77,21 +77,29 @@ def step(job) -> dict:
 
 def semseg_step(job) -> dict:
     """This rank's rows of the job's global batch through one ``train_step``
-    of the job's ``task`` ("semseg" by default; "insseg") under DDP,
-    drop-path and the curve shuffle drawn from a generator seeded from
-    ``seed``."""
+    of the job's ``task`` ("semseg" by default; "insseg", "msc", "cac")
+    under DDP without ``find_unused_parameters``, drop-path, the curve
+    shuffle and MSC's masks and pairs drawn from a generator seeded from
+    ``seed``; the first step's record. With ``steps`` > 1 the step runs
+    again under the same DDP wrapper (which raises at a step after one
+    that left a parameter without a gradient)."""
     from scenesplat_tpu_torch.engines.train_step import train_step
     from scenesplat_tpu_torch.models import build_criteria
 
     pdist.init_distributed("cpu")
-    rows = pdist.local_batch_slice(job["batch"]["mask"].shape[0])
+    rows = pdist.local_batch_slice(job["batch"]["mask" if "mask" in job["batch"]
+                                                 else "view1_mask"].shape[0])
     batch = _tensors({k: v[rows] for k, v in job["batch"].items()})
     model = _model(job)
+    ddp = pdist.data_parallel(model)
     optimizer = torch.optim.SGD(model.parameters(), lr=0.0)
-    metrics = train_step(pdist.data_parallel(model), build_criteria(job["criteria"]), optimizer,
-                         None, batch, generator=torch.Generator().manual_seed(job["seed"]),
-                         task=job.get("task", "semseg"))
-    return _step_record(model, metrics["loss"], metrics["grad_norm"])
+    generator = torch.Generator().manual_seed(job["seed"])
+    records = []
+    for _ in range(job.get("steps", 1)):
+        metrics = train_step(ddp, build_criteria(job["criteria"]), optimizer, None, batch,
+                             generator=generator, task=job.get("task", "semseg"))
+        records.append(_step_record(model, metrics["loss"], metrics["grad_norm"]))
+    return records[0]
 
 
 def ppt_steps(job) -> dict:
