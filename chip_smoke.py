@@ -177,8 +177,9 @@ Phases, one JSON line each:
      PDNorm BatchNorms and LayerNorms, two conditions, ScanNetGS with 20
      classes and ScanNetPPGS with 100, the backbone's pdnorm_conditions in
      the other order, the ScanNet200 SigLIP2 table as class embeddings) at
-     batch 2 for 6 steps over 4 synthetic rooms read by both datasets
-     (loops 2 and 1: conditions A A B A A B), then SemSegEvaluator over one
+     batch 2 for 3 steps over 4 synthetic rooms read by both datasets
+     (loops 2 and 1: conditions A A B; it ran 6 steps, A A B A A B, before
+     the Point Transformer phases came), then SemSegEvaluator over one
      validation room a condition: each step's condition, only its PDNorm
      statistics moved, K1 / K2 launches by variant, losses, step times,
      loader waits, peak memory, one profiled step, each condition's
@@ -239,11 +240,11 @@ Phases, one JSON line each:
      gradients and statistics under phase 30's noise-floor rule);
  36. msc_train: the trainer on the semseg file made MSC-v1m1 pretraining
      as Pointcept's published MSC file sets it (two views of 205,824
-     slots, view mixing 0.8, 8,192 pairs), batch 2, 6 steps, a seed whose
+     slots, view mixing 0.8, 8,192 pairs), batch 2, 4 steps, a seed whose
      draws mix view 1 in some steps and not in others: every loss term,
      pairs, masked shares, kNN ms, pooling overflow, step times, peak;
  37. cac_train and cac_test: the semseg file made CAC-v1m1 over the same
-     SpUNet (14 channels, 20 classes, CE), batch 2, 6 steps, val mIoU
+     SpUNet (14 channels, 20 classes, CE), batch 2, 4 steps, val mIoU
      through SemSegEvaluator, then the test entry point's SemSegTester over
      one 320,001-Gaussian room (9 views) as a user runs it;
  38. cac_agree: CAC over the semseg file's PT-v3m1, one block a stage,
@@ -255,7 +256,42 @@ Phases, one JSON line each:
  40. ppt_spunet_train: ppt_train's run with PPT-v1m1 over SpUNet-v1m3
      (published widths, adaptive PDNorm, context 256): each step's
      condition and only its norms' statistics moved, each condition's val
-     mIoU, no K1 or K2 launch.
+     mIoU, no K1 or K2 launch;
+ 41. ptv2_agree: Point Transformer V2, fp32, one room of 49,152 points
+     (jittered off the lattice by 3 mm): the kNN and FPS indices on the
+     card equal the CPU's; one train step (CE + Lovasz) of DefaultSegmentor
+     over PT-v2m2 at Pointcept's published widths and depths, then PT-v2m1
+     and PT-v2m3 (adaptive PDNorm named "S3DIS", a N(0, 1) context) at one
+     block a stage, the card against a float64 step on the CPU (loss 1e-5;
+     gradients and statistics 1e-4 or 2.5 times the noise floor: 3
+     point-permuted card steps and the CPU's fp32 step's distance from the
+     witness), K1 and K2 counted from 0 (none);
+ 42. ptv2_train: the trainer on the semseg file made Pointcept's
+     semseg-pt-v2m2-0-base.py model (DefaultSegmentor over PT-v2m2, grid
+     sizes 0.06 to 0.9375, drop path 0.3, task="semseg", the file's data,
+     optimizer and hooks) at batch 2 for 5 steps over 4 synthetic rooms and
+     one validation room: losses, val mIoU, no K1 or K2 launch, no pooling
+     overflow, kNN ms a step, step times, loader waits, peak memory, one
+     profiled step;
+ 43. ptv2_test: the test entry on that config and checkpoint over one
+     320,001-Gaussian room (9 views): torch.sort and K3 under
+     deterministic algorithms (equal predictions and metrics, K3 once for
+     each of the 4 grid poolings of every fragment forward), then as a
+     user runs it, for the seconds per scene;
+ 44. ptv1_agree: PointTransformer-Seg50 under DefaultSegmentor, fp32, 2
+     rows of 16,384 points, one step on the card against a float64 step on
+     the CPU (the noise floor of the CPU's fp32 step, of the rows swapped
+     and of 2 orders that keep each row's first point, where FPS starts),
+     FPS ms a call on the card; Cls38 and PartSeg26 (shape categories) eval
+     forwards on both (1e-4); K1 and K2 counted from 0 (none);
+ 45. ppt_ptv2_train: ppt_train's run with PPT-v1m1 over PT-v2m3 at the
+     published widths (adaptive PDNorm, context 256), 3 steps A A B: each
+     step's condition and only its norms moved, val mIoU a condition, no
+     K1 or K2 launch, no pooling overflow.
+To make room for phases 41-45, msc_train and cac_train run 4 steps where
+they ran 6, and ppt_train and ppt_spunet_train 3 where they ran 6 (A A
+B); PERF.md gives the whole script's seconds on one H100 80GB HBM3 at
+700 W, run by run.
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
 encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
@@ -335,9 +371,10 @@ from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3, _round_capacity
 from scenesplat_tpu_torch.models.ssl import generate_token_masks
 from scenesplat_tpu_torch.ops import bitonic_sort as bs
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa
+from scenesplat_tpu_torch.ops import pointops
 from scenesplat_tpu_torch.ops import window_attention as window_attention_module
 from scenesplat_tpu_torch.ops.knn import knn
-from scenesplat_tpu_torch.ops.serialization import SENTINEL
+from scenesplat_tpu_torch.ops.serialization import SENTINEL, take_along_points
 from scenesplat_tpu_torch.parallel.dist import (
     all_reduce_sum,
     data_parallel,
@@ -1460,7 +1497,8 @@ def permuted_rows(rows, seed):
             for k, v in rows.items()}
 
 
-def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, **record):
+def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, zero=ZERO_GRAD,
+                  **record):
     """Holds one train step's (loss or loss terms, gradients by name, pooling
     overflow) ``got`` to ``ref``: the losses to TRAIN_LOSS_RTOL (each
     term's difference is recorded) and each gradient to TRAIN_GRAD_RTOL of
@@ -1469,15 +1507,16 @@ def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, **reco
     differ by NOISE_FLOOR_FACTOR times the larger of its own floor and the
     whole gradient's, the whole gradient by that factor times its floor.
     Gradients named ``<term>/<parameter>`` are one loss term's: each term
-    is its own whole gradient. Emits ``phase`` with ``record``, the two
-    losses under loss_<names>."""
+    is its own whole gradient. ``zero`` is the share of the whole gradient
+    under which a tensor counts as zero in exact arithmetic. Emits
+    ``phase`` with ``record``, the two losses under loss_<names>."""
     loss_k, grads_k, overflow_k = got
     loss_p, grads_p, overflow_p = ref
     term = {name: name.split("/")[0] if "/" in name else "" for name in grads_p}
     total = {t: torch.linalg.vector_norm(torch.stack(
         [g.norm() for name, g in grads_p.items() if term[name] == t])).item()
         for t in set(term.values())}
-    worst, zero, by_share, diff_sq = 0.0, [], {}, dict.fromkeys(total, 0.0)
+    worst, zeros, by_share, diff_sq = 0.0, [], {}, dict.fromkeys(total, 0.0)
     check(sorted(grads_k) == sorted(grads_p), f"{phase}: gradients of other parameters")
     for name, gp in grads_p.items():
         gk, whole = grads_k[name], total[term[name]]
@@ -1489,9 +1528,9 @@ def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, **reco
         decade = f"1e{math.floor(math.log10(norm / whole))}" if norm else "0"
         count, own = by_share.get(decade, (0, 0.0))
         by_share[decade] = (count + 1, max(own, diff / norm if norm else diff))
-        if norm < ZERO_GRAD * whole:
-            zero.append(name)
-            check(gk.norm().item() < ZERO_GRAD * whole,
+        if norm < zero * whole:
+            zeros.append(name)
+            check(gk.norm().item() < zero * whole,
                   f"{phase}: gradient of {name} is zero on the {names[1]} path only")
             continue
         worst = max(worst, diff / norm)
@@ -1508,10 +1547,10 @@ def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, **reco
               **{f"loss_{names[0]}": loss_k, f"loss_{names[1]}": loss_p},
               loss_rel_diff=loss_rel["loss"], term_rel_diff=loss_rel,
               loss_rtol=TRAIN_LOSS_RTOL, grad_tensors=len(grads_p), worst_grad_rel_l2=worst,
-              grad_rtol=TRAIN_GRAD_RTOL, zero_grad_tensors=zero,
+              grad_rtol=TRAIN_GRAD_RTOL, zero_grad_tensors=zeros, zero_grad_share=zero,
               **({} if floor is None else dict(
                   noise_floor_whole=floor[1], noise_floor_factor=NOISE_FLOOR_FACTOR,
-                  noise_floor_worst=max(floor[0][k] for k in grads_p if k not in zero))),
+                  noise_floor_worst=max(floor[0][k] for k in grads_p if k not in zeros))),
               global_grad_norm=total[""] if "" in total else total,
               global_grad_rel_l2=whole_rel[""] if "" in whole_rel else whole_rel,
               worst_own_rel_l2_by_share=dict(sorted(by_share.items()))))
@@ -3689,15 +3728,15 @@ def with_condition(transform, name):
     return transform
 
 
-def ppt_train_config(root, exp, batch_size, test_root=None):
+def ppt_train_config(root, exp, batch_size, test_root=None, loop=2):
     """The semseg file (criteria, optimizer, schedule, param groups, Mix3D,
     points, its hooks but PreciseEvaluator) with the PPT-v1m1 model over
     its backbone and MultiDatasetTrainer over two children of the same
     scenes under ``root``: ScanNetGS (ScanNetGSDataset, ScanNet-20 labels,
     loop 2) and ScanNetPPGS (ScanNetPPGSDataset, 100 classes, loop 1), each
-    pipeline ending in Add(condition); the concatenation's loop 2. With 4
-    scenes and batch 2 (Mix3D: 4 samples a batch) that is 6 steps, the
-    conditions A, A, B, A, A, B. Validation: one child per condition over
+    pipeline ending in Add(condition); the concatenation's ``loop``. With 4
+    scenes and batch 2 (Mix3D: 4 samples a batch) that is 3 steps a loop,
+    the conditions A, A, B (A, A, B, A, A, B at loop 2). Validation: one child per condition over
     root/val; with ``test_root``, one SemSegTester per condition over it."""
     cfg = Config.fromfile(SEMSEG_CONFIG)
     cfg.merge_from_options(dict(save_path=exp, epoch=1, eval_epoch=1, batch_size=batch_size))
@@ -3716,7 +3755,7 @@ def ppt_train_config(root, exp, batch_size, test_root=None):
         testers.append(dict(type="SemSegTester", num_classes=PPT_CLASSES[name],
                             save_path=os.path.join(exp, f"test_{name}")))
     cfg.data.update(num_classes=max(PPT_CLASSES.values()),
-                    train=dict(type="ConcatDataset", datasets=train, loop=2),
+                    train=dict(type="ConcatDataset", datasets=train, loop=loop),
                     val=dict(type="ConcatDataset", datasets=val))
     if test_root:
         cfg.data.test, cfg.test = test, testers
@@ -3753,10 +3792,10 @@ class PDNormProbe(HookBase):
 def phase_ppt_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000):
     """MultiDatasetTrainer on ppt_train_config: PPT-v1m1 at the semseg
     file's widths (bf16, 205,824 points, 32 heads at stage 4, encoder
-    windows of 1024, decoder 48), batch 2, 6 steps over 4 synthetic rooms
-    read as two conditions, then SemSegEvaluator over one validation room a
-    condition. Checks each step's condition (A, A, B, A, A, B by the loop
-    ratio), that only that condition's PDNorm statistics moved in it (the
+    windows of 1024, decoder 48), batch 2, ``steps`` steps (a multiple of
+    3) over 4 synthetic rooms read as two conditions, then SemSegEvaluator
+    over one validation room a condition. Checks each step's condition (A,
+    A, B, ... by the loop ratio), that only that condition's PDNorm statistics moved in it (the
     name looked up in the backbone's other order), K1 / K2 launches by
     variant, finite losses, no pooling overflow and each condition's
     val mIoU. Returns the stage shapes, the K1 / K2 counts and the best
@@ -3772,7 +3811,7 @@ def phase_ppt_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), va
         reset_k1_counts()
         reset_k2_counts()
         k2_variants = fwa.flash_window_attention_bwd.variant_launches
-        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2)
+        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2, loop=steps // 3)
         probes = []
 
         def before(trainer):
@@ -4774,7 +4813,7 @@ def agree_runs(phase, cfg, rows, step, permuted, seeds, extra=None):
     stat_bound = max(STAT_RTOL_DDP, NOISE_FLOOR_FACTOR * stat_floor)
     worst_term = check_terms(phase, steps["cuda"][0], steps["cpu"][0])
     compare_steps(phase, steps["cuda"], steps["cpu"], names=("card", "cpu"), floor=floor,
-                  step_s=seconds, stat_worst_rel_l2=max(stat_err.values()),
+                  zero=POINT_ZERO_GRAD, step_s=seconds, stat_worst_rel_l2=max(stat_err.values()),
                   stat_noise_floor=stat_floor, stat_bound=stat_bound,
                   worst_term_rel_to_loss=worst_term, **(extra or {}))
     check(max(stat_err.values()) <= stat_bound,
@@ -4805,7 +4844,7 @@ def phase_msc_agree(n=MSC_AGREE_POINTS):
 
 class MSCProbe:
     """Around MSC's matching, the kNN's CUDA-event time a step (the model
-    module's ``knn_radius``, wrapped for the block)."""
+    module's ``knn``, wrapped for the block)."""
 
     def __init__(self):
         self.ms = []
@@ -4814,7 +4853,7 @@ class MSCProbe:
     def on(self):
         from scenesplat_tpu_torch.models import msc as msc_module
 
-        real = msc_module.knn_radius
+        real = msc_module.knn
 
         def timed(*args, **kwargs):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4824,11 +4863,11 @@ class MSCProbe:
             self.ms.append((start, end))
             return out
 
-        msc_module.knn_radius = timed
+        msc_module.knn = timed
         try:
             yield self
         finally:
-            msc_module.knn_radius = real
+            msc_module.knn = real
 
     def knn_ms(self):
         torch.cuda.synchronize()
@@ -5134,7 +5173,7 @@ def phase_ppt_spunet_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2
         data_s = time.perf_counter() - t0
         reset_k1_counts()
         reset_k2_counts()
-        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2)
+        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2, loop=steps // 3)
         cfg.model = dict(ppt_spunet_model_config(), criteria=cfg.model["criteria"])
         probes = []
 
@@ -5181,6 +5220,573 @@ def phase_ppt_spunet_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2
     torch.cuda.empty_cache()
 
 
+# ---- Point Transformer V2 and V1 -------------------------------------------------
+
+# Pointcept's semseg-pt-v2m2-0-base.py backbone at its published widths, its
+# own grid sizes (x3, x2.5, x2.5, x2.5), over the GS files' 14 channels and
+# ScanNet-20
+PTV2_BACKBONE = dict(
+    type="PT-v2m2", in_channels=14, num_classes=20, patch_embed_depth=1,
+    patch_embed_channels=48, patch_embed_groups=6, patch_embed_neighbours=8,
+    enc_depths=(2, 2, 6, 2), enc_channels=(96, 192, 384, 512), enc_groups=(12, 24, 48, 64),
+    enc_neighbours=(16, 16, 16, 16), dec_depths=(1, 1, 1, 1), dec_channels=(48, 96, 192, 384),
+    dec_groups=(6, 12, 24, 48), dec_neighbours=(16, 16, 16, 16),
+    grid_sizes=(0.06, 0.15, 0.375, 0.9375), attn_qkv_bias=True, pe_multiplier=False,
+    pe_bias=True, attn_drop_rate=0.0, drop_path_rate=0.3, unpool_backend="map")
+PTV2_STEPS = 5  # 1 + 4
+PTV2_BATCH = 2
+PTV2_AGREE_POINTS = 49152
+PTV1_AGREE_POINTS = 16384
+FPS_SAMPLES = 4096
+# PTv2's and PTv1's gradients that are zero in exact arithmetic (a linear's
+# bias ahead of a BatchNorm or of the softmax over the neighbours) keep
+# fp32 noise of their sums over every neighbour slot: up to 1.9e-6 of the
+# whole gradient in the CPU tests' small steps (tests/test_torch_ptv1.py)
+POINT_ZERO_GRAD = 1e-5
+# the card's step in this many other orders of the points (a few tenths of
+# a second each), one part of card_cpu_agree's noise floor
+POINT_FLOOR_RUNS = 3
+
+
+def ptv2_config(cfg):
+    """The semseg file with its model made Pointcept's PT-v2m2 semseg
+    model (DefaultSegmentor over PTV2_BACKBONE, the file's CE + Lovasz) and
+    task="semseg"; data, optimizer, schedule and hooks as the file sets
+    them."""
+    cfg.model = dict(type="DefaultSegmentor", backbone=dict(PTV2_BACKBONE),
+                     criteria=cfg.model.criteria)
+    cfg.task = "semseg"
+    return cfg
+
+
+class KnnProbe:
+    """CUDA-event time of every ``ops/pointops.py`` kNN and FPS call on
+    the card (the module's functions, wrapped for the block: the models
+    and ``interpolation`` look them up there)."""
+
+    def __init__(self):
+        self.calls = dict(knn=[], farthest_point_sampling=[])
+
+    @contextlib.contextmanager
+    def on(self):
+        real = {name: getattr(pointops, name) for name in self.calls}
+
+        def timed(name):
+            def call(*args, **kwargs):
+                if not args[0].is_cuda:  # a CPU run's call: not timed
+                    return real[name](*args, **kwargs)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = real[name](*args, **kwargs)
+                end.record()
+                self.calls[name].append((start, end))
+                return out
+            return call
+
+        for name in self.calls:
+            setattr(pointops, name, timed(name))
+        try:
+            yield self
+        finally:
+            for name, fn in real.items():
+                setattr(pointops, name, fn)
+
+    def ms(self, name):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.calls[name]]
+
+    def reset(self):
+        for v in self.calls.values():
+            v.clear()
+
+
+def path_attention_counts(phase, k1=None):
+    """K1's launches since reset_k1_counts (or ``k1``, the phase's own sum
+    over runs that reset it) and K2's since reset_k2_counts, checked at 0:
+    PTv2 and PTv1 have no window attention."""
+    counts = dict(k1=fwa.flash_window_attention.launches if k1 is None else k1,
+                  k2=fwa.flash_window_attention_bwd.launches)
+    check(counts["k1"] == counts["k2"] == 0,
+          f"{phase}: K1 {counts['k1']} and K2 {counts['k2']} launches on a point transformer")
+    return counts
+
+
+def jittered(rows, seed, mm=3.0):
+    """``rows`` with each point moved by up to ``mm`` millimetres a
+    coordinate: a Gaussian's centre lies anywhere in its 2 cm voxel, and
+    on room_scene's exact lattice equal distances tie everywhere (the kNN
+    then takes the lower index, so a reordered row is another function)."""
+    rng = np.random.default_rng(seed)
+    coord = rows["coord"] + rng.uniform(-mm, mm, rows["coord"].shape) * 1e-3
+    return dict(rows, coord=coord.astype(np.float32))
+
+
+def point_queries_agree(phase, coord, mask, k=16, samples=FPS_SAMPLES):
+    """kNN (the row itself at ``k``, and FPS's samples as a separate query
+    set at 8) and FPS at ``samples`` of each row: the card's indices equal
+    the CPU's exactly; returns the card's ms of each."""
+    out, ms = {}, {}
+    for device in ("cuda", "cpu"):
+        c, m = coord.to(device), mask.to(device)
+        t0 = time.perf_counter()
+        fps, fmask = pointops.farthest_point_sampling(c, m, samples)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        idx, _ = pointops.knn(c, m, k)
+        q = take_along_points(c, fps)
+        qidx, _ = pointops.knn(c, m, 8, query=q, query_mask=fmask)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms[device] = dict(fps_ms=(t1 - t0) * 1e3, knn_ms=(time.perf_counter() - t1) * 1e3)
+        out[device] = [t.cpu() for t in (fps, fmask, idx, qidx)]
+    for name, a, b in zip(("fps", "fps mask", "knn", "knn of a query set"), *out.values()):
+        check(torch.equal(a, b), f"{phase}: {name} indices differ between the card and the CPU")
+    return ms
+
+
+def ptv2_step(model, batch, criteria, kw):
+    """One fp32 semseg loss and backward: (loss, gradients by name on the
+    CPU, each stage's pooling overflow), and the BatchNorm statistics."""
+    out = model(point_from_batch(batch), generator=None, **kw)
+    loss = criteria(out.feat, batch["segment"], mask=out.mask)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return (loss.item(), grads, [int(p.n_overflow.max()) for p in out.plans]), stats
+
+
+def float64_model(model):
+    """``model`` computing in float64, the witness of an fp32 step: its
+    parameters and buffers, and each module's compute dtype (its ``dtype``;
+    sums, norms and softmaxes follow the input's float64)."""
+    model.double()
+    for mod in model.modules():
+        if getattr(mod, "dtype", None) == torch.float32:
+            mod.dtype = torch.float64
+    return model
+
+
+def larger_floor(a, b):
+    """The larger of two grad_floor results, tensor by tensor."""
+    return {k: max(v, b[0][k]) for k, v in a[0].items()}, max(a[1], b[1])
+
+
+def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
+    """``step(model, batch)`` from the same weights in fp32 on the card and
+    on the CPU, in float64 on the CPU (the witness: every module's compute
+    dtype and the batch's features; the coordinates stay fp32, so its kNN,
+    FPS and pooling plans are the fp32 runs'), and on the card for each
+    rows of ``other_orders`` (the same function summed in other orders).
+    The card's step is held to the witness by compare_steps: the loss to
+    TRAIN_LOSS_RTOL, each gradient to TRAIN_GRAD_RTOL or NOISE_FLOOR_FACTOR
+    times its floor, the larger of the other orders' change of the card's
+    step and the CPU's fp32 distance from the witness (which every rounding
+    moves, the matrix products' own sums too); the BatchNorm statistics to
+    STAT_RTOL or that factor times their floor, built the same way. The
+    CPU's fp32 step is that second sample of fp32 rounding, not a
+    reference: its loss is held to the witness at TRAIN_LOSS_RTOL, its
+    distances from the witness and from the card are recorded. Returns
+    the seconds of each run."""
+    init = build_model(copy.deepcopy(cfg)).state_dict()
+    runs = [("cuda", rows), ("cpu", rows), ("float64", rows)] + [
+        (f"other{i}", r) for i, r in enumerate(other_orders)]
+    steps, stats, seconds = {}, {}, {}
+    for name, batch_rows in runs:
+        model = build_model(copy.deepcopy(cfg))
+        model.load_state_dict(init)
+        where = "cpu" if name in ("cpu", "float64") else "cuda"
+        batch = batch_to_device(batch_rows, where)
+        if name == "float64":
+            float64_model(model)
+            batch["feat"] = batch["feat"].double()
+        model.to(where).train()
+        t0 = time.perf_counter()
+        steps[name], stats[name] = step(model, batch)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        del model
+    witness = steps["float64"]
+    order_floor = grad_floor(steps["cuda"], [steps[name] for name, _ in runs[3:]])
+    cpu_floor = grad_floor(witness, [steps["cpu"]])
+    stat_order = max(rel_l2(stats[name][k], v) for name, _ in runs[3:]
+                     for k, v in stats["cuda"].items())
+    stat_witness = {n: max(rel_l2(v, stats["float64"][k]) for k, v in stats[n].items())
+                    for n in ("cuda", "cpu")}
+    stat_floor = max(stat_order, stat_witness["cpu"])
+    stat_bound = max(STAT_RTOL, NOISE_FLOOR_FACTOR * stat_floor)
+    compare_steps(phase, steps["cuda"], witness, names=("card", "float64"),
+                  floor=larger_floor(order_floor, cpu_floor), zero=POINT_ZERO_GRAD,
+                  step_s=seconds, stat_worst_rel_l2=stat_witness["cuda"], stat_floor=stat_floor,
+                  stat_bound=stat_bound, other_orders_floor_whole=order_floor[1],
+                  cpu_to_witness_whole=cpu_floor[1], **record)
+    check(stat_witness["cuda"] <= stat_bound,
+          f"{phase}: BatchNorm statistics differ from the float64 witness by "
+          f"{stat_witness['cuda']} (bound {stat_bound})")
+    whole = math.sqrt(sum(float((g.double() ** 2).sum()) for g in witness[1].values()))
+    nonzero = [k for k, g in witness[1].items() if g.norm().item() >= POINT_ZERO_GRAD * whole]
+    card_floor = grad_floor(witness, [steps["cuda"]])
+    card_cpu = grad_floor(steps["cpu"], [steps["cuda"]])
+    cpu_loss_rel = abs(steps["cpu"][0] - witness[0]) / abs(witness[0])
+    emit(dict(phase=f"{phase}_witness", loss_float64=witness[0], cpu_loss_rel_diff=cpu_loss_rel,
+              card_to_witness_whole=card_floor[1],
+              card_to_witness_worst=max(card_floor[0][k] for k in nonzero),
+              cpu_to_witness_whole=cpu_floor[1],
+              cpu_to_witness_worst=max(cpu_floor[0][k] for k in nonzero),
+              card_to_cpu_whole=card_cpu[1], card_to_cpu_worst=max(card_cpu[0][k] for k in nonzero),
+              other_orders_floor_whole=order_floor[1],
+              stat_card_to_witness=stat_witness["cuda"], stat_cpu_to_witness=stat_witness["cpu"],
+              stat_other_orders=stat_order, step_s=seconds))
+    check(cpu_loss_rel <= TRAIN_LOSS_RTOL,
+          f"{phase}: the CPU's fp32 loss differs from the float64 witness by {cpu_loss_rel}")
+    return seconds
+
+
+def phase_ptv2_agree(n=PTV2_AGREE_POINTS):
+    """One fp32 train step (CE + Lovasz) of DefaultSegmentor over PT-v2m2
+    at its published widths and depths, one row of ``n`` points (a room,
+    ``jittered``), on the card against a float64 witness on the CPU from
+    the same weights (card_cpu_agree; drop path 0: the card's and the
+    CPU's generators draw different streams; the train phase keeps 0.3):
+    loss 1e-5, gradients and statistics 1e-4 of their norms or 2.5 times
+    their noise floor (the card's step on the row's points in
+    POINT_FLOOR_RUNS other orders, the CPU's fp32 step's distance from the
+    witness; gradients below POINT_ZERO_GRAD of the whole: zero on both).
+    Then PT-v2m1 and PT-v2m3 (adaptive PDNorm, the batch named "S3DIS", a
+    [1, 256] context of N(0, 1)) at one block a stage. First the row's kNN
+    and FPS indices, card against CPU, exactly. Returns K1's and K2's
+    launches (none)."""
+    reset_k1_counts()
+    reset_k2_counts()
+    rows = jittered(semseg_rows(n, (13,)), 14)
+    coord, mask = torch.from_numpy(rows["coord"]), torch.from_numpy(rows["mask"])
+    query_ms = point_queries_agree("ptv2_agree", coord, mask)
+    criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
+    others = [permuted_rows(rows, 70 + i) for i in range(POINT_FLOOR_RUNS)]
+    one_block = dict(enc_depths=(1, 1, 1, 1), dec_depths=(1, 1, 1, 1))
+    conditions = ("ScanNet", "S3DIS", "Structured3D")
+    # a context row of N(0, 1), as PPT's initial table rows
+    context = torch.randn(1, 256, generator=torch.Generator().manual_seed(3))
+    cases = [
+        ("PT-v2m2", dict(type="DefaultSegmentor", backbone=dict(
+            PTV2_BACKBONE, drop_path_rate=0.0, seed=1)), {}),
+        ("PT-v2m1", dict(PTV2_BACKBONE, type="PT-v2m1", drop_path_rate=0.0, seed=2,
+                         **one_block), {}),
+        ("PT-v2m3", dict(PTV2_BACKBONE, type="PT-v2m3", drop_path_rate=0.0, seed=3,
+                         conditions=conditions, pd_adaptive=True, **one_block),
+         dict(condition="S3DIS", context=context)),
+    ]
+    seconds = {}
+    for name, cfg, kw in cases:
+        def step(model, batch, kw=kw):
+            # the context in the batch's feature dtype (the witness's float64)
+            extra = {k: v.to(batch["feat"]) if torch.is_tensor(v) else v for k, v in kw.items()}
+            return ptv2_step(model, batch, criteria, extra)
+
+        seconds[name] = card_cpu_agree(
+            f"ptv2_agree_{name}", cfg, rows, step, others, points=n, batch_rows=1, model=name,
+            depths=(cfg.get("backbone", cfg)["enc_depths"], cfg.get("backbone", cfg)["dec_depths"]))
+    counts = path_attention_counts("ptv2_agree")
+    emit(dict(phase="ptv2_agree", points=n, point_queries_ms=query_ms, fps_samples=FPS_SAMPLES,
+              step_s=seconds, k1_launches=counts["k1"], k2_launches=counts["k2"]))
+    return counts
+
+
+def phase_ptv2_train(work, steps=PTV2_STEPS, batch_size=PTV2_BATCH, scene_points=200000,
+                     room=(3.6, 3.6, 2.6), val_points=40000):
+    """The semseg trainer on ptv2_config (DefaultSegmentor over PT-v2m2 at
+    the published widths, 205,824 points, CE + Lovasz, Mix3D 0.8, the
+    file's optimizer and hooks) at ``batch_size`` for ``steps`` steps over
+    4 synthetic rooms and one validation room, which PreciseEvaluator's
+    SemSegTester also runs: losses, val mIoU, no K1 / K2 launch, pooling
+    overflow per stage (none allowed), kNN ms a step, step times, loader
+    waits, peak memory, one profiled step. Returns the config file (dumped
+    into ``work``) and the best checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "scannet_gs")
+        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=91, size_m=room,
+                        semseg=True)
+        write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=92,
+                        size_m=(2.4, 2.4, 2.0), semseg=True)
+        data_s = time.perf_counter() - t0
+        reset_k1_counts()
+        reset_k2_counts()
+        cfg = ptv2_config(semseg_train_config(root, os.path.join(tmp, "exp"), batch_size, steps,
+                                              4))
+        knn_probe = KnnProbe()
+        with knn_probe.on():
+            trainer, probe, records, k1_counts = run_training(cfg)
+        knn_ms = knn_probe.ms("knn")
+        hist = trainer.storage.history
+        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses + grad_norms),
+              f"ptv2_train: losses {losses}, grad norms {grad_norms}")
+        counts = path_attention_counts("ptv2_train")
+        k1, k2 = counts["k1"], counts["k2"]
+        overflow = [[int(o.max()) for o in r["overflow"]] for r in records]
+        check(not any(map(any, overflow)) and not any(k1_counts["val_overflow"]),
+              f"ptv2_train: pooling overflow {overflow} {k1_counts['val_overflow']}")
+        miou = hist("val/mIoU").values()
+        check(len(miou) == 1 and 0.0 <= miou[0] <= 1.0, f"ptv2_train: val/mIoU {miou}")
+        precise = [h for h in trainer.hooks if isinstance(h, PreciseEvaluator)]
+        check(len(precise) == 1 and len(precise[0].results) == 1,
+              "ptv2_train: PreciseEvaluator did not run the file's tester")
+        test_miou = precise[0].results[0]["mIoU"]
+        check(math.isfinite(test_miou), f"ptv2_train: test mIoU {test_miou}")
+        model_dir = os.path.join(trainer.cfg.save_path, "model")
+        checkpoint = shutil.copy(os.path.join(model_dir, "model_best.pth"),
+                                 os.path.join(work, "ptv2_model_best.pth"))
+        state = torch.load(checkpoint, map_location="cpu", weights_only=False)["state_dict"]
+        fresh = build_model({k: v for k, v in dict(cfg.model).items() if k != "criteria"})
+        fresh.load_state_dict(state, strict=True)
+        # kNN calls a train step: 5 block sequences and 4 decoder ones
+        per_step = 1 + len(PTV2_BACKBONE["enc_depths"]) + len(PTV2_BACKBONE["dec_depths"])
+        train_knn = knn_ms[:per_step * steps]
+        knn_step = [sum(train_knn[i:i + per_step]) for i in range(0, len(train_knn), per_step)]
+        step_ms = probe.step_ms()
+        sizes = [[(m, v.tolist()) for m, v in r["sizes"]] for r in records]
+        emit(dict(phase="ptv2_train", config=SEMSEG_CONFIG,
+                  model="DefaultSegmentor over PT-v2m2 (semseg-pt-v2m2-0-base.py)",
+                  backbone=PTV2_BACKBONE, task="semseg", batch_size=batch_size,
+                  points=cfg.data.num_points, steps=len(losses), loss=losses,
+                  grad_norm=grad_norms, lr=hist("lr").values(), cold_step_ms=step_ms[0],
+                  warm_step_ms=step_ms[1:-1], profiled_step_ms=step_ms[-1],
+                  data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  knn_ms_per_step=knn_step, knn_calls_per_step=per_step,
+                  val_miou=miou[0], precise_test_miou=test_miou,
+                  n_overflow_per_stage=overflow, stage_slots_valid=sizes,
+                  k1_launches=k1, k2_launches=k2, dataset_write_s=data_s,
+                  profile=probe.profile))
+        print(f"ptv2_train: warm steps {[round(v) for v in step_ms[1:-1]]} ms, kNN "
+              f"{[round(v, 1) for v in knn_step]} ms a step, val mIoU {miou[0]:.4f}", flush=True)
+        config_path = os.path.join(work, "ptv2_semseg.py")
+        cfg.dump(config_path)
+        del trainer, fresh
+    torch.cuda.empty_cache()
+    return config_path, checkpoint, counts
+
+
+def phase_ptv2_test(work, config_path, checkpoint, n_voxels=160000):
+    """The test entry point on ptv2_train's config and checkpoint
+    (SemSegTester, the file's 9 views, fragment voting) over one synthetic
+    room of 320,001 Gaussians, through run_test_entry: torch.sort and K3
+    under deterministic algorithms (equal predictions and metrics; K3 once
+    for each of the 4 grid poolings' serializations of every fragment
+    forward, none with the switch off; no K1 or K2), then as a user runs
+    it, for the seconds per scene. Returns the K3 run's sort calls, kernel
+    launches and fragment forwards, and K1's and K2's launches."""
+    t0 = time.perf_counter()
+    reset_k2_counts()
+    data_root = os.path.join(work, "ptv2_test")
+    n_points = write_test_scenes(data_root, 1, n_voxels, seed=93, semseg=True)
+    write_s = time.perf_counter() - t0
+    runs = run_test_entry(work, "ptv2_test", [
+        "--config-file", config_path, "--options", f"weight={checkpoint}",
+        f"data.test.data_root={data_root}"], WindowCalls(limit=0, max_window=1024))
+    off, on, timed = runs["off"], runs["on"], runs["timed"]
+    for key, pred in off["preds"].items():
+        check(pred.shape == (n_points,), f"ptv2_test: {key} {pred.shape}")
+        check(np.array_equal(pred, on["preds"][key]),
+              f"ptv2_test: {key}: predictions differ with the sort switch on")
+    for key, value in off["res"].items():
+        check(np.array_equal(value, on["res"][key]),
+              f"ptv2_test: metric {key} differs with the sort switch on")
+    fragments = sum(sc["fragments"] for sc in on["scenes"])
+    pools = len(PTV2_BACKBONE["enc_depths"])
+    check(fragments >= 9, f"ptv2_test: {fragments} fragments for 9 views")
+    check(off["sort_calls"] == timed["sort_calls"] == 0 and on["sort_calls"] == pools * fragments
+          and on["sort_kernels"] > 0,
+          f"ptv2_test: K3 {off['sort_calls']}, {on['sort_calls']} ({on['sort_kernels']} kernels) "
+          f"and {timed['sort_calls']} sorts, expected {pools} a fragment forward with the "
+          "switch on only")
+    counts = path_attention_counts("ptv2_test", k1=sum(r["k1"] for r in runs.values()))
+    check(np.isfinite(off["res"]["mIoU"]), f"ptv2_test: mIoU {off['res']['mIoU']}")
+    emit(dict(phase="ptv2_test", config="semseg file with ptv2_config", dtype="float32",
+              scenes=1, points_per_scene=n_points, views=9, fragments=fragments,
+              dataset_write_s=write_s,
+              switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
+                              per_scene=scene_split(off)),
+              switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
+                             per_scene=scene_split(on), sort_calls=on["sort_calls"],
+                             sort_kernel_launches=on["sort_kernels"]),
+              as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
+                                     seconds=timed["seconds"], per_scene=scene_split(timed),
+                                     mIoU=timed["res"]["mIoU"]),
+              predictions_equal=True, mIoU=off["res"]["mIoU"]))
+    for sc in scene_split(timed):
+        print(f"ptv2_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: "
+              f"fetch {sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, vote "
+              f"{sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
+    return dict(sort_calls=on["sort_calls"], sort_kernels=on["sort_kernels"],
+                fragments=fragments), counts
+
+
+def swapped_rows(rows):
+    """``rows`` in the other row order: every batch sum adds in another
+    order, the FPS of each row (which starts at its first point) is
+    unchanged."""
+    return {k: np.ascontiguousarray(v[::-1]) for k, v in rows.items()}
+
+
+def permuted_after_first(rows, seed):
+    """permuted_rows with each row's first point kept first: FPS starts
+    there and, with no ties, takes the same points in the same order, so
+    the step is the same function summed in other orders."""
+    rng = np.random.default_rng(seed)
+    b, n = rows["mask"].shape
+    perm = np.stack([np.concatenate([[0], 1 + rng.permutation(n - 1)]) for _ in range(b)])
+    return {k: np.take_along_axis(v, perm.reshape(perm.shape + (1,) * (v.ndim - 2)), 1)
+            for k, v in rows.items()}
+
+
+def phase_ptv1_agree(n=PTV1_AGREE_POINTS):
+    """One fp32 train step (CE + Lovasz) of DefaultSegmentor over
+    PointTransformer-Seg50 at its published widths, 2 rows of ``n``
+    points (rooms, ``jittered``), the card against a float64 witness on the
+    CPU (card_cpu_agree: loss 1e-5, gradients and statistics 1e-4 or 2.5
+    times the noise floor, the CPU's fp32 distance from the witness or the
+    card's step on the rows swapped and on the points but the first in
+    POINT_FLOOR_RUNS - 1 other orders); the FPS calls' ms on the card; then
+    one eval forward each of Cls38 (logits [2, 13]) and PartSeg26 (each
+    row's shape category) on both, 1e-4 of the output's scale. Returns
+    K1's and K2's launches (none)."""
+    reset_k1_counts()
+    reset_k2_counts()
+    rows = jittered(semseg_rows(n, (31, 32)), 33)
+    criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
+    cfg = dict(type="DefaultSegmentor", backbone=dict(
+        type="PointTransformer-Seg50", in_channels=14, num_classes=20, seed=5))
+    probe = KnnProbe()
+    with probe.on():
+        seconds = card_cpu_agree(
+            "ptv1_agree", cfg, rows, lambda m, b: ptv2_step(m, b, criteria, {}),
+            [swapped_rows(rows)] + [permuted_after_first(rows, 80 + i)
+                                    for i in range(POINT_FLOOR_RUNS - 1)],
+            points=n, batch_rows=2, model="PointTransformer-Seg50")
+    fps_ms = probe.ms("farthest_point_sampling")
+    knn_ms = probe.ms("knn")
+    forwards = {}
+    for name, cfg_m, kw in (
+            ("PointTransformer-Cls38", dict(type="PointTransformer-Cls38", in_channels=17,
+                                            num_classes=13, seed=6), {}),
+            ("PointTransformer-PartSeg26", dict(type="PointTransformer-PartSeg26",
+                                                in_channels=14, num_classes=8,
+                                                num_shape_classes=4, seed=7),
+             dict(cls_token=torch.tensor([3, 1])))):
+        init = build_model(dict(cfg_m)).state_dict()
+        outs = {}
+        for device in ("cuda", "cpu"):
+            model = build_model(dict(cfg_m))
+            model.load_state_dict(init)
+            model.to(device).eval()
+            point = point_from_batch(batch_to_device(rows, device))
+            with torch.no_grad():
+                out = model(point, **{k: v.to(device) for k, v in kw.items()})
+            out = getattr(out, "feat", out)
+            outs[device] = out.cpu()
+        check(torch.isfinite(outs["cuda"]).all().item(), f"ptv1_agree: {name} not finite")
+        err = ((outs["cuda"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+        check(err <= SPUNET_FWD_RTOL, f"ptv1_agree: {name} forward differs by {err}")
+        forwards[name] = dict(shape=list(outs["cuda"].shape), max_rel_err=err)
+    counts = path_attention_counts("ptv1_agree")
+    emit(dict(phase="ptv1_agree_forwards", points=n, rows=2, forwards=forwards,
+              fwd_rtol=SPUNET_FWD_RTOL, step_s=seconds,
+              fps_ms_per_call=fps_ms, fps_calls=len(fps_ms),
+              fps_samples=[n // 4 ** s for s in range(1, 5)], knn_ms_per_call=knn_ms,
+              timed_runs=f"the card's step and its {POINT_FLOOR_RUNS} floor steps, 4 FPS "
+                         "calls each", k1_launches=counts["k1"], k2_launches=counts["k2"]))
+    print(f"ptv1_agree: FPS {[round(v, 1) for v in fps_ms]} ms a call", flush=True)
+    return counts
+
+
+def ppt_ptv2_model_config():
+    """PPT-v1m1 over PT-v2m3 at the published PT-v2m2 widths (adaptive,
+    decoupled PDNorm, context 256; the backbone's conditions in the other
+    order than the model's, as ppt_train), its features 48 wide, the
+    ScanNet200 SigLIP2 table's rows matched by name, fp32."""
+    backbone = dict(PTV2_BACKBONE, type="PT-v2m3", num_classes=0,
+                    conditions=PPT_PDNORM_CONDITIONS, pd_adaptive=True, context_channels=256)
+    return dict(type="PPT-v1m1", backbone=backbone,
+                backbone_out_channels=PTV2_BACKBONE["dec_channels"][0], context_channels=256,
+                conditions=PPT_CONDITIONS, class_name="builtin:scannet200",
+                class_embedding_path="builtin:scannet200",
+                valid_index=valid_index_by_name("builtin:scannet200", (
+                    "builtin:scannet20", "builtin:scannetpp_top100")))
+
+
+def phase_ppt_ptv2_train(work, steps=6, batch_size=PTV2_BATCH, scene_points=200000,
+                         room=(3.6, 3.6, 2.6), val_points=40000):
+    """ppt_train's run (MultiDatasetTrainer, 4 rooms read as ScanNetGS and
+    ScanNetPPGS, conditions A A B A A B, one validation room a condition)
+    with ppt_ptv2_model_config's PPT-v1m1 over PT-v2m3: each step's
+    condition, only that condition's PDNorm statistics moved (in the
+    backbone's order), finite losses, no K1 or K2 launch, no pooling
+    overflow, each condition's val mIoU; step times, loader waits, peak
+    memory, one profiled step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "rooms")
+        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=94, size_m=room,
+                        semseg=True, ppt=True)
+        write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=95,
+                        size_m=(2.4, 2.4, 2.0), semseg=True, ppt=True)
+        data_s = time.perf_counter() - t0
+        reset_k1_counts()
+        reset_k2_counts()
+        cfg = ppt_train_config(root, os.path.join(tmp, "exp"), batch_size, loop=steps // 3)
+        cfg.model = dict(ppt_ptv2_model_config(), criteria=cfg.model["criteria"])
+        probes = []
+
+        def before(trainer):
+            probes.append(PDNormProbe(trainer.model))
+            probes[0].trainer = trainer
+            trainer.hooks.append(probes[0])
+
+        trainer, probe, records, k1_counts = run_training(cfg, before=before)
+        hist = trainer.storage.history
+        losses = hist("loss").values()
+        conditions = [r["condition"] for r in records]
+        a, b = PPT_CONDITIONS
+        check(conditions == [a, a, b] * (steps // 3),
+              f"ppt_ptv2_train: step conditions {conditions}")
+        want_moved = [[PPT_PDNORM_CONDITIONS.index(c)] for c in conditions]
+        check(probes[0].moved == want_moved,
+              f"ppt_ptv2_train: norms of conditions {probes[0].moved} moved, expected "
+              f"{want_moved} (the backbone's order)")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"ppt_ptv2_train: losses {losses}")
+        counts = path_attention_counts("ppt_ptv2_train")
+        k1, k2 = counts["k1"], counts["k2"]
+        overflow = [[int(o.max()) for o in r["overflow"]] for r in records]
+        check(not any(map(any, overflow)), f"ppt_ptv2_train: pooling overflow {overflow}")
+        mious = {c: hist(f"val/{c}/mIoU").values() for c in PPT_CONDITIONS}
+        check(all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in mious.values()),
+              f"ppt_ptv2_train: per-condition val mIoU {mious}")
+        step_ms = probe.step_ms()
+        emit(dict(phase="ppt_ptv2_train", model="PPT-v1m1 over PT-v2m3",
+                  backbone=cfg.model["backbone"], conditions=PPT_CONDITIONS,
+                  pdnorm_conditions=PPT_PDNORM_CONDITIONS, batch_size=batch_size,
+                  points=cfg.data.num_points, steps=len(losses), step_conditions=conditions,
+                  norms_moved=probes[0].moved, loss=losses, grad_norm=hist("grad_norm").values(),
+                  cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  val_miou={c: v[0] for c, v in mious.items()}, n_overflow_per_stage=overflow,
+                  k1_launches=k1, k2_launches=k2, dataset_write_s=data_s,
+                  profile=probe.profile))
+        print(f"ppt_ptv2_train: step conditions {conditions}; val mIoU "
+              f"{ {c: round(v[0], 4) for c, v in mious.items()} }", flush=True)
+        del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5211,9 +5817,10 @@ def main() -> int:
         ddp_record, ddp_checkpoint = phase_ddp_train(work, plain)
         ddp_ranks = phase_ddp_agree(work, ddp_checkpoint, meta_root)
         worst_sort = phase_kernel_sort()
-        # the older phases at a cut depth, to leave time for the MSC and CAC
-        # phases: one test scene where there were two, 4 train steps where
-        # there were 6 (ssl, semseg, insseg)
+        # the older phases at a cut depth, to leave time for the later
+        # paths' phases: one test scene where there were two, 4 train steps
+        # where there were 6 (ssl, semseg, insseg, msc, cac), 3 PPT steps
+        # (A A B) where there were 6 (ppt, ppt over SpUNet)
         sort_calls, sort_kernels, fragments, sort_sizes, test_variants, test_shapes = \
             phase_test(work, checkpoint, meta_root, n_scenes=1)
         tot_sort = phase_timing_sort(sort_sizes)
@@ -5234,7 +5841,7 @@ def main() -> int:
         tasks_ddp = {task: phase_task_ddp_agree(work, task) for task in ("semseg", "ssl")}
         remat = phase_remat_agree()
         ppt_shapes, ppt_k1, ppt_k1_variants, ppt_k2_variants, ppt_checkpoint = \
-            phase_ppt_train(work)
+            phase_ppt_train(work, steps=3)
         ppt_bwd = phase_timing_bwd(ppt_shapes, phase="ppt_timing_bwd")
         ppt_test_variants, ppt_fragments, ppt_calls = phase_ppt_test(work, ppt_checkpoint)
         ppt_fwd = phase_timing_test(ppt_calls, phase="ppt_timing_test")
@@ -5247,12 +5854,17 @@ def main() -> int:
         insseg_kernels = phase_insseg_agree()
         insseg_ddp = phase_task_ddp_agree(work, "insseg")
         phase_msc_agree()
-        phase_msc_train(work)
-        cac_config_path, cac_best = phase_cac_train(work)
+        phase_msc_train(work, steps=4)
+        cac_config_path, cac_best = phase_cac_train(work, steps=4)
         phase_cac_test(work, cac_config_path, cac_best)
         cac_kernels = phase_cac_agree()
         spunet_ddp = {task: phase_task_ddp_agree(work, task) for task in ("msc", "cac")}
-        phase_ppt_spunet_train(work)
+        phase_ppt_spunet_train(work, steps=3)
+        ptv2_counts = dict(ptv2_agree=phase_ptv2_agree())
+        ptv2_config_path, ptv2_best, ptv2_counts["ptv2_train"] = phase_ptv2_train(work)
+        ptv2_sorts, ptv2_counts["ptv2_test"] = phase_ptv2_test(work, ptv2_config_path, ptv2_best)
+        ptv2_counts["ptv1_agree"] = phase_ptv1_agree()
+        ptv2_counts["ppt_ptv2_train"] = phase_ppt_ptv2_train(work, steps=3)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -5282,7 +5894,7 @@ def main() -> int:
                        ms_per="test fragment forward (the first fragment's calls, no lse)")
     semseg_train = dict(path="semseg train", ms_per="train step")
     # "ppt": PPT-v1m1 over the semseg file's backbone (PDNorm, two
-    # conditions) through MultiDatasetTrainer, 6 train steps of 22 attention
+    # conditions) through MultiDatasetTrainer, 3 train steps of 22 attention
     # launches, and its test entry's fragment forwards (the first one's 22
     # launches timed); ppt_ddp_agree's two ranks' PPT-v1m2 steps beside
     ppt_test = dict(path="ppt test", fragment_forwards=ppt_fragments,
@@ -5322,6 +5934,16 @@ def main() -> int:
                         spunet_two_rank_launches=sum(
                             d["k1_lse"] + d["k1"] for d in spunet_ddp.values()),
                         agree_ms_per="fp32 train step of CAC over PT-v3m1, one block a stage")
+    # "ptv2": PT-v2m2 and PTv1 (ptv2_agree, ptv2_train, ptv2_test,
+    # ptv1_agree) and PPT over PT-v2m3 (ppt_ptv2_train) have no window
+    # attention: each phase counts K1 and K2 from 0 and checks 0; K3 runs on
+    # the ptv2 test path with the switch on
+
+    def ptv2_path(kernel):
+        by_phase = {phase: c[kernel] for phase, c in ptv2_counts.items()}
+        return dict(path="ptv2, ptv1, ppt over PT-v2m3", launches=sum(by_phase.values()),
+                    phase_launches=by_phase)
+
     teacher_large = ssl_teacher["by_variant"]["bf16_large"]
     teacher_small = ssl_teacher["by_variant"]["bf16_small"]
     emit({"kernels": [
@@ -5373,7 +5995,8 @@ def main() -> int:
              insseg=dict(insseg, agree_launches=insseg_kernels["k1_lse"],
                          agree_variant_launches=insseg_kernels["k1_lse_variants"]),
              spunet_tasks=dict(spunet_tasks, agree_launches=cac_kernels["k1_lse"],
-                               agree_variant_launches=cac_kernels["k1_lse_variants"])),
+                               agree_variant_launches=cac_kernels["k1_lse_variants"]),
+             ptv2=ptv2_path("k1")),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -5429,7 +6052,8 @@ def main() -> int:
                          agree_variant_launches=insseg_kernels["k2_variants"]),
              spunet_tasks=dict(spunet_tasks, spunet_two_rank_launches=sum(
                  d["k2"] for d in spunet_ddp.values()), agree_launches=cac_kernels["k2"],
-                 agree_variant_launches=cac_kernels["k2_variants"])),
+                 agree_variant_launches=cac_kernels["k2_variants"]),
+             ptv2=ptv2_path("k2")),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -5443,7 +6067,11 @@ def main() -> int:
                          kernel_launches=semseg_on["sort_kernels"], ms=semseg_sort["ms"],
                          plain_ms=semseg_sort["plain_ms"], bound_ms=semseg_sort["bound_ms"],
                          bound_by="bytes", library_ms=semseg_sort["library_ms"],
-                         max_abs_err=semseg_sort["max_abs_err"]))]})
+                         max_abs_err=semseg_sort["max_abs_err"]),
+             ptv2=dict(path="ptv2 test (PT-v2m2's 4 grid poolings, switch on)",
+                       ms_per="fragment forward", launches=ptv2_sorts["sort_calls"],
+                       kernel_launches=ptv2_sorts["sort_kernels"],
+                       fragment_forwards=ptv2_sorts["fragments"]))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

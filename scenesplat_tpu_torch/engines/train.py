@@ -7,8 +7,11 @@ segmentation (``DefaultSegmentorV2``), Point Prompt Training
 each batch from one, usually through ``MultiDatasetTrainer``),
 PointGroup instance segmentation (``PG-v1m1``), Masked Scene Contrast
 pretraining (``MSC-v1m1``, ``MSC-v1m2``) and the Context-Aware Classifier
-(``CAC-v1m1``); the model's type picks the task, as
-``Trainer.TASKS`` does in the JAX package. SimDINO
+(``CAC-v1m1``). The config's ``task`` picks the task, else the model's
+type through ``Trainer.TASKS``, as in the JAX package (whose last resort,
+"lang", the port does not copy: a type outside the table needs the key; a
+v1 ``DefaultSegmentor`` over PT-v2 or PTv1 trains with
+``task="semseg"``). SimDINO
 self-supervised pretraining has a trainer of its own
 (``engines/pretrain.py:DefaultSSLPreTrainer``, ``train =
 dict(type="DefaultSSLPreTrainer")`` in a config).
@@ -39,7 +42,7 @@ import torch
 from scenesplat_tpu_torch.data import ConcatDataset, Loader, MultiDatasetLoader, build_dataset
 from scenesplat_tpu_torch.data.collate import collate_two_view
 from scenesplat_tpu_torch.engines.hooks import HookBase, build_hooks
-from scenesplat_tpu_torch.engines.train_step import batch_to_device, train_step
+from scenesplat_tpu_torch.engines.train_step import TASK_LOSSES, batch_to_device, train_step
 from scenesplat_tpu_torch.models import build_criteria, build_model
 from scenesplat_tpu_torch.parallel.dist import (
     check_global_batch,
@@ -128,10 +131,15 @@ class Trainer(TrainerBase):
 
         model_cfg = dict(cfg.model)
         criteria_cfg = model_cfg.pop("criteria", None)
-        self.task = self.TASKS.get(model_cfg.get("type"))
+        # the config's task first (a v1 DefaultSegmentor sets task="semseg"),
+        # then the model type's
+        self.task = cfg.get("task") or self.TASKS.get(model_cfg.get("type"))
         if self.task is None:
-            raise NotImplementedError(f"model {model_cfg.get('type')} is not ported; the "
-                                      f"port trains {', '.join(self.TASKS)}")
+            raise NotImplementedError(f"model {model_cfg.get('type')} names no task: set the "
+                                      f"config's task, or train one of {', '.join(self.TASKS)}")
+        if self.task not in TASK_LOSSES and self.task not in self.TASKS.values():
+            raise NotImplementedError(f"task {self.task!r} is not ported; the port trains "
+                                      f"{', '.join(TASK_LOSSES)}")
         model_cfg["backbone"] = dict(model_cfg["backbone"])
         model_cfg["backbone"].setdefault("seed", cfg.get("seed", 0))
         if self.task == "cac":  # CAC computes its loss with its own criteria

@@ -1,7 +1,7 @@
 from .builder import MODELS, build_model
 from .structure import PointBatch
 from . import ptv3  # noqa: F401 (registers PT-v3m1)
-from . import default  # noqa: F401 (registers LangPretrainer, DefaultSegmentorV2)
+from . import default  # noqa: F401 (registers LangPretrainer and the segmentor heads)
 from .losses import build_criteria  # noqa: E402,F401
 from . import ssl  # noqa: E402,F401 (registers SimDINOSSL, DefaultContrastiverSimDinoV2)
 from . import ppt  # noqa: E402,F401 (registers PPT-v1m1, PPT-v1m2)
@@ -9,3 +9,5 @@ from . import ppt  # noqa: E402,F401 (registers PPT-v1m1, PPT-v1m2)
 from . import spunet, point_group  # noqa: E402,F401
 # registers MSC-v1m1, MSC-v1m2 and CAC-v1m1
 from . import msc, cac  # noqa: E402,F401
+# registers PT-v2m1/m2/m3 and PointTransformer-{Seg,Cls,PartSeg}{26,38,50}
+from . import ptv1, ptv2  # noqa: E402,F401

@@ -1,7 +1,11 @@
 """Task heads over the backbone, in eval and in training (counterpart of
 ``scenesplat_tpu/models/default.py``): ``LangPretrainer`` (L2-normalized
-per-Gaussian language features) and ``DefaultSegmentorV2`` (a linear
-segmentation head)."""
+per-Gaussian language features), ``DefaultSegmentorV2`` (a linear
+segmentation head), the v1 ``DefaultSegmentor`` (the backbone emits the
+logits: PTv1, PTv2), ``DefaultSegmentorSkip`` (fc-LN-ReLU twice, then fc)
+and ``DefaultPretrainer`` (the backbone's features). Each head's
+parameters are drawn from the backbone's ``seed`` + 1; a forward's
+``generator`` draws the backbone's training randomness."""
 
 from __future__ import annotations
 
@@ -9,6 +13,7 @@ import torch
 from torch import nn
 
 from .builder import MODELS, build_model
+from .norm import LayerNorm
 from .ptv3 import Linear
 from .structure import PointBatch
 
@@ -51,3 +56,44 @@ class DefaultSegmentorV2(nn.Module):
     def forward(self, point: PointBatch, generator=None) -> PointBatch:
         out = self.backbone(point, generator=generator)
         return out if self.seg_head is None else out.replace(feat=self.seg_head(out.feat))
+
+
+@MODELS.register_module("DefaultPretrainer")
+@MODELS.register_module()
+class DefaultSegmentor(nn.Module):
+    """The v1 segmentor, whose backbone ends in its classifier. As
+    ``DefaultPretrainer``, the backbone's per-point features (the JAX
+    package's head, which a feature-distillation loss reads): the same
+    forward."""
+
+    def __init__(self, backbone: dict):
+        super().__init__()
+        self.backbone = build_model(dict(backbone))
+
+    def forward(self, point: PointBatch, generator=None) -> PointBatch:
+        return self.backbone(point, generator=generator)
+
+
+@MODELS.register_module()
+class DefaultSegmentorSkip(nn.Module):
+    """Backbone plus a deep head: fc1 (256) - ln1 - ReLU - fc2 (128) - ln2 -
+    ReLU - fc3 (``num_classes``), fp32 (names as the JAX package's)."""
+
+    def __init__(self, num_classes: int, backbone_out_channels: int, backbone: dict):
+        super().__init__()
+        self.backbone = build_model(dict(backbone))
+        self.fc1 = Linear(backbone_out_channels, 256)
+        self.ln1 = LayerNorm(256)
+        self.fc2 = Linear(256, 128)
+        self.ln2 = LayerNorm(128)
+        self.fc3 = Linear(128, num_classes)
+        gen = torch.Generator().manual_seed(int(backbone.get("seed", 0)) + 1)
+        for fc in (self.fc1, self.fc2, self.fc3):
+            fc.reset_parameters(gen)
+
+    def forward(self, point: PointBatch, generator=None) -> PointBatch:
+        out = self.backbone(point, generator=generator)
+        x = torch.relu(self.ln1(self.fc1(out.feat)))
+        x = torch.relu(self.ln2(self.fc2(x)))
+        return out.replace(feat=self.fc3(x))
+

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from scenesplat_tpu_torch.ops.segops import at_least_fp32
 from scenesplat_tpu_torch.parallel.dist import all_gather_rows, world
 
 from .builder import LOSSES
@@ -47,7 +48,7 @@ class LovaszLoss:
 
     def __call__(self, pred, target, mask=None, **kwargs):
         num_classes = pred.shape[-1]
-        logits = pred.reshape(-1, num_classes).float()
+        logits = at_least_fp32(pred.reshape(-1, num_classes))
         labels = target.reshape(-1)
         valid = labels != self.ignore_index
         if mask is not None:

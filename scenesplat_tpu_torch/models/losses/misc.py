@@ -11,6 +11,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from scenesplat_tpu_torch.ops.segops import at_least_fp32
 from scenesplat_tpu_torch.parallel.dist import all_reduce_sum
 
 from .builder import LOSSES
@@ -86,7 +87,7 @@ class CrossEntropyLoss:
         valid = target != self.ignore_index
         if mask is not None:
             valid = valid & mask
-        logp = F.log_softmax(pred.float(), dim=-1)
+        logp = F.log_softmax(at_least_fp32(pred), dim=-1)
         safe_t = target.long().clamp(0, num_classes - 1)
         if self.label_smoothing > 0:
             off = self.label_smoothing / num_classes

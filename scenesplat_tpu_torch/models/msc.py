@@ -10,7 +10,7 @@ two-view batches.
     the reference's permutation: the same rate in expectation);
   - matching: one random partner of each view-1 point among its
     ``matching_max_k`` nearest view-2 points closer than
-    ``matching_max_radius`` (``knn_radius``), and ``matching_max_pair``
+    ``matching_max_radius`` (``knn`` with that radius), and ``matching_max_pair``
     rows of the batch chosen by random priority, a fixed buffer whose
     surplus slots are masked;
   - the masked InfoNCE over the [P, P] similarity, with its ``pos_sim`` /
@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scenesplat_tpu_torch.ops.pointops import grid_cluster_plan, knn_radius
+from scenesplat_tpu_torch.ops.pointops import grid_cluster_plan, knn
 from scenesplat_tpu_torch.ops.segops import unpool_values
 from scenesplat_tpu_torch.parallel.dist import (
     all_gather_rows,
@@ -136,8 +136,8 @@ class MaskedSceneContrast(nn.Module):
         global batch: one random in-radius view-2 partner a view-1 point,
         rows picked by random priority among those with one."""
         b, n1 = m1.shape
-        idx, dist = knn_radius(oc2, m2, self.matching_max_k, self.matching_max_radius,
-                               query=oc1, query_mask=m1)
+        idx, dist = knn(oc2, m2, self.matching_max_k, query=oc1, query_mask=m1,
+                        radius=self.matching_max_radius)
         valid = (idx >= 0) & (dist < self.matching_max_radius)
         prio = batch_rand(valid.shape, generator, device=oc1.device) * valid
         partner = idx.gather(-1, prio.argmax(-1, keepdim=True))[..., 0]

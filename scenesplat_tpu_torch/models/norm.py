@@ -1,8 +1,8 @@
 """Mask-aware normalization layers (counterpart of
 ``scenesplat_tpu/models/norm.py``).
 
-Both compute in fp32 whatever the input dtype and return the module's
-compute dtype. Parameter and buffer names follow torch's BatchNorm1d and
+Both compute in fp32 whatever the input dtype (float64 in float64) and
+return the module's compute dtype. Parameter and buffer names follow torch's BatchNorm1d and
 LayerNorm so reference checkpoints load as they are. Both go through
 torch's fused norms, which keep one fp32 copy of the input for the
 backward (a norm written out op by op keeps three to five, several GB per
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scenesplat_tpu_torch.ops.segops import at_least_fp32
 from scenesplat_tpu_torch.parallel.dist import world
 
 
@@ -83,7 +84,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = at_least_fp32(x)
         if self.training:
             # batch moments of the valid points; padding rows come out as
             # zeros (every consumer masks them: attention keys, conv
@@ -111,6 +112,77 @@ class MaskedBatchNorm(nn.Module):
         return y
 
 
+class _PointBatchNormFn(torch.autograd.Function):
+    """Training BatchNorm of ``x`` [R, C] (fp32) with the moments of the
+    rows where ``m`` [R] (fp32 0/1) is set, summed over the processes as in
+    ``_GlobalMaskedBatchNorm``, that normalizes EVERY row (the JAX
+    MaskedBatchNorm's arithmetic: a masked row's output is its value
+    normalized by the valid rows' moments). Keeps one fp32 copy of the
+    normalized rows. In the backward the masked rows' gradient is the
+    direct term alone (the moments do not depend on them); the two
+    per-channel sums run over every row. Returns (y, mean, biased
+    variance, count)."""
+
+    @staticmethod
+    def forward(ctx, x, m, weight, bias, eps):
+        # tree reductions (torch.sum), not a matrix-vector product: grouped
+        # offsets through a linear give columns of mean far above their
+        # spread, over millions of rows, where a GEMV's running fp32 sums
+        # move the normalized values by 1e-3 between the card and the CPU
+        mc = m[:, None]
+        stats = torch.cat([(x * mc).sum(0), m.sum()[None]])
+        if world() > 1:
+            torch.distributed.all_reduce(stats)
+        count = stats[-1].clamp(min=1.0)
+        mean = stats[:-1] / count
+        xc = x - mean
+        sq = (xc * xc * mc).sum(0)
+        if world() > 1:
+            torch.distributed.all_reduce(sq)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc.mul_(invstd)
+        ctx.save_for_backward(xhat, m, invstd, weight, count)
+        ctx.mark_non_differentiable(mean, var, count)
+        return xhat * weight + bias, mean, var, count
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dcount):
+        xhat, m, invstd, weight, count = ctx.saved_tensors
+        dbias = dy.sum(0)
+        dweight = (dy * xhat).sum(0)
+        sums = torch.cat([dbias * weight, dweight * weight])
+        if world() > 1:
+            torch.distributed.all_reduce(sums)
+        c = weight.shape[0]
+        centre = (sums[:c] + xhat * sums[c:]) / count
+        dx = (dy * weight - m[:, None] * centre) * invstd
+        return dx, None, dweight, dbias, None
+
+
+class PointBatchNorm(MaskedBatchNorm):
+    """The JAX MaskedBatchNorm's arithmetic on a [B, N, C] buffer: the
+    moments of the valid rows normalize every row, padding included (the
+    port's MaskedBatchNorm zeroes padding). Point Transformer V1 and V2
+    need it: their grouped tensors keep invalid neighbour slots in the
+    attention's softmax denominator, which reads those slots' normalized
+    values. Running statistics, data parallel and eval as MaskedBatchNorm."""
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x, mask)
+        shape = x.shape
+        xf = at_least_fp32(x).reshape(-1, shape[-1])
+        y, mean, var, count = _PointBatchNormFn.apply(
+            xf, mask.reshape(-1).to(xf.dtype), self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            unbiased = var * count / (count - 1.0).clamp(min=1.0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(unbiased, self.momentum)
+        self.num_batches_tracked.add_(1)
+        return y.view(shape).to(self.dtype)
+
+
 class LayerNorm(nn.Module):
     """Per-point LayerNorm (eps 1e-5); padding-agnostic."""
 
@@ -122,7 +194,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+        y = F.layer_norm(at_least_fp32(x), (x.shape[-1],), self.weight, self.bias, self.eps)
         return y.to(self.dtype)
 
 
@@ -151,11 +223,13 @@ class PDNorm(nn.Module):
     integer index into its own ``conditions`` and runs every norm, so the
     inactive BatchNorms absorb the batch's statistics (ROADMAP Queue 3).
     State-dict names are the reference's: ``norm.{c}.*`` (``norm.*`` when
-    not decoupled) and ``modulation.1.*``."""
+    not decoupled) and ``modulation.1.*``. ``batch_norm`` is the class of
+    the "bn" norms (PointBatchNorm for Point Transformer V2)."""
 
     def __init__(self, features: int, conditions=("ScanNet", "S3DIS", "Structured3D"),
                  norm_type: str = "ln", decouple: bool = True, adaptive: bool = False,
-                 context_channels: int = 256, dtype: torch.dtype = torch.float32):
+                 context_channels: int = 256, dtype: torch.dtype = torch.float32,
+                 batch_norm: type = MaskedBatchNorm):
         super().__init__()
         if norm_type not in ("ln", "bn"):
             raise ValueError(f"norm_type {norm_type!r}: 'ln' or 'bn'")
@@ -164,7 +238,7 @@ class PDNorm(nn.Module):
         self.conditions = tuple(conditions)
         self.norm_type, self.decouple, self.adaptive = norm_type, decouple, adaptive
         make = (lambda: LayerNorm(features, dtype=dtype)) if norm_type == "ln" else (
-            lambda: MaskedBatchNorm(features, dtype=dtype))
+            lambda: batch_norm(features, dtype=dtype))
         self.norm = nn.ModuleList([make() for _ in self.conditions]) if decouple else make()
         self.modulation = (nn.Sequential(nn.SiLU(), Linear(context_channels, 2 * features))
                            if adaptive else None)
@@ -178,6 +252,6 @@ class PDNorm(nn.Module):
             norm = self.norm[self.conditions.index(name)]
         y = norm(x) if self.norm_type == "ln" else norm(x, mask)
         if self.modulation is not None and context is not None:
-            shift, scale = self.modulation(context.float()).chunk(2, dim=-1)
+            shift, scale = self.modulation(at_least_fp32(context)).chunk(2, dim=-1)
             y = y * (1 + scale[:, None, :]) + shift[:, None, :]
         return y

@@ -70,13 +70,20 @@ def build_pooling_plan(ser: Serialization, mask: torch.Tensor,
     )
 
 
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in float64 if it is that: the dtype that sums,
+    norms and softmaxes compute in (a float64 run stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def pool_values(plan: PoolingPlan, values: torch.Tensor,
                 reduce: str = "mean") -> torch.Tensor:
     """Reduce per-point values [B, N, C] into cluster buffers [B, M, C].
-    Sums accumulate in fp32 and round to the values' dtype once."""
+    Sums accumulate in fp32 (float64 values in float64) and round to the
+    values' dtype once."""
     b, n, c = values.shape
     m = plan.head_index.shape[1]
-    sorted_vals = take_along_points(values, plan.order0).float()
+    sorted_vals = at_least_fp32(take_along_points(values, plan.order0))
     idx = plan.seg_sorted.unsqueeze(-1).expand(b, n, c)
     if reduce in ("sum", "mean"):
         out = sorted_vals.new_zeros(b, m + 1, c).scatter_add_(1, idx, sorted_vals)

@@ -114,6 +114,16 @@ def check_same_on_ranks(index: int, size: int, device, what: str = "value"):
         raise RuntimeError(f"the processes hold different {what}s: {counts} processes each")
 
 
+def max_on_ranks(x: torch.Tensor) -> int:
+    """The largest value of ``x`` over every process, on the host (one
+    all_reduce of its maximum at more than one process)."""
+    top = x.max()
+    if world() > 1:
+        top = top.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    return int(top)
+
+
 def check_global_batch(batch_size: int):
     """A torchrun world is fixed, so the global batch must split evenly
     (the JAX trainer shrinks its mesh to a divisor of the batch instead)."""

@@ -44,6 +44,17 @@ of that file's ``convert_spunet_v1m3_checkpoint``. PG-v1m1 (the inverse of
 as ``seg_head``, ``proj_fc{1,2}`` and ``apd_fc{1,2}`` as ``proj.{0,2}`` and
 ``apd_proj.{0,2}``, ``feat_fc1``, ``feat_norm`` and ``feat_fc2`` as
 ``feat_proj_layer.{0,1,3}``.
+
+Point Transformer V2 (a flax tree with ``patch_embed_proj``: PT-v2m1/m2/m3)
+in point_transformer_v2m2_base.py's names, the inverse of
+``convert_ptv2_checkpoint`` (m1's ``grouped_weight`` as
+``weight_encoding.0.weight`` [1, C]); PT-v2m3's PDNorms (flax ``pdnorm``)
+as ``norm.{c}`` (``norm`` undecoupled) and ``modulation.1`` at the place of
+the PointBatchNorm. Point Transformer V1 (a tree with ``enc1_down``): Seg
+and PartSeg in point_transformer_seg.py's names, the inverse of
+``convert_ptv1_checkpoint``; Cls (``cls_fc3``) in point_transformer_cls.py's
+(a stage's bottlenecks from ``enc{s}.1``, the head ``cls.{0,1,4,5,8}``).
+DefaultSegmentorSkip's head keeps its flax names ``fc{1,2,3}``, ``ln{1,2}``.
 """
 
 from __future__ import annotations
@@ -69,8 +80,9 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
                          teacher_params=None, teacher_batch_stats=None,
                          constants=None, pdnorm_decouple: bool = True
                          ) -> Dict[str, np.ndarray]:
-    """Flax PTv3 or SpUNet (or LangPretrainer, DefaultSegmentorV2,
-    SimDINOSSL, PPT-v1m1, PPT-v1m2, PG-v1m1, MSC-v1m1, MSC-v1m2, CAC-v1m1)
+    """Flax PTv3, SpUNet, PTv2 or PTv1 (or LangPretrainer, DefaultSegmentorV2,
+    DefaultSegmentor, DefaultSegmentorSkip, DefaultPretrainer, SimDINOSSL,
+    PPT-v1m1, PPT-v1m2, PG-v1m1, MSC-v1m1, MSC-v1m2, CAC-v1m1)
     variables -> Pointcept-layout
     numpy state dict;
     ``teacher_params`` (and its ``teacher_batch_stats``) go under
@@ -89,6 +101,12 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
     head = params.get("seg_head")
     if head is not None:  # DefaultSegmentorV2's linear head, outside the backbone
         _put_dense(out, "seg_head", head)
+    if "ln1" in params:  # DefaultSegmentorSkip's head
+        w = _Writer(out, params, batch_stats, "")
+        for name in ("fc1", "fc2", "fc3"):
+            w.dense(name, (name,))
+        w.ln("ln1", ("ln1",))
+        w.ln("ln2", ("ln2",))
     if "bias_fc1" in params or "bias_norm" in batch_stats:  # PG-v1m1's bias head
         w = _Writer(out, params, batch_stats, "")
         w.dense("bias_head.0", ("bias_fc1",))
@@ -213,6 +231,14 @@ def _backbone_state(bb_params, bb_stats, backbone_prefix: str,
     if "conv_input" in bb_params or "norm_input" in bb_stats:
         _spunet_state(w, pdnorm_decouple)
         return out
+    if "patch_embed_proj" in bb_params or "patch_embed_norm" in bb_stats:
+        _ptv2_state(w, pdnorm_decouple)
+        return out
+    # PTv1: Seg's head stage ``dec5_up``, Cls's third linear or second
+    # BatchNorm (a PT-v3m1 tree has ``enc{s}_down`` too, and ``embedding``)
+    if {"dec5_up", "cls_fc3", "cls_bn2"} & (set(bb_params) | set(bb_stats)):
+        _ptv1_state(w)
+        return out
 
     def put_norm(tkey, fpath, bn):
         """A LayerNorm (a BatchNorm with ``bn``), or the PDNorm at its place:
@@ -310,6 +336,125 @@ def _spunet_state(w: _Writer, pdnorm_decouple: bool = True) -> None:
             put_norm(f"{t}.bn2", (name, "bn2"))
             w.conv(f"{t}.proj_conv" if pd else f"{t}.proj.0", (name, "proj"))
             put_norm(f"{t}.proj_norm" if pd else f"{t}.proj.1", (name, "proj_norm"))
+
+
+def _ptv2_state(w: _Writer, pdnorm_decouple: bool = True) -> None:
+    """A PTv2's leaves in point_transformer_v2m2_base.py's names."""
+
+    def put_norm(tkey, fpath):
+        """A PointBN (flax ``norm``) as ``.norm``, or its PDNorm (flax
+        ``pdnorm``: ``norm{c}``, ``modulation``)."""
+        node = w.node(fpath)
+        if "norm" in node:
+            w.bn(f"{tkey}.norm", fpath + ("norm",))
+            return
+        base = fpath + ("pdnorm",)
+        for key in sorted((k for k in w.node(base) if re.fullmatch(r"norm\d+", k)),
+                          key=lambda k: int(k[4:])):
+            w.bn(f"{tkey}.norm.{key[4:]}" if pdnorm_decouple else f"{tkey}.norm", base + (key,))
+        w.dense(f"{tkey}.modulation.1", base + ("modulation",))
+
+    def put_block(t, f):
+        w.dense(f"{t}.fc1", f + ("fc1",))
+        w.dense(f"{t}.fc3", f + ("fc3",))
+        for j in (1, 2, 3):
+            put_norm(f"{t}.norm{j}", f + (f"norm{j}",))
+        a, fa = f"{t}.attn", f + ("attn",)
+        for x in ("q", "k"):
+            w.dense(f"{a}.linear_{x}.0", fa + (f"linear_{x}",))
+            put_norm(f"{a}.linear_{x}.1", fa + (f"bn_{x}",))
+        w.dense(f"{a}.linear_v", fa + ("linear_v",))
+        for name, flax in (("linear_p_bias", "pe_bias"), ("linear_p_multiplier", "pe_mul")):
+            w.dense(f"{a}.{name}.0", fa + (f"{flax}_fc1",))
+            put_norm(f"{a}.{name}.1", fa + (f"{flax}_bn",))
+            w.dense(f"{a}.{name}.3", fa + (f"{flax}_fc2",))
+        grouped = w.get(fa + ("grouped_weight",))
+        if grouped is not None:
+            w.put(f"{a}.weight_encoding.0.weight", grouped)
+        w.dense(f"{a}.weight_encoding.0", fa + ("weight_fc1",))
+        put_norm(f"{a}.weight_encoding.1", fa + ("weight_bn",))
+        w.dense(f"{a}.weight_encoding.3", fa + ("weight_fc2",))
+
+    w.dense("patch_embed.proj.0", ("patch_embed_proj",))
+    put_norm("patch_embed.proj.1", ("patch_embed_norm",))
+    w.dense("seg_head.0", ("seg_head_fc1",))
+    put_norm("seg_head.1", ("seg_head_norm",))
+    w.dense("seg_head.3", ("seg_head_fc2",))
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"(patch_embed|enc\d+|dec\d+)_blocks", name)
+        if m:
+            side = m.group(1)
+            t = ("patch_embed" if side == "patch_embed"
+                 else f"{side[:3]}_stages.{side[3:]}") + ".blocks.blocks"
+            for bname in w.node((name,)):
+                put_block(f"{t}.{bname[5:]}", (name, bname))
+            continue
+        m = re.fullmatch(r"enc(\d+)_down", name)
+        if m:
+            t = f"enc_stages.{m.group(1)}.down"
+            w.dense(f"{t}.fc", (name, "fc"))
+            put_norm(f"{t}.norm", (name, "norm"))
+            continue
+        m = re.fullmatch(r"dec(\d+)_up", name)
+        if m:
+            t = f"dec_stages.{m.group(1)}.up"
+            for key in ("proj", "proj_skip"):
+                w.dense(f"{t}.{key}.0", (name, key))
+                put_norm(f"{t}.{key}.1", (name, f"{key}_norm"))
+
+
+def _ptv1_state(w: _Writer) -> None:
+    """A PTv1's leaves in point_transformer_seg.py's (or _cls.py's) names;
+    a flax PointBN's BatchNorm is its ``norm``."""
+    cls = "cls_fc3" in w.params or "cls_bn2" in w.stats
+
+    def bn(tkey, fpath):
+        w.bn(tkey, fpath + ("norm",))
+
+    def put_bottleneck(t, f):
+        w.dense(f"{t}.linear1", f + ("linear1",))
+        w.dense(f"{t}.linear3", f + ("linear3",))
+        for j in (1, 2, 3):
+            bn(f"{t}.bn{j}", f + (f"bn{j}",))
+        a, fa = f"{t}.transformer", f + ("transformer",)
+        for name in ("linear_q", "linear_k", "linear_v"):
+            w.dense(f"{a}.{name}", fa + (name,))
+        w.dense(f"{a}.linear_p.0", fa + ("linear_p_fc1",))
+        bn(f"{a}.linear_p.1", fa + ("linear_p_bn",))
+        w.dense(f"{a}.linear_p.3", fa + ("linear_p_fc2",))
+        bn(f"{a}.linear_w.0", fa + ("linear_w_bn1",))
+        w.dense(f"{a}.linear_w.2", fa + ("linear_w_fc1",))
+        bn(f"{a}.linear_w.3", fa + ("linear_w_bn2",))
+        w.dense(f"{a}.linear_w.5", fa + ("linear_w_fc2",))
+
+    if cls:
+        for i, (fc, norm) in enumerate((("cls_fc1", "cls_bn1"), ("cls_fc2", "cls_bn2"))):
+            w.dense(f"cls.{4 * i}", (fc,))
+            w.bn(f"cls.{4 * i + 1}", (norm,))
+        w.dense("cls.8", ("cls_fc3",))
+    else:
+        w.dense("cls.0", ("cls_fc1",))
+        bn("cls.1", ("cls_bn",))
+        w.dense("cls.3", ("cls_fc2",))
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"enc(\d+)_down", name)
+        if m:
+            w.dense(f"enc{m.group(1)}.0.linear", (name, "linear"))
+            bn(f"enc{m.group(1)}.0.bn", (name, "bn"))
+            continue
+        m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)", name)
+        if m:
+            side, s, i = m.group(1), m.group(2), int(m.group(3))
+            put_bottleneck(f"{side}{s}.{i if cls else i + 1}", (name,))
+            continue
+        m = re.fullmatch(r"dec(\d+)_up", name)
+        if m:
+            t = f"dec{m.group(1)}.0"
+            w.dense(f"{t}.linear1.0", (name, "linear1"))
+            bn(f"{t}.linear1.1", (name, "bn1"))
+            w.dense(f"{t}.linear2.0", (name, "linear2"))
+            bn(f"{t}.linear2.1", (name, "bn2"))
+            w.dense(f"{t}.linear3.0", (name, "linear3"))
 
 
 def load_flax_weights(model: torch.nn.Module, params, batch_stats, **kwargs):

@@ -296,21 +296,22 @@ def rows():
                 port_batch=port_batch, state=state_dict_from_flax(params, stats))
 
 
-def _assert_grads(got, want, where):
-    """Each gradient tensor to GRAD_RTOL of its norm; one that is zero in
-    exact arithmetic (see tests/test_torch_train.py: ZERO_GRAD) to noise
-    on both sides. Returns the names of those."""
+def _assert_grads(got, want, where, rtol=GRAD_RTOL, zero_bar=ZERO_GRAD):
+    """Each gradient tensor to ``rtol`` of its norm; one that is zero in
+    exact arithmetic (below ``zero_bar`` of the whole gradient, see
+    tests/test_torch_train.py: ZERO_GRAD) to noise on both sides. Returns
+    the names of those."""
     assert sorted(got) == sorted(want), where
     total = np.sqrt(sum(float((np.asarray(w, np.float64) ** 2).sum()) for w in want.values()))
     zero = []
     for name, g in got.items():
         g, w = np.asarray(g, np.float64), np.asarray(want[name], np.float64)
-        if np.linalg.norm(w) < ZERO_GRAD * total:
-            assert np.linalg.norm(g) < ZERO_GRAD * total, (where, name)
+        if np.linalg.norm(w) < zero_bar * total:
+            assert np.linalg.norm(g) < zero_bar * total, (where, name)
             zero.append(name)
             continue
         err = np.linalg.norm(g - w) / np.linalg.norm(w)
-        assert err <= GRAD_RTOL, (where, name, err)
+        assert err <= rtol, (where, name, err)
     return zero
 
 
