@@ -185,7 +185,7 @@ Phases, one JSON line each:
      loader waits, peak memory, one profiled step, each condition's
      val/mIoU; then ppt_timing_bwd, timing_bwd at its stage shapes;
  26. ppt_test: the test entry point on that config with ppt_train's
-     checkpoint, one SemSegTester a condition over a 320,001-Gaussian room
+     checkpoint, one SemSegTester a condition over a 200,001-Gaussian room
      (9 views), as a user runs it: seconds per scene (fetch, extract,
      vote), K1 per fragment forward; then ppt_timing_test (every K1 call of
      the first fragment forward);
@@ -246,13 +246,17 @@ Phases, one JSON line each:
  37. cac_train and cac_test: the semseg file made CAC-v1m1 over the same
      SpUNet (14 channels, 20 classes, CE), batch 2, 4 steps, val mIoU
      through SemSegEvaluator, then the test entry point's SemSegTester over
-     one 320,001-Gaussian room (9 views) as a user runs it;
+     one 200,001-Gaussian room (9 views) as a user runs it;
  38. cac_agree: CAC over the semseg file's PT-v3m1, one block a stage,
      fp32, 49,152 points, kernels against plain (losses 1e-5, gradients
      1e-4 or under the noise floor of 3 point-permuted kernel steps);
  39. msc_ddp_agree and cac_ddp_agree: phase 34's check for MSC (the card's
      draws injected, the pairs global) and CAC (global class sums): the
-     loss to 1e-6;
+     loss to 1e-6. Phases 23, 28, 34 and 39 take their one-process
+     reference step where they stand, and their ranks run here, after
+     cac_agree, in one spawn (shared_ddp_agree: each job in turn in one
+     process group; a spawn each cost 21-33 s of process start, imports
+     and a group); each check is made then;
  40. ppt_spunet_train: ppt_train's run with PPT-v1m1 over SpUNet-v1m3
      (published widths, adaptive PDNorm, context 256): each step's
      condition and only its norms' statistics moved, each condition's val
@@ -274,7 +278,7 @@ Phases, one JSON line each:
      overflow, kNN ms a step, step times, loader waits, peak memory, one
      profiled step;
  43. ptv2_test: the test entry on that config and checkpoint over one
-     320,001-Gaussian room (9 views): torch.sort and K3 under
+     200,001-Gaussian room (9 views): torch.sort and K3 under
      deterministic algorithms (equal predictions and metrics, K3 once for
      each of the 4 grid poolings of every fragment forward), then as a
      user runs it, for the seconds per scene;
@@ -288,10 +292,43 @@ Phases, one JSON line each:
      published widths (adaptive PDNorm, context 256), 3 steps A A B: each
      step's condition and only its norms moved, val mIoU a condition, no
      K1 or K2 launch, no pooling overflow.
+ 46-49. mink_agree, spvcnn_agree, oacnns_agree, octformer_agree: the
+     sparse-conv backbones (SPARSE_BACKBONES: MinkUNet34C, SPVCNN, OACNNs
+     and OctFormer-v1m1 at their published widths, each under the v1
+     DefaultSegmentor with the semseg file's CE + Lovasz), one fp32 train
+     step of one row of 16,384 points (a 1.4 m room filled to two thirds,
+     jittered 3 mm) on the card against a float64 step on the CPU
+     (card_cpu_agree), SPVCNN's dropout and OctFormer's drop path off
+     (OctFormer's per-scene drop path checked apart on the card; its steps
+     at two blocks a stage and with capacities that keep every cluster);
+     K1 and K2 counted from 0 (none);
+ 50-53. mink_train, spvcnn_train, oacnns_train, octformer_train: the
+     semseg trainer on sparse_config(name) (the file's data, optimizer and
+     hooks but PreciseEvaluator, and for all but mink the evaluator and the
+     saver; task="semseg") at batch 2, 205,824 slots, 1 + 2 steps over 4
+     synthetic rooms written once for the four, and one validation room:
+     losses, mink's val mIoU, no K1 or K2 launch, each pool's
+     clusters against its capacity (overflow reported), step times, loader
+     waits, peak memory, one profiled step's idle share; OctFormer's
+     batches inside its +-10.24 m octree;
+ 54. mink_test: the test entry on mink_train's config and checkpoint over
+     one 200,001-Gaussian room (9 views): torch.sort and K3 under
+     deterministic algorithms (equal predictions and metrics, K3 6 times a
+     fragment forward), then as a user runs it, for the seconds per room.
 To make room for phases 41-45, msc_train and cac_train run 4 steps where
 they ran 6, and ppt_train and ppt_spunet_train 3 where they ran 6 (A A
-B); PERF.md gives the whole script's seconds on one H100 80GB HBM3 at
-700 W, run by run.
+B); for phases 46-54, semseg_train, insseg_train and cac_train run 3
+steps where they ran 4 (ssl_train and msc_train keep 4: 2 samples a step
+over 4 rooms needs an even count), ptv2_train 3 where it ran 5, the test
+phases semseg_test, ppt_test, cac_test and ptv2_test (and mink_test)
+take rooms of 200,001 Gaussians where they took 320,001, the flagship
+rooms are written once for train and ddp_train, MSC-v1m2's agree step
+runs one block a stage, the agree phases copy one built model where they
+built one a run, each timing phase times the plain backward once where
+it timed it twice, and the six two-rank checks of phases 23-39 share one
+spawn. Each phase's
+JSON line carries the script's seconds so far (``t_s``); PERF.md gives the
+whole script's seconds on one H100 80GB HBM3 at 700 W, run by run.
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
 encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
@@ -425,7 +462,14 @@ SEMSEG_CONFIG = "configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py"
 SSL_CONFIG = "configs/scannet/ssl-pretrain-scannet-all-base.py"
 
 
+START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets the script's seconds so far
+    (``t_s``), the breakdown of its running time."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1255,13 +1299,13 @@ def check_flagship_run(phase, trainer, probe, records, k1_counts):
                 profile=probe.profile)
 
 
-def phase_train(work):
+def phase_train(work, data):
     """The flagship trainer, its own hooks included, for 1 + 5 steps and one
-    validation; returns the train-step stage shapes, the K1 / K2 launch
-    counts, the best checkpoint, copied into ``work``, and the run's
-    record."""
+    validation over ``data`` (write_flagship_data's roots and seconds);
+    returns the train-step stage shapes, the K1 / K2 launch counts, the
+    best checkpoint, copied into ``work``, and the run's record."""
+    root, data_s = data
     with tempfile.TemporaryDirectory() as tmp:
-        root, data_s = write_flagship_data(tmp)
         reset_k1_counts()
         reset_k2_counts()
         batch, oom, result = 2, None, None
@@ -1380,8 +1424,10 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
         ms = cuda_ms(lambda: fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h,
                                                             scale), reps=10)
         x = qkv.detach().clone().requires_grad_(True)
+        # one timed rep of the plain backward, after its warm-up (the
+        # script's time limit)
         plain_ms, (g_plain,) = backward_ms(
-            lambda: fwa.flash_window_attention_plain(x, valid, k, h), [x], dout, reps=2)
+            lambda: fwa.flash_window_attention_plain(x, valid, k, h), [x], dout, reps=1)
         chunk = max(8, 16384 // k)  # windows per plain chunk: the result is the same
         _, truth = grads_of(
             lambda t, m, kk, hh: fwa.flash_window_attention_plain(t, m, kk, hh,
@@ -1668,18 +1714,18 @@ def train_step_fp32(batch, wrap=lambda m: m, build=flagship_fp32_model, task="la
             {k: p.grad for k, p in model.named_parameters()}, stats, overflow)
 
 
-def phase_ddp_train(work, plain, n_agree=49152):
+def phase_ddp_train(work, plain, data, n_agree=49152):
     """The flagship trainer as phase_train runs it (its data, batch 2, 1 + 5
     steps, its own hooks with the evaluator on the scene-sharded path),
     under a one-process NCCL group, so through DistributedDataParallel,
     beside phase_train's plain trainer; then one fp32 step at ``n_agree``
     points under DDP against the same step without it. Returns the run's
     record and its best checkpoint, copied into ``work``."""
+    root, data_s = data
     with torchrun_env(0, 1, free_port()), process_group("cuda"):
         check(torch.distributed.get_backend() == "nccl" and world() == 1,
               "ddp_train: no one-process NCCL group")
         with tempfile.TemporaryDirectory() as tmp:
-            root, data_s = write_flagship_data(tmp)
             reset_k1_counts()
             reset_k2_counts()
             trainer, probe, records, k1_counts = run_training(
@@ -2806,18 +2852,17 @@ def phase_semseg_train(work, weight, steps=6, scene_points=200000, room=(3.6, 3.
     return shapes, k1, variants, dict(k2_variants), checkpoint
 
 
-def semseg_rows(n, seeds):
-    """One semseg batch row of ``n`` points per seed: a room whose 4 cm
-    cells fit the first pooling (see train_agree), 14 input channels (the
-    Gaussian features and the shell's normals), 20 classes by angle and
-    height, 5% ignored; numpy arrays [rows, n, ...]."""
+def semseg_rows(n, seeds, size_m=(2.4, 2.4, 2.4)):
+    """One semseg batch row of ``n`` points per seed: a room (of ``size_m``)
+    whose 4 cm cells fit the first pooling (see train_agree), 14 input
+    channels (the Gaussian features and the shell's normals), 20 classes by
+    angle and height, 5% ignored; numpy arrays [rows, n, ...]."""
     rows = []
-    size_m = (2.4, 2.4, 2.4)
     for seed in seeds:
         rng = np.random.default_rng(seed)
         coord, feat_in, grid = room_scene(rng, n, size_m)
         normal = shell_normals(grid, [int(round(m / GRID)) for m in size_m], 1)
-        angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
+        angle = np.arctan2(coord[:, 1] - size_m[1] / 2, coord[:, 0] - size_m[0] / 2)
         seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
         seg = seg + 10 * (coord[:, 2] > 1.0)
         seg[rng.random(n) < 0.05] = -1  # ignored points
@@ -3435,38 +3480,48 @@ def ssl_step_fp32(batch, cotangent, wrap=lambda m: m):
             torch.equal(model.teacher.mask_token, token), overflow)
 
 
-def task_agree_rank(rank, world, port, job_file):
-    """One rank of phase_task_ddp_agree (a spawned process sharing the one
-    card over gloo): its rows of the job's global batch through one fp32
-    step under DDP; writes the step's results and its K1 / K2 launches."""
+def shared_agree_rank(rank, world, port, job_file):
+    """One rank of phase_shared_ddp_agree (a spawned process sharing the one
+    card over gloo): each of the job file's jobs in turn in one process
+    group, through RANK_JOBS[job["kind"]]."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    job = torch.load(job_file, weights_only=False)
+    jobs = torch.load(job_file, weights_only=False)
     with torchrun_env(rank, world, port):
         init_distributed("cuda", backend="gloo")
         try:
-            reset_k1_counts()
-            reset_k2_counts()
-            # MSC's injected pairs list the global batch's rows: every rank holds them all
-            rows = {k: v if k.startswith("match_") else v[local_batch_slice(len(v))]
-                    for k, v in job["rows"].items()}
-            if job["task"] in FP32_TASK_MODELS:
-                loss, norm, grads, stats, overflow = train_step_fp32(
-                    cuda_batch(rows), data_parallel, build=FP32_TASK_MODELS[job["task"]](),
-                    task=job["task"], seed=12)
-                out = dict(loss=loss, grad_norm=norm, overflow=overflow)
-            else:
-                terms, grads, stats, teacher, token_kept, overflow = ssl_step_fp32(
-                    cuda_batch(rows), [c.cuda() for c in job["cotangent"]], data_parallel)
-                out = dict(terms=terms, teacher={k: v.cpu() for k, v in teacher.items()},
-                           token_kept=token_kept, overflow=overflow)
-            out.update(grads={k: g.cpu() for k, g in grads.items()},
-                       stats={k: v.cpu() for k, v in stats.items()},
-                       k1_lse=k1_lse_variants(), k1=k1_variants(),
-                       k2=dict(fwa.flash_window_attention_bwd.variant_launches))
-            torch.save(out, job["out"].format(rank=rank))
+            for job in jobs:
+                RANK_JOBS[job["kind"]](rank, job)
+                gc.collect()
+                torch.cuda.empty_cache()
         finally:
             torch.distributed.destroy_process_group()
+
+
+def task_agree_job(rank, job):
+    """A rank's part of a task's two-rank check (prepare_task_ddp_agree):
+    its rows of the job's global batch through one fp32 step under DDP;
+    writes the step's results and its K1 / K2 launches."""
+    reset_k1_counts()
+    reset_k2_counts()
+    # MSC's injected pairs list the global batch's rows: every rank holds them all
+    rows = {k: v if k.startswith("match_") else v[local_batch_slice(len(v))]
+            for k, v in job["rows"].items()}
+    if job["task"] in FP32_TASK_MODELS:
+        loss, norm, grads, stats, overflow = train_step_fp32(
+            cuda_batch(rows), data_parallel, build=FP32_TASK_MODELS[job["task"]](),
+            task=job["task"], seed=12)
+        out = dict(loss=loss, grad_norm=norm, overflow=overflow)
+    else:
+        terms, grads, stats, teacher, token_kept, overflow = ssl_step_fp32(
+            cuda_batch(rows), [c.cuda() for c in job["cotangent"]], data_parallel)
+        out = dict(terms=terms, teacher={k: v.cpu() for k, v in teacher.items()},
+                   token_kept=token_kept, overflow=overflow)
+    out.update(grads={k: g.cpu() for k, g in grads.items()},
+               stats={k: v.cpu() for k, v in stats.items()},
+               k1_lse=k1_lse_variants(), k1=k1_variants(),
+               k2=dict(fwa.flash_window_attention_bwd.variant_launches))
+    torch.save(out, job["out"].format(rank=rank))
 
 
 STAT_RTOL_DDP = 1e-6
@@ -3508,9 +3563,12 @@ def check_ranks_stats(phase, r, got, ref, floor=0.0):
     return max(err.values())
 
 
-def phase_task_ddp_agree(work, task, world=2):
+def prepare_task_ddp_agree(work, task):
     """semseg_ddp_agree / ssl_ddp_agree / insseg_ddp_agree / msc_ddp_agree /
-    cac_ddp_agree: two ranks sharing the one card over gloo, one row each,
+    cac_ddp_agree, run by phase_shared_ddp_agree: this process's step (the
+    reference) now, the ranks' job for the shared spawn, and
+    finish_task_ddp_agree's check once the ranks ran. Two ranks sharing
+    the one card over gloo, one row each,
     against one process over both rows, fp32 at the file's widths with one
     block a stage. semseg: CE + Lovasz (the gather of
     every rank's probabilities), 2 rows of 49,152 points, drop-path 0.3, no
@@ -3541,7 +3599,7 @@ def phase_task_ddp_agree(work, task, world=2):
                 msc=lambda: with_msc_draws(msc_rows(MSC_AGREE_POINTS, (61, 62))),
                 cac=lambda: insseg_rows(INSSEG_AGREE_POINTS, (41, 42)))[task]()
     batch = cuda_batch(rows)
-    floor, stat_floor = None, 0.0
+    floor, stat_floor, teacher, cotangent = None, 0.0, None, None
     if task in FP32_TASK_MODELS:
         build = FP32_TASK_MODELS[task]()
         loss, norm, grads, stats, overflow = train_step_fp32(batch, build=build, task=task,
@@ -3560,16 +3618,21 @@ def phase_task_ddp_agree(work, task, world=2):
         check(token_kept, f"{phase}: one process's teacher mask token moved")
         ref = (terms, {k: g.cpu() for k, g in grads.items()}, overflow)
         teacher = {k: v.cpu() for k, v in teacher.items()}
+    stats = {k: v.cpu() for k, v in stats.items()}
     del grads, batch
     gc.collect()
     torch.cuda.empty_cache()
-    job_file = os.path.join(work, f"{phase}_job.pt")
-    torch.save(dict(task=task, rows=rows, out=os.path.join(work, f"{phase}_rank{{rank}}.pt"),
-                    cotangent=[c.cpu() for c in cotangent] if task == "ssl" else None),
-               job_file)
-    ranks_s = spawn_ranks(task_agree_rank, world, job_file)
-    ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
-             for r in range(world)]
+    job = dict(kind="task", task=task, rows=rows,
+               out=os.path.join(work, f"{phase}_rank{{rank}}.pt"),
+               cotangent=None if cotangent is None else [c.cpu() for c in cotangent])
+    return dict(phase=phase, job=job, finish=lambda ranks, ranks_s, world: finish_task_ddp_agree(
+        task, ranks, ranks_s, world, ref, stats, floor, stat_floor, teacher))
+
+
+def finish_task_ddp_agree(task, ranks, ranks_s, world, ref, stats, floor, stat_floor, teacher):
+    """prepare_task_ddp_agree's check of the ranks' outputs ``ranks``
+    against this process's step ``ref``; returns the launches."""
+    phase = f"{task}_ddp_agree"
     record = dict(phase=phase, world=world, backend="gloo", rows=world, dtype="float32",
                   drop_path=None if task in SPUNET_TASKS else 0.3, ranks_s=ranks_s,
                   stat_rtol=STAT_RTOL_DDP,
@@ -3885,7 +3948,7 @@ def phase_ppt_test(work, checkpoint, n_voxels=160000):
     """``python -m scenesplat_tpu_torch.test`` on the PPT config with the
     ppt_train checkpoint: a SemSegTester a condition (ScanNetGS over 20
     classes, ScanNetPPGS over 100 with the ScanNet++ top-3 protocol), each
-    over one synthetic room of 320,001 Gaussians with both label sets, 9
+    over one synthetic room of 2 n_voxels + 1 Gaussians with both label sets, 9
     views, as a user runs it. Checks every scene predicted, finite mIoU
     and K1 once a block in every fragment forward; prints the seconds per
     scene (fetch, extract, vote). Returns the K1 counts, the fragment
@@ -4018,33 +4081,26 @@ def ppt_steps_fp32(batch, conditions, ddp=False, kind="v1m2"):
     return steps, stats
 
 
-def ppt_agree_rank(rank, world, port, job_file):
-    """One rank of phase_ppt_ddp_agree (a spawned process sharing the card
-    over gloo): its row of the global batch through ppt_steps_fp32 under
-    DDP with find_unused_parameters; writes the steps and its K1 / K2
-    launches."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    job = torch.load(job_file, weights_only=False)
-    with torchrun_env(rank, world, port):
-        init_distributed("cuda", backend="gloo")
-        try:
-            reset_k1_counts()
-            reset_k2_counts()
-            rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
-            steps, stats = ppt_steps_fp32(cuda_batch(rows), job["conditions"], ddp=True)
-            torch.save(dict(steps=[(loss, norm, {k: g.cpu() for k, g in grads.items()}, o)
-                                   for loss, norm, grads, o in steps],
-                            stats={k: v.cpu() for k, v in stats.items()},
-                            k1_lse=k1_lse_variants(),
-                            k2=dict(fwa.flash_window_attention_bwd.variant_launches)),
-                       job["out"].format(rank=rank))
-        finally:
-            torch.distributed.destroy_process_group()
+def ppt_agree_job(rank, job):
+    """A rank's part of prepare_ppt_ddp_agree's check: its row of the global
+    batch through ppt_steps_fp32 under DDP with find_unused_parameters;
+    writes the steps and its K1 / K2 launches."""
+    reset_k1_counts()
+    reset_k2_counts()
+    rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
+    steps, stats = ppt_steps_fp32(cuda_batch(rows), job["conditions"], ddp=True)
+    torch.save(dict(steps=[(loss, norm, {k: g.cpu() for k, g in grads.items()}, o)
+                           for loss, norm, grads, o in steps],
+                    stats={k: v.cpu() for k, v in stats.items()},
+                    k1_lse=k1_lse_variants(),
+                    k2=dict(fwa.flash_window_attention_bwd.variant_launches)),
+               job["out"].format(rank=rank))
 
 
-def phase_ppt_ddp_agree(work, world=2):
-    """Two ranks sharing the card over gloo, one row each, against one
+def prepare_ppt_ddp_agree(work):
+    """ppt_ddp_agree, run by phase_shared_ddp_agree (this process's steps
+    now, the ranks' job, finish_ppt_ddp_agree's check once the ranks ran):
+    two ranks sharing the card over gloo, one row each, against one
     process over both rows: PPT-v1m2 at one block a stage, fp32, 2 rows of
     49,152 points (semseg_rows: their 4 cm cells fit the first pooling), two steps, on ScanNetGS then ScanNetPPGS, through one
     DDP wrapper with find_unused_parameters (the inactive condition's
@@ -4059,14 +4115,19 @@ def phase_ppt_ddp_agree(work, world=2):
     ref_steps, ref_stats = ppt_steps_fp32(cuda_batch(rows), conditions)
     ref_steps = [(loss, norm, {k: g.cpu() for k, g in grads.items()}, o)
                  for loss, norm, grads, o in ref_steps]
+    ref_stats = {k: v.cpu() for k, v in ref_stats.items()}
     gc.collect()
     torch.cuda.empty_cache()
-    job_file = os.path.join(work, f"{phase}_job.pt")
-    torch.save(dict(rows=rows, conditions=conditions,
-                    out=os.path.join(work, f"{phase}_rank{{rank}}.pt")), job_file)
-    ranks_s = spawn_ranks(ppt_agree_rank, world, job_file)
-    ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
-             for r in range(world)]
+    job = dict(kind="ppt", rows=rows, conditions=conditions,
+               out=os.path.join(work, f"{phase}_rank{{rank}}.pt"))
+    return dict(phase=phase, job=job, finish=lambda ranks, ranks_s, world: finish_ppt_ddp_agree(
+        ranks, ranks_s, world, conditions, ref_steps, ref_stats))
+
+
+def finish_ppt_ddp_agree(ranks, ranks_s, world, conditions, ref_steps, ref_stats):
+    """prepare_ppt_ddp_agree's check of the ranks' outputs ``ranks``;
+    returns the launches."""
+    phase = "ppt_ddp_agree"
     record = dict(phase=phase, model="PPT-v1m2", world=world, backend="gloo", rows=world,
                   dtype="float32", drop_path=0.3, conditions=conditions, ranks_s=ranks_s,
                   find_unused_parameters=True, stat_rtol=STAT_RTOL_DDP)
@@ -4092,6 +4153,28 @@ def phase_ppt_ddp_agree(work, world=2):
                   loss_one=[s[0] for s in ref_steps])
     emit(record)
     return dict(k1_lse=sum(record["k1_lse"]), k2=sum(record["k2"]))
+
+
+RANK_JOBS = dict(task=task_agree_job, ppt=ppt_agree_job)
+
+
+def phase_shared_ddp_agree(work, pending, world=2):
+    """The two-rank checks prepared by prepare_task_ddp_agree and
+    prepare_ppt_ddp_agree, their ranks in one spawn (shared_agree_rank:
+    each job in turn in one process group, where a spawn each cost a
+    process start, the imports and a group each); then each check in
+    turn. Returns each phase's launches by phase name."""
+    job_file = os.path.join(work, "shared_ddp_agree_jobs.pt")
+    torch.save([p["job"] for p in pending], job_file)
+    ranks_s = spawn_ranks(shared_agree_rank, world, job_file, timeout_s=900)
+    emit(dict(phase="shared_ddp_agree", phases=[p["phase"] for p in pending], world=world,
+              ranks_s=ranks_s))
+    results = {}
+    for p in pending:
+        ranks = [torch.load(p["job"]["out"].format(rank=r), weights_only=False)
+                 for r in range(world)]
+        results[p["phase"]] = p["finish"](ranks, ranks_s, world)
+    return results
 
 
 def phase_rpe_agree(n=205824, n_train=49152, reps=3):
@@ -4378,13 +4461,12 @@ def phase_spunet_agree(n=INSSEG_AGREE_POINTS):
     rows = insseg_rows(n, (41, 42))
     cfg = insseg_model_cfg()
     cfg["backbone"]["seed"] = 1
-    init = build_model(copy.deepcopy(cfg)).state_dict()
+    base = build_model(copy.deepcopy(cfg))  # every run a copy: one initialization
     runs = [("cuda", rows), ("cpu", rows)] + [
         (f"permuted{i}", permuted_rows(rows, 60 + i)) for i in range(FLOOR_PERMUTATIONS)]
     steps, stats, seconds = {}, {}, {}
     for device, batch_rows in runs:
-        model = build_model(copy.deepcopy(cfg))
-        model.load_state_dict(init)
+        model = copy.deepcopy(base)
         where = "cpu" if device == "cpu" else "cuda"
         model.to(where).train()
         t0 = time.perf_counter()
@@ -4792,12 +4874,11 @@ def agree_runs(phase, cfg, rows, step, permuted, seeds, extra=None):
     terms each within TRAIN_LOSS_RTOL of the loss, the statistics within
     STAT_RTOL_DDP relative L2 or NOISE_FLOOR_FACTOR times their own floor.
     Returns the floor and the card step's seconds."""
-    init = build_model(copy.deepcopy(cfg)).state_dict()
+    base = build_model(copy.deepcopy(cfg))  # every run a copy: one initialization
     runs = [("cuda", rows), ("cpu", rows)] + [(f"permuted{s}", permuted(rows, s)) for s in seeds]
     steps, stats, seconds = {}, {}, {}
     for name, batch_rows in runs:
-        model = build_model(copy.deepcopy(cfg))
-        model.load_state_dict(init)
+        model = copy.deepcopy(base)
         where = "cpu" if name == "cpu" else "cuda"
         model.to(where).train()
         t0 = time.perf_counter()
@@ -4834,6 +4915,8 @@ def phase_msc_agree(n=MSC_AGREE_POINTS):
     check(pairs == 8192, f"msc_agree: {pairs} valid pairs of 8,192")
     for kind in ("MSC-v1m1", "MSC-v1m2"):
         cfg = msc_model_cfg(kind, view1_mix_prob=1.0)
+        if kind == "MSC-v1m2":  # CSC's loss over one block a stage (the time limit)
+            cfg["backbone"]["layers"] = (1,) * 8
         agree_runs(kind.lower().replace("-", "_") + "_agree", cfg, rows, msc_step,
                    permuted_two_view, (64, 65, 66),
                    extra=dict(points=n, rows=2, views=2, model=f"{kind} over SpUNet-v1m1",
@@ -5050,7 +5133,7 @@ def phase_cac_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), va
 def phase_cac_test(work, config_path, checkpoint, n_voxels=160000):
     """``python -m scenesplat_tpu_torch.test`` on the CAC config with
     cac_train's best checkpoint: the file's SemSegTester (9 views, fragment
-    voting of the refined logits) over one synthetic room of 320,001
+    voting of the refined logits) over one synthetic room of 2 n_voxels + 1
     Gaussians, as a user runs it: the room predicted, finite mIoU, the
     seconds (fetch, extract, vote)."""
     t0 = time.perf_counter()
@@ -5233,7 +5316,7 @@ PTV2_BACKBONE = dict(
     dec_groups=(6, 12, 24, 48), dec_neighbours=(16, 16, 16, 16),
     grid_sizes=(0.06, 0.15, 0.375, 0.9375), attn_qkv_bias=True, pe_multiplier=False,
     pe_bias=True, attn_drop_rate=0.0, drop_path_rate=0.3, unpool_backend="map")
-PTV2_STEPS = 5  # 1 + 4
+PTV2_STEPS = 3  # 1 + 2
 PTV2_BATCH = 2
 PTV2_AGREE_POINTS = 49152
 PTV1_AGREE_POINTS = 16384
@@ -5391,13 +5474,12 @@ def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
     reference: its loss is held to the witness at TRAIN_LOSS_RTOL, its
     distances from the witness and from the card are recorded. Returns
     the seconds of each run."""
-    init = build_model(copy.deepcopy(cfg)).state_dict()
+    base = build_model(copy.deepcopy(cfg))  # every run a copy: one initialization
     runs = [("cuda", rows), ("cpu", rows), ("float64", rows)] + [
         (f"other{i}", r) for i, r in enumerate(other_orders)]
     steps, stats, seconds = {}, {}, {}
     for name, batch_rows in runs:
-        model = build_model(copy.deepcopy(cfg))
-        model.load_state_dict(init)
+        model = copy.deepcopy(base)
         where = "cpu" if name in ("cpu", "float64") else "cuda"
         batch = batch_to_device(batch_rows, where)
         if name == "float64":
@@ -5575,7 +5657,7 @@ def phase_ptv2_train(work, steps=PTV2_STEPS, batch_size=PTV2_BATCH, scene_points
 def phase_ptv2_test(work, config_path, checkpoint, n_voxels=160000):
     """The test entry point on ptv2_train's config and checkpoint
     (SemSegTester, the file's 9 views, fragment voting) over one synthetic
-    room of 320,001 Gaussians, through run_test_entry: torch.sort and K3
+    room of 2 n_voxels + 1 Gaussians, through run_test_entry: torch.sort and K3
     under deterministic algorithms (equal predictions and metrics; K3 once
     for each of the 4 grid poolings' serializations of every fragment
     forward, none with the switch off; no K1 or K2), then as a user runs
@@ -5679,11 +5761,10 @@ def phase_ptv1_agree(n=PTV1_AGREE_POINTS):
                                                 in_channels=14, num_classes=8,
                                                 num_shape_classes=4, seed=7),
              dict(cls_token=torch.tensor([3, 1])))):
-        init = build_model(dict(cfg_m)).state_dict()
+        base = build_model(dict(cfg_m))  # both runs a copy: one initialization
         outs = {}
         for device in ("cuda", "cpu"):
-            model = build_model(dict(cfg_m))
-            model.load_state_dict(init)
+            model = copy.deepcopy(base)
             model.to(device).eval()
             point = point_from_batch(batch_to_device(rows, device))
             with torch.no_grad():
@@ -5787,6 +5868,265 @@ def phase_ppt_ptv2_train(work, steps=6, batch_size=PTV2_BATCH, scene_points=2000
     return counts
 
 
+# The sparse-conv backbones at their published widths, each the semseg
+# file's model as a v1 DefaultSegmentor (sparse_config): MinkUNet34C, the
+# variant of Pointcept's ScanNet MinkUNet recipe; SPVCNN, OACNNs and
+# OctFormer-v1m1 at their class defaults (OctFormer: channels 96/192/384/
+# 384, blocks 2/2/18/2, heads 6/12/24/24, windows of 26, dilation 4, FPN
+# 168, drop path 0.5)
+SPARSE_BACKBONES = dict(
+    mink=dict(type="MinkUNet34C", in_channels=14, out_channels=TRAIN_CLASSES),
+    spvcnn=dict(type="SPVCNN", in_channels=14, out_channels=TRAIN_CLASSES),
+    oacnns=dict(type="OACNNs", in_channels=14, num_classes=TRAIN_CLASSES),
+    octformer=dict(type="OctFormer-v1m1", in_channels=14, num_classes=TRAIN_CLASSES))
+# the agree phases' training randomness off (the card's and the CPU's
+# generators draw different streams): OctFormer's drop path at 0 and
+# SPVCNN's fixed dropout replaced by the identity (spvcnn_dropout_off);
+# octformer_agree checks drop path's per-scene draw apart
+SPARSE_AGREE_OFF = dict(octformer=dict(drop_path=0.0))
+SPARSE_AGREE_POINTS = 16384
+# a room whose 2 cm shell (24,500 voxels) the agree row fills to two
+# thirds, so that each stride-2 pooling at least halves it (as the
+# capacities assume)
+SPARSE_AGREE_ROOM = (1.4, 1.4, 1.4)
+SPARSE_STEPS = 3  # 1 + 2: one warm step and the profiled one
+# sort_int64 calls of one MinkUNet forward: the z-serialization, the k=5
+# stem plan and each of the 4 pooled levels' k=3 plan
+MINK_SORTS = 6
+# ocnn's leaves clip cells to [0, 2**11): a point beyond +-10.24 m of the
+# room's centre (CenterShift's origin) would merge with the boundary's
+OCTREE_HALF_M = 10.24
+
+
+def sparse_config(cfg, name):
+    """The semseg file with its model a DefaultSegmentor over
+    SPARSE_BACKBONES[name] (the file's CE + Lovasz) and task="semseg";
+    data, optimizer, schedule and hooks as the file sets them."""
+    cfg.model = dict(type="DefaultSegmentor", backbone=dict(SPARSE_BACKBONES[name]),
+                     criteria=cfg.model.criteria)
+    cfg.task = "semseg"
+    return cfg
+
+
+@contextlib.contextmanager
+def spvcnn_dropout_off():
+    """SPVCNN's dropout (the reference's fixed 0.3) as the identity for the
+    block."""
+    import scenesplat_tpu_torch.models.spvcnn as spvcnn
+
+    kept = spvcnn.dropout
+    spvcnn.dropout = lambda x, p, generator: x
+    try:
+        yield
+    finally:
+        spvcnn.dropout = kept
+
+
+def check_drop_path_by_scene(phase, rows=8, n=4096, p=0.5):
+    """OctFormer's drop path on the card (a CUDA generator): each scene's
+    branch kept whole (scaled by 1 / (1 - p)) or dropped whole."""
+    from scenesplat_tpu_torch.models.octformer import drop_path
+
+    x = torch.rand(rows, n, 96, device="cuda") + 1.0
+    y = drop_path(x, p, torch.Generator(device="cuda").manual_seed(5))
+    kept = (y == x / (1 - p)).flatten(1).all(1)
+    dropped = (y == 0).flatten(1).all(1)
+    check(bool((kept ^ dropped).all()), f"{phase}: drop path split a scene")
+    return dict(rows=rows, kept=int(kept.sum()), dropped=int(dropped.sum()), rate=p)
+
+
+def phase_sparse_agree(name, n=SPARSE_AGREE_POINTS, seed=21):
+    """One fp32 semseg train step (CE + Lovasz) of DefaultSegmentor over
+    SPARSE_BACKBONES[name] at its published widths, one row of ``n``
+    points (a room, ``jittered``: OctFormer's ocnn leaves read the
+    coordinates), on the card against a float64 witness on the CPU from
+    the same weights (card_cpu_agree, the floor of POINT_FLOOR_RUNS other
+    orders and of the CPU's fp32 step), dropout and drop path off; for
+    OctFormer also drop path's per-scene draw on the card. Returns K1's and
+    K2's launches (none)."""
+    reset_k1_counts()
+    reset_k2_counts()
+    rows = jittered(semseg_rows(n, (seed,), size_m=SPARSE_AGREE_ROOM), seed + 1)
+    criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
+    others = [permuted_rows(rows, 80 + i) for i in range(POINT_FLOOR_RUNS)]
+    backbone = dict(SPARSE_BACKBONES[name], seed=3, **SPARSE_AGREE_OFF.get(name, {}))
+    if name == "octformer":
+        # the first stem pool takes the 1 cm leaves to 2 cm cells, about one
+        # point each in 2 cm rows: the default capacity of 0.7 of the slots
+        # drops clusters there (the train phase reports it), which the
+        # compared steps may not; two blocks a stage (its dilated second
+        # block kept), where the published third stage has 18, for the
+        # CPU steps' time
+        backbone.update(stage_capacity=(1.0, 0.5, 0.25, 0.125, 0.0625), num_blocks=(2, 2, 2, 2))
+    cfg = dict(type="DefaultSegmentor", backbone=backbone)
+    with spvcnn_dropout_off() if name == "spvcnn" else contextlib.nullcontext():
+        seconds = card_cpu_agree(f"{name}_agree", cfg, rows,
+                                 lambda m, b: ptv2_step(m, b, criteria, {}), others, points=n,
+                                 batch_rows=1, model=backbone["type"])
+    extra = dict(drop_path=check_drop_path_by_scene(f"{name}_agree")) if name == "octformer" else {}
+    counts = path_attention_counts(f"{name}_agree")
+    emit(dict(phase=f"{name}_agree", model=backbone["type"], points=n, step_s=seconds,
+              k1_launches=counts["k1"], k2_launches=counts["k2"], **extra))
+    return counts
+
+
+def write_sparse_rooms(tmp, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000):
+    """The sparse train phases' 4 training rooms and one validation room
+    (written once for the four)."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "sparse_rooms")
+    write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=96, size_m=room,
+                    semseg=True)
+    write_gs_scenes(os.path.join(root, "val"), 1, val_points, seed=97, size_m=(2.4, 2.4, 2.0),
+                    semseg=True)
+    return root, time.perf_counter() - t0
+
+
+def phase_sparse_train(work, name, root, data_s, steps=SPARSE_STEPS, batch_size=2):
+    """The semseg trainer on sparse_config(name) (the published widths,
+    batch 2, the file's 205,824 points, CE + Lovasz, Mix3D 0.8, optimizer
+    and hooks but PreciseEvaluator; the evaluator and the saver only for
+    mink, whose checkpoint mink_test reads) for ``steps`` steps over
+    write_sparse_rooms' rooms: finite losses, mink's val mIoU and best
+    checkpoint, no K1 or K2 launch, each downsample's clusters against its capacity (n_overflow,
+    reported), step times, loader waits, peak memory, one profiled step
+    (the idle share); OctFormer's batches inside its octree. Returns the
+    config file (dumped into ``work``), the best checkpoint and the
+    attention counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_k1_counts()
+        reset_k2_counts()
+        cfg = sparse_config(semseg_train_config(root, os.path.join(tmp, "exp"), batch_size,
+                                                steps, 4), name)
+        # mink_test reads mink_train's best checkpoint; the other three
+        # train without the evaluator and the saver (the time limit)
+        dropped = ("PreciseEvaluator",) if name == "mink" else (
+            "PreciseEvaluator", "SemSegEvaluator", "CheckpointSaver")
+        cfg.hooks = [h for h in cfg.hooks if h["type"] not in dropped]
+        coords = []
+
+        def before(trainer):
+            forward = trainer.model.forward
+
+            def watched(point, generator=None, **kwargs):
+                if trainer.model.training:
+                    coords.append(float(point.coord[point.mask].abs().max()))
+                return forward(point, generator=generator, **kwargs)
+
+            trainer.model.forward = watched
+
+        trainer, probe, records, _ = run_training(cfg, before=before)
+        hist = trainer.storage.history
+        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses + grad_norms),
+              f"{name}_train: losses {losses}, grad norms {grad_norms}")
+        counts = path_attention_counts(f"{name}_train")
+        overflow = [[int(o.max()) for o in r["overflow"]] for r in records]
+        capacity = [[m for m, _ in r["sizes"][1:]] for r in records]
+        clusters = [[int(v.max()) for _, v in r["sizes"][1:]] for r in records]
+        if name == "octformer":
+            check(len(coords) == steps and max(coords) < OCTREE_HALF_M,
+                  f"octformer_train: |coordinates| up to {max(coords)} m, the octree holds "
+                  f"+-{OCTREE_HALF_M}")
+        miou, checkpoint = hist("val/mIoU").values() if name == "mink" else [None], None
+        if name == "mink":
+            check(len(miou) == 1 and 0.0 <= miou[0] <= 1.0, f"{name}_train: val/mIoU {miou}")
+            model_dir = os.path.join(trainer.cfg.save_path, "model")
+            checkpoint = shutil.copy(os.path.join(model_dir, "model_best.pth"),
+                                     os.path.join(work, f"{name}_model_best.pth"))
+            state = torch.load(checkpoint, map_location="cpu", weights_only=False)["state_dict"]
+            trainer.model.load_state_dict(state, strict=True)  # name for name
+        step_ms = probe.step_ms()
+        emit(dict(phase=f"{name}_train", config=SEMSEG_CONFIG,
+                  model=f"DefaultSegmentor over {SPARSE_BACKBONES[name]['type']}",
+                  backbone=SPARSE_BACKBONES[name], task="semseg", batch_size=batch_size,
+                  points=cfg.data.num_points, steps=len(losses), loss=losses,
+                  grad_norm=grad_norms, cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  idle_share=probe.profile["idle_share"], val_miou=miou[0],
+                  n_overflow_per_pool=overflow, pool_capacity=capacity,
+                  pool_clusters_max_row=clusters, coord_abs_max_m=coords,
+                  k1_launches=counts["k1"], k2_launches=counts["k2"], dataset_write_s=data_s,
+                  profile=probe.profile))
+        print(f"{name}_train: warm steps {[round(v) for v in step_ms[1:-1]]} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, idle share "
+              f"{probe.profile['idle_share']:.3f}, overflow {overflow}", flush=True)
+        config_path = os.path.join(work, f"{name}_semseg.py")
+        cfg.dump(config_path)
+        del trainer
+    torch.cuda.empty_cache()
+    return config_path, checkpoint, counts
+
+
+def phase_mink_test(work, config_path, checkpoint, n_voxels=160000):
+    """The test entry point on mink_train's config and checkpoint
+    (SemSegTester, the file's 9 views, fragment voting) over one synthetic
+    room of 2 ``n_voxels`` + 1 Gaussians, through run_test_entry: torch.sort and K3
+    under deterministic algorithms (equal predictions and metrics; K3
+    MINK_SORTS times a fragment forward with the switch on, none off; no K1
+    or K2), then as a user runs it, for the seconds per room. Returns the
+    K3 run's sort calls, kernel launches and fragment forwards, and K1's
+    and K2's launches."""
+    t0 = time.perf_counter()
+    reset_k2_counts()
+    data_root = os.path.join(work, "mink_test")
+    n_points = write_test_scenes(data_root, 1, n_voxels, seed=98, semseg=True)
+    write_s = time.perf_counter() - t0
+    runs = run_test_entry(work, "mink_test", [
+        "--config-file", config_path, "--options", f"weight={checkpoint}",
+        f"data.test.data_root={data_root}"], WindowCalls(limit=0, max_window=1024))
+    off, on, timed = runs["off"], runs["on"], runs["timed"]
+    for key, pred in off["preds"].items():
+        check(pred.shape == (n_points,), f"mink_test: {key} {pred.shape}")
+        check(np.array_equal(pred, on["preds"][key]),
+              f"mink_test: {key}: predictions differ with the sort switch on")
+    for key, value in off["res"].items():
+        check(np.array_equal(value, on["res"][key]),
+              f"mink_test: metric {key} differs with the sort switch on")
+    fragments = sum(sc["fragments"] for sc in on["scenes"])
+    check(fragments >= 9, f"mink_test: {fragments} fragments for 9 views")
+    check(off["sort_calls"] == timed["sort_calls"] == 0
+          and on["sort_calls"] == MINK_SORTS * fragments and on["sort_kernels"] > 0,
+          f"mink_test: K3 {off['sort_calls']}, {on['sort_calls']} ({on['sort_kernels']} "
+          f"kernels) and {timed['sort_calls']} sorts, expected {MINK_SORTS} a fragment forward "
+          "with the switch on only")
+    counts = path_attention_counts("mink_test", k1=sum(r["k1"] for r in runs.values()))
+    check(np.isfinite(off["res"]["mIoU"]), f"mink_test: mIoU {off['res']['mIoU']}")
+    emit(dict(phase="mink_test", config="semseg file with sparse_config('mink')",
+              dtype="float32", scenes=1, points_per_scene=n_points, views=9,
+              fragments=fragments, dataset_write_s=write_s,
+              switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
+                              per_scene=scene_split(off)),
+              switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
+                             per_scene=scene_split(on), sort_calls=on["sort_calls"],
+                             sort_kernel_launches=on["sort_kernels"]),
+              as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
+                                     seconds=timed["seconds"], per_scene=scene_split(timed),
+                                     mIoU=timed["res"]["mIoU"]),
+              predictions_equal=True, mIoU=off["res"]["mIoU"]))
+    for sc in scene_split(timed):
+        print(f"mink_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: "
+              f"fetch {sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, vote "
+              f"{sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
+    return dict(sort_calls=on["sort_calls"], sort_kernels=on["sort_kernels"],
+                fragments=fragments), counts
+
+
+def sparse_phases(work):
+    """The sparse-conv backbones' phases, in order: each one's agree, the
+    four train phases over one set of rooms, then mink_test. Returns K1's
+    and K2's counts by phase and mink_test's sorts."""
+    counts = {f"{name}_agree": phase_sparse_agree(name) for name in SPARSE_BACKBONES}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, data_s = write_sparse_rooms(tmp)
+        trained = {}
+        for name in SPARSE_BACKBONES:
+            *trained[name], counts[f"{name}_train"] = phase_sparse_train(work, name, root, data_s)
+    sorts, counts["mink_test"] = phase_mink_test(work, *trained["mink"], n_voxels=100000)
+    return counts, sorts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5810,17 +6150,24 @@ def main() -> int:
         phase_shipped(text)
         phase_agree(text)
         worst_bwd, worst_fwd_lse = phase_kernel_bwd()
+        # the flagship rooms, written once for train and ddp_train
+        flagship_data = write_flagship_data(os.path.join(work, "flagship_data"))
         train_shapes, k1_train, k1_val, k1_variants_train, k2_variants, checkpoint, plain = \
-            phase_train(work)
+            phase_train(work, flagship_data)
         tot_bwd = phase_timing_bwd(train_shapes)
         phase_train_agree()
-        ddp_record, ddp_checkpoint = phase_ddp_train(work, plain)
+        ddp_record, ddp_checkpoint = phase_ddp_train(work, plain, flagship_data)
         ddp_ranks = phase_ddp_agree(work, ddp_checkpoint, meta_root)
         worst_sort = phase_kernel_sort()
         # the older phases at a cut depth, to leave time for the later
-        # paths' phases: one test scene where there were two, 4 train steps
-        # where there were 6 (ssl, semseg, insseg, msc, cac), 3 PPT steps
-        # (A A B) where there were 6 (ppt, ppt over SpUNet)
+        # paths' phases: one test scene where there were two, 3 train steps
+        # where there were 4 to 6 (semseg, insseg, cac; ssl and msc keep 4,
+        # an even count: their loaders pass whole over 4 rooms), 3 PPT
+        # steps (A A B) where there were 6 (ppt, ppt over SpUNet), 3 PT-v2m2
+        # steps where there were 5, test rooms of 200,001 Gaussians where
+        # there were 320,001 (semseg, ppt, cac and ptv2 test), one timed rep
+        # of each plain backward where there were two, MSC-v1m2's agree step
+        # at one block a stage
         sort_calls, sort_kernels, fragments, sort_sizes, test_variants, test_shapes = \
             phase_test(work, checkpoint, meta_root, n_scenes=1)
         tot_sort = phase_timing_sort(sort_sizes)
@@ -5831,40 +6178,50 @@ def main() -> int:
         phase_ssl_agree()
         teacher_weight = phase_warm_start(work, ssl_checkpoint, checkpoint)
         semseg_shapes, semseg_k1, semseg_k1_variants, semseg_k2_variants, semseg_checkpoint = \
-            phase_semseg_train(work, teacher_weight, steps=4)
+            phase_semseg_train(work, teacher_weight, steps=3)
         semseg_bwd = phase_timing_bwd(semseg_shapes, phase="semseg_timing_bwd")
         phase_semseg_agree()
         semseg_on, semseg_fragments, semseg_sort_sizes, semseg_calls = \
-            phase_semseg_test(work, semseg_checkpoint, n_scenes=1)
+            phase_semseg_test(work, semseg_checkpoint, n_voxels=100000, n_scenes=1)
         semseg_fwd = phase_timing_test(semseg_calls, phase="semseg_timing_test")
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
-        tasks_ddp = {task: phase_task_ddp_agree(work, task) for task in ("semseg", "ssl")}
+        # the two-rank checks: each reference step here, their ranks in one
+        # spawn after cac_agree (phase_shared_ddp_agree)
+        ddp_pending = [prepare_task_ddp_agree(work, task) for task in ("semseg", "ssl")]
         remat = phase_remat_agree()
         ppt_shapes, ppt_k1, ppt_k1_variants, ppt_k2_variants, ppt_checkpoint = \
             phase_ppt_train(work, steps=3)
         ppt_bwd = phase_timing_bwd(ppt_shapes, phase="ppt_timing_bwd")
-        ppt_test_variants, ppt_fragments, ppt_calls = phase_ppt_test(work, ppt_checkpoint)
+        ppt_test_variants, ppt_fragments, ppt_calls = phase_ppt_test(work, ppt_checkpoint,
+                                                                     n_voxels=100000)
         ppt_fwd = phase_timing_test(ppt_calls, phase="ppt_timing_test")
         phase_ppt_agree()
-        ppt_ddp = phase_ppt_ddp_agree(work)
+        ddp_pending.append(prepare_ppt_ddp_agree(work))
         phase_rpe_agree()
         phase_spunet_agree()
-        insseg_val, insseg_model = phase_insseg_train(work, steps=4)
+        insseg_val, insseg_model = phase_insseg_train(work, steps=3)
         phase_insseg_oracle(insseg_val, insseg_model)
         insseg_kernels = phase_insseg_agree()
-        insseg_ddp = phase_task_ddp_agree(work, "insseg")
+        ddp_pending.append(prepare_task_ddp_agree(work, "insseg"))
         phase_msc_agree()
         phase_msc_train(work, steps=4)
-        cac_config_path, cac_best = phase_cac_train(work, steps=4)
-        phase_cac_test(work, cac_config_path, cac_best)
+        cac_config_path, cac_best = phase_cac_train(work, steps=3)
+        phase_cac_test(work, cac_config_path, cac_best, n_voxels=100000)
         cac_kernels = phase_cac_agree()
-        spunet_ddp = {task: phase_task_ddp_agree(work, task) for task in ("msc", "cac")}
+        ddp_pending += [prepare_task_ddp_agree(work, task) for task in ("msc", "cac")]
+        ddp = phase_shared_ddp_agree(work, ddp_pending)
+        del ddp_pending
+        tasks_ddp = {task: ddp[f"{task}_ddp_agree"] for task in ("semseg", "ssl")}
+        ppt_ddp, insseg_ddp = ddp["ppt_ddp_agree"], ddp["insseg_ddp_agree"]
+        spunet_ddp = {task: ddp[f"{task}_ddp_agree"] for task in ("msc", "cac")}
         phase_ppt_spunet_train(work, steps=3)
         ptv2_counts = dict(ptv2_agree=phase_ptv2_agree())
         ptv2_config_path, ptv2_best, ptv2_counts["ptv2_train"] = phase_ptv2_train(work)
-        ptv2_sorts, ptv2_counts["ptv2_test"] = phase_ptv2_test(work, ptv2_config_path, ptv2_best)
+        ptv2_sorts, ptv2_counts["ptv2_test"] = phase_ptv2_test(work, ptv2_config_path, ptv2_best,
+                                                                n_voxels=100000)
         ptv2_counts["ptv1_agree"] = phase_ptv1_agree()
         ptv2_counts["ppt_ptv2_train"] = phase_ppt_ptv2_train(work, steps=3)
+        sparse_counts, mink_sorts = sparse_phases(work)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -5944,6 +6301,17 @@ def main() -> int:
         return dict(path="ptv2, ptv1, ppt over PT-v2m3", launches=sum(by_phase.values()),
                     phase_launches=by_phase)
 
+    # "sparse": MinkUNet34C, SPVCNN, OACNNs and OctFormer-v1m1 (the
+    # <name>_agree and <name>_train phases, mink_test) have no window
+    # attention (OctFormer's is plain torch with its RPE bias): each phase
+    # counts K1 and K2 from 0 and checks 0; K3 runs on the mink test path
+    # with the switch on
+
+    def sparse_path(kernel):
+        by_phase = {phase: c[kernel] for phase, c in sparse_counts.items()}
+        return dict(path="minkunet, spvcnn, oacnns, octformer", launches=sum(by_phase.values()),
+                    phase_launches=by_phase)
+
     teacher_large = ssl_teacher["by_variant"]["bf16_large"]
     teacher_small = ssl_teacher["by_variant"]["bf16_small"]
     emit({"kernels": [
@@ -5996,7 +6364,7 @@ def main() -> int:
                          agree_variant_launches=insseg_kernels["k1_lse_variants"]),
              spunet_tasks=dict(spunet_tasks, agree_launches=cac_kernels["k1_lse"],
                                agree_variant_launches=cac_kernels["k1_lse_variants"]),
-             ptv2=ptv2_path("k1")),
+             ptv2=ptv2_path("k1"), sparse=sparse_path("k1")),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -6053,7 +6421,7 @@ def main() -> int:
              spunet_tasks=dict(spunet_tasks, spunet_two_rank_launches=sum(
                  d["k2"] for d in spunet_ddp.values()), agree_launches=cac_kernels["k2"],
                  agree_variant_launches=cac_kernels["k2_variants"]),
-             ptv2=ptv2_path("k2")),
+             ptv2=ptv2_path("k2"), sparse=sparse_path("k2")),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -6071,7 +6439,12 @@ def main() -> int:
              ptv2=dict(path="ptv2 test (PT-v2m2's 4 grid poolings, switch on)",
                        ms_per="fragment forward", launches=ptv2_sorts["sort_calls"],
                        kernel_launches=ptv2_sorts["sort_kernels"],
-                       fragment_forwards=ptv2_sorts["fragments"]))]})
+                       fragment_forwards=ptv2_sorts["fragments"]),
+             sparse=dict(path=f"mink test (MinkUNet34C's {MINK_SORTS} sorts a fragment forward, "
+                              "switch on)", ms_per="fragment forward",
+                         launches=mink_sorts["sort_calls"],
+                         kernel_launches=mink_sorts["sort_kernels"],
+                         fragment_forwards=mink_sorts["fragments"]))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -97,8 +97,9 @@ class TrainerBase:
 @TRAINERS.register_module("DefaultTrainer")
 class Trainer(TrainerBase):
     """Single-dataset trainer on ``device`` (``cuda:LOCAL_RANK`` in a
-    process group); the task comes from the model type (``TASKS``), and a
-    type outside it raises."""
+    process group). The task is the config's ``task`` where it sets one (a
+    v1 DefaultSegmentor sets "semseg"), else the model type's (``TASKS``);
+    a type outside the table without ``task`` raises."""
 
     TASKS = {"LangPretrainer": "lang", "DefaultSegmentorV2": "semseg",
              "PPT-v1m1": "ppt", "PPT-v1m2": "ppt", "PG-v1m1": "insseg",

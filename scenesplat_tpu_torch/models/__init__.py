@@ -11,3 +11,6 @@ from . import spunet, point_group  # noqa: E402,F401
 from . import msc, cac  # noqa: E402,F401
 # registers PT-v2m1/m2/m3 and PointTransformer-{Seg,Cls,PartSeg}{26,38,50}
 from . import ptv1, ptv2  # noqa: E402,F401
+# registers MinkUNet14/18/34/50/101 and their A-D variants, SPVCNN, OACNNs
+# and OctFormer-v1m1
+from . import mink_unet, spvcnn, oacnns, octformer  # noqa: E402,F401

@@ -206,6 +206,18 @@ class BasicBlock(nn.Module):
         return F.relu(x + residual)
 
 
+def make_level(grid_coord, mask, ser, depth: int) -> StageState:
+    """A resolution's geometry: its voxels, serialization and k=3 plan."""
+    return StageState(None, grid_coord, mask, ser,
+                      build_subm_conv_plan(grid_coord, mask, 3, depth))
+
+
+def downsampled_level(level: StageState, plan, depth: int) -> StageState:
+    """The parents of ``level``'s voxels under a depth-1 pooling ``plan``."""
+    grid = take_along_points(level.grid_coord, plan.head_index) >> 1
+    return make_level(grid, plan.out_mask, pool_serialization(plan, level.ser, 1), depth)
+
+
 def _round_cap(n: int, frac: float) -> int:
     return min(n, max(16, int(math.ceil(n * frac / 16)) * 16))
 
@@ -315,9 +327,7 @@ class SpUNet(nn.Module):
             plans.append(plan)
             skips.append((feat, level))
             x = self.down[s].convolution(feat, plan, level.grid_coord)
-            grid = take_along_points(level.grid_coord, plan.head_index) >> 1
-            level = StageState(None, grid, plan.out_mask, pool_serialization(plan, level.ser, 1),
-                               build_subm_conv_plan(grid, plan.out_mask, 3, depth))
+            level = downsampled_level(level, plan, depth)
             feat = F.relu(apply_norm(self.down[s].normalization, x, level.mask, cond))
             for blk in self.enc[s].blocks():
                 feat = blk(feat, level, cond)

@@ -55,6 +55,18 @@ and PartSeg in point_transformer_seg.py's names, the inverse of
 ``convert_ptv1_checkpoint``; Cls (``cls_fc3``) in point_transformer_cls.py's
 (a stage's bottlenecks from ``enc{s}.1``, the head ``cls.{0,1,4,5,8}``).
 DefaultSegmentorSkip's head keeps its flax names ``fc{1,2,3}``, ``ln{1,2}``.
+
+The sparse-conv backbones, each the inverse of its converter in
+``scenesplat_tpu/utils/ckpt_bridge.py``: MinkUNet (a tree with ``conv0``;
+``convert_mink_checkpoint``) in MinkowskiEngine's names, kernels as
+Minkowski's [K, Cin, Cout] (``conv0p1s1.kernel``, ``bn0.bn.*``,
+``conv{s}p{2^(s-1)}s2``, ``convtr{j}p{2^(8-j)}s2``, ``block{k}.{i}.*``,
+``final``); SPVCNN (``point_transform0_fc``; ``convert_spvcnn_checkpoint``)
+in ts_spvcnn.py's, torchsparse's ``kernel`` [K, Cin, Cout]; OACNNs
+(``stem0_norm``; ``convert_oacnns_checkpoint``) in oacnns_v1m1_base.py's,
+spconv's [k, k, k, Cin, Cout] (``final`` as [1, 1, 1, Cin, Cout]);
+OctFormer-v1m1 (``embed_proj_conv``; ``convert_octformer_checkpoint``) in
+octformer_v1m1_base.py's, ocnn's ``weights`` [taps, Cin, Cout].
 """
 
 from __future__ import annotations
@@ -80,7 +92,8 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
                          teacher_params=None, teacher_batch_stats=None,
                          constants=None, pdnorm_decouple: bool = True
                          ) -> Dict[str, np.ndarray]:
-    """Flax PTv3, SpUNet, PTv2 or PTv1 (or LangPretrainer, DefaultSegmentorV2,
+    """Flax PTv3, SpUNet, PTv2, PTv1, MinkUNet, SPVCNN, OACNNs or
+    OctFormer (or LangPretrainer, DefaultSegmentorV2,
     DefaultSegmentor, DefaultSegmentorSkip, DefaultPretrainer, SimDINOSSL,
     PPT-v1m1, PPT-v1m2, PG-v1m1, MSC-v1m1, MSC-v1m2, CAC-v1m1)
     variables -> Pointcept-layout
@@ -206,6 +219,15 @@ class _Writer:
         if rm is not None or rv is not None:
             self.put(tkey + ".num_batches_tracked", np.zeros((), np.int64))
 
+    def raw(self, tkey, fpath, leaf="kernel", name="kernel"):
+        """A leaf as it is (a Minkowski, torchsparse or ocnn kernel), and
+        the bias beside it."""
+        w = self.get(fpath + (leaf,))
+        if w is None:
+            return
+        self.put(f"{tkey}.{name}", w)
+        self.bias(tkey, fpath)
+
     def conv(self, tkey, fpath):
         """[K3, Cin, Cout] -> spconv's [k, k, k, Cin, Cout]; a Dense kernel
         [Cin, Cout] (a 1x1 conv) -> [1, 1, 1, Cin, Cout]."""
@@ -231,6 +253,12 @@ def _backbone_state(bb_params, bb_stats, backbone_prefix: str,
     if "conv_input" in bb_params or "norm_input" in bb_stats:
         _spunet_state(w, pdnorm_decouple)
         return out
+    names = set(bb_params) | set(bb_stats)
+    for key, writer in (("bn0", _mink_state), ("point_transform0_norm", _spvcnn_state),
+                        ("stem0_norm", _oacnns_state), ("embed_proj_norm", _octformer_state)):
+        if key in names:
+            writer(w)
+            return out
     if "patch_embed_proj" in bb_params or "patch_embed_norm" in bb_stats:
         _ptv2_state(w, pdnorm_decouple)
         return out
@@ -455,6 +483,168 @@ def _ptv1_state(w: _Writer) -> None:
             w.dense(f"{t}.linear2.0", (name, "linear2"))
             bn(f"{t}.linear2.1", (name, "bn2"))
             w.dense(f"{t}.linear3.0", (name, "linear3"))
+
+
+def _mink_state(w: _Writer) -> None:
+    """A MinkUNet's leaves in MinkowskiEngine's names (the inverse of
+    ``convert_mink_checkpoint``)."""
+
+    def bn(tkey, fpath):
+        w.bn(tkey + ".bn", fpath)
+
+    w.raw("conv0p1s1", ("conv0",))
+    bn("bn0", ("bn0",))
+    w.raw("final", ("final",))
+    for s in range(1, 5):
+        w.raw(f"conv{s}p{2 ** (s - 1)}s2", (f"conv{s}_down",))
+        bn(f"bn{s}", (f"bn{s}",))
+    for j in range(4, 8):
+        w.raw(f"convtr{j}p{2 ** (8 - j)}s2", (f"convtr{j}",))
+        bn(f"bntr{j}", (f"bntr{j}",))
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)", name)
+        if m:
+            side, s, i = m.group(1), int(m.group(2)), m.group(3)
+            t = f"block{s if side == 'enc' else s + 1}.{i}"
+            for j in (1, 2, 3):
+                w.raw(f"{t}.conv{j}", (name, f"conv{j}"))
+                bn(f"{t}.norm{j}", (name, f"norm{j}"))
+            w.raw(f"{t}.downsample.0", (name, "downsample"))
+            bn(f"{t}.downsample.1", (name, "downsample_norm"))
+
+
+def _spvcnn_state(w: _Writer) -> None:
+    """An SPVCNN's leaves in ts_spvcnn.py's names (the inverse of
+    ``convert_spvcnn_checkpoint``)."""
+
+    def res_block(t, f):
+        w.raw(f"{t}.net.0", f + ("conv1",))
+        w.bn(f"{t}.net.1", f + ("norm1",))
+        w.raw(f"{t}.net.3", f + ("conv2",))
+        w.bn(f"{t}.net.4", f + ("norm2",))
+        w.raw(f"{t}.downsample.0", f + ("downsample",))
+        w.bn(f"{t}.downsample.1", f + ("downsample_norm",))
+
+    for i in range(2):
+        w.raw(f"stem.{3 * i}", (f"stem{i}", "conv"))
+        w.bn(f"stem.{3 * i + 1}", (f"stem{i}", "norm"))
+    w.dense("classifier.0", ("classifier",))
+    for t in range(3):
+        w.dense(f"point_transforms.{t}.0", (f"point_transform{t}_fc",))
+        w.bn(f"point_transforms.{t}.1", (f"point_transform{t}_norm",))
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"(stage|up)(\d+)_(down|deconv)", name)
+        if m:
+            t = f"{m.group(1)}{m.group(2)}.0.net"
+            w.raw(f"{t}.0", (name,))
+            w.bn(f"{t}.1", (f"{name}_norm",))
+            continue
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+        if m:
+            res_block(f"stage{m.group(1)}.{int(m.group(2)) + 1}", (name,))
+            continue
+        m = re.fullmatch(r"up(\d+)_block(\d+)", name)
+        if m:
+            res_block(f"up{m.group(1)}.1.{m.group(2)}", (name,))
+
+
+def _oacnns_state(w: _Writer) -> None:
+    """An OACNNs' leaves in oacnns_v1m1_base.py's names (the inverse of
+    ``convert_oacnns_checkpoint``)."""
+
+    def lin_bn(t, f):
+        w.dense(f"{t}.0", f + ("fc",))
+        w.bn(f"{t}.1", f + ("norm",))
+
+    for i in range(3):
+        w.conv(f"stem.{3 * i}", (f"stem{i}",))
+        w.bn(f"stem.{3 * i + 1}", (f"stem{i}_norm",))
+    w.conv("final", ("final",))
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"enc(\d+)_down", name)
+        if m:
+            w.conv(f"enc.{m.group(1)}.down.0", (name,))
+            w.bn(f"enc.{m.group(1)}.down.1", (f"{name}_norm",))
+            continue
+        m = re.fullmatch(r"enc(\d+)_block(\d+)", name)
+        if m:
+            t, f = f"enc.{m.group(1)}.blocks.{m.group(2)}", (name,)
+            scales = sorted(int(k[3:]) for k in w.node(f) if re.fullmatch(r"l_w\d+", k))
+            for j in scales:
+                lin_bn(f"{t}.l_w.{j}", f + (f"l_w{j}",))
+                w.dense(f"{t}.weight.{j}", f + (f"weight{j}",))
+                lin_bn(f"{t}.proj.{j}", f + (f"proj{j}",))
+            lin_bn(f"{t}.proj.{len(scales)}", f + ("proj_last",))
+            w.dense(f"{t}.adaptive", f + ("adaptive",))
+            lin_bn(f"{t}.fuse", f + ("fuse",))
+            w.conv(f"{t}.voxel_block.0", f + ("vconv1",))
+            w.bn(f"{t}.voxel_block.1", f + ("vnorm1",))
+            w.conv(f"{t}.voxel_block.3", f + ("vconv2",))
+            w.bn(f"{t}.voxel_block.4", f + ("vnorm2",))
+            continue
+        m = re.fullmatch(r"dec(\d+)_up", name)
+        if m:
+            s = m.group(1)
+            w.conv(f"dec.{s}.up.0", (name,))
+            w.bn(f"dec.{s}.up.1", (f"{name}_norm",))
+            lin_bn(f"dec.{s}.fuse", (f"dec{s}_fuse1",))
+            w.dense(f"dec.{s}.fuse.3", (f"dec{s}_fuse2_fc",))
+            w.bn(f"dec.{s}.fuse.4", (f"dec{s}_fuse2_norm",))
+
+
+def _octformer_state(w: _Writer) -> None:
+    """An OctFormer-v1m1's leaves in octformer_v1m1_base.py's names (the
+    inverse of ``convert_octformer_checkpoint``)."""
+
+    def conv_bn(t, conv, norm, bn="bn"):
+        w.raw(f"{t}.conv", (conv,), name="weights")
+        w.bn(f"{t}.{bn}", (norm,))
+
+    for name in sorted(set(w.params) | set(w.stats)):
+        m = re.fullmatch(r"embed(\d+)_conv", name)
+        if m:
+            i = m.group(1)
+            conv_bn(f"patch_embed.convs.{i}", name, f"embed{i}_norm")
+            conv_bn(f"patch_embed.downsamples.{i}", f"embed{i}_down_conv",
+                    f"embed{i}_down_norm")
+            continue
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+        if m:
+            t, f = "layers.{}.blocks.{}".format(*m.groups()), (name,)
+            cpe = w.get(f + ("cpe_weight",))
+            if cpe is not None:
+                w.put(f"{t}.cpe.conv.weights", cpe)
+            w.bn(f"{t}.cpe.bn", f + ("cpe_norm",))
+            w.ln(f"{t}.norm1", f + ("norm1",))
+            w.dense(f"{t}.attention.qkv", f + ("attention", "qkv"))
+            w.dense(f"{t}.attention.proj", f + ("attention", "proj"))
+            rpe = w.get(f + ("attention", "rpe_table"))
+            if rpe is not None:
+                w.put(f"{t}.attention.rpe.rpe_table", rpe)
+            w.ln(f"{t}.norm2", f + ("norm2",))
+            w.dense(f"{t}.mlp.fc1", f + ("mlp_fc1",))
+            w.dense(f"{t}.mlp.fc2", f + ("mlp_fc2",))
+            continue
+        m = re.fullmatch(r"down(\d+)_conv", name)
+        if m:
+            conv_bn(f"downsamples.{m.group(1)}", name, f"down{m.group(1)}_norm", bn="norm")
+            continue
+        m = re.fullmatch(r"fpn_fc(\d+)", name)
+        if m:
+            w.dense(f"decoder.conv1x1.{m.group(1)}", (name,))
+            continue
+        m = re.fullmatch(r"fpn_conv(\d+)_conv", name)
+        if m:
+            conv_bn(f"decoder.conv3x3.{m.group(1)}", name, f"fpn_conv{m.group(1)}_norm")
+            continue
+        m = re.fullmatch(r"up_conv(\d+)", name)
+        if m:
+            w.raw(f"decoder.up_conv.{m.group(1)}.conv", (name,), name="weights")
+            w.bn(f"decoder.up_conv.{m.group(1)}.bn", (f"{name}_norm",))
+    conv_bn("patch_embed.proj", "embed_proj_conv", "embed_proj_norm")
+    w.dense("seg_head.0", ("seg_fc1",))
+    w.bn("seg_head.1", ("seg_norm",))
+    w.dense("seg_head.3", ("seg_fc2",))
 
 
 def load_flax_weights(model: torch.nn.Module, params, batch_stats, **kwargs):

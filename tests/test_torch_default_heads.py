@@ -8,7 +8,8 @@ the output's scale (one JAX jit a head, about 8 s). Then the trainer's
 ``task`` key: a DefaultSegmentor config with task="semseg" trains through
 ``python -m scenesplat_tpu_torch.train`` (the semseg file cut to a tiny
 PT-v2m2), and without the key it raises, as the port always has for a type
-outside its table (the JAX trainer falls back to "lang")."""
+outside its table (the JAX trainer falls back to "lang"); and two Trainer
+steps of a DefaultSegmentor over a narrow MinkUNet14."""
 
 import copy
 import json
@@ -94,3 +95,28 @@ def test_task_key_trains_a_v1_segmentor(gs_root, tmp_path):  # noqa: F811
 
     with pytest.raises(NotImplementedError, match="task"):
         build_trainer(_ptv2_semseg(gs_root, str(tmp_path / "none"), task=None), device="cpu")
+
+
+def test_trainer_takes_two_minkunet_steps(gs_root, tmp_path):  # noqa: F811
+    """DefaultSegmentor over a narrow MinkUNet14 with task="semseg": one
+    epoch of the port's Trainer on the CPU over the 4 training rooms at
+    batch 1 (the file's Mix3D merges them in pairs: two steps), finite
+    losses and gradient norms, the BatchNorm statistics moved."""
+    from tests.test_torch_semseg import NUM_CLASSES
+    from scenesplat_tpu_torch.engines.train import build_trainer
+
+    cfg = _tiny_semseg(gs_root, str(tmp_path / "exp"))
+    cfg.merge_from_options(dict(epoch=1, eval_epoch=1, batch_size=1))
+    cfg.model = dict(type="DefaultSegmentor", criteria=cfg.model.criteria,
+                     backbone=dict(type="MinkUNet14", in_channels=14, out_channels=NUM_CLASSES,
+                                   init_dim=8, planes=(8, 16, 16, 16, 16, 16, 8, 8)))
+    cfg.task = "semseg"
+    cfg.hooks = [h for h in cfg.hooks if h["type"] != "PreciseEvaluator"]
+    trainer = build_trainer(cfg, device="cpu")
+    assert trainer.task == "semseg"
+    before = trainer.model.state_dict()["backbone.bn0.bn.running_mean"].clone()
+    trainer.train()
+    losses = trainer.storage.history("loss").values()
+    assert len(losses) == 2 and np.isfinite(losses + trainer.storage.history(
+        "grad_norm").values()).all()
+    assert not torch.equal(trainer.model.state_dict()["backbone.bn0.bn.running_mean"], before)
