@@ -206,7 +206,7 @@ Phases, one JSON line each:
      gradient nonzero, no K1 or K2 launch;
  30. spunet_agree: instance segmentation's model, PG-v1m1 over
      SpUNet-v1m1 at its published widths (channels 32 to 256, layers
-     2 3 4 6 2 2 2 2), fp32, 2 rows of 24,576 points of a room with
+     2 3 4 6 2 2 2 2), fp32, 2 rows of 16,384 points of a room with
      objects: one step's loss, gradients and BatchNorm statistics on the
      card against the CPU (1e-5; each gradient to 1e-4 of its norm or to
      2.5 times the noise floor of the card's step on the rows' points in 3
@@ -229,11 +229,11 @@ Phases, one JSON line each:
      49,152 points, fp32, one insseg step with the kernels (K1 with lse and
      K2) against the plain attention (losses 1e-5, gradients 1e-4);
  34. insseg_ddp_agree: phase 23's check for PG over SpUNet-v1m1: two ranks
-     over gloo against one process at 2 rows of 24,576 (loss 1e-5,
+     over gloo against one process at 2 rows of 16,384 (loss 1e-5,
      gradients and statistics 1e-4 and 1e-6 or under phase 30's noise-floor
      rule), no kernel launch;
  35. msc_agree: Masked Scene Contrast, MSC-v1m1 and MSC-v1m2 (CSC) over
-     SpUNet-v1m1 at its published widths, fp32, 2 rows x 2 views of 24,576
+     SpUNet-v1m1 at its published widths, fp32, 2 rows x 2 views of 16,384
      points, view 1 mixed, the card's own cross masks and pairs injected
      through the replay keys: one step's loss terms, gradients and
      statistics on the card against the CPU (terms to 1e-5 of the loss,
@@ -261,7 +261,7 @@ Phases, one JSON line each:
      (published widths, adaptive PDNorm, context 256): each step's
      condition and only its norms' statistics moved, each condition's val
      mIoU, no K1 or K2 launch;
- 41. ptv2_agree: Point Transformer V2, fp32, one room of 49,152 points
+ 41. ptv2_agree: Point Transformer V2, fp32, one room of 8,192 points
      (jittered off the lattice by 3 mm): the kNN and FPS indices on the
      card equal the CPU's; one train step (CE + Lovasz) of DefaultSegmentor
      over PT-v2m2 at Pointcept's published widths and depths, then PT-v2m1
@@ -283,10 +283,11 @@ Phases, one JSON line each:
      each of the 4 grid poolings of every fragment forward), then as a
      user runs it, for the seconds per scene;
  44. ptv1_agree: PointTransformer-Seg50 under DefaultSegmentor, fp32, 2
-     rows of 16,384 points, one step on the card against a float64 step on
+     rows of 4,096 points, one step on the card against a float64 step on
      the CPU (the noise floor of the CPU's fp32 step, of the rows swapped
      and of 2 orders that keep each row's first point, where FPS starts),
-     FPS ms a call on the card; Cls38 and PartSeg26 (shape categories) eval
+     FPS ms a call on the card (the FPS kernel's launches counted);
+     Cls38 and PartSeg26 (shape categories) eval
      forwards on both (1e-4); K1 and K2 counted from 0 (none);
  45. ppt_ptv2_train: ppt_train's run with PPT-v1m1 over PT-v2m3 at the
      published widths (adaptive PDNorm, context 256), 3 steps A A B: each
@@ -314,7 +315,35 @@ Phases, one JSON line each:
  54. mink_test: the test entry on mink_train's config and checkpoint over
      one 200,001-Gaussian room (9 views): torch.sort and K3 under
      deterministic algorithms (equal predictions and metrics, K3 6 times a
-     fragment forward), then as a user runs it, for the seconds per room.
+     fragment forward), then as a user runs it, for the seconds per room;
+ 55. fps_kernel: the farthest point sampling kernel
+     (csrc/farthest_point_sampling.cu; it replaces no TPU kernel, the JAX
+     FPS is an XLA fori_loop) against its plain loop on the card, ids
+     bit-equal, at the 5 FPS calls of an ST forward over the train rows
+     (2 rows of 205,824 slots: a room's lattice, where distances tie
+     everywhere, and a jittered one with a padding tail and its first
+     slots masked; each level the previous one's samples) and at PTv1's 4
+     (ptv1_agree's rows): kernel and plain CUDA-event times, M, and the
+     bound (the valid points' operations of the M steps at the fp32 rate);
+ 56. st_agree: one fp32 semseg train step of DefaultSegmentor over ST-v1m2
+     at its default widths (channels 48-384, depths 3/9/3/3, the KPConv
+     stem, the three RPE tables), 2 rows of 4,096 points, on the card
+     against a float64 witness on the CPU (card_cpu_agree; the floor from
+     the CPU's fp32 step and the card's step on the rows swapped, not from
+     permuted points, which change ST's function); K1 and K2 counted from
+     0 (none), the FPS kernel 5 times a step;
+ 57. st_train: the semseg trainer on st_config (the file's data, optimizer
+     and hooks but PreciseEvaluator, task="semseg") at batch 2, 205,824
+     slots, 1 + 2 steps over the sparse phases' rooms and one validation
+     room: losses, val mIoU, no K1 or K2 launch, the FPS kernel's launches
+     and ms a step, the window members truncated per stage (fine and
+     coarse tables), step times, loader waits, peak memory, one profiled
+     step's idle share;
+ 58. st_test: the test entry on st_train's config and checkpoint over one
+     200,001-Gaussian room (9 views): torch.sort and K3 under
+     deterministic algorithms (equal predictions and metrics, K3 16 times a
+     fragment forward: each stage's four window tables, some past one
+     cluster's tile), then as a user runs it, for the seconds per room.
 To make room for phases 41-45, msc_train and cac_train run 4 steps where
 they ran 6, and ppt_train and ppt_spunet_train 3 where they ran 6 (A A
 B); for phases 46-54, semseg_train, insseg_train and cac_train run 3
@@ -326,7 +355,11 @@ rooms are written once for train and ddp_train, MSC-v1m2's agree step
 runs one block a stage, the agree phases copy one built model where they
 built one a run, each timing phase times the plain backward once where
 it timed it twice, and the six two-rank checks of phases 23-39 share one
-spawn. Each phase's
+spawn; for phases 55-58 the CPU witness steps of the agree phases take
+fewer points (ptv2_agree 8,192 where it took 49,152; ptv1_agree 2 rows
+of 4,096 where they were 16,384; spunet_agree, msc_agree and the insseg,
+msc and cac two-rank checks 16,384 a row where they took 24,576), their
+checks and bounds as they were. Each phase's
 JSON line carries the script's seconds so far (``t_s``); PERF.md gives the
 whole script's seconds on one H100 80GB HBM3 at 700 W, run by run.
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
@@ -369,6 +402,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -403,11 +437,13 @@ from scenesplat_tpu_torch.entry import (
     build_lang_model,
 )
 from scenesplat_tpu_torch.models import PointBatch, build_criteria, build_model
+from scenesplat_tpu_torch.models import stratified
 from scenesplat_tpu_torch.models.ppt import valid_index_by_name
 from scenesplat_tpu_torch.models.ptv3 import PointTransformerV3, _round_capacity
 from scenesplat_tpu_torch.models.ssl import generate_token_masks
 from scenesplat_tpu_torch.ops import bitonic_sort as bs
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa
+from scenesplat_tpu_torch.ops import fps as fps_ops
 from scenesplat_tpu_torch.ops import pointops
 from scenesplat_tpu_torch.ops import window_attention as window_attention_module
 from scenesplat_tpu_torch.ops.knn import knn
@@ -546,7 +582,8 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libraries = (fwa.LIBRARY, fwa.LIBRARY_SMALL, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD, bs.LIBRARY)
+    libraries = (fwa.LIBRARY, fwa.LIBRARY_SMALL, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD, bs.LIBRARY,
+                 fps_ops.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         build_s = dict(zip((lib.source.name for lib in libraries),
@@ -3581,13 +3618,13 @@ def prepare_task_ddp_agree(work, task):
     unmoved (the MCR expansion's cotangent at the heads given to both sides,
     as in ssl_agree: given_expansion_cotangent). K1 with lse and K2 launch
     on each rank. insseg: PointGroup over SpUNet-v1m1 at its published
-    widths (the insseg configuration's model), 2 rows of 24,576 points, the
+    widths (the insseg configuration's model), 2 rows of 16,384 points, the
     reference's CE and the two bias terms over the global batch; the loss to
     1e-5, every gradient to 1e-4 of its norm or under the noise floor rule
     (compare_steps; the floor of one process's step on the points in 3
     other orders), the statistics to 1e-6 or that rule with their floor; no
     K1 or K2 launch. msc: MSC-v1m1 at its published widths (view mixing
-    off), 2 rows x 2 views of 24,576 points with msc_agree's draws injected
+    off), 2 rows x 2 views of 16,384 points with msc_agree's draws injected
     (the pairs name global rows, so every rank holds them all): InfoNCE
     over the summed pair features, the reconstructions over the global
     batch; cac: CAC-v1m1 over SpUNet-v1m1 at its published widths on
@@ -4283,7 +4320,7 @@ def phase_rpe_agree(n=205824, n_train=49152, reps=3):
 # ---- instance segmentation: SpUNet and PointGroup ------------------------------
 
 INSSEG_IGNORE = (-1, 0, 1)
-INSSEG_AGREE_POINTS = 24576
+INSSEG_AGREE_POINTS = 16384
 SPUNET_WIDTHS = dict(channels=(32, 64, 128, 256, 256, 128, 96, 96), layers=(2, 3, 4, 6, 2, 2, 2, 2))
 # the card against the CPU, fp32: BatchNorm running statistics (relative L2)
 # and a forward's features (relative to their largest magnitude)
@@ -4718,7 +4755,7 @@ def phase_insseg_agree(n=49152):
 
 MSC_TERMS = ("loss", "nce_loss", "pos_sim", "neg_sim", "color_loss", "normal_loss")
 CAC_TERMS = ("loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
-MSC_AGREE_POINTS = 24576
+MSC_AGREE_POINTS = 16384
 MSC_CSC = dict(partitions=4, r1=0.125, r2=2.0)
 MSC_VIEW_KEYS = ("origin_coord", "grid_coord", "coord", "color", "normal")
 
@@ -5318,8 +5355,8 @@ PTV2_BACKBONE = dict(
     pe_bias=True, attn_drop_rate=0.0, drop_path_rate=0.3, unpool_backend="map")
 PTV2_STEPS = 3  # 1 + 2
 PTV2_BATCH = 2
-PTV2_AGREE_POINTS = 49152
-PTV1_AGREE_POINTS = 16384
+PTV2_AGREE_POINTS = 8192
+PTV1_AGREE_POINTS = 4096
 FPS_SAMPLES = 4096
 # PTv2's and PTv1's gradients that are zero in exact arithmetic (a linear's
 # bias ahead of a BatchNorm or of the softmax over the neighbours) keep
@@ -5458,7 +5495,8 @@ def larger_floor(a, b):
     return {k: max(v, b[0][k]) for k, v in a[0].items()}, max(a[1], b[1])
 
 
-def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
+def card_cpu_agree(phase, cfg, rows, step, other_orders, rounding_whole=None, branches=None,
+                   **record):
     """``step(model, batch)`` from the same weights in fp32 on the card and
     on the CPU, in float64 on the CPU (the witness: every module's compute
     dtype and the batch's features; the coordinates stay fp32, so its kNN,
@@ -5472,8 +5510,15 @@ def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
     STAT_RTOL or that factor times their floor, built the same way. The
     CPU's fp32 step is that second sample of fp32 rounding, not a
     reference: its loss is held to the witness at TRAIN_LOSS_RTOL, its
-    distances from the witness and from the card are recorded. Returns
-    the seconds of each run."""
+    distances from the witness and from the card are recorded. With
+    ``rounding_whole``, a floor whose whole gradient lies further than that
+    (the CPU's step from the witness, or the other orders' from the card's
+    step) took another branch of a near tie (a max, an argmax): that is not
+    rounding, so it is left out of the gradient and statistics floors, and
+    the record says so; with neither left, the bounds are TRAIN_GRAD_RTOL
+    and STAT_RTOL. ``branches(name)``, where given, is the context each run
+    steps in (StBranches: the card's step records its branches, the others
+    replay them). Returns the seconds of each run."""
     base = build_model(copy.deepcopy(cfg))  # every run a copy: one initialization
     runs = [("cuda", rows), ("cpu", rows), ("float64", rows)] + [
         (f"other{i}", r) for i, r in enumerate(other_orders)]
@@ -5487,7 +5532,8 @@ def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
             batch["feat"] = batch["feat"].double()
         model.to(where).train()
         t0 = time.perf_counter()
-        steps[name], stats[name] = step(model, batch)
+        with branches(name) if branches else contextlib.nullcontext():
+            steps[name], stats[name] = step(model, batch)
         if where == "cuda":
             torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
@@ -5495,17 +5541,23 @@ def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
     witness = steps["float64"]
     order_floor = grad_floor(steps["cuda"], [steps[name] for name, _ in runs[3:]])
     cpu_floor = grad_floor(witness, [steps["cpu"]])
-    stat_order = max(rel_l2(stats[name][k], v) for name, _ in runs[3:]
-                     for k, v in stats["cuda"].items())
+    in_floor = {name: rounding_whole is None or f[1] <= rounding_whole
+                for name, f in (("other_orders", order_floor), ("cpu", cpu_floor))}
+    stat_order = max((rel_l2(stats[name][k], v) for name, _ in runs[3:]
+                      for k, v in stats["cuda"].items()), default=0.0)
     stat_witness = {n: max(rel_l2(v, stats["float64"][k]) for k, v in stats[n].items())
                     for n in ("cuda", "cpu")}
-    stat_floor = max(stat_order, stat_witness["cpu"])
+    stat_floor = max(stat_order if in_floor["other_orders"] else 0.0,
+                     stat_witness["cpu"] if in_floor["cpu"] else 0.0)
     stat_bound = max(STAT_RTOL, NOISE_FLOOR_FACTOR * stat_floor)
+    floors = [f for name, f in (("other_orders", order_floor), ("cpu", cpu_floor))
+              if in_floor[name]]
     compare_steps(phase, steps["cuda"], witness, names=("card", "float64"),
-                  floor=larger_floor(order_floor, cpu_floor), zero=POINT_ZERO_GRAD,
+                  floor=larger_floor(*floors) if len(floors) == 2 else (floors or [None])[0],
+                  zero=POINT_ZERO_GRAD,
                   step_s=seconds, stat_worst_rel_l2=stat_witness["cuda"], stat_floor=stat_floor,
                   stat_bound=stat_bound, other_orders_floor_whole=order_floor[1],
-                  cpu_to_witness_whole=cpu_floor[1], **record)
+                  cpu_to_witness_whole=cpu_floor[1], in_floor=in_floor, **record)
     check(stat_witness["cuda"] <= stat_bound,
           f"{phase}: BatchNorm statistics differ from the float64 witness by "
           f"{stat_witness['cuda']} (bound {stat_bound})")
@@ -5519,6 +5571,7 @@ def card_cpu_agree(phase, cfg, rows, step, other_orders, **record):
               card_to_witness_worst=max(card_floor[0][k] for k in nonzero),
               cpu_to_witness_whole=cpu_floor[1],
               cpu_to_witness_worst=max(cpu_floor[0][k] for k in nonzero),
+              in_floor=in_floor, rounding_whole=rounding_whole,
               card_to_cpu_whole=card_cpu[1], card_to_cpu_worst=max(card_cpu[0][k] for k in nonzero),
               other_orders_floor_whole=order_floor[1],
               stat_card_to_witness=stat_witness["cuda"], stat_cpu_to_witness=stat_witness["cpu"],
@@ -5654,42 +5707,44 @@ def phase_ptv2_train(work, steps=PTV2_STEPS, batch_size=PTV2_BATCH, scene_points
     return config_path, checkpoint, counts
 
 
-def phase_ptv2_test(work, config_path, checkpoint, n_voxels=160000):
-    """The test entry point on ptv2_train's config and checkpoint
+def sorted_room_test(work, phase, config_label, config_path, checkpoint, n_voxels, seed, sorts,
+                     extra=lambda fragments: {}):
+    """The test entry point on a semseg train phase's config and checkpoint
     (SemSegTester, the file's 9 views, fragment voting) over one synthetic
-    room of 2 n_voxels + 1 Gaussians, through run_test_entry: torch.sort and K3
-    under deterministic algorithms (equal predictions and metrics; K3 once
-    for each of the 4 grid poolings' serializations of every fragment
-    forward, none with the switch off; no K1 or K2), then as a user runs
-    it, for the seconds per scene. Returns the K3 run's sort calls, kernel
-    launches and fragment forwards, and K1's and K2's launches."""
+    room of 2 ``n_voxels`` + 1 Gaussians, through run_test_entry: torch.sort
+    and K3 under deterministic algorithms (equal predictions and metrics; K3
+    ``sorts`` times a fragment forward with the switch on, none off; no K1
+    or K2), then as a user runs it, for the seconds per room. ``extra``
+    (the fragment forwards of one run) makes the caller's own checks of the
+    runs and returns what they add to the phase's record. Returns the K3
+    run's sort calls, kernel launches and fragment forwards, and K1's and
+    K2's launches."""
     t0 = time.perf_counter()
     reset_k2_counts()
-    data_root = os.path.join(work, "ptv2_test")
-    n_points = write_test_scenes(data_root, 1, n_voxels, seed=93, semseg=True)
+    data_root = os.path.join(work, phase)
+    n_points = write_test_scenes(data_root, 1, n_voxels, seed=seed, semseg=True)
     write_s = time.perf_counter() - t0
-    runs = run_test_entry(work, "ptv2_test", [
+    runs = run_test_entry(work, phase, [
         "--config-file", config_path, "--options", f"weight={checkpoint}",
         f"data.test.data_root={data_root}"], WindowCalls(limit=0, max_window=1024))
     off, on, timed = runs["off"], runs["on"], runs["timed"]
     for key, pred in off["preds"].items():
-        check(pred.shape == (n_points,), f"ptv2_test: {key} {pred.shape}")
+        check(pred.shape == (n_points,), f"{phase}: {key} {pred.shape}")
         check(np.array_equal(pred, on["preds"][key]),
-              f"ptv2_test: {key}: predictions differ with the sort switch on")
+              f"{phase}: {key}: predictions differ with the sort switch on")
     for key, value in off["res"].items():
         check(np.array_equal(value, on["res"][key]),
-              f"ptv2_test: metric {key} differs with the sort switch on")
+              f"{phase}: metric {key} differs with the sort switch on")
     fragments = sum(sc["fragments"] for sc in on["scenes"])
-    pools = len(PTV2_BACKBONE["enc_depths"])
-    check(fragments >= 9, f"ptv2_test: {fragments} fragments for 9 views")
-    check(off["sort_calls"] == timed["sort_calls"] == 0 and on["sort_calls"] == pools * fragments
+    check(fragments >= 9, f"{phase}: {fragments} fragments for 9 views")
+    check(off["sort_calls"] == timed["sort_calls"] == 0 and on["sort_calls"] == sorts * fragments
           and on["sort_kernels"] > 0,
-          f"ptv2_test: K3 {off['sort_calls']}, {on['sort_calls']} ({on['sort_kernels']} kernels) "
-          f"and {timed['sort_calls']} sorts, expected {pools} a fragment forward with the "
+          f"{phase}: K3 {off['sort_calls']}, {on['sort_calls']} ({on['sort_kernels']} kernels) "
+          f"and {timed['sort_calls']} sorts, expected {sorts} a fragment forward with the "
           "switch on only")
-    counts = path_attention_counts("ptv2_test", k1=sum(r["k1"] for r in runs.values()))
-    check(np.isfinite(off["res"]["mIoU"]), f"ptv2_test: mIoU {off['res']['mIoU']}")
-    emit(dict(phase="ptv2_test", config="semseg file with ptv2_config", dtype="float32",
+    counts = path_attention_counts(phase, k1=sum(r["k1"] for r in runs.values()))
+    check(np.isfinite(off["res"]["mIoU"]), f"{phase}: mIoU {off['res']['mIoU']}")
+    emit(dict(phase=phase, config=config_label, dtype="float32",
               scenes=1, points_per_scene=n_points, views=9, fragments=fragments,
               dataset_write_s=write_s,
               switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
@@ -5700,13 +5755,21 @@ def phase_ptv2_test(work, config_path, checkpoint, n_voxels=160000):
               as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
                                      seconds=timed["seconds"], per_scene=scene_split(timed),
                                      mIoU=timed["res"]["mIoU"]),
-              predictions_equal=True, mIoU=off["res"]["mIoU"]))
+              predictions_equal=True, mIoU=off["res"]["mIoU"], **extra(fragments)))
     for sc in scene_split(timed):
-        print(f"ptv2_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: "
+        print(f"{phase}: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: "
               f"fetch {sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, vote "
               f"{sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
     return dict(sort_calls=on["sort_calls"], sort_kernels=on["sort_kernels"],
                 fragments=fragments), counts
+
+
+def phase_ptv2_test(work, config_path, checkpoint, n_voxels=160000):
+    """sorted_room_test on ptv2_train's config and checkpoint: K3 once for
+    each of the 4 grid poolings' serializations of every fragment
+    forward."""
+    return sorted_room_test(work, "ptv2_test", "semseg file with ptv2_config", config_path,
+                            checkpoint, n_voxels, 93, len(PTV2_BACKBONE["enc_depths"]))
 
 
 def swapped_rows(rows):
@@ -5740,6 +5803,7 @@ def phase_ptv1_agree(n=PTV1_AGREE_POINTS):
     K1's and K2's launches (none)."""
     reset_k1_counts()
     reset_k2_counts()
+    fps_launches = fps_ops.farthest_point_sampling_cuda.launches
     rows = jittered(semseg_rows(n, (31, 32)), 33)
     criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
     cfg = dict(type="DefaultSegmentor", backbone=dict(
@@ -5776,7 +5840,12 @@ def phase_ptv1_agree(n=PTV1_AGREE_POINTS):
         check(err <= SPUNET_FWD_RTOL, f"ptv1_agree: {name} forward differs by {err}")
         forwards[name] = dict(shape=list(outs["cuda"].shape), max_rel_err=err)
     counts = path_attention_counts("ptv1_agree")
+    fps_launches = fps_ops.farthest_point_sampling_cuda.launches - fps_launches
+    # the FPS kernel serves PTv1's transitions: 4 a forward on the card
+    check(fps_launches >= 4 * (1 + POINT_FLOOR_RUNS),
+          f"ptv1_agree: {fps_launches} FPS kernel launches")
     emit(dict(phase="ptv1_agree_forwards", points=n, rows=2, forwards=forwards,
+              fps_kernel_launches=fps_launches,
               fwd_rtol=SPUNET_FWD_RTOL, step_s=seconds,
               fps_ms_per_call=fps_ms, fps_calls=len(fps_ms),
               fps_samples=[n // 4 ** s for s in range(1, 5)], knn_ms_per_call=knn_ms,
@@ -6060,71 +6129,391 @@ def phase_sparse_train(work, name, root, data_s, steps=SPARSE_STEPS, batch_size=
 
 
 def phase_mink_test(work, config_path, checkpoint, n_voxels=160000):
-    """The test entry point on mink_train's config and checkpoint
-    (SemSegTester, the file's 9 views, fragment voting) over one synthetic
-    room of 2 ``n_voxels`` + 1 Gaussians, through run_test_entry: torch.sort and K3
-    under deterministic algorithms (equal predictions and metrics; K3
-    MINK_SORTS times a fragment forward with the switch on, none off; no K1
-    or K2), then as a user runs it, for the seconds per room. Returns the
-    K3 run's sort calls, kernel launches and fragment forwards, and K1's
-    and K2's launches."""
-    t0 = time.perf_counter()
-    reset_k2_counts()
-    data_root = os.path.join(work, "mink_test")
-    n_points = write_test_scenes(data_root, 1, n_voxels, seed=98, semseg=True)
-    write_s = time.perf_counter() - t0
-    runs = run_test_entry(work, "mink_test", [
-        "--config-file", config_path, "--options", f"weight={checkpoint}",
-        f"data.test.data_root={data_root}"], WindowCalls(limit=0, max_window=1024))
-    off, on, timed = runs["off"], runs["on"], runs["timed"]
-    for key, pred in off["preds"].items():
-        check(pred.shape == (n_points,), f"mink_test: {key} {pred.shape}")
-        check(np.array_equal(pred, on["preds"][key]),
-              f"mink_test: {key}: predictions differ with the sort switch on")
-    for key, value in off["res"].items():
-        check(np.array_equal(value, on["res"][key]),
-              f"mink_test: metric {key} differs with the sort switch on")
-    fragments = sum(sc["fragments"] for sc in on["scenes"])
-    check(fragments >= 9, f"mink_test: {fragments} fragments for 9 views")
-    check(off["sort_calls"] == timed["sort_calls"] == 0
-          and on["sort_calls"] == MINK_SORTS * fragments and on["sort_kernels"] > 0,
-          f"mink_test: K3 {off['sort_calls']}, {on['sort_calls']} ({on['sort_kernels']} "
-          f"kernels) and {timed['sort_calls']} sorts, expected {MINK_SORTS} a fragment forward "
-          "with the switch on only")
-    counts = path_attention_counts("mink_test", k1=sum(r["k1"] for r in runs.values()))
-    check(np.isfinite(off["res"]["mIoU"]), f"mink_test: mIoU {off['res']['mIoU']}")
-    emit(dict(phase="mink_test", config="semseg file with sparse_config('mink')",
-              dtype="float32", scenes=1, points_per_scene=n_points, views=9,
-              fragments=fragments, dataset_write_s=write_s,
-              switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
-                              per_scene=scene_split(off)),
-              switch_on=dict(deterministic_algorithms=True, seconds=on["seconds"],
-                             per_scene=scene_split(on), sort_calls=on["sort_calls"],
-                             sort_kernel_launches=on["sort_kernels"]),
-              as_a_user_runs_it=dict(deterministic_algorithms=False, bitonic_sort=False,
-                                     seconds=timed["seconds"], per_scene=scene_split(timed),
-                                     mIoU=timed["res"]["mIoU"]),
-              predictions_equal=True, mIoU=off["res"]["mIoU"]))
-    for sc in scene_split(timed):
-        print(f"mink_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: "
-              f"fetch {sc['fetch_s']:.2f} s, extract {sc['extract_s']:.2f} s, vote "
-              f"{sc['vote_s']:.2f} s, total {sc['total_s']:.2f} s", flush=True)
-    return dict(sort_calls=on["sort_calls"], sort_kernels=on["sort_kernels"],
-                fragments=fragments), counts
+    """sorted_room_test on mink_train's config and checkpoint: K3
+    MINK_SORTS times a fragment forward."""
+    return sorted_room_test(work, "mink_test", "semseg file with sparse_config('mink')",
+                            config_path, checkpoint, n_voxels, 98, MINK_SORTS)
 
 
-def sparse_phases(work):
+def sparse_phases(work, root, data_s):
     """The sparse-conv backbones' phases, in order: each one's agree, the
-    four train phases over one set of rooms, then mink_test. Returns K1's
-    and K2's counts by phase and mink_test's sorts."""
+    four train phases over write_sparse_rooms' rooms (``root``), then
+    mink_test. Returns K1's and K2's counts by phase and mink_test's
+    sorts."""
     counts = {f"{name}_agree": phase_sparse_agree(name) for name in SPARSE_BACKBONES}
-    with tempfile.TemporaryDirectory() as tmp:
-        root, data_s = write_sparse_rooms(tmp)
-        trained = {}
-        for name in SPARSE_BACKBONES:
-            *trained[name], counts[f"{name}_train"] = phase_sparse_train(work, name, root, data_s)
+    trained = {}
+    for name in SPARSE_BACKBONES:
+        *trained[name], counts[f"{name}_train"] = phase_sparse_train(work, name, root, data_s)
     sorts, counts["mink_test"] = phase_mink_test(work, *trained["mink"], n_voxels=100000)
     return counts, sorts
+
+
+# ---- Stratified Transformer ------------------------------------------------------
+
+# ST-v1m2 at the JAX module's (the reference v1m2's) default widths: channels
+# 48 to 384, heads 6/12/24/24, depths 3/9/3/3, windows of 0.2 to 1.6 m with
+# their RPE tables, the KPConv stem, drop path 0.2
+ST_BACKBONE = dict(type="ST-v1m2", in_channels=14, num_classes=TRAIN_CLASSES)
+ST_AGREE_POINTS = 4096
+# st_agree's rows: semseg_rows' two room seeds and jittered's seed
+ST_AGREE_SEEDS = (41, 42, 43)
+# fp32 rounding moves ST's whole gradient by 6.2e-7 to 7.5e-7 from the
+# float64 witness when both take the same branches (StBranches); a floor
+# further than this is not rounding
+ST_ROUNDING_WHOLE = 1e-5
+# a branch of the card's that the float64 witness would not take (StBranches)
+# must lie this near its tie, as a share of its tensor's RMS: the fp32
+# steps' such branches lay 3e-7 to 2.3e-6 of it from their ties
+ST_NEAR_TIE = 1e-4
+# sort_int64 calls of one ST forward: each of the 4 stages' fine and coarse
+# window tables, unshifted and shifted (window_members)
+ST_SORTS = 16
+# FPS calls of one ST forward: the stem's transition down, then each stage's
+# samples (its stratified key set and its transition down share them)
+ST_FPS_CALLS = 5
+ST_DOWN_RATIO = 0.25
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
+# a valid point's work in one FPS step: 3 differences, 3 products, 2 sums,
+# the minimum and the argmax's comparison
+FPS_OPS_PER_POINT = 10
+
+
+def st_config(cfg):
+    """The semseg file with its model a DefaultSegmentor over ST_BACKBONE
+    (the file's CE + Lovasz) and task="semseg"; data, optimizer, schedule
+    and hooks as the file sets them."""
+    cfg.model = dict(type="DefaultSegmentor", backbone=dict(ST_BACKBONE),
+                     criteria=cfg.model.criteria)
+    cfg.task = "semseg"
+    return cfg
+
+
+def fps_bound_ms(m, n_valid, n):
+    """The least time of one row set's FPS: M steps over the valid points'
+    operations at the fp32 rate, or the bytes (coordinates and mask read
+    once, the ids written once) at the memory rate; and which bounds it."""
+    ops = sum(mm * nv for mm, nv in zip(m, n_valid)) * FPS_OPS_PER_POINT
+    nbytes = sum(nn * 13 for nn in n) + sum(mm * 8 for mm in m)
+    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def fps_levels(coord, mask, depth, samples):
+    """The FPS calls of a chain of levels, each the previous one's samples
+    (``samples(n)`` of a level of n slots, the valid ones
+    ``samples(n_valid)`` as a transition down keeps them): for each, the
+    level's coordinates, mask and the kernel's ids, checked bit-equal to the
+    plain loop's on the card, and the two's CUDA-event ms."""
+    out = []
+    for _ in range(depth):
+        b, n = mask.shape
+        m = samples(n)
+        kernel_ms = cuda_ms(lambda: pointops.farthest_point_sampling(coord, mask, m), reps=3,
+                            warmup=1)
+        ids, _ = pointops.farthest_point_sampling(coord, mask, m)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = pointops.farthest_point_sampling_reference(coord, mask, m)
+        end.record()
+        torch.cuda.synchronize()
+        check(torch.equal(ids, plain), f"fps_kernel: ids differ from the plain loop at {n} "
+              f"slots, {m} samples")
+        n_valid = [int(v) for v in mask.sum(1)]
+        out.append(dict(slots=n, samples=m, valid=n_valid, ms=kernel_ms,
+                        plain_ms=start.elapsed_time(end)))
+        keep = torch.tensor([samples(v) for v in n_valid], device=coord.device)
+        coord = take_along_points(coord, ids)
+        mask = torch.arange(m, device=coord.device) < keep.clamp(max=m)[:, None]
+    return out
+
+
+def phase_fps_kernel():
+    """The FPS kernel against its plain loop on the card, ids bit-equal: at
+    ST's levels of the train rows (2 rows of the semseg file's 205,824
+    slots, one of a room's lattice voxels, where distances tie everywhere,
+    the other jittered by 3 mm with a padding tail of 40,000 slots and its
+    first 5 slots masked; each level the previous one's int(n / 4) + 1
+    samples, as ST's transition downs take them) and at PTv1's (2 rows of
+    PTV1_AGREE_POINTS, as ptv1_agree's, n // 4 a level); each call's kernel
+    and plain times by CUDA events, and the bound: the valid points'
+    operations of the M steps at the fp32 rate. Returns the ST forward's
+    sums."""
+    fps_launches = fps_ops.farthest_point_sampling_cuda.launches
+    n = 205824
+    rows = semseg_rows(n, (61, 62), size_m=(5.0, 5.0, 3.0))
+    rows = dict(rows, coord=np.stack([rows["coord"][0], jittered(rows, 63)["coord"][1]]))
+    coord = torch.from_numpy(rows["coord"]).cuda()
+    mask = torch.ones(2, n, dtype=torch.bool, device="cuda")
+    mask[1, :5] = False
+    mask[1, n - 40000:] = False
+    st = fps_levels(coord, mask, ST_FPS_CALLS, lambda v: int(v * ST_DOWN_RATIO) + 1)
+    p1 = torch.from_numpy(jittered(semseg_rows(PTV1_AGREE_POINTS, (31, 32)), 33)["coord"]).cuda()
+    ptv1 = fps_levels(p1, torch.ones(p1.shape[:2], dtype=torch.bool, device="cuda"), 4,
+                      lambda v: max(1, v // 4))
+    result = {}
+    for name, levels in (("st", st), ("ptv1", ptv1)):
+        bound, by = fps_bound_ms([lv["samples"] for lv in levels],
+                                 [sum(lv["valid"]) for lv in levels],
+                                 [lv["slots"] * len(lv["valid"]) for lv in levels])
+        result[name] = dict(ms=sum(lv["ms"] for lv in levels),
+                            plain_ms=sum(lv["plain_ms"] for lv in levels), bound_ms=bound,
+                            bound_by=by, samples=[lv["samples"] for lv in levels], levels=levels)
+    emit(dict(phase="fps_kernel", ids_equal=True, max_abs_err=0,
+              phase_launches=fps_ops.farthest_point_sampling_cuda.launches - fps_launches,
+              **result))
+    r = result["st"]
+    print(f"fps_kernel: ST forward {r['ms']:.2f} ms (M = {r['samples']}) against a bound of "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain loop {r['plain_ms']:.1f} ms; PTv1 "
+          f"{result['ptv1']['ms']:.2f} ms", flush=True)
+    return result
+
+
+class StBranches:
+    """The branches of ST's step that fp32 rounding can tip: at every value
+    of each leaky_relu and relu, x > 0 or not, and of each transition's
+    max over its neighbours (neighbour_max), the argmax. A single value on
+    the other side of a kink moves the stem's gradients by 1e-4 to 2e-3 of
+    their norm, up to three orders more than fp32 rounding moves them, and on
+    most rows of thousands of points some value lies within rounding of
+    its kink, so a step that takes its own branches is compared with one
+    that may take others. Called with a run's name (card_cpu_agree), it
+    gives the context the run steps in: the card's step ("cuda") records
+    its branches; every other run replays them ("other" runs, the rows
+    swapped, with them swapped too), so the float64 witness, the CPU's
+    fp32 step and the swapped rows' step compute the card's branch of the
+    function and differ from the card's step by rounding alone. The
+    witness audits the card's branches against its own: each one it would
+    not take must be a near tie, its float64 margin (|x| at a kink, the
+    gap below the neighbours' own max) at most ST_NEAR_TIE of that
+    tensor's RMS, so a card that takes a clear branch otherwise fails."""
+
+    def __init__(self):
+        self.taken, self.pos, self.replay, self.flip, self.audit = [], 0, False, False, False
+        self.decisions, self.differ, self.worst = 0, 0, 0.0
+
+    def __call__(self, name):
+        return self._run(replay=name != "cuda", flip=name.startswith("other"),
+                         audit=name == "float64")
+
+    @contextlib.contextmanager
+    def _run(self, replay, flip, audit):
+        self.replay, self.flip, self.audit, self.pos = replay, flip, audit, 0
+        if not replay:
+            self.taken = []
+        saved = stratified.F, stratified.neighbour_max
+        functional = types.SimpleNamespace(**vars(torch.nn.functional))
+        functional.leaky_relu, functional.relu = self.leaky_relu, self.relu
+        stratified.F = functional
+        stratified.neighbour_max = lambda g, kidx: self.neighbour_max(g, kidx, saved[1])
+        try:
+            yield
+        finally:
+            stratified.F, stratified.neighbour_max = saved
+        check(self.pos == (len(self.taken) if replay else 0),
+              f"st_agree: a replayed step took {self.pos} of the card's "
+              f"{len(self.taken)} branch points")
+        if audit:
+            check(self.worst <= ST_NEAR_TIE,
+                  f"st_agree: the card took a branch {self.worst} of its tensor's RMS from "
+                  f"the float64 witness's own (near tie: {ST_NEAR_TIE})")
+
+    def _branch(self, own, margin, scale):
+        """Records ``own`` (the run's branches), or returns the card's, and
+        audits those that are not ``own`` by ``margin(taken)`` / ``scale``."""
+        if not self.replay:
+            self.taken.append(own.clone())
+            return own
+        taken = self.taken[self.pos].to(own.device)
+        self.pos += 1
+        taken = taken.flip(0) if self.flip else taken
+        differ = taken != own
+        if self.audit:
+            self.decisions += own.numel()
+            self.differ += int(differ.sum())
+            if differ.any():
+                self.worst = max(self.worst, float(margin(taken)[differ].max() / scale))
+        return taken
+
+    def _kink(self, x):
+        v = x.detach()
+        return self._branch(v > 0, lambda _: v.abs(), v.double().square().mean().sqrt())
+
+    def leaky_relu(self, x, negative_slope=0.01):
+        taken = self._kink(x)
+        if not self.replay:
+            return torch.nn.functional.leaky_relu(x, negative_slope)
+        return torch.where(taken, x, x * negative_slope)
+
+    def relu(self, x):
+        taken = self._kink(x)
+        if not self.replay:
+            return torch.nn.functional.relu(x)
+        return torch.where(taken, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def neighbour_max(self, g, kidx, port_max):
+        gm = torch.where((kidx >= 0)[..., None], g, float("-inf"))
+        v = gm.detach()
+        top = v.amax(2)
+
+        def gap(taken):
+            return torch.where(torch.isfinite(top), top - v.gather(2, taken[:, :, None]).squeeze(2),
+                               torch.zeros((), dtype=v.dtype, device=v.device))
+
+        own = v.argmax(2)
+        taken = self._branch(own, gap, v[torch.isfinite(v)].double().square().mean().sqrt())
+        if not self.replay:
+            return port_max(g, kidx)
+        return gm.gather(2, taken[:, :, None]).squeeze(2)
+
+
+def phase_st_agree(n=ST_AGREE_POINTS):
+    """One fp32 semseg train step (CE + Lovasz) of DefaultSegmentor over
+    ST-v1m2 at its default widths, 2 rows of ``n`` points (rooms,
+    ``jittered`` from ST_AGREE_SEEDS), drop path 0 (the card's and
+    the CPU's generators draw different streams), on the card against a
+    float64 witness on the CPU (card_cpu_agree) that takes the card's
+    branches at every kink and neighbour max (StBranches: each one the
+    witness would not take is audited as a near tie). The noise floor
+    comes from the CPU fp32 step's distance from the witness and from the
+    card's step on the two rows swapped (every batch sum adds in another
+    order; each row's own order is kept), both on the card's branches, not
+    from points permuted within a row: FPS starts at each row's first
+    valid point and a window keeps its first members by position, so such
+    a permutation changes ST's function. A floor further than
+    ST_ROUNDING_WHOLE is not rounding and is left out. Each floor is about
+    7e-7 of the whole gradient, so every gradient's bound is
+    TRAIN_GRAD_RTOL (1e-4 a tensor). Returns K1's and K2's launches (none)
+    and the FPS kernel's."""
+    reset_k1_counts()
+    reset_k2_counts()
+    fps_launches = fps_ops.farthest_point_sampling_cuda.launches
+    rows = jittered(semseg_rows(n, ST_AGREE_SEEDS[:2]), ST_AGREE_SEEDS[2])
+    criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
+    cfg = dict(type="DefaultSegmentor", backbone=dict(ST_BACKBONE, drop_path_rate=0.0, seed=7))
+    branches = StBranches()
+    seconds = card_cpu_agree("st_agree", cfg, rows, lambda m, b: ptv2_step(m, b, criteria, {}),
+                             [swapped_rows(rows)], rounding_whole=ST_ROUNDING_WHOLE,
+                             branches=branches, points=n, batch_rows=2, seeds=ST_AGREE_SEEDS,
+                             model="ST-v1m2")
+    counts = path_attention_counts("st_agree")
+    counts["fps"] = fps_ops.farthest_point_sampling_cuda.launches - fps_launches
+    check(counts["fps"] == 2 * ST_FPS_CALLS, f"st_agree: {counts['fps']} FPS launches in two "
+          f"card steps, expected {2 * ST_FPS_CALLS}")
+    emit(dict(phase="st_agree", model="ST-v1m2", points=n, rows=2, seeds=ST_AGREE_SEEDS,
+              step_s=seconds, k1_launches=counts["k1"], k2_launches=counts["k2"],
+              fps_launches=counts["fps"], branch_points=len(branches.taken),
+              branch_decisions=branches.decisions, card_branches_not_witness=branches.differ,
+              worst_near_tie=branches.worst, near_tie_bound=ST_NEAR_TIE))
+    return counts
+
+
+def table_overflow_by_stage(overflow):
+    """A forward's 16 table truncations (each stage's fine and coarse
+    tables, unshifted then shifted; [B] each) as members dropped per stage
+    (fine, coarse), summed over the rows."""
+    return [dict(fine=int(overflow[4 * s].sum() + overflow[4 * s + 2].sum()),
+                 coarse=int(overflow[4 * s + 1].sum() + overflow[4 * s + 3].sum()))
+            for s in range(len(overflow) // 4)]
+
+
+def phase_st_train(work, root, data_s, steps=SPARSE_STEPS, batch_size=2):
+    """The semseg trainer on st_config (ST-v1m2 at its default widths, fp32,
+    batch 2, the file's 205,824 points, CE + Lovasz, Mix3D 0.8, optimizer
+    and hooks but PreciseEvaluator) for ``steps`` steps over the sparse
+    phases' rooms and one validation: finite losses, val mIoU and the best
+    checkpoint, no K1 or K2 launch, the FPS kernel's launches (ST_FPS_CALLS
+    a forward) and its CUDA-event ms a step, the window members truncated
+    per stage, step times, loader waits, peak memory, one profiled step (the
+    idle share). Returns the config file, the checkpoint and the counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_k1_counts()
+        reset_k2_counts()
+        fps_launches = fps_ops.farthest_point_sampling_cuda.launches
+        cfg = st_config(semseg_train_config(root, os.path.join(tmp, "exp"), batch_size, steps, 4))
+        cfg.hooks = [h for h in cfg.hooks if h["type"] != "PreciseEvaluator"]
+        knn_probe = KnnProbe()
+        with knn_probe.on():
+            trainer, probe, records, k1_counts = run_training(cfg)
+        fps_ms = knn_probe.ms("farthest_point_sampling")
+        hist = trainer.storage.history
+        losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses + grad_norms),
+              f"st_train: losses {losses}, grad norms {grad_norms}")
+        counts = path_attention_counts("st_train")
+        counts["fps"] = fps_ops.farthest_point_sampling_cuda.launches - fps_launches
+        forwards = k1_counts["train_forwards"] + k1_counts["val_forwards"]
+        check(counts["fps"] == ST_FPS_CALLS * forwards,
+              f"st_train: {counts['fps']} FPS launches in {forwards} forwards")
+        fps_step = [sum(fps_ms[i:i + ST_FPS_CALLS])
+                    for i in range(0, ST_FPS_CALLS * steps, ST_FPS_CALLS)]
+        truncated = [table_overflow_by_stage(r["overflow"]) for r in records]
+        miou = hist("val/mIoU").values()
+        check(len(miou) == 1 and 0.0 <= miou[0] <= 1.0, f"st_train: val/mIoU {miou}")
+        model_dir = os.path.join(trainer.cfg.save_path, "model")
+        checkpoint = shutil.copy(os.path.join(model_dir, "model_best.pth"),
+                                 os.path.join(work, "st_model_best.pth"))
+        state = torch.load(checkpoint, map_location="cpu", weights_only=False)["state_dict"]
+        trainer.model.load_state_dict(state, strict=True)  # name for name
+        step_ms = probe.step_ms()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sizes = [[(m, v.tolist()) for m, v in r["sizes"][:1]] for r in records]
+        emit(dict(phase="st_train", config=SEMSEG_CONFIG, model="DefaultSegmentor over ST-v1m2",
+                  backbone=ST_BACKBONE, task="semseg", batch_size=batch_size,
+                  points=cfg.data.num_points, steps=len(losses), loss=losses,
+                  grad_norm=grad_norms, cold_step_ms=step_ms[0], warm_step_ms=step_ms[1:-1],
+                  profiled_step_ms=step_ms[-1], data_wait_s=hist("data_time").values(),
+                  peak_mem_gib=peak, idle_share=probe.profile["idle_share"], val_miou=miou[0],
+                  fps_ms_per_step=fps_step, fps_launches=counts["fps"],
+                  fps_launches_per_forward=ST_FPS_CALLS, forwards=forwards,
+                  members_truncated_per_stage=truncated, input_slots_valid=sizes,
+                  k1_launches=counts["k1"], k2_launches=counts["k2"], dataset_write_s=data_s,
+                  profile=probe.profile))
+        print(f"st_train: warm steps {[round(v) for v in step_ms[1:-1]]} ms, peak {peak:.2f} GiB, "
+              f"idle share {probe.profile['idle_share']:.3f}, FPS "
+              f"{[round(v, 1) for v in fps_step]} ms a step ({counts['fps']} launches), "
+              f"members truncated per stage {truncated[-1]}, K1 {counts['k1']} K2 {counts['k2']}",
+              flush=True)
+        config_path = os.path.join(work, "st_semseg.py")
+        cfg.dump(config_path)
+        del trainer
+    torch.cuda.empty_cache()
+    return config_path, checkpoint, counts
+
+
+def phase_st_test(work, config_path, checkpoint, n_voxels=100000):
+    """sorted_room_test on st_train's config and checkpoint: K3 ST_SORTS
+    times a fragment forward (each stage's four window tables), some of
+    them past one cluster's tile of 32,768 keys (sort_global, more than one
+    launch a sort: the room's fragments hold about 180,000 points), and the
+    FPS kernel ST_FPS_CALLS times in every fragment forward of the three
+    runs."""
+    fps_launches = fps_ops.farthest_point_sampling_cuda.launches
+    launched = {}
+
+    def fps_count(fragments):
+        launched["fps"] = fps_ops.farthest_point_sampling_cuda.launches - fps_launches
+        check(launched["fps"] == ST_FPS_CALLS * 3 * fragments,
+              f"st_test: {launched['fps']} FPS launches in 3 runs of {fragments} fragment "
+              "forwards")
+        return dict(fps_launches=launched["fps"])
+
+    sorts, counts = sorted_room_test(work, "st_test", "semseg file with st_config", config_path,
+                                     checkpoint, n_voxels, 99, ST_SORTS, fps_count)
+    check(sorts["sort_kernels"] > sorts["sort_calls"],
+          f"st_test: {sorts['sort_kernels']} K3 launches for {sorts['sort_calls']} sorts: no "
+          "window table went past one tile")
+    return sorts, dict(counts, **launched)
+
+
+def st_phases(work, root, data_s):
+    """The Stratified Transformer's phases, in order: fps_kernel, st_agree,
+    st_train over the sparse phases' rooms, st_test. Returns the FPS
+    kernel's times, the counts by phase and st_test's sorts."""
+    fps_times = phase_fps_kernel()
+    counts = dict(st_agree=phase_st_agree())
+    config_path, checkpoint, counts["st_train"] = phase_st_train(work, root, data_s)
+    sorts, counts["st_test"] = phase_st_test(work, config_path, checkpoint)
+    return fps_times, counts, sorts
 
 
 def main() -> int:
@@ -6221,7 +6610,10 @@ def main() -> int:
                                                                 n_voxels=100000)
         ptv2_counts["ptv1_agree"] = phase_ptv1_agree()
         ptv2_counts["ppt_ptv2_train"] = phase_ppt_ptv2_train(work, steps=3)
-        sparse_counts, mink_sorts = sparse_phases(work)
+        with tempfile.TemporaryDirectory() as rooms:
+            root, data_s = write_sparse_rooms(rooms)
+            sparse_counts, mink_sorts = sparse_phases(work, root, data_s)
+            fps_times, st_counts, st_sorts = st_phases(work, root, data_s)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -6312,6 +6704,15 @@ def main() -> int:
         return dict(path="minkunet, spvcnn, oacnns, octformer", launches=sum(by_phase.values()),
                     phase_launches=by_phase)
 
+    # "st": ST-v1m2 (st_agree, st_train, st_test) has no window attention of
+    # K1's kind (its slot attention with the RPE tables is plain torch): each
+    # phase counts K1 and K2 from 0 and checks 0; K3 runs on the st test
+    # path with the switch on; the FPS kernel on every ST forward
+
+    def st_path(kernel):
+        by_phase = {phase: c[kernel] for phase, c in st_counts.items()}
+        return dict(path="st-v1m2", launches=sum(by_phase.values()), phase_launches=by_phase)
+
     teacher_large = ssl_teacher["by_variant"]["bf16_large"]
     teacher_small = ssl_teacher["by_variant"]["bf16_small"]
     emit({"kernels": [
@@ -6364,7 +6765,7 @@ def main() -> int:
                          agree_variant_launches=insseg_kernels["k1_lse_variants"]),
              spunet_tasks=dict(spunet_tasks, agree_launches=cac_kernels["k1_lse"],
                                agree_variant_launches=cac_kernels["k1_lse_variants"]),
-             ptv2=ptv2_path("k1"), sparse=sparse_path("k1")),
+             ptv2=ptv2_path("k1"), sparse=sparse_path("k1"), st=st_path("k1")),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -6421,7 +6822,7 @@ def main() -> int:
              spunet_tasks=dict(spunet_tasks, spunet_two_rank_launches=sum(
                  d["k2"] for d in spunet_ddp.values()), agree_launches=cac_kernels["k2"],
                  agree_variant_launches=cac_kernels["k2_variants"]),
-             ptv2=ptv2_path("k2"), sparse=sparse_path("k2")),
+             ptv2=ptv2_path("k2"), sparse=sparse_path("k2"), st=st_path("k2")),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -6444,7 +6845,29 @@ def main() -> int:
                               "switch on)", ms_per="fragment forward",
                          launches=mink_sorts["sort_calls"],
                          kernel_launches=mink_sorts["sort_kernels"],
-                         fragment_forwards=mink_sorts["fragments"]))]})
+                         fragment_forwards=mink_sorts["fragments"]),
+             st=dict(path=f"st test (ST-v1m2's {ST_SORTS} window-table sorts a fragment forward, "
+                          "switch on)", ms_per="fragment forward",
+                     launches=st_sorts["sort_calls"], kernel_launches=st_sorts["sort_kernels"],
+                     fragment_forwards=st_sorts["fragments"])),
+        # not a TPU kernel: the JAX package's FPS is an XLA lax.fori_loop;
+        # ms and the other times: the 5 calls of one ST forward at the train
+        # rows' levels (fps_kernel), launches: st_train's run
+        dict(name="farthest_point_sampling", route="cuda",
+             source="scenesplat_tpu_torch/csrc/farthest_point_sampling.cu",
+             replaces="none: scenesplat_tpu/ops/pointops.py:205 (farthest_point_sampling, an "
+                      "XLA lax.fori_loop, not a Pallas kernel)",
+             path="st train", launches=st_counts["st_train"]["fps"],
+             phase_launches=st_path("fps")["phase_launches"],
+             ms_per=f"ST train forward ({ST_FPS_CALLS} calls, M = {fps_times['st']['samples']})",
+             max_abs_err=0, ms=fps_times["st"]["ms"], plain_ms=fps_times["st"]["plain_ms"],
+             bound_ms=fps_times["st"]["bound_ms"], bound_by=fps_times["st"]["bound_by"],
+             library_ms=None,
+             ptv1=dict(path="ptv1 (ptv1_agree's transitions)", ms_per="PTv1 forward (4 calls)",
+                       samples=fps_times["ptv1"]["samples"], ms=fps_times["ptv1"]["ms"],
+                       plain_ms=fps_times["ptv1"]["plain_ms"],
+                       bound_ms=fps_times["ptv1"]["bound_ms"],
+                       bound_by=fps_times["ptv1"]["bound_by"]))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

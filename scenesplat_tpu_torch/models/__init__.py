@@ -14,3 +14,5 @@ from . import ptv1, ptv2  # noqa: E402,F401
 # registers MinkUNet14/18/34/50/101 and their A-D variants, SPVCNN, OACNNs
 # and OctFormer-v1m1
 from . import mink_unet, spvcnn, oacnns, octformer  # noqa: E402,F401
+# registers ST-v1m2 and ST-v1m1
+from . import stratified  # noqa: E402,F401

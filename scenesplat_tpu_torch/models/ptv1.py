@@ -3,7 +3,8 @@ padded batches:
 
   - pointops.knn_query_and_group: ``ops/pointops.py:knn`` and ``grouping``;
   - pointops.farthest_point_sampling in TransitionDown: the batched FPS at
-    n_valid // stride samples a row (``ops/pointops.py``; a host loop);
+    n_valid // stride samples a row (``ops/pointops.py``; on the card one
+    launch of the kernel ``csrc/farthest_point_sampling.cu``);
   - pointops.interpolation in TransitionUp: inverse-distance 3-NN;
   - LayerNorm1d (a transposed BatchNorm1d) and BatchNorm1d:
     ``models/norm.py:PointBatchNorm`` (eps 1e-5, momentum 0.1) over the

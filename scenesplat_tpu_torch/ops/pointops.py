@@ -1,7 +1,8 @@
 """Point queries (counterpart of ``scenesplat_tpu/ops/pointops.py``):
-batched, masked neighbour search, farthest point sampling, grouping,
-interpolation and the voxel clustering of a padded cloud, for Point
-Transformer V1/V2 and Masked Scene Contrast.
+batched, masked neighbour search (k nearest and ball queries), farthest
+point sampling, grouping, interpolation, the vector attention's steps and
+the voxel clustering of a padded cloud, for Point Transformer V1/V2,
+Masked Scene Contrast and the Stratified Transformer.
 
 The JAX ``knn`` is a brute force: a [T, N] tile of squared distances a tile
 of queries, then ``top_k``. At 205,824 slots a row one tile of 512 queries
@@ -10,12 +11,14 @@ cubic cells instead. ``knn`` is exact: a query whose k-th nearest
 candidate of the 27 cells around its own lies closer than the cell side has
 its k nearest, and the others search again at twice the side. With a
 radius (MSC keeps only the partners closer than it among the k nearest)
-it searches cells of that side once. Distances are direct
-sums of squared differences: the JAX form |q|^2 + |x|^2 - 2 q.x loses
-about 1e-3 of a 3 cm distance to cancellation at coordinates of metres, so
-on lattice-like clouds its sets can differ from the exact ones. JAX
-computes every one of these as plain XLA, no Pallas kernel, so these are
-plain PyTorch.
+it searches cells of that side once, as the ball queries do. Distances
+are direct sums of squared differences: the JAX form |q|^2 + |x|^2 - 2 q.x
+loses about 1e-3 of a 3 cm distance to cancellation at coordinates of
+metres, so on lattice-like clouds its sets can differ from the exact ones,
+and a ball's band can take or drop a point near its radius. JAX computes
+every one of these as plain XLA, no Pallas kernel, so these are plain
+PyTorch, but for FPS on the card: its M dependent steps are one launch of
+``csrc/farthest_point_sampling.cu`` (``ops/fps.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import fps
 from .segops import PoolingPlan, build_pooling_plan
-from .serialization import serialize
+from .serialization import serialize, take_along_points
 
 _BIG = 1e10
 # bound on the candidate (query, neighbour) pairs of one chunk
@@ -61,6 +65,68 @@ def _chunks(width, budget: int):
     return out
 
 
+def _bounds(coord, mask, query, query_mask):
+    """Each row's smallest corner [B, 3] and largest extent [B] over its
+    valid data points and queries."""
+    big = torch.tensor(_BIG, device=coord.device)
+    lo = torch.minimum(torch.where(mask[..., None], coord, big).amin(1),
+                       torch.where(query_mask[..., None], query, big).amin(1))  # [B, 3]
+    hi = torch.maximum(torch.where(mask[..., None], coord, -big).amax(1),
+                       torch.where(query_mask[..., None], query, -big).amax(1))
+    lo = torch.where(lo < _BIG / 2, lo, 0.0)
+    extent = (torch.where(hi > -_BIG / 2, hi, 0.0) - lo).amax(-1).clamp(min=1e-6)  # [B]
+    return lo, extent
+
+
+def _cell_candidates(flat_c, flat_mask, flat_q, pending, lo, side, n, m):
+    """The candidates of each pending query (an index into the B * M
+    flattened queries): the valid data points of the 27 cells of ``side``
+    [B] around its own. Returns the pending queries ordered by their
+    candidate count and a generator of chunks ``(s, e, cand, dist2, live)``
+    over them: ``cand`` [e - s, W] global data indices (W the chunk's
+    largest count), ``dist2`` their squared distances as direct sums of
+    squared differences, one rounding an operation (the card's and the
+    CPU's bits agree), ``live`` the real candidates."""
+    dev = flat_c.device
+    b = side.shape[0]
+    drow = torch.arange(b, device=dev).repeat_interleave(n)
+    qrow = torch.arange(b, device=dev).repeat_interleave(m)
+    cell = torch.floor((flat_c - lo[drow]) / side[drow, None]).long()
+    key = torch.where(flat_mask, _cell_key(cell, drow), _KEY_MAX)
+    key_sorted, order = torch.sort(key)
+    prow = qrow[pending]
+    qcell = torch.floor((flat_q[pending] - lo[prow]) / side[prow, None]).long()
+    qkey = _cell_key(qcell[:, None, :] + _neighbour_offsets(dev), prow[:, None])
+    start = torch.searchsorted(key_sorted, qkey)
+    count = torch.searchsorted(key_sorted, qkey, right=True) - start  # [P, 27]
+    total, by_total = torch.sort(count.sum(1))
+    pending, start, count = pending[by_total], start[by_total], count[by_total]
+    cum = count.cumsum(1)
+
+    def chunks():
+        for s, e in _chunks(total.cpu(), _PAIRS_PER_CHUNK):
+            width = int(total[e - 1])
+            t = torch.arange(width, device=dev).expand(e - s, width)
+            j = torch.searchsorted(cum[s:e], t.contiguous(), right=True).clamp(max=26)
+            pos = start[s:e].gather(1, j) + t - (cum[s:e] - count[s:e]).gather(1, j)
+            cand = order[pos.clamp(0, b * n - 1)]
+            d = flat_c[cand] - flat_q[pending[s:e], None, :]
+            dist2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+            yield s, e, cand, dist2, t < total[s:e, None]
+
+    return pending, chunks()
+
+
+def _smallest(key: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` smallest int64 keys of each row, ascending, padded with
+    _KEY_MAX where a row has fewer (by concatenation: ``F.pad`` passes its
+    fill through a float, which turns _KEY_MAX into the int64 minimum)."""
+    top = torch.topk(key, min(k, key.shape[1]), dim=1, largest=False).values
+    if top.shape[1] < k:
+        top = torch.cat([top, top.new_full((top.shape[0], k - top.shape[1]), _KEY_MAX)], 1)
+    return top
+
+
 def knn(coord: torch.Tensor, mask: torch.Tensor, k: int, query: Optional[torch.Tensor] = None,
         query_mask: Optional[torch.Tensor] = None,
         radius: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,61 +158,25 @@ def knn(coord: torch.Tensor, mask: torch.Tensor, k: int, query: Optional[torch.T
     dev = coord.device
     kk = min(k, n)
     coord, query = coord.float(), query.float()
-    big = torch.tensor(_BIG, device=dev)
-    lo = torch.minimum(torch.where(mask[..., None], coord, big).amin(1),
-                       torch.where(query_mask[..., None], query, big).amin(1))  # [B, 3]
-    hi = torch.maximum(torch.where(mask[..., None], coord, -big).amax(1),
-                       torch.where(query_mask[..., None], query, -big).amax(1))
-    lo = torch.where(lo < _BIG / 2, lo, 0.0)
-    extent = (torch.where(hi > -_BIG / 2, hi, 0.0) - lo).amax(-1).clamp(min=1e-6)  # [B]
+    lo, extent = _bounds(coord, mask, query, query_mask)
     if radius is None:
         side = extent * (kk / mask.sum(1).clamp(min=1).float()).sqrt()
     else:
         side = torch.full_like(extent, radius)
     side = side.maximum(extent / _MAX_CELLS)
-    flat_c = coord.reshape(b * n, 3)
-    flat_q = query.reshape(b * m, 3)
-    drow = torch.arange(b, device=dev).repeat_interleave(n)
+    flat_c, flat_q, flat_mask = coord.reshape(b * n, 3), query.reshape(b * m, 3), mask.reshape(-1)
     qrow = torch.arange(b, device=dev).repeat_interleave(m)
-    offsets = _neighbour_offsets(dev)
     key_out = torch.full((b * m, kk), _KEY_MAX, dtype=torch.int64, device=dev)
     pending = query_mask.reshape(-1).nonzero().squeeze(1)
     while pending.numel() and kk:
-        cell = torch.floor((flat_c - lo[drow]) / side[drow, None]).long()
-        key = torch.where(mask.reshape(-1), _cell_key(cell, drow), _KEY_MAX)
-        key_sorted, order = torch.sort(key)
-        prow = qrow[pending]
-        qcell = torch.floor((flat_q[pending] - lo[prow]) / side[prow, None]).long()
-        qkey = _cell_key(qcell[:, None, :] + offsets, prow[:, None])
-        start = torch.searchsorted(key_sorted, qkey)
-        count = torch.searchsorted(key_sorted, qkey, right=True) - start  # [P, 27]
-        total = count.sum(1)
-        total, by_total = torch.sort(total)
-        pending, start, count = pending[by_total], start[by_total], count[by_total]
-        cum = count.cumsum(1)
+        pending, chunks = _cell_candidates(flat_c, flat_mask, flat_q, pending, lo, side, n, m)
         done = torch.zeros(pending.shape[0], dtype=torch.bool, device=dev)
-        for s, e in _chunks(total.cpu(), _PAIRS_PER_CHUNK):
-            width = int(total[e - 1])
+        for s, e, cand, dist2, live in chunks:
             q = pending[s:e]
-            if width == 0:
-                top = key_out.new_full((e - s, kk), _KEY_MAX)
-            else:
-                t = torch.arange(width, device=dev).expand(e - s, width)
-                j = torch.searchsorted(cum[s:e], t.contiguous(), right=True).clamp(max=26)
-                pos = start[s:e].gather(1, j) + t - (cum[s:e] - count[s:e]).gather(1, j)
-                live = t < total[s:e, None]
-                cand = order[pos.clamp(0, b * n - 1)]
-                d = flat_c[cand] - flat_q[q, None, :]
-                # one rounding an operation, as FPS: the card's and the
-                # CPU's keys are equal bit for bit
-                dist2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-                if radius is not None:
-                    live = live & (dist2 < radius * radius)
-                ckey = dist2.view(torch.int32).long() << 32 | (cand % n)
-                ckey = torch.where(live, ckey, _KEY_MAX)
-                top = torch.topk(ckey, min(kk, width), dim=1, largest=False).values
-                if top.shape[1] < kk:
-                    top = torch.nn.functional.pad(top, (0, kk - top.shape[1]), value=_KEY_MAX)
+            if radius is not None:
+                live = live & (dist2 < radius * radius)
+            ckey = dist2.view(torch.int32).long() << 32 | (cand % n)
+            top = _smallest(torch.where(live, ckey, _KEY_MAX), kk)
             if radius is None:
                 row = qrow[q]
                 kth = (top[:, -1] >> 32).to(torch.int32).view(torch.float32)
@@ -169,33 +199,143 @@ def knn(coord: torch.Tensor, mask: torch.Tensor, k: int, query: Optional[torch.T
     return idx, d2.sqrt()
 
 
+def _priority_ball_query(coord: torch.Tensor, mask: torch.Tensor, nsample: int,
+                         max_radius: float, min_radius: float, priority: torch.Tensor,
+                         query: Optional[torch.Tensor], query_mask: Optional[torch.Tensor],
+                         pad_mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``nsample`` valid points of lowest ``priority`` [B, N] (distinct
+    non-negative int64 ranks within a row) whose squared distance from the
+    query lies in [min_radius^2, max_radius^2], in that order: the JAX
+    ``_priority_ball_query``, over the cells of ``knn`` (cells of the
+    radius, one pass) with distances as direct differences."""
+    if pad_mode not in ("first", "shadow"):
+        raise ValueError(f"pad_mode is 'first' or 'shadow', got {pad_mode!r}")
+    if query is None:
+        query, query_mask = coord, mask
+    if query_mask is None:
+        query_mask = torch.ones(query.shape[:2], dtype=torch.bool, device=query.device)
+    b, n = mask.shape
+    m = query.shape[1]
+    dev = coord.device
+    ns = min(nsample, n)
+    coord, query = coord.float(), query.float()
+    lo, extent = _bounds(coord, mask, query, query_mask)
+    # a margin over the radius: a point at the radius lies in a
+    # neighbouring cell whatever the rounding of its cell index
+    side = torch.full_like(extent, max_radius * (1.0 + 1e-4)).maximum(extent / _MAX_CELLS)
+    lo2, hi2 = min_radius * min_radius, max_radius * max_radius
+    flat_c, flat_q, flat_mask = coord.reshape(b * n, 3), query.reshape(b * m, 3), mask.reshape(-1)
+    flat_prio = priority.reshape(-1).long()
+    key_out = torch.full((b * m, ns), _KEY_MAX, dtype=torch.int64, device=dev)
+    pending = query_mask.reshape(-1).nonzero().squeeze(1)
+    if pending.numel() and ns:
+        pending, chunks = _cell_candidates(flat_c, flat_mask, flat_q, pending, lo, side, n, m)
+        for s, e, cand, dist2, live in chunks:
+            live = live & (dist2 >= lo2) & (dist2 <= hi2)
+            key = torch.where(live, flat_prio[cand] << 32 | (cand % n), _KEY_MAX)
+            key_out[pending[s:e]] = _smallest(key, ns)
+    found = (key_out != _KEY_MAX).reshape(b, m, ns)
+    idx = torch.where(found, key_out.reshape(b, m, ns) & 0xFFFFFFFF, 0)
+    d = take_along_points(coord, idx.reshape(b, -1)).reshape(b, m, ns, 3) - query[:, :, None]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    if ns < nsample:
+        pad = (0, nsample - ns)
+        idx = torch.nn.functional.pad(idx, pad, value=0)
+        found = torch.nn.functional.pad(found, pad, value=False)
+        d2 = torch.nn.functional.pad(d2, pad, value=_BIG)
+    if pad_mode == "shadow":
+        return torch.where(found, idx, -1), torch.where(found, d2, _BIG)
+    # the reference's CUDA query repeats the first found neighbour
+    any_found = found[..., :1]
+    idx = torch.where(found, idx, torch.where(any_found, idx[..., :1], -1))
+    d2 = torch.where(found, d2, torch.where(any_found, d2[..., :1], _BIG))
+    return idx, d2
+
+
+def ball_query(coord: torch.Tensor, mask: torch.Tensor, nsample: int, max_radius: float,
+               min_radius: float = 0.0, query: Optional[torch.Tensor] = None,
+               query_mask: Optional[torch.Tensor] = None, pad_mode: str = "first"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lowest-index ``nsample`` valid points whose distance from each
+    query lies in [min_radius, max_radius] (both ends inclusive; the JAX
+    ``ball_query``, reference pointops.ball_query), ascending. Returns (idx
+    [B, M, nsample] int64, dist2 [B, M, nsample] fp32). ``pad_mode``
+    "first" repeats the first found neighbour into the unfound slots (the
+    reference's CUDA convention; -1 where none is found), "shadow" leaves
+    them -1 (torch_points_kernels' partial_dense: KPConv reads a -1 as a
+    neighbour that contributes nothing). Squared distances are direct sums
+    of squared differences: the JAX expansion form rounds by up to a few
+    ulps of |q|^2 + |x|^2, so its band can take or drop a point within that
+    of a radius."""
+    prio = torch.arange(coord.shape[1], device=coord.device).expand(coord.shape[:2])
+    return _priority_ball_query(coord, mask, nsample, max_radius, min_radius, prio, query,
+                                query_mask, pad_mode)
+
+
+def random_ball_query(generator: Optional[torch.Generator], coord: torch.Tensor,
+                      mask: torch.Tensor, nsample: int, max_radius: float,
+                      min_radius: float = 0.0, query: Optional[torch.Tensor] = None,
+                      query_mask: Optional[torch.Tensor] = None, pad_mode: str = "first",
+                      priority: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ball_query`` taking random in-band points (the JAX
+    ``random_ball_query``, reference pointops.random_ball_query): each row's
+    points ranked by a random permutation drawn from ``generator`` (on the
+    tensors' device), or by ``priority`` [B, N] (distinct non-negative
+    ranks, lower first) when given; the found points in that order."""
+    if priority is None:
+        shape = coord.shape[:2]
+        draw = torch.rand(shape, generator=generator, device=coord.device)
+        priority = torch.argsort(torch.argsort(draw, dim=1), dim=1)
+    return _priority_ball_query(coord, mask, nsample, max_radius, min_radius, priority, query,
+                                query_mask, pad_mode)
+
+
 def farthest_point_sampling(coord: torch.Tensor, mask: torch.Tensor, num_samples: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched FPS (the JAX ``farthest_point_sampling``, reference
     sampling_cuda_kernel.cu semantics): start at each row's first valid
     point, then greedily take the valid point farthest from the set taken
-    (ties to the first index, as ``torch.argmax`` documents). Returns (idx
-    [B, M] int64, sample_mask [B, M]: i < min(M, valid count)). A host loop
-    of M - 1 steps of a few launches each."""
+    (ties to the first index). Returns (idx [B, M] int64, sample_mask
+    [B, M]: i < min(M, valid count)). CUDA tensors go through the kernel
+    (``ops/fps.py``, one launch), CPU tensors through the plain loop
+    ``farthest_point_sampling_reference``; their ids are equal bit for
+    bit."""
+    if coord.is_cuda:
+        idx = fps.farthest_point_sampling_cuda(coord, mask, num_samples)
+    else:
+        idx = farthest_point_sampling_reference(coord, mask, num_samples)
+    return idx, _sample_mask(mask, num_samples)
+
+
+def _sample_mask(mask: torch.Tensor, num_samples: int) -> torch.Tensor:
+    n_valid = mask.sum(1)
+    return (torch.arange(num_samples, device=mask.device)
+            < n_valid.clamp(max=num_samples)[:, None])
+
+
+def farthest_point_sampling_reference(coord: torch.Tensor, mask: torch.Tensor,
+                                      num_samples: int) -> torch.Tensor:
+    """The plain version: the ids [B, M] int64 by a host loop of M - 1
+    steps of a few launches each (ties to the first index, as
+    ``torch.argmax`` documents; squared distances as (dx dx + dy dy) + dz
+    dz, one rounding an operation)."""
     b, n = mask.shape
     dev = coord.device
     c = coord.float()
     iota = torch.arange(n, device=dev)
     first = torch.where(mask, iota, n - 1).amin(1)
     rows = torch.arange(b, device=dev)
+    # a padded point keeps -1e10, below every squared distance
     dists = torch.where(mask, _BIG, -_BIG)
-    idx = torch.zeros(b, num_samples, dtype=torch.int64, device=dev)
-    idx[:, 0] = first
-    last = first
-    for i in range(1, num_samples):
+    ids, last = [first], first
+    for _ in range(1, num_samples):
         d = c - c[rows, last][:, None, :]
         d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-        dists = torch.minimum(dists, torch.where(mask, d2, -_BIG))
+        dists = torch.minimum(dists, d2)
         last = dists.argmax(1)
-        idx[:, i] = last
-    n_valid = mask.sum(1)
-    sample_mask = torch.arange(num_samples, device=dev) < n_valid.clamp(max=num_samples)[:, None]
-    return idx, sample_mask
+        ids.append(last)
+    return torch.stack(ids, 1)
 
 
 def _gather_slots(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -264,6 +404,22 @@ def aggregation(value_grouped: torch.Tensor, weight: torch.Tensor, groups: int) 
     b, m, k, c = value_grouped.shape
     v = value_grouped.reshape(b, m, k, groups, c // groups)
     return torch.einsum("bmkgi,bmkg->bmgi", v, weight.to(v.dtype)).reshape(b, m, c)
+
+
+def attention_relation_step(query: torch.Tensor, key_grouped: torch.Tensor,
+                            weight: torch.Tensor) -> torch.Tensor:
+    """The channel-weighted q.k of each neighbour slot (reference
+    pointops.attention_relation_step): query [B, M, G, C], key_grouped
+    [B, M, K, G, C], weight [C] -> [B, M, K, G]."""
+    return torch.einsum("bmgc,bmkgc,c->bmkg", query, key_grouped, weight.to(query.dtype))
+
+
+def attention_fusion_step(weight: torch.Tensor, value_grouped: torch.Tensor) -> torch.Tensor:
+    """The weighted sum of the neighbour slots' values (reference
+    pointops.attention_fusion_step, whose scatter over shared targets is
+    the sum over K here): weight [B, M, K, G], value_grouped [B, M, K, G, C]
+    -> [B, M, G, C]."""
+    return torch.einsum("bmkg,bmkgc->bmgc", weight.to(value_grouped.dtype), value_grouped)
 
 
 def grid_cluster_plan(coord: torch.Tensor, mask: torch.Tensor, grid_size: float,

@@ -67,6 +67,14 @@ in ts_spvcnn.py's, torchsparse's ``kernel`` [K, Cin, Cout]; OACNNs
 spconv's [k, k, k, Cin, Cout] (``final`` as [1, 1, 1, Cin, Cout]);
 OctFormer-v1m1 (``embed_proj_conv``; ``convert_octformer_checkpoint``) in
 octformer_v1m1_base.py's, ocnn's ``weights`` [taps, Cin, Cout].
+
+The Stratified Transformer (ST-v1m2/v1m1, a tree with ``embed0_kpconv``) in
+stratified_transformer_v1m2_refine.py's names, the inverse of
+``convert_stratified_checkpoint``: KPConv kernels [P, Cin, Cout] as they
+are, with the ``K_points`` buffers the flax tree does not hold (the JAX
+module's Fibonacci disposition times ``kp_sigma_radius``), and the
+KPConvResBlock's declared, never applied ``point_embed.1.bn.batch_norm``
+at its initialization.
 """
 
 from __future__ import annotations
@@ -90,8 +98,8 @@ def _lookup(tree, path):
 def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone.",
                          flax_backbone_key: str = "backbone_module",
                          teacher_params=None, teacher_batch_stats=None,
-                         constants=None, pdnorm_decouple: bool = True
-                         ) -> Dict[str, np.ndarray]:
+                         constants=None, pdnorm_decouple: bool = True,
+                         kp_sigma_radius: float = 0.02) -> Dict[str, np.ndarray]:
     """Flax PTv3, SpUNet, PTv2, PTv1, MinkUNet, SPVCNN, OACNNs or
     OctFormer (or LangPretrainer, DefaultSegmentorV2,
     DefaultSegmentor, DefaultSegmentorSkip, DefaultPretrainer, SimDINOSSL,
@@ -99,13 +107,15 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
     variables -> Pointcept-layout
     numpy state dict;
     ``teacher_params`` (and its ``teacher_batch_stats``) go under
-    ``teacher.``; ``constants`` is PPT-v1m1's collection of that name."""
+    ``teacher.``; ``constants`` is PPT-v1m1's collection of that name;
+    ``kp_sigma_radius`` is a Stratified Transformer's (its K_points' scale)."""
     params = dict(params)
     batch_stats = dict(batch_stats)
     bb_params = params.get(flax_backbone_key, params) if flax_backbone_key else params
     bb_stats = (batch_stats.get(flax_backbone_key, batch_stats)
                 if flax_backbone_key else batch_stats)
-    out = _backbone_state(bb_params, bb_stats, backbone_prefix, pdnorm_decouple)
+    out = _backbone_state(bb_params, bb_stats, backbone_prefix, pdnorm_decouple,
+                          kp_sigma_radius)
     if teacher_params is not None:
         out.update(_backbone_state(teacher_params, teacher_batch_stats or {}, "teacher.",
                                    pdnorm_decouple))
@@ -245,11 +255,15 @@ class _Writer:
 
 
 def _backbone_state(bb_params, bb_stats, backbone_prefix: str,
-                    pdnorm_decouple: bool = True) -> Dict[str, np.ndarray]:
+                    pdnorm_decouple: bool = True,
+                    kp_sigma_radius: float = 0.02) -> Dict[str, np.ndarray]:
     """One backbone's (PTv3's or SpUNet's) flax params and batch stats ->
     its state dict entries under ``backbone_prefix``."""
     out: Dict[str, np.ndarray] = {}
     w = _Writer(out, bb_params, bb_stats, backbone_prefix)
+    if "embed0_kpconv" in bb_params or "embed0_bn" in bb_stats:
+        _stratified_state(w, kp_sigma_radius)
+        return out
     if "conv_input" in bb_params or "norm_input" in bb_stats:
         _spunet_state(w, pdnorm_decouple)
         return out
@@ -645,6 +659,82 @@ def _octformer_state(w: _Writer) -> None:
     w.dense("seg_head.0", ("seg_fc1",))
     w.bn("seg_head.1", ("seg_norm",))
     w.dense("seg_head.3", ("seg_fc2",))
+
+
+def _stratified_state(w: _Writer, kp_sigma_radius: float) -> None:
+    """A Stratified Transformer's leaves in the reference's names (the
+    inverse of ``convert_stratified_checkpoint``); a flax PointBN's
+    BatchNorm is its ``norm``, the reference's FastBatchNorm1d's
+    ``batch_norm``."""
+    from scenesplat_tpu_torch.models.stratified import kernel_points
+
+    def bn(tkey, fpath):
+        w.bn(f"{tkey}.batch_norm", fpath + ("norm",))
+
+    def kpconv(tkey, fpath):
+        kernel = w.get(fpath + ("kernel",))
+        if kernel is None:
+            return
+        w.put(f"{tkey}.weight", kernel)
+        w.put(f"{tkey}.K_points",
+              kernel_points(kernel.shape[0]) * np.float32(kp_sigma_radius))
+
+    kpconv("point_embed.0.kpconv", ("embed0_kpconv",))
+    bn("point_embed.0.bn", ("embed0_bn",))
+    if "embed1_kpconv" in w.params or "embed1_bn2" in w.stats:
+        w.dense("point_embed.1.unary_1.0", ("embed1_unary1",))
+        bn("point_embed.1.unary_1.1", ("embed1_bn1",))
+        kpconv("point_embed.1.kpconv", ("embed1_kpconv",))
+        w.dense("point_embed.1.unary_2.0", ("embed1_unary2",))
+        bn("point_embed.1.unary_2.1", ("embed1_bn2",))
+        c0 = w.node(("embed1_bn2", "norm")).get("scale", w.node(("embed1_bn2", "norm")).get(
+            "mean")).shape[0]
+        dead = "point_embed.1.bn.batch_norm"
+        for name, value in (("weight", np.ones(c0, np.float32)),
+                            ("bias", np.zeros(c0, np.float32)),
+                            ("running_mean", np.zeros(c0, np.float32)),
+                            ("running_var", np.ones(c0, np.float32)),
+                            ("num_batches_tracked", np.zeros((), np.int64))):
+            w.put(f"{dead}.{name}", value)
+        w.ln("down.norm", ("stem_down_norm",))
+        w.dense("down.linear", ("stem_down_fc",))
+    layers = sorted({int(m.group(1)) for m in (re.fullmatch(r"layer(\d+)_block\d+", k)
+                                               for k in w.params) if m})
+    for name in sorted(w.params):
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
+        if m:
+            t = f"layers.{m.group(1)}.blocks.{m.group(2)}"
+            w.ln(f"{t}.norm1", (name, "norm1"))
+            w.ln(f"{t}.norm2", (name, "norm2"))
+            w.dense(f"{t}.attn.qkv", (name, "attn", "qkv"))
+            w.dense(f"{t}.attn.proj", (name, "attn", "proj"))
+            for table in ("query", "key", "value"):
+                value = w.get((name, "attn", f"relative_pos_{table}_table"))
+                if value is not None:
+                    w.put(f"{t}.attn.relative_pos_{table}_table", value)
+            w.dense(f"{t}.mlp.fc1", (name, "mlp_fc1"))
+            w.dense(f"{t}.mlp.fc2", (name, "mlp_fc2"))
+            continue
+        m = re.fullmatch(r"layer(\d+)_down_(norm|fc)", name)
+        if m:
+            t = f"layers.{m.group(1)}.down"
+            if m.group(2) == "norm":
+                w.ln(f"{t}.norm", (name,))
+            else:
+                w.dense(f"{t}.linear", (name,))
+    # up.{j}: j = 0 the deepest transition (flax up{L-2}), the stem's last
+    ups = [f"up{li}" for li in reversed(range(len(layers) - 1))]
+    if "up_stem_norm1" in w.params:
+        ups.append("up_stem")
+    for j, f in enumerate(ups):
+        w.ln(f"up.{j}.linear1.0", (f"{f}_norm1",))
+        w.dense(f"up.{j}.linear1.1", (f"{f}_fc1",))
+        w.ln(f"up.{j}.linear2.0", (f"{f}_norm2",))
+        w.dense(f"up.{j}.linear2.1", (f"{f}_fc2",))
+    w.dense("proj_out", ("proj_out",))
+    w.dense("classifier.0", ("cls_fc1",))
+    w.bn("classifier.1", ("cls_bn", "norm"))
+    w.dense("classifier.3", ("cls_fc2",))
 
 
 def load_flax_weights(model: torch.nn.Module, params, batch_stats, **kwargs):

@@ -8,8 +8,9 @@ the output's scale (one JAX jit a head, about 8 s). Then the trainer's
 ``task`` key: a DefaultSegmentor config with task="semseg" trains through
 ``python -m scenesplat_tpu_torch.train`` (the semseg file cut to a tiny
 PT-v2m2), and without the key it raises, as the port always has for a type
-outside its table (the JAX trainer falls back to "lang"); and two Trainer
-steps of a DefaultSegmentor over a narrow MinkUNet14."""
+outside its table (the JAX trainer falls back to "lang"); two Trainer
+steps of a DefaultSegmentor over a narrow MinkUNet14; and the train and
+test entry points over a narrow ST-v1m2."""
 
 import copy
 import json
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 import jax  # noqa: E402
 
 from tests.test_torch_ptv2 import MINI, close, cloud, fill, jax_point, torch_point  # noqa: E402
@@ -120,3 +122,39 @@ def test_trainer_takes_two_minkunet_steps(gs_root, tmp_path):  # noqa: F811
     assert len(losses) == 2 and np.isfinite(losses + trainer.storage.history(
         "grad_norm").values()).all()
     assert not torch.equal(trainer.model.state_dict()["backbone.bn0.bn.running_mean"], before)
+
+
+def test_semseg_file_trains_and_tests_st(gs_root, tmp_path):  # noqa: F811
+    """The semseg file (tests/test_torch_semseg.py's tiny cut) with its
+    model a DefaultSegmentor over a narrow ST-v1m2 and task="semseg":
+    ``python -m scenesplat_tpu_torch.train`` (finite losses, val mIoU, a
+    best checkpoint the model takes strictly), then ``.test`` on it
+    (SemSegTester: finite mIoU, a prediction a point)."""
+    from tests.test_torch_semseg import NUM_CLASSES
+    from tests.test_torch_stratified import SMALL
+    from scenesplat_tpu_torch import test as test_entry
+    from scenesplat_tpu_torch import train as train_entry
+    from scenesplat_tpu_torch.models import build_model
+
+    exp = tmp_path / "exp"
+    cfg = _tiny_semseg(gs_root, str(exp))
+    cfg.merge_from_options(dict(epoch=1, eval_epoch=1))
+    backbone = {k: v for k, v in SMALL.items() if k not in ("type", "in_channels", "num_classes")}
+    cfg.model = dict(type="DefaultSegmentor", criteria=cfg.model.criteria,
+                     backbone=dict(backbone, type="ST-v1m2", in_channels=14,
+                                   num_classes=NUM_CLASSES, drop_path_rate=0.2))
+    cfg.task = "semseg"
+    cfg.hooks = [h for h in cfg.hooks if h["type"] != "PreciseEvaluator"]
+    cfg_file = tmp_path / "st_semseg.py"
+    cfg.dump(str(cfg_file))
+    assert train_entry.main(["--config-file", str(cfg_file), "--device", "cpu"]) == 0
+    losses = [r["loss"] for r in map(json.loads, open(exp / "metrics.json")) if "loss" in r]
+    assert len(losses) >= 2 and np.isfinite(losses).all()
+    best = exp / "model" / "model_best.pth"
+    state = torch.load(best, weights_only=False)["state_dict"]
+    build_model({k: v for k, v in dict(cfg.model).items() if k != "criteria"}).load_state_dict(
+        state, strict=True)
+    (res,) = test_entry.main(["--config-file", str(cfg_file), "--device", "cpu", "--options",
+                              f"weight={best}", f"test.save_path={tmp_path / 'test'}"])
+    assert np.isfinite(res["mIoU"])
+    assert all(np.load(p).ndim == 1 for p in (tmp_path / "test").glob("*_pred.npy"))

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 
 from tests.test_torch_semseg import gs_root  # noqa: E402,F401 (fixture)
 from tests.test_torch_ssl import (  # noqa: E402
@@ -33,7 +34,7 @@ from tests.test_torch_ssl import (  # noqa: E402
     variable_shapes,
 )
 from tests.test_torch_ssl_data import SSL, ssl_root  # noqa: E402,F401 (fixture)
-from tests.test_torch_test import one_torch_thread  # noqa: E402,F401 (fixture)
+from tests.torch_fixtures import one_torch_thread  # noqa: E402,F401 (fixture)
 
 SEMSEG = "configs/scannet/semseg-gs-scannet-all-w-normal-fixed-xyz.py"
 NUM_CLASSES = 8

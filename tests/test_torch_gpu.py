@@ -1,7 +1,7 @@
 """The hand-written kernels on a CUDA card: the flash-window attention
 kernels (K1 forward, K2 backward) against their plain version and autograd
-through it, and the bitonic row sort (K3) against its plain version (no JAX
-involved). Every test skips without a card; on one, run
+through it, the bitonic row sort (K3) and the farthest point sampling
+kernel against their plain versions (no JAX involved). Every test skips without a card; on one, run
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py -q
 
@@ -757,3 +757,49 @@ def test_pointgroup_cluster_on_card_equals_cpu(cuda, monkeypatch):
         got, n_got = cluster.pointgroup_cluster(c.to(cuda), lab.to(cuda), 1.5, 50)
         ref, n_ref = cluster.pointgroup_cluster(c, lab, 1.5, 50)
         assert n_got == n_ref > 10 and torch.equal(got.cpu(), ref)
+
+
+def _fps_rows(cuda, b, n, seed, pad=0, spread=4.0):
+    """Rows of n points uniform in a ``spread`` metre cube (one point
+    duplicated: a tie), the last ``pad`` slots of the last row padded and
+    a few slots at the start of row 0 padded (its first valid point is not
+    slot 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    coord = torch.rand(b, n, 3, generator=gen, device=cuda) * spread
+    if n > 7:
+        coord[:, 7] = coord[:, 3]
+    mask = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    mask[0, :3] = False
+    if pad:
+        mask[-1, n - pad:] = False
+    return coord, mask
+
+
+@pytest.mark.parametrize("b,n,m,pad", [
+    (2, 102912, 25729, 0),  # the Stratified Transformer's stem at the train rows
+    (2, 25729, 6433, 1000),  # its first stage (about 6,433 of 25,729 valid)
+    (2, 1609, 403, 100), (1, 5, 9, 0),  # a later stage; more samples than points
+    (2, 120000, 2000, 3),  # beyond the shared memory: points in the spill row
+    (3, 4096, 1024, 256),  # PTv1's first transition at a test size
+])
+def test_fps_kernel_ids_equal_plain_loop(cuda, b, n, m, pad):
+    from scenesplat_tpu_torch.ops import fps
+    from scenesplat_tpu_torch.ops import pointops as po
+
+    coord, mask = _fps_rows(cuda, b, n, seed=n, pad=pad)
+    before = fps.farthest_point_sampling_cuda.launches
+    got, got_mask = po.farthest_point_sampling(coord, mask, m)
+    assert fps.farthest_point_sampling_cuda.launches == before + 1
+    want = po.farthest_point_sampling_reference(coord, mask, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_mask.cpu(), po._sample_mask(mask.cpu(), m))
+
+
+def test_fps_kernel_row_without_valid_points(cuda):
+    from scenesplat_tpu_torch.ops import pointops as po
+
+    coord, mask = _fps_rows(cuda, 2, 300, seed=1)
+    mask[1] = False
+    got, _ = po.farthest_point_sampling(coord, mask, 20)
+    assert torch.equal(got, po.farthest_point_sampling_reference(coord, mask, 20))

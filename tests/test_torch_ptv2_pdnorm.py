@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import one_torch_thread  # noqa: E402,F401 (fixture)
 import jax.numpy as jnp  # noqa: E402
 
 from tests.test_torch_ptv2 import (  # noqa: E402

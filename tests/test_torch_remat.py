@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import one_torch_thread  # noqa: E402,F401 (fixture)
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 import jax  # noqa: E402
 
 from tests.test_full_model_golden import MINI, _make_scene  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 
 from tests.test_torch_spunet import (  # noqa: E402
     CONDITIONS,

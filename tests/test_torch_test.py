@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import one_torch_thread  # noqa: E402,F401 (fixture)
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 import jax  # noqa: E402,F401
 
 from scenesplat_tpu import data as jdata  # noqa: E402
@@ -56,19 +58,6 @@ def _pipelines():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the port's torch work in this file. The
-    suite runs files in parallel processes, and the port's loader threads
-    each start an OpenMP team; with teams as wide as the machine in every
-    process they spin against each other (a train entry test of 8 s took
-    over 15 minutes beside five copies of itself on 8 cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

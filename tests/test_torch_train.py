@@ -22,12 +22,13 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_fixtures import fused_jax_conv  # noqa: E402,F401 (fixture)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from tests.test_full_model_golden import MINI  # noqa: E402
 from tests.test_torch_model import _case  # noqa: E402
-from tests.test_torch_test import one_torch_thread  # noqa: E402,F401 (fixture)
+from tests.torch_fixtures import one_torch_thread  # noqa: E402,F401 (fixture)
 
 FLAGSHIP = "configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py"
 LOSS_RTOL = 1e-5
