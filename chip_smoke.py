@@ -150,8 +150,8 @@ Phases, one JSON line each:
      and 49,152 points with the kernels and with the plain attention
      (losses to 1e-5, gradients to 1e-4 relative);
  22. semseg_test: scenesplat_tpu_torch.test's main on the semseg file with
-     the semseg_train checkpoint over one synthetic scene of 320,000
-     Gaussians, 9 views each: torch.sort and K3 under deterministic
+     the semseg_train checkpoint over one synthetic scene of 100,001
+     Gaussians, 2 of the file's 9 views (TEST_VIEWS): torch.sort and K3 under deterministic
      algorithms (equal predictions and mIoU), then as a user runs it, for
      the seconds per scene (fetch, extract, vote); then semseg_timing_test
      (every K1 call of the first fragment forward, bf16_large and
@@ -168,10 +168,11 @@ Phases, one JSON line each:
      and the EMA the teacher bit-equal on both ranks and within 1e-6 of one
      process's, its mask token unmoved); K1 with lse and K2 on each rank;
  24. remat_agree: one fp32 train step of the flagship file's model at its
-     widths, 2 rows of 49,152 points, with remat_blocks off and on, under
-     deterministic algorithms: the loss bit-equal, every gradient to 1e-5
-     of its norm, each run's peak memory and K1 / K2 launches a step (the
-     recompute launches K1 with lse once more a block);
+     widths, 2 rows of 24,576 points (1.7 m rooms), with remat_blocks off
+     and on, under deterministic algorithms: the loss bit-equal, every
+     gradient to 1e-5 of its norm, each run's peak memory and K1 / K2
+     launches a step (the recompute launches K1 with lse once more a
+     block);
  25. ppt_train: Point Prompt Training, MultiDatasetTrainer over the semseg
      file with a PPT-v1m1 model over its backbone (bf16, 205,824 points,
      PDNorm BatchNorms and LayerNorms, two conditions, ScanNetGS with 20
@@ -185,8 +186,8 @@ Phases, one JSON line each:
      loader waits, peak memory, one profiled step, each condition's
      val/mIoU; then ppt_timing_bwd, timing_bwd at its stage shapes;
  26. ppt_test: the test entry point on that config with ppt_train's
-     checkpoint, one SemSegTester a condition over a 200,001-Gaussian room
-     (9 views), as a user runs it: seconds per scene (fetch, extract,
+     checkpoint, one SemSegTester a condition over a 100,001-Gaussian room
+     (TEST_VIEWS: 2 of 9 views), as a user runs it: seconds per scene (fetch, extract,
      vote), K1 per fragment forward; then ppt_timing_test (every K1 call of
      the first fragment forward);
  27. ppt_agree: one fp32 loss of PPT-v1m1 and of PPT-v1m2 at one block a
@@ -206,7 +207,7 @@ Phases, one JSON line each:
      gradient nonzero, no K1 or K2 launch;
  30. spunet_agree: instance segmentation's model, PG-v1m1 over
      SpUNet-v1m1 at its published widths (channels 32 to 256, layers
-     2 3 4 6 2 2 2 2), fp32, 2 rows of 16,384 points of a room with
+     2 3 4 6 2 2 2 2), fp32, 2 rows of 8,192 points of a room with
      objects: one step's loss, gradients and BatchNorm statistics on the
      card against the CPU (1e-5; each gradient to 1e-4 of its norm or to
      2.5 times the noise floor of the card's step on the rows' points in 3
@@ -229,11 +230,11 @@ Phases, one JSON line each:
      49,152 points, fp32, one insseg step with the kernels (K1 with lse and
      K2) against the plain attention (losses 1e-5, gradients 1e-4);
  34. insseg_ddp_agree: phase 23's check for PG over SpUNet-v1m1: two ranks
-     over gloo against one process at 2 rows of 16,384 (loss 1e-5,
+     over gloo against one process at 2 rows of 8,192 (loss 1e-5,
      gradients and statistics 1e-4 and 1e-6 or under phase 30's noise-floor
      rule), no kernel launch;
  35. msc_agree: Masked Scene Contrast, MSC-v1m1 and MSC-v1m2 (CSC) over
-     SpUNet-v1m1 at its published widths, fp32, 2 rows x 2 views of 16,384
+     SpUNet-v1m1 at its published widths, fp32, 2 rows x 2 views of 8,192
      points, view 1 mixed, the card's own cross masks and pairs injected
      through the replay keys: one step's loss terms, gradients and
      statistics on the card against the CPU (terms to 1e-5 of the loss,
@@ -246,7 +247,7 @@ Phases, one JSON line each:
  37. cac_train and cac_test: the semseg file made CAC-v1m1 over the same
      SpUNet (14 channels, 20 classes, CE), batch 2, 4 steps, val mIoU
      through SemSegEvaluator, then the test entry point's SemSegTester over
-     one 200,001-Gaussian room (9 views) as a user runs it;
+     one 100,001-Gaussian room (TEST_VIEWS: 2 of 9 views) as a user runs it;
  38. cac_agree: CAC over the semseg file's PT-v3m1, one block a stage,
      fp32, 49,152 points, kernels against plain (losses 1e-5, gradients
      1e-4 or under the noise floor of 3 point-permuted kernel steps);
@@ -261,8 +262,8 @@ Phases, one JSON line each:
      (published widths, adaptive PDNorm, context 256): each step's
      condition and only its norms' statistics moved, each condition's val
      mIoU, no K1 or K2 launch;
- 41. ptv2_agree: Point Transformer V2, fp32, one room of 8,192 points
-     (jittered off the lattice by 3 mm): the kNN and FPS indices on the
+ 41. ptv2_agree: Point Transformer V2, fp32, one 1.7 m room of 4,096
+     points (jittered off the lattice by 3 mm): the kNN and FPS indices on the
      card equal the CPU's; one train step (CE + Lovasz) of DefaultSegmentor
      over PT-v2m2 at Pointcept's published widths and depths, then PT-v2m1
      and PT-v2m3 (adaptive PDNorm named "S3DIS", a N(0, 1) context) at one
@@ -278,7 +279,7 @@ Phases, one JSON line each:
      overflow, kNN ms a step, step times, loader waits, peak memory, one
      profiled step;
  43. ptv2_test: the test entry on that config and checkpoint over one
-     200,001-Gaussian room (9 views): torch.sort and K3 under
+     100,001-Gaussian room (TEST_VIEWS: 2 of 9 views): torch.sort and K3 under
      deterministic algorithms (equal predictions and metrics, K3 once for
      each of the 4 grid poolings of every fragment forward), then as a
      user runs it, for the seconds per scene;
@@ -297,8 +298,8 @@ Phases, one JSON line each:
      sparse-conv backbones (SPARSE_BACKBONES: MinkUNet34C, SPVCNN, OACNNs
      and OctFormer-v1m1 at their published widths, each under the v1
      DefaultSegmentor with the semseg file's CE + Lovasz), one fp32 train
-     step of one row of 16,384 points (a 1.4 m room filled to two thirds,
-     jittered 3 mm) on the card against a float64 step on the CPU
+     step of one row of 8,192 points (a 1 m room filled to two thirds,
+     jittered 3 mm; OctFormer 16,384 in 1.4 m) on the card against a float64 step on the CPU
      (card_cpu_agree), SPVCNN's dropout and OctFormer's drop path off
      (OctFormer's per-scene drop path checked apart on the card; its steps
      at two blocks a stage and with capacities that keep every cluster);
@@ -313,7 +314,7 @@ Phases, one JSON line each:
      waits, peak memory, one profiled step's idle share; OctFormer's
      batches inside its +-10.24 m octree;
  54. mink_test: the test entry on mink_train's config and checkpoint over
-     one 200,001-Gaussian room (9 views): torch.sort and K3 under
+     one 100,001-Gaussian room (TEST_VIEWS: 2 of 9 views): torch.sort and K3 under
      deterministic algorithms (equal predictions and metrics, K3 6 times a
      fragment forward), then as a user runs it, for the seconds per room;
  55. fps_kernel: the farthest point sampling kernel
@@ -340,10 +341,42 @@ Phases, one JSON line each:
      coarse tables), step times, loader waits, peak memory, one profiled
      step's idle share;
  58. st_test: the test entry on st_train's config and checkpoint over one
-     200,001-Gaussian room (9 views): torch.sort and K3 under
+     200,001-Gaussian room (TEST_VIEWS: 2 of 9 views): torch.sort and K3 under
      deterministic algorithms (equal predictions and metrics, K3 16 times a
      fragment forward: each stage's four window tables, some past one
-     cluster's tile), then as a user runs it, for the seconds per room.
+     cluster's tile), then as a user runs it, for the seconds per room;
+ 59. cls_agree: DefaultClassifier (40 classes) over PT-v3m1 in cls_mode at
+     Pointcept's ModelNet40 widths (the semseg file's encoder, windows of
+     1024, coordinates and normals in), fp32, 2 synthetic objects of
+     10,000 points through the test pipeline (NormalizeCoord, GridSample
+     at 1 cm) padded into one batch: the card's logits with the K1 kernel
+     (fp32, 14 launches, no pooling overflow) against the plain
+     attention's and the CPU's (1e-4 of their scale);
+ 60. cls_test: the classifier in bf16 through the port's tester builder,
+     as the test entry builds it: ClsTester over 16 objects, ClsVotingTester
+     over 3 repeats of the scaled test pipeline, ClsEvaluator's
+     before_train and after_epoch on a stub trainer: their records in the
+     JAX testers' form, seconds an object, K1 14 a forward on bf16_large,
+     no K2, K3 or FPS launch, no pooling overflow; 4 objects' bf16 logits
+     against the fp32 kernel path's under the noise-floor rule; then
+     cls_timing, phase 4's timing at the K1 calls of one classifier forward;
+ 61. partseg_test: PartSegTester through the builder, PTv1 PartSeg50 under
+     DefaultSegmentor (16 shape categories, 50 parts, each object's
+     cls_token), fp32, 8 objects of 2,048 points with 2 scaled variants
+     each, on the card and on the CPU: logits to 1e-4 of their scale,
+     ins_mIoU and cat_mIoU equal where the predictions are, the FPS kernel
+     4 times a forward, no K1, K2 or K3;
+ 62. loss_agree: SmoothCELoss, FocalLoss, BinaryFocalLoss, DiceLoss,
+     L1Loss, DINOLoss (3 centre updates), iBOTPatchLoss (3) and
+     sinkhorn_knopp_teacher in fp32 on the card against float64 on the
+     CPU, values, centres and gradients to 1e-5 of their scale.
+ After phase 3, profiler_hook: RuntimeProfiler over 2 of 4 steps of a card
+ matmul loop, the process's second profiler session (the first, serve's,
+ pays the profiler's start), its Chrome trace holding CUDA kernel events;
+ after phase 62, profiler_hook_last, the same after every other profiled
+ phase: its trace holds the kernel events, or none and the hook warned
+ (late in a process torch.profiler loses kernel events whatever profiles;
+ tools/profiler_sessions.py).
 To make room for phases 41-45, msc_train and cac_train run 4 steps where
 they ran 6, and ppt_train and ppt_spunet_train 3 where they ran 6 (A A
 B); for phases 46-54, semseg_train, insseg_train and cac_train run 3
@@ -359,7 +392,21 @@ spawn; for phases 55-58 the CPU witness steps of the agree phases take
 fewer points (ptv2_agree 8,192 where it took 49,152; ptv1_agree 2 rows
 of 4,096 where they were 16,384; spunet_agree, msc_agree and the insseg,
 msc and cac two-rank checks 16,384 a row where they took 24,576), their
-checks and bounds as they were. Each phase's
+checks and bounds as they were; for phases 59-62, again fewer points in
+the agree phases' CPU witness steps (mink_agree, spvcnn_agree and
+oacnns_agree 8,192 where they took 16,384, in a 1 m room where it was
+1.4 m, so that the row fills its shell as before; ptv2_agree 4,096 where it took 8,192,
+in a 1.7 m room where it was 2.4 m, its FPS check 2,048 samples where
+it took 4,096; spunet_agree, msc_agree and the insseg, msc and cac
+two-rank checks 8,192 a row where they took 16,384), and remat_agree's
+two rows 24,576 points in 1.7 m rooms where they took 49,152 in 2.4 m
+ones, each room filled as before; their checks and bounds as they were),
+five test phases' rooms (semseg_test, ppt_test, cac_test, ptv2_test,
+mink_test) 100,001 Gaussians where they were 200,001 (st_test keeps
+200,001: its window tables must pass one sort tile), and six test phases
+(semseg_test, ppt_test, cac_test, ptv2_test, mink_test, st_test) 2 of
+the file's test-time views where they took all 9 (TEST_VIEWS: the first
+rotation and the flip), their checks as they were. Each phase's
 JSON line carries the script's seconds so far (``t_s``); PERF.md gives the
 whole script's seconds on one H100 80GB HBM3 at 700 W, run by run.
 The kernel and kernel_bwd phases also hold K1 and K2 at a local crop's
@@ -1646,17 +1693,18 @@ def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, zero=Z
     check(not any(overflow_k + overflow_p), f"{phase}: pooling overflow {overflow_k}")
 
 
-def agree_rows(n, seeds):
-    """One batch row of ``n`` points per seed: a room small enough that its
-    4 cm cells fit the first pooling's capacity (a 3 m room's 24,891 would
-    overflow 0.5 x 49,152), 20 classes by angle and height, 768-d fp16
-    lang_feat (a unit embedding per class plus noise) and valid_feat_mask;
-    numpy arrays [rows, n, ...]."""
+def agree_rows(n, seeds, size_m=2.4):
+    """One batch row of ``n`` points per seed: a cube room of ``size_m``
+    small enough that its 4 cm cells fit the first pooling's capacity (a 3
+    m room's 24,891 would overflow 0.5 x 49,152; at 24,576 points a 1.7 m
+    room), 20 classes by angle and height, 768-d fp16 lang_feat (a unit
+    embedding per class plus noise) and valid_feat_mask; numpy arrays
+    [rows, n, ...]."""
     rows = []
     for seed in seeds:
         rng = np.random.default_rng(seed)
-        coord, feat_in, grid = room_scene(rng, n, (2.4, 2.4, 2.4))
-        angle = np.arctan2(coord[:, 1] - 1.2, coord[:, 0] - 1.2)
+        coord, feat_in, grid = room_scene(rng, n, (size_m,) * 3)
+        angle = np.arctan2(coord[:, 1] - size_m / 2, coord[:, 0] - size_m / 2)
         seg = ((angle + np.pi) / (2 * np.pi) * 10).astype(np.int64).clip(0, 9)
         seg = seg + 10 * (coord[:, 2] > 1.0)
         emb = rng.normal(size=(TRAIN_CLASSES, LANG_DIM)).astype(np.float32)
@@ -2466,9 +2514,10 @@ def forward_sort_sizes(backbone, n_points):
 
 class WindowCalls:
     """Records (N, valid count of each batch row, K, C, H) of the first
-    ``limit`` K1 calls at windows of at most ``max_window`` slots (by
-    default FWD_SMALL_MAX: the decoder's) while it is entered, then passes
-    each call on unchanged."""
+    ``limit`` K1 calls on the card at windows of at most ``max_window``
+    slots (by default FWD_SMALL_MAX: the decoder's) while it is entered,
+    then passes each call on unchanged. A CPU forward in another thread
+    (cls_agree's witness) is not recorded."""
 
     def __init__(self, limit, max_window=fwa.FWD_SMALL_MAX):
         self.limit, self.max_window, self.calls = limit, max_window, []
@@ -2477,7 +2526,7 @@ class WindowCalls:
         real = self.real = window_attention_module.flash_window_attention
 
         def recording(qkv, valid, patch_size, num_heads, scale=None):
-            if len(self.calls) < self.limit and patch_size <= self.max_window:
+            if len(self.calls) < self.limit and patch_size <= self.max_window and qkv.is_cuda:
                 self.calls.append((qkv.shape[1], tuple(valid.sum(1).tolist()), patch_size,
                                    qkv.shape[3], num_heads))
             return real(qkv, valid, patch_size, num_heads, scale)
@@ -2492,6 +2541,25 @@ class WindowCalls:
         """(N, valids, K, C, H, calls) of each distinct call, in call order."""
         order = list(dict.fromkeys(self.calls))
         return [(*call, self.calls.count(call)) for call in order]
+
+
+# the test phases' test-time views: of the semseg file's 9 (semseg_tta: 4
+# rotations at each of 2 scales, then a flip), the first rotation and the
+# flip
+TEST_VIEWS = (0, -1)
+
+
+def test_views(augs):
+    """TEST_VIEWS of a test_cfg's ``aug_transform``, as plain lists and
+    dicts."""
+    return json.loads(json.dumps([augs[i] for i in TEST_VIEWS]))
+
+
+def views_option(config_path):
+    """The test entry's option that keeps TEST_VIEWS of the config file's
+    test-time views."""
+    augs = Config.fromfile(config_path).data.test.test_cfg.aug_transform
+    return f"data.test.test_cfg.aug_transform={test_views(augs)!r}"
 
 
 def run_test_entry(work, prefix, args, calls):
@@ -2936,8 +3004,8 @@ def phase_semseg_agree(n=49152):
 
 def phase_semseg_test(work, checkpoint, n_voxels=160000, n_scenes=2):
     """``python -m scenesplat_tpu_torch.test`` on the semseg file as it is
-    (SemSegTester with the file's 9 test-time views and fragment voting,
-    bf16) with the semseg_train checkpoint, three times through
+    (SemSegTester with TEST_VIEWS of the file's test-time views and
+    fragment voting, bf16) with the semseg_train checkpoint, three times through
     run_test_entry; the per-scene seconds (fetch, extract, vote) of the run
     as a user makes it are the ones to quote. Returns K3's and K1's counts
     of the K3 run, the fragments, the sort sizes of the first fragment
@@ -2951,18 +3019,18 @@ def phase_semseg_test(work, checkpoint, n_voxels=160000, n_scenes=2):
     calls = WindowCalls(limit=blocks, max_window=max(backbone["enc_patch_size"]))
     runs = run_test_entry(work, "semseg_test", [
         "--config-file", SEMSEG_CONFIG, "--options", f"weight={checkpoint}",
-        f"data.test.data_root={data_root}"], calls)
+        f"data.test.data_root={data_root}", views_option(SEMSEG_CONFIG)], calls)
     fragment_points, sizes = check_test_runs("semseg_test", runs, n_scenes, n_points, backbone)
     off, on, timed = runs["off"], runs["on"], runs["timed"]
     for sc in on["scenes"]:
-        check(sc["fragments"] >= 9, f"semseg_test: scene {sc['name']}: {sc['fragments']} "
-              "fragments for 9 views")
+        check(sc["fragments"] >= len(TEST_VIEWS), f"semseg_test: scene {sc['name']}: "
+              f"{sc['fragments']} fragments for {len(TEST_VIEWS)} views")
     for key, pred in off["preds"].items():
         check(len(pred) == n_points, f"semseg_test: {key} {pred.shape}")
     check(np.isfinite(off["res"]["mIoU"]), f"semseg_test: mIoU {off['res']['mIoU']}")
     check(len(calls.calls) == blocks, f"semseg_test: first fragment's K1 calls {calls.calls}")
     emit(dict(phase="semseg_test", config=SEMSEG_CONFIG, dtype="bfloat16", scenes=n_scenes,
-              points_per_scene=n_points, views=9, fragments=len(fragment_points),
+              points_per_scene=n_points, views=len(TEST_VIEWS), fragments=len(fragment_points),
               dataset_write_s=write_s,
               switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
                               per_scene=scene_split(off), k1_launches=off["k1"]),
@@ -3618,13 +3686,13 @@ def prepare_task_ddp_agree(work, task):
     unmoved (the MCR expansion's cotangent at the heads given to both sides,
     as in ssl_agree: given_expansion_cotangent). K1 with lse and K2 launch
     on each rank. insseg: PointGroup over SpUNet-v1m1 at its published
-    widths (the insseg configuration's model), 2 rows of 16,384 points, the
+    widths (the insseg configuration's model), 2 rows of 8,192 points, the
     reference's CE and the two bias terms over the global batch; the loss to
     1e-5, every gradient to 1e-4 of its norm or under the noise floor rule
     (compare_steps; the floor of one process's step on the points in 3
     other orders), the statistics to 1e-6 or that rule with their floor; no
     K1 or K2 launch. msc: MSC-v1m1 at its published widths (view mixing
-    off), 2 rows x 2 views of 16,384 points with msc_agree's draws injected
+    off), 2 rows x 2 views of 8,192 points with msc_agree's draws injected
     (the pairs name global rows, so every rank holds them all): InfoNCE
     over the summed pair features, the reconstructions over the global
     batch; cac: CAC-v1m1 over SpUNet-v1m1 at its published widths on
@@ -3717,7 +3785,7 @@ def finish_task_ddp_agree(task, ranks, ranks_s, world, ref, stats, floor, stat_f
 REMAT_GRAD_RTOL = 1e-5
 
 
-def phase_remat_agree(n=49152):
+def phase_remat_agree(n=24576):
     """The flagship file at its widths, one fp32 train step of 2 rows of
     ``n`` points (drop-path 0.3, the curve shuffle and the contrastive split
     drawn) with remat_blocks off and on, from the same weights and
@@ -3727,7 +3795,7 @@ def phase_remat_agree(n=49152):
     recompute in the backward launches K1 with lse once more); then each
     model's step again without the deterministic mode for its time (CUDA
     events) and peak memory (the model's parameters included)."""
-    batch = cuda_batch(agree_rows(n, (7, 8)))
+    batch = cuda_batch(agree_rows(n, (7, 8), size_m=1.7))
     blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
     runs = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -3985,8 +4053,8 @@ def phase_ppt_test(work, checkpoint, n_voxels=160000):
     """``python -m scenesplat_tpu_torch.test`` on the PPT config with the
     ppt_train checkpoint: a SemSegTester a condition (ScanNetGS over 20
     classes, ScanNetPPGS over 100 with the ScanNet++ top-3 protocol), each
-    over one synthetic room of 2 n_voxels + 1 Gaussians with both label sets, 9
-    views, as a user runs it. Checks every scene predicted, finite mIoU
+    over one synthetic room of 2 n_voxels + 1 Gaussians with both label sets,
+    TEST_VIEWS of the file's views, as a user runs it. Checks every scene predicted, finite mIoU
     and K1 once a block in every fragment forward; prints the seconds per
     scene (fetch, extract, vote). Returns the K1 counts, the fragment
     forwards and the shapes of K1's calls in the first one."""
@@ -3995,6 +4063,8 @@ def phase_ppt_test(work, checkpoint, n_voxels=160000):
     n_points = write_test_scenes(root, 1, n_voxels, seed=33, semseg=True, ppt=True)
     write_s = time.perf_counter() - t0
     cfg = ppt_train_config(root, os.path.join(work, "ppt_test_exp"), 2, test_root=root)
+    for test in cfg.data.test:
+        test["test_cfg"]["aug_transform"] = test_views(test["test_cfg"]["aug_transform"])
     path = os.path.join(work, "ppt_test_config.py")
     cfg.dump(path)
     backbone = cfg.model["backbone"]
@@ -4022,7 +4092,8 @@ def phase_ppt_test(work, checkpoint, n_voxels=160000):
           and variants == dict(bf16_large=enc * fragments, bf16_small=dec * fragments),
           f"ppt_test: K1 {variants} in {fragments} fragment forwards")
     check(len(calls.calls) == enc + dec, f"ppt_test: first fragment's K1 calls {calls.calls}")
-    emit(dict(phase="ppt_test", dtype="bfloat16", points_per_scene=n_points, views=9,
+    emit(dict(phase="ppt_test", dtype="bfloat16", points_per_scene=n_points,
+              views=len(TEST_VIEWS),
               fragments=fragments, seconds=seconds, dataset_write_s=write_s,
               k1_variant_launches=variants, conditions=per_condition,
               k1_calls_first_fragment=calls.shapes()))
@@ -4320,7 +4391,7 @@ def phase_rpe_agree(n=205824, n_train=49152, reps=3):
 # ---- instance segmentation: SpUNet and PointGroup ------------------------------
 
 INSSEG_IGNORE = (-1, 0, 1)
-INSSEG_AGREE_POINTS = 16384
+INSSEG_AGREE_POINTS = 8192
 SPUNET_WIDTHS = dict(channels=(32, 64, 128, 256, 256, 128, 96, 96), layers=(2, 3, 4, 6, 2, 2, 2, 2))
 # the card against the CPU, fp32: BatchNorm running statistics (relative L2)
 # and a forward's features (relative to their largest magnitude)
@@ -4755,7 +4826,7 @@ def phase_insseg_agree(n=49152):
 
 MSC_TERMS = ("loss", "nce_loss", "pos_sim", "neg_sim", "color_loss", "normal_loss")
 CAC_TERMS = ("loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
-MSC_AGREE_POINTS = 16384
+MSC_AGREE_POINTS = 8192
 MSC_CSC = dict(partitions=4, r1=0.125, r2=2.0)
 MSC_VIEW_KEYS = ("origin_coord", "grid_coord", "coord", "color", "normal")
 
@@ -5169,7 +5240,7 @@ def phase_cac_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), va
 
 def phase_cac_test(work, config_path, checkpoint, n_voxels=160000):
     """``python -m scenesplat_tpu_torch.test`` on the CAC config with
-    cac_train's best checkpoint: the file's SemSegTester (9 views, fragment
+    cac_train's best checkpoint: the file's SemSegTester (TEST_VIEWS, fragment
     voting of the refined logits) over one synthetic room of 2 n_voxels + 1
     Gaussians, as a user runs it: the room predicted, finite mIoU, the
     seconds (fetch, extract, vote)."""
@@ -5182,17 +5253,19 @@ def phase_cac_test(work, config_path, checkpoint, n_voxels=160000):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     (res,) = test_entry.main(["--config-file", config_path, "--options", f"weight={checkpoint}",
-                              f"data.test.data_root={root}", f"test.save_path={save}"])
+                              f"data.test.data_root={root}", f"test.save_path={save}",
+                              views_option(config_path)])
     seconds = time.perf_counter() - t1
     check(fwa.flash_window_attention.launches == 0,
           f"cac_test: {fwa.flash_window_attention.launches} K1 launches on a SpUNet")
     with open(os.path.join(save, "scene_log.json")) as f:
         scenes = json.load(f)
-    check(len(scenes) == 1 and scenes[0]["points"] == n_points and scenes[0]["fragments"] >= 9,
+    check(len(scenes) == 1 and scenes[0]["points"] == n_points
+          and scenes[0]["fragments"] >= len(TEST_VIEWS),
           f"cac_test: scenes {[(s['name'], s['points'], s['fragments']) for s in scenes]}")
     check(math.isfinite(res["mIoU"]), f"cac_test: mIoU {res['mIoU']}")
     emit(dict(phase="cac_test", model="CAC-v1m1 over SpUNet-v1m1", points_per_scene=n_points,
-              views=9, seconds=seconds, dataset_write_s=write_s, mIoU=res["mIoU"],
+              views=len(TEST_VIEWS), seconds=seconds, dataset_write_s=write_s, mIoU=res["mIoU"],
               per_scene=scene_split(dict(scenes=scenes))))
     sc = scenes[0]
     print(f"cac_test: {sc['name']} {sc['points']} points, {sc['fragments']} fragments: fetch "
@@ -5223,7 +5296,14 @@ def phase_cac_agree(n=49152):
     bound is the worst tensor's floor, not its own: the serialization
     orders a window's points whatever the input order, so the permutations
     leave the attention's own sums in place and a tensor next to it may
-    show no floor of its own. Returns its K1 with lse and K2 launches."""
+    show no floor of its own. Every step runs under deterministic
+    algorithms (warn_only): in their default forms the card's scatter-adds
+    sum in an order that changes from run to run, and the kernel's step
+    run twice on the same rows moved the encoder's MLP biases by up to
+    1.2e-4, as far as the plain step lay and at times over the floor that
+    3 runs sample (tools/cac_agree_ties.py); the step then repeats bit for
+    bit and the floor and the compared steps are sums in one order. Returns
+    its K1 with lse and K2 launches."""
     cfg = Config.fromfile(SEMSEG_CONFIG)
     backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4)
     rows = semseg_rows(n, (76,))
@@ -5239,18 +5319,23 @@ def phase_cac_agree(n=49152):
         return ({k: out[k].item() for k in CAC_TERMS},
                 {k: p.grad.detach().cpu() for k, p in model.named_parameters()}, [])
 
-    ref = step(None)
-    per, whole = grad_floor(ref, [step(None, permuted_rows(rows, 77 + i))
-                                  for i in range(FLOOR_PERMUTATIONS)])
-    # the worst floor of the tensors that are not zero in exact arithmetic
-    total = torch.linalg.vector_norm(torch.stack([g.norm() for g in ref[1].values()]))
-    worst = max(per[k] for k, g in ref[1].items() if g.norm() >= ZERO_GRAD * total)
-    floor = (dict.fromkeys(per, worst), whole)
-    reset_k1_counts()
-    reset_k2_counts()
-    compare_train_steps("cac_agree", step, sum(depth_split(backbone)), points=n, floor=floor,
-                        model="CAC-v1m1 over the semseg file's PT-v3m1",
-                        enc_depths=backbone["enc_depths"], dec_depths=backbone["dec_depths"])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = step(None)
+        per, whole = grad_floor(ref, [step(None, permuted_rows(rows, 77 + i))
+                                      for i in range(FLOOR_PERMUTATIONS)])
+        # the worst floor of the tensors that are not zero in exact arithmetic
+        total = torch.linalg.vector_norm(torch.stack([g.norm() for g in ref[1].values()]))
+        worst = max(per[k] for k, g in ref[1].items() if g.norm() >= ZERO_GRAD * total)
+        floor = (dict.fromkeys(per, worst), whole)
+        reset_k1_counts()
+        reset_k2_counts()
+        compare_train_steps("cac_agree", step, sum(depth_split(backbone)), points=n,
+                            floor=floor, deterministic_algorithms=True,
+                            model="CAC-v1m1 over the semseg file's PT-v3m1",
+                            enc_depths=backbone["enc_depths"], dec_depths=backbone["dec_depths"])
+    finally:
+        torch.use_deterministic_algorithms(False)
     k1_lse = sum(k1_lse_variants().values())
     k2 = fwa.flash_window_attention_bwd.launches
     check(k1_lse == sum(depth_split(backbone)) and k2 == k1_lse,
@@ -5355,9 +5440,12 @@ PTV2_BACKBONE = dict(
     pe_bias=True, attn_drop_rate=0.0, drop_path_rate=0.3, unpool_backend="map")
 PTV2_STEPS = 3  # 1 + 2
 PTV2_BATCH = 2
-PTV2_AGREE_POINTS = 8192
+PTV2_AGREE_POINTS = 4096
+# a room whose clusters at the first grid size fit the first pooling, as
+# semseg_rows' 2.4 m room does at twice the points
+PTV2_AGREE_ROOM = (1.7, 1.7, 1.7)
 PTV1_AGREE_POINTS = 4096
-FPS_SAMPLES = 4096
+FPS_SAMPLES = 2048
 # PTv2's and PTv1's gradients that are zero in exact arithmetic (a linear's
 # bias ahead of a BatchNorm or of the softmax over the neighbours) keep
 # fp32 noise of their sums over every neighbour slot: up to 1.9e-6 of the
@@ -5597,7 +5685,7 @@ def phase_ptv2_agree(n=PTV2_AGREE_POINTS):
     launches (none)."""
     reset_k1_counts()
     reset_k2_counts()
-    rows = jittered(semseg_rows(n, (13,)), 14)
+    rows = jittered(semseg_rows(n, (13,), size_m=PTV2_AGREE_ROOM), 14)
     coord, mask = torch.from_numpy(rows["coord"]), torch.from_numpy(rows["mask"])
     query_ms = point_queries_agree("ptv2_agree", coord, mask)
     criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
@@ -5710,7 +5798,7 @@ def phase_ptv2_train(work, steps=PTV2_STEPS, batch_size=PTV2_BATCH, scene_points
 def sorted_room_test(work, phase, config_label, config_path, checkpoint, n_voxels, seed, sorts,
                      extra=lambda fragments: {}):
     """The test entry point on a semseg train phase's config and checkpoint
-    (SemSegTester, the file's 9 views, fragment voting) over one synthetic
+    (SemSegTester, TEST_VIEWS of the file's views, fragment voting) over one synthetic
     room of 2 ``n_voxels`` + 1 Gaussians, through run_test_entry: torch.sort
     and K3 under deterministic algorithms (equal predictions and metrics; K3
     ``sorts`` times a fragment forward with the switch on, none off; no K1
@@ -5726,7 +5814,8 @@ def sorted_room_test(work, phase, config_label, config_path, checkpoint, n_voxel
     write_s = time.perf_counter() - t0
     runs = run_test_entry(work, phase, [
         "--config-file", config_path, "--options", f"weight={checkpoint}",
-        f"data.test.data_root={data_root}"], WindowCalls(limit=0, max_window=1024))
+        f"data.test.data_root={data_root}", views_option(config_path)],
+        WindowCalls(limit=0, max_window=1024))
     off, on, timed = runs["off"], runs["on"], runs["timed"]
     for key, pred in off["preds"].items():
         check(pred.shape == (n_points,), f"{phase}: {key} {pred.shape}")
@@ -5736,7 +5825,8 @@ def sorted_room_test(work, phase, config_label, config_path, checkpoint, n_voxel
         check(np.array_equal(value, on["res"][key]),
               f"{phase}: metric {key} differs with the sort switch on")
     fragments = sum(sc["fragments"] for sc in on["scenes"])
-    check(fragments >= 9, f"{phase}: {fragments} fragments for 9 views")
+    check(fragments >= len(TEST_VIEWS),
+          f"{phase}: {fragments} fragments for {len(TEST_VIEWS)} views")
     check(off["sort_calls"] == timed["sort_calls"] == 0 and on["sort_calls"] == sorts * fragments
           and on["sort_kernels"] > 0,
           f"{phase}: K3 {off['sort_calls']}, {on['sort_calls']} ({on['sort_kernels']} kernels) "
@@ -5745,7 +5835,7 @@ def sorted_room_test(work, phase, config_label, config_path, checkpoint, n_voxel
     counts = path_attention_counts(phase, k1=sum(r["k1"] for r in runs.values()))
     check(np.isfinite(off["res"]["mIoU"]), f"{phase}: mIoU {off['res']['mIoU']}")
     emit(dict(phase=phase, config=config_label, dtype="float32",
-              scenes=1, points_per_scene=n_points, views=9, fragments=fragments,
+              scenes=1, points_per_scene=n_points, views=len(TEST_VIEWS), fragments=fragments,
               dataset_write_s=write_s,
               switch_off=dict(deterministic_algorithms=True, seconds=off["seconds"],
                               per_scene=scene_split(off)),
@@ -5953,11 +6043,14 @@ SPARSE_BACKBONES = dict(
 # SPVCNN's fixed dropout replaced by the identity (spvcnn_dropout_off);
 # octformer_agree checks drop path's per-scene draw apart
 SPARSE_AGREE_OFF = dict(octformer=dict(drop_path=0.0))
-SPARSE_AGREE_POINTS = 16384
-# a room whose 2 cm shell (24,500 voxels) the agree row fills to two
-# thirds, so that each stride-2 pooling at least halves it (as the
-# capacities assume)
-SPARSE_AGREE_ROOM = (1.4, 1.4, 1.4)
+# each agree phase's row: its points and a cube room whose 2 cm shell (the
+# floor and four walls: 12,500 voxels at 1 m, 24,500 at 1.4 m) the row
+# fills to two thirds, so that each stride-2 pooling at least halves it (as
+# the capacities assume). OctFormer keeps 16,384: at 8,192 in 1 m its
+# card step lay 2.27e-3 from the float64 witness at one attention bias,
+# over 2.5 times that row's floor (2.25e-3)
+SPARSE_AGREE_ROWS = dict(mink=(8192, 1.0), spvcnn=(8192, 1.0), oacnns=(8192, 1.0),
+                         octformer=(16384, 1.4))
 SPARSE_STEPS = 3  # 1 + 2: one warm step and the profiled one
 # sort_int64 calls of one MinkUNet forward: the z-serialization, the k=5
 # stem plan and each of the 4 pooled levels' k=3 plan
@@ -6004,20 +6097,20 @@ def check_drop_path_by_scene(phase, rows=8, n=4096, p=0.5):
     return dict(rows=rows, kept=int(kept.sum()), dropped=int(dropped.sum()), rate=p)
 
 
-def phase_sparse_agree(name, n=SPARSE_AGREE_POINTS, seed=21):
+def phase_sparse_agree(name, seed=21):
     """One fp32 semseg train step (CE + Lovasz) of DefaultSegmentor over
-    SPARSE_BACKBONES[name] at its published widths, one row of ``n``
-    points (a room, ``jittered``: OctFormer's ocnn leaves read the
-    coordinates), on the card against a float64 witness on the CPU from
-    the same weights (card_cpu_agree, the floor of POINT_FLOOR_RUNS other
-    orders and of the CPU's fp32 step), dropout and drop path off; for
-    OctFormer also drop path's per-scene draw on the card. Returns K1's and
-    K2's launches (none)."""
+    SPARSE_BACKBONES[name] at its published widths, one row of
+    SPARSE_AGREE_ROWS[name]'s points (a room, ``jittered``: OctFormer's
+    ocnn leaves read the coordinates), on the card against a float64
+    witness on the CPU from the same weights (card_cpu_agree, the floor of
+    POINT_FLOOR_RUNS other orders and of the CPU's fp32 step), dropout and
+    drop path off; for OctFormer also drop path's per-scene draw on the
+    card. Returns K1's and K2's launches (none)."""
     reset_k1_counts()
     reset_k2_counts()
-    rows = jittered(semseg_rows(n, (seed,), size_m=SPARSE_AGREE_ROOM), seed + 1)
+    n, room = SPARSE_AGREE_ROWS[name]
+    rows = jittered(semseg_rows(n, (seed,), size_m=(room,) * 3), seed + 1)
     criteria = build_criteria(Config.fromfile(SEMSEG_CONFIG).model.criteria)
-    others = [permuted_rows(rows, 80 + i) for i in range(POINT_FLOOR_RUNS)]
     backbone = dict(SPARSE_BACKBONES[name], seed=3, **SPARSE_AGREE_OFF.get(name, {}))
     if name == "octformer":
         # the first stem pool takes the 1 cm leaves to 2 cm cells, about one
@@ -6028,6 +6121,7 @@ def phase_sparse_agree(name, n=SPARSE_AGREE_POINTS, seed=21):
         # CPU steps' time
         backbone.update(stage_capacity=(1.0, 0.5, 0.25, 0.125, 0.0625), num_blocks=(2, 2, 2, 2))
     cfg = dict(type="DefaultSegmentor", backbone=backbone)
+    others = [permuted_rows(rows, 80 + i) for i in range(POINT_FLOOR_RUNS)]
     with spvcnn_dropout_off() if name == "spvcnn" else contextlib.nullcontext():
         seconds = card_cpu_agree(f"{name}_agree", cfg, rows,
                                  lambda m, b: ptv2_step(m, b, criteria, {}), others, points=n,
@@ -6144,7 +6238,7 @@ def sparse_phases(work, root, data_s):
     trained = {}
     for name in SPARSE_BACKBONES:
         *trained[name], counts[f"{name}_train"] = phase_sparse_train(work, name, root, data_s)
-    sorts, counts["mink_test"] = phase_mink_test(work, *trained["mink"], n_voxels=100000)
+    sorts, counts["mink_test"] = phase_mink_test(work, *trained["mink"], n_voxels=50000)
     return counts, sorts
 
 
@@ -6516,6 +6610,579 @@ def st_phases(work, root, data_s):
     return fps_times, counts, sorts
 
 
+# ---- classification and part segmentation; the last losses ------------------
+
+# Pointcept's ModelNet40 recipe (configs/modelnet40/cls-ptv3-v1m1-0-base.py):
+# PT-v3m1 in cls_mode at the semseg file's encoder widths, windows of 1024 at
+# every stage, coordinates and normals in. The pooling capacities are one
+# stage later than the default 0.5^s: a 1 cm sample of an object's surface
+# keeps most of its points as 2 cm clusters (7,864 of 9,412 on cls_agree's
+# first object, where the default capacity holds 6,144), so the first
+# pooling may keep every slot
+CLS_BACKBONE = dict(type="PT-v3m1", in_channels=6, order=("z", "z-trans", "hilbert",
+                                                           "hilbert-trans"),
+                    stride=(2, 2, 2, 2), enc_depths=(2, 2, 2, 6, 2),
+                    enc_channels=(32, 64, 128, 256, 512), enc_num_head=(2, 4, 8, 16, 32),
+                    enc_patch_size=(1024,) * 5, mlp_ratio=4, drop_path=0.3,
+                    shuffle_orders=True, cls_mode=True, stage_capacity=(1.0, 0.5, 0.25, 0.125))
+CLS_CLASSES = 40
+CLS_POINTS = 10000  # a ModelNet40 object's resampled cloud
+CLS_GRID = 0.01
+CLS_OBJECTS = 16
+CLS_REPEATS = 3
+CLS_FWD_RTOL = 1e-4
+# ShapeNetPart's 16 categories and their 50 parts
+SHAPE_PARTS = (("airplane", 4), ("bag", 2), ("cap", 2), ("car", 4), ("chair", 4),
+               ("earphone", 3), ("guitar", 3), ("knife", 2), ("lamp", 4), ("laptop", 2),
+               ("motorbike", 6), ("mug", 2), ("pistol", 3), ("rocket", 3), ("skateboard", 3),
+               ("table", 3))
+PARTSEG_POINTS = 2048  # ShapeNetPart's usual sampling
+PARTSEG_OBJECTS = 8
+PARTSEG_VOTES = 2
+PARTSEG_MODEL = dict(type="DefaultSegmentor", backbone=dict(
+    type="PointTransformer-PartSeg50", in_channels=6, num_classes=50, num_shape_classes=16,
+    seed=43))
+LOSS_RTOL = 1e-5
+
+
+def primitive_points(rng, kind, center, size, n):
+    """n points on the surface of a sphere, a box or an upright cylinder of
+    ``size`` about ``center``, with their outward normals."""
+    if kind == 0:
+        normal = rng.normal(size=(n, 3))
+        normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+        return center + normal * size, normal
+    if kind == 1:
+        axis = rng.integers(0, 3, n)
+        sign = rng.choice((-1.0, 1.0), n)
+        p = rng.uniform(-1, 1, (n, 3))
+        p[np.arange(n), axis] = sign
+        normal = np.zeros((n, 3))
+        normal[np.arange(n), axis] = sign
+        return center + p * size, normal
+    theta = rng.uniform(0, 2 * np.pi, n)
+    normal = np.stack([np.cos(theta), np.sin(theta), np.zeros(n)], 1)
+    p = normal * size[:2].mean()
+    p[:, 2] = rng.uniform(-1, 1, n) * size[2]
+    return center + p, normal
+
+
+def shape_object(category, parts, n, seed):
+    """An object of ``parts`` primitives whose kinds and layout the
+    category fixes and whose sizes and placement the seed jitters: its
+    coordinates, normals and each point's part."""
+    layout = np.random.default_rng(1000 + category)
+    rng = np.random.default_rng(seed)
+    counts = np.diff(np.linspace(0, n, parts + 1).astype(int))
+    coord, normal, part = [], [], []
+    for j, m in enumerate(counts):
+        kind = int(layout.integers(0, 3))
+        center = layout.uniform(-0.4, 0.4, 3) + rng.normal(0, 0.03, 3)
+        size = layout.uniform(0.1, 0.4, 3) * rng.uniform(0.85, 1.15)
+        c, nm = primitive_points(rng, kind, center, size, m)
+        coord.append(c)
+        normal.append(nm)
+        part.append(np.full(m, j))
+    return (np.concatenate(coord).astype(np.float32), np.concatenate(normal).astype(np.float32),
+            np.concatenate(part))
+
+
+def register_object_set():
+    """Registers ``ChipSmokeObjects`` in the port's datasets (once):
+    ``objects`` (dicts of arrays) through ``transform``, each fetch
+    drawing from the transform generator the tester seeds. With ``votes``
+    a fetch is a part segmentation sample: its labels, its ``cls_token``
+    and ``votes`` variants, each through the transform (which keeps the
+    token for the model), with 1 cm grid coordinates. ``categories`` and
+    ``category2part`` are the testers'."""
+    from scenesplat_tpu_torch.data import DATASETS
+    from scenesplat_tpu_torch.data.transforms import Compose
+
+    if "ChipSmokeObjects" in DATASETS:
+        return
+
+    @DATASETS.register_module("ChipSmokeObjects")
+    class ObjectSet:
+        def __init__(self, objects, transform=(), votes=0, categories=(),
+                     category2part=None, **kwargs):
+            self.objects = list(objects)
+            self.transform = Compose(list(transform))
+            self.votes = votes
+            self.categories = list(categories)
+            self.category2part = dict(category2part or {})
+
+        def __len__(self):
+            return len(self.objects)
+
+        def view(self, obj):
+            d = self.transform({k: np.array(v) for k, v in obj.items()})
+            if self.votes:
+                c = d["coord"]
+                d["grid_coord"] = np.floor((c - c.min(0)) / CLS_GRID).astype(np.int64)
+            return d
+
+        def __getitem__(self, i):
+            obj = self.objects[i]
+            if not self.votes:
+                return self.view(obj)
+            return dict(segment=obj["segment"], cls_token=obj["cls_token"],
+                        voting_list=[self.view(obj) for _ in range(self.votes)])
+
+
+def cls_transform(voting=False):
+    """The ModelNet40 recipe's test pipeline (NormalizeCoord, GridSample at
+    1 cm, coordinates and normals as features); with ``voting`` an
+    anisotropic scale first, the test augmentation a vote repeats."""
+    scale = [dict(type="RandomScale", scale=[0.9, 1.1], anisotropic=True)] if voting else []
+    return [dict(type="NormalizeCoord"), *scale,
+            dict(type="GridSample", grid_size=CLS_GRID, hash_type="fnv", mode="train",
+                 keys=("coord", "normal"), return_grid_coord=True),
+            dict(type="Collect", keys=("coord", "grid_coord", "category"),
+                 feat_keys=("coord", "normal"))]
+
+
+def write_cls_objects(n_objects=CLS_OBJECTS, seed=0):
+    """The dataset config of objects of CLS_POINTS points, categories
+    cycling over the 40 classes, through the test pipeline."""
+    objects = []
+    for i in range(n_objects):
+        category = (7 * i + seed) % CLS_CLASSES
+        coord, normal, _ = shape_object(category, 1 + category % 3, CLS_POINTS, 500 + i)
+        objects.append(dict(coord=coord, normal=normal, category=np.array([category])))
+    return dict(type="ChipSmokeObjects", objects=objects, transform=cls_transform())
+
+
+def cls_model(dtype, device="cuda", **backbone):
+    return build_model(dict(type="DefaultClassifier", num_classes=CLS_CLASSES,
+                            backbone_embed_dim=CLS_BACKBONE["enc_channels"][-1],
+                            backbone=dict(CLS_BACKBONE, dtype=dtype, seed=41, **backbone))
+                       ).to(device).eval()
+
+
+def reset_path_counts():
+    """K1's, K2's, K3's and the FPS kernel's counts to 0, as just before a
+    path is driven."""
+    reset_k1_counts()
+    reset_k2_counts()
+    bs.bitonic_sort.launches = bs.bitonic_sort.kernel_launches = 0
+    fps_ops.farthest_point_sampling_cuda.launches = 0
+
+
+def path_counts():
+    """The four kernels' launches since reset_path_counts (K1's also with
+    the log-sum-exp alone)."""
+    return dict(k1=fwa.flash_window_attention.launches, k1_variants=k1_variants(),
+                k1_lse=sum(k1_lse_variants().values()),
+                k2=fwa.flash_window_attention_bwd.launches, k3=bs.bitonic_sort.launches,
+                k3_kernels=bs.bitonic_sort.kernel_launches,
+                fps=fps_ops.farthest_point_sampling_cuda.launches)
+
+
+def rel_err(got, ref):
+    """Largest difference over the reference's largest magnitude."""
+    got, ref = (torch.as_tensor(np.asarray(x), dtype=torch.float64) for x in (got, ref))
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+def phase_cls_agree(dataset_cfg):
+    """The classifier in fp32, 2 objects through the test pipeline, padded
+    into one batch of a bucket's slots: the card's forward with the K1
+    kernel (fp32, 14 launches, no pooling overflow) against the card's
+    forward with the plain attention and against the CPU's forward, logits
+    to CLS_FWD_RTOL of their scale. Returns the counts."""
+    from scenesplat_tpu_torch.data import build_dataset
+    from scenesplat_tpu_torch.data.transforms import seed_transforms
+
+    ds = build_dataset(dict(dataset_cfg))
+    rows = []
+    for i in range(2):
+        seed_transforms((0, i))
+        rows.append(ds[i])
+    n = bucket_size(max(len(r["coord"]) for r in rows), 1024)
+
+    def padded(key, dtype):
+        return torch.from_numpy(np.stack([np.pad(np.asarray(r[key], dtype),
+                                                 [(0, n - len(r[key])), (0, 0)])
+                                          for r in rows]))
+
+    point = PointBatch(coord=padded("coord", np.float32), feat=padded("feat", np.float32),
+                       grid_coord=padded("grid_coord", np.int64),
+                       mask=torch.from_numpy(np.stack([np.arange(n) < len(r["coord"])
+                                                       for r in rows])))
+    kernel = cls_model("float32")
+    plain = cls_model("float32", use_kernel=False)
+    plain.load_state_dict(kernel.state_dict(), strict=True)
+    cpu = copy.deepcopy(kernel).cpu()
+    plans = []
+    hook = kernel.backbone.register_forward_hook(lambda m, i, out: plans.extend(out.plans))
+    on_card = PointBatch(**{k: getattr(point, k).to("cuda")
+                            for k in ("coord", "feat", "grid_coord", "mask")})
+    reset_path_counts()
+    with torch.inference_mode():
+        got = kernel(on_card).cpu()
+        counts = path_counts()
+        hook.remove()
+        ref_plain = plain(on_card).cpu()
+        t0 = time.perf_counter()
+        ref_cpu = cpu(point)
+        cpu_s = time.perf_counter() - t0
+    overflow = [int(p.n_overflow.max()) for p in plans]
+    err, err_cpu = rel_err(got, ref_plain), rel_err(got, ref_cpu)
+    emit(dict(phase="cls_agree", dtype="float32", objects=2, points=[len(r["coord"]) for r in rows],
+              slots=n, logits_shape=list(got.shape), max_rel_err_plain=err,
+              max_rel_err_cpu=err_cpu, cpu_forward_s=cpu_s, rtol=CLS_FWD_RTOL,
+              pooled_slots=[p.out_mask.shape[1] for p in plans],
+              clusters=[int(p.n_clusters.max()) for p in plans], n_overflow=overflow,
+              launches=counts))
+    check(got.shape == (2, CLS_CLASSES) and torch.isfinite(got).all().item(),
+          f"cls_agree: logits {tuple(got.shape)}")
+    check(counts["k1_variants"]["fp32"] == counts["k1"] == sum(CLS_BACKBONE["enc_depths"]),
+          f"cls_agree: K1 launches {counts['k1_variants']}, expected 14 fp32")
+    check(counts["k2"] == counts["k3"] == counts["fps"] == 0, f"cls_agree: {counts}")
+    check(all(o == 0 for o in overflow), f"cls_agree: pooling overflow {overflow}")
+    check(err <= CLS_FWD_RTOL, f"cls_agree: card logits vs the plain attention's: {err}")
+    check(err_cpu <= CLS_FWD_RTOL, f"cls_agree: card logits vs the CPU's: {err_cpu}")
+    return counts
+
+
+def stub_trainer(cfg, model):
+    """What an evaluator hook reads of a trainer."""
+    from scenesplat_tpu_torch.utils.events import EventStorage
+
+    return types.SimpleNamespace(cfg=cfg, model=model, device=torch.device("cuda"),
+                                 logger=logging.getLogger("chip_smoke"), comm_info={},
+                                 storage=EventStorage(), epoch=0)
+
+
+def timed_run(phase, what, forwards, fn):
+    """``fn()`` from reset counts: its result, seconds, counts; K1 14 times a
+    classifier forward, all on bf16_large, and no K2, K3 or FPS launch."""
+    reset_path_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = path_counts()
+    want = sum(CLS_BACKBONE["enc_depths"]) * forwards
+    check(counts["k1"] == counts["k1_variants"]["bf16_large"] == want,
+          f"{phase}: {what} K1 launches {counts['k1_variants']}, expected {want} bf16_large")
+    check(counts["k2"] == counts["k3"] == counts["fps"] == 0, f"{phase}: {what} {counts}")
+    return out, seconds, counts
+
+
+def phase_cls_test(dataset_cfg):
+    """The classifier in bf16 on the card through the port's tester builder:
+    ClsTester over CLS_OBJECTS objects, ClsVotingTester over CLS_REPEATS
+    repeats of the scaled test pipeline, ClsEvaluator's before_train and
+    after_epoch on a stub trainer over the same objects: their records in
+    the JAX testers' form and finite, seconds an object, K1 14 times a
+    forward on bf16_large, no pooling overflow. Then the bf16 logits of 4
+    objects against the fp32 kernel path's, within BF16_NOISE_FACTOR times
+    the plain bf16 attention's error, and the K1 calls' shapes of one
+    forward (for cls_timing)."""
+    from scenesplat_tpu_torch.data import build_dataset
+    from scenesplat_tpu_torch.data.transforms import seed_transforms
+    from scenesplat_tpu_torch.engines.hooks.evaluator import ClsEvaluator
+    from scenesplat_tpu_torch.engines.test import build_tester
+
+    model = cls_model("bfloat16")
+    overflow = []
+    model.backbone.register_forward_hook(
+        lambda m, i, out: overflow.append(max(int(p.n_overflow.max()) for p in out.plans)))
+    voting_cfg = dict(dataset_cfg, transform=cls_transform(voting=True))
+    runs, counts = {}, {}
+    tester = build_tester(dict(type="ClsTester", num_classes=CLS_CLASSES), model, dataset_cfg,
+                          patch_size=1024, seed=0, device="cuda")
+    runs["cls_tester"], s_cls, counts["cls_tester"] = timed_run(
+        "cls_test", "ClsTester", CLS_OBJECTS, tester.test)
+    voting = build_tester(dict(type="ClsVotingTester", num_classes=CLS_CLASSES,
+                               num_repeat=CLS_REPEATS), model, voting_cfg, patch_size=1024,
+                          seed=0, device="cuda")
+    runs["cls_voting_tester"], s_vote, counts["cls_voting_tester"] = timed_run(
+        "cls_test", "ClsVotingTester", CLS_OBJECTS * CLS_REPEATS, voting.test)
+    cfg = Config(dict(seed=0, data=dict(val=dataset_cfg, num_classes=CLS_CLASSES),
+                      model=dict(backbone=CLS_BACKBONE)))
+    hook = ClsEvaluator()
+    hook.trainer = stub_trainer(cfg, model)
+    hook.before_train()
+    _, s_eval, counts["cls_evaluator"] = timed_run("cls_test", "ClsEvaluator", CLS_OBJECTS,
+                                                   hook.after_epoch)
+    runs["cls_evaluator"] = dict(hook.trainer.storage.latest,
+                                 metric=hook.trainer.comm_info["current_metric_name"])
+    check(set(runs["cls_tester"]) == {"allAcc"}, f"cls_test: {runs['cls_tester']}")
+    check(set(runs["cls_voting_tester"]) == {"allAcc", "mAcc"},
+          f"cls_test: {runs['cls_voting_tester']}")
+    check(set(runs["cls_evaluator"]) == {"val/allAcc", "val/mAcc", "metric"}
+          and runs["cls_evaluator"]["metric"] == "allAcc", f"cls_test: {runs['cls_evaluator']}")
+    check(all(math.isfinite(v) and 0 <= v <= 1 for r in runs.values() for v in r.values()
+              if not isinstance(v, str)), f"cls_test: records {runs}")
+
+    # the bf16 logits against fp32's, under the noise-floor rule
+    fp32 = cls_model("float32")
+    plain16 = cls_model("bfloat16", use_kernel=False)
+    for m in (fp32, plain16):
+        m.load_state_dict(model.state_dict(), strict=True)
+    ds = build_dataset(dict(dataset_cfg))
+    extract = {name: FeatureExtractor(m, patch_size=1024, device="cuda")
+               for name, m in (("kernel", model), ("plain", plain16), ("fp32", fp32))}
+    logits = {name: [] for name in extract}
+    calls = WindowCalls(sum(CLS_BACKBONE["enc_depths"]), max_window=1024)
+    for i in range(4):
+        seed_transforms((0, i))
+        sample = ds[i]
+        for name, ex in extract.items():
+            with calls if (i == 0 and name == "kernel") else contextlib.nullcontext():
+                logits[name].append(ex(sample))
+    err = rel_err(np.stack(logits["kernel"]), np.stack(logits["fp32"]))
+    floor = rel_err(np.stack(logits["plain"]), np.stack(logits["fp32"]))
+    emit(dict(phase="cls_test", dtype="bfloat16", objects=CLS_OBJECTS, repeats=CLS_REPEATS,
+              records=runs, seconds=dict(cls_tester=s_cls, cls_voting_tester=s_vote,
+                                         cls_evaluator=s_eval),
+              seconds_per_object=dict(cls_tester=s_cls / CLS_OBJECTS,
+                                      cls_voting_tester=s_vote / (CLS_OBJECTS * CLS_REPEATS),
+                                      cls_evaluator=s_eval / CLS_OBJECTS),
+              launches=counts, bf16_rel_err=err, bf16_plain_rel_err=floor,
+              forwards=len(overflow), max_overflow=max(overflow),
+              window_calls=calls.shapes()))
+    check(max(overflow) == 0, f"cls_test: pooling overflow up to {max(overflow)} clusters")
+    check_noise_floor(err, floor, "classifier logits", "cls_test's 4 objects")
+    check(len(calls.calls) == sum(CLS_BACKBONE["enc_depths"]),
+          f"cls_test: {len(calls.calls)} K1 calls recorded in one forward")
+    print(f"cls_test: {s_cls / CLS_OBJECTS:.3f} s an object (ClsTester), bf16 logits "
+          f"{err:.2e} from fp32 against plain bf16's {floor:.2e}", flush=True)
+    return calls.shapes(), {k: c for k, c in counts.items()}
+
+
+def write_partseg_objects(n_objects=PARTSEG_OBJECTS):
+    """The dataset config of objects of PARTSEG_POINTS points of categories
+    cycling over SHAPE_PARTS, each point labeled with its part's id among
+    the 50 (the category's parts numbered in SHAPE_PARTS' order), with
+    PARTSEG_VOTES scaled variants a fetch."""
+    first = np.cumsum([0] + [p for _, p in SHAPE_PARTS])
+    objects = []
+    for i in range(n_objects):
+        category = (5 * i) % len(SHAPE_PARTS)
+        coord, normal, part = shape_object(category, SHAPE_PARTS[category][1], PARTSEG_POINTS,
+                                           700 + i)
+        objects.append(dict(coord=coord, normal=normal, segment=first[category] + part,
+                            cls_token=np.array([category])))
+    return dict(type="ChipSmokeObjects", objects=objects, votes=PARTSEG_VOTES,
+                transform=[dict(type="NormalizeCoord"),
+                           dict(type="RandomScale", scale=[0.9, 1.1], anisotropic=True),
+                           dict(type="Collect", keys=("coord", "cls_token"),
+                                feat_keys=("coord", "normal"))],
+                categories=[name for name, _ in SHAPE_PARTS],
+                category2part={name: list(range(first[c], first[c + 1]))
+                               for c, (name, _) in enumerate(SHAPE_PARTS)})
+
+
+class Recording:
+    """An extractor that keeps every output of the one it wraps."""
+
+    def __init__(self, extractor):
+        self.extractor, self.outputs = extractor, []
+
+    def __call__(self, sample):
+        self.outputs.append(self.extractor(sample))
+        return self.outputs[-1]
+
+
+def phase_partseg_test(dataset_cfg):
+    """PartSegTester (through the tester builder) over PARTSEG_OBJECTS
+    objects of PARTSEG_POINTS points with PARTSEG_VOTES variants each, PTv1
+    PartSeg50 under DefaultSegmentor in fp32, on the card and on the CPU
+    from one initialization and one stream of variant draws: the card's
+    logits within CLS_FWD_RTOL of the
+    CPU's, ins_mIoU and cat_mIoU equal where the predictions are, the FPS
+    kernel 4 times a forward and no K1, K2 or K3 launch."""
+    from scenesplat_tpu_torch.data.transforms import seed_transforms
+    from scenesplat_tpu_torch.engines.test import build_tester
+
+    base = build_model(copy.deepcopy(PARTSEG_MODEL)).eval()
+    results, outputs, seconds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(device)
+        tester = build_tester(dict(type="PartSegTester", num_classes=50), model, dataset_cfg,
+                              patch_size=1024, seed=0, device=device)
+        tester.extractor = Recording(tester.extractor)
+        if device == "cuda":
+            reset_path_counts()
+        # the tester, as the JAX one, seeds no fetch: both runs draw their
+        # variants' scales from one seeded stream
+        seed_transforms((0, 18))
+        t0 = time.perf_counter()
+        results[device] = tester.test()
+        seconds[device] = time.perf_counter() - t0
+        if device == "cuda":
+            counts = path_counts()
+        outputs[device] = tester.extractor.outputs
+    forwards = PARTSEG_OBJECTS * PARTSEG_VOTES
+    err = max(rel_err(a, b) for a, b in zip(outputs["cuda"], outputs["cpu"]))
+    same_pred = all(np.array_equal(a.argmax(-1), b.argmax(-1))
+                    for a, b in zip(outputs["cuda"], outputs["cpu"]))
+    emit(dict(phase="partseg_test", dtype="float32", objects=PARTSEG_OBJECTS,
+              points=PARTSEG_POINTS, votes=PARTSEG_VOTES, results=results, seconds=seconds,
+              seconds_per_object={d: s / PARTSEG_OBJECTS for d, s in seconds.items()},
+              max_rel_err=err, rtol=CLS_FWD_RTOL, predictions_equal=same_pred,
+              launches=counts))
+    check(len(outputs["cuda"]) == forwards and all(
+        o.shape == (PARTSEG_POINTS, 50) and np.isfinite(o).all() for o in outputs["cuda"]),
+        "partseg_test: card logits")
+    check(err <= CLS_FWD_RTOL, f"partseg_test: card logits vs the CPU's: {err}")
+    if same_pred:
+        check(results["cuda"] == results["cpu"], f"partseg_test: {results}")
+    check(set(results["cuda"]) == {"ins_mIoU", "cat_mIoU"}, f"partseg_test: {results}")
+    check(counts["fps"] == 4 * forwards, f"partseg_test: {counts['fps']} FPS launches in "
+          f"{forwards} forwards")
+    check(counts["k1"] == counts["k2"] == counts["k3"] == 0, f"partseg_test: {counts}")
+    return counts
+
+
+def loss_cases(rng):
+    """name -> (loss config, prediction, target, mask): logits [2, 4096, 20]
+    with ignored labels and a padding tail; BinaryFocalLoss and L1Loss on
+    targets in [0, 1]."""
+    pred = rng.normal(0, 2.0, (2, 4096, 20))
+    target = rng.integers(-1, 20, (2, 4096))
+    soft = rng.uniform(0, 1, pred.shape)
+    mask = np.ones((2, 4096), bool)
+    mask[1, 3500:] = False
+    return {
+        "SmoothCELoss": (dict(smoothing_ratio=0.1), pred, target, mask),
+        "FocalLoss": (dict(gamma=2.0, alpha=0.5), pred, target, mask),
+        "BinaryFocalLoss": (dict(), pred, soft, np.broadcast_to(mask[..., None], pred.shape)),
+        "DiceLoss": (dict(), pred, target, mask),
+        "L1Loss": (dict(), pred, soft, mask),
+    }
+
+
+def phase_loss_agree():
+    """The five losses, DINOLoss over 3 centre updates, iBOTPatchLoss over 3
+    and sinkhorn_knopp_teacher, in fp32 on the card against float64 on the
+    CPU: values and gradients to LOSS_RTOL of their scale, the centres too."""
+    from scenesplat_tpu_torch.models.losses import LOSSES
+    from scenesplat_tpu_torch.models.losses.dino_legacy import (
+        DINOLoss,
+        iBOTPatchLoss,
+        sinkhorn_knopp_teacher,
+    )
+
+    rng = np.random.default_rng(17)
+    reset_path_counts()
+    errs = {}
+
+    def both(name, fn, arrays):
+        """``fn`` of the arrays (made tensors that take gradients) on the card
+        in fp32 and on the CPU in float64: each output's and gradient's
+        error."""
+        outs = {}
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            xs = [torch.tensor(a, dtype=dtype, device=device, requires_grad=True)
+                  for a in arrays]
+            values = fn(xs, device, dtype)
+            sum(v.sum() for v in values if v.requires_grad).backward()
+            outs[device] = [v.detach().cpu() for v in values] + [x.grad.cpu() for x in xs]
+        errs[name] = max(rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+
+    for name, (cfg, pred, target, mask) in loss_cases(rng).items():
+        loss = LOSSES.build(dict(type=name, **cfg))
+        t = torch.from_numpy(target)
+        m = torch.from_numpy(np.ascontiguousarray(mask))
+        both(name, lambda xs, d, dt: [loss(xs[0], (t.to(dt) if t.is_floating_point() else t)
+                                           .to(d), mask=m.to(d))], [pred])
+
+    views = [rng.normal(0, 1.0, (3, 2, 64, 256)) for _ in range(2)]
+
+    def dino(xs, device, dtype):
+        module = DINOLoss(256, student_temp=0.1, center_momentum=0.8).to(device, dtype)
+        out = [module(list(xs[0][k]), list(torch.tensor(views[1][k], dtype=dtype,
+                                                        device=device)), 0.05) for k in range(3)]
+        return out + [module.center.clone()]
+
+    both("DINOLoss", dino, [views[0]])
+    tokens = [rng.normal(0, 1.0, (3, 8, 512, 64)) for _ in range(2)]
+    masks = torch.from_numpy(rng.uniform(size=(8, 512)) < 0.3)
+
+    def ibot(xs, device, dtype):
+        module = iBOTPatchLoss(64).to(device, dtype)
+        out = [module(xs[0][k], torch.tensor(tokens[1][k], dtype=dtype, device=device),
+                      masks.to(device), 0.06) for k in range(3)]
+        return out + [module.center.clone()]
+
+    both("iBOTPatchLoss", ibot, [tokens[0]])
+    weights = rng.normal(size=(64, 256))
+    # teacher logits of a scale whose exp at the temperature stays well
+    # inside fp32 (at N(0, 1) over 0.05 the assignment's small entries
+    # underflow in fp32 and the fp32 assignment is another one)
+    both("sinkhorn_knopp_teacher", lambda xs, d, dt: [
+        (sinkhorn_knopp_teacher(xs[0], 0.1, 3) * torch.tensor(weights, dtype=dt, device=d))],
+        [rng.normal(0, 0.3, (64, 256))])
+    counts = path_counts()
+    emit(dict(phase="loss_agree", max_rel_err=errs, rtol=LOSS_RTOL, launches=counts))
+    for name, err in errs.items():
+        check(err <= LOSS_RTOL, f"loss_agree: {name} fp32 on the card vs float64: {err}")
+    check(counts["k1"] == counts["k2"] == counts["k3"] == counts["fps"] == 0,
+          f"loss_agree: {counts}")
+    return counts
+
+
+def phase_profiler_hook(work, phase="profiler_hook", strict=True):
+    """RuntimeProfiler on a stub trainer over 2 of 4 steps of a card matmul
+    loop: its Chrome trace holds the steps' CPU matmuls, and the hook
+    counts its events on the card. ``strict`` (after serve, the process's
+    second profiler session): the trace holds the steps' CUDA kernel
+    events. Else (after every other phase) it holds them, or it holds none
+    and the hook warned: later in a process torch.profiler loses CUDA
+    kernel events, whole sessions of them at times, whatever profiles
+    (tools/profiler_sessions.py), and the hook must not hand over a trace
+    without them unsaid."""
+    from scenesplat_tpu_torch.engines.hooks import HOOKS
+
+    profiler = HOOKS.build(dict(type="RuntimeProfiler", start_step=1, num_steps=2))
+    profiler.trainer = stub_trainer(Config(dict(save_path=os.path.join(work, phase))), None)
+    lines = LogLines()
+    profiler.trainer.logger.addHandler(lines)
+    x = torch.randn(512, 512, device="cuda")
+    try:
+        for step in range(4):
+            profiler.trainer.storage.iter = step
+            profiler.before_step()
+            x = torch.tanh(x @ x)
+            profiler.after_step()
+    finally:
+        profiler.trainer.logger.removeHandler(lines)
+    with open(profiler.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    matmuls = sum(e.get("name") in ("aten::mm", "aten::matmul") for e in events)
+    warned = any("no event on the card" in line for line in lines.lines)
+    emit(dict(phase=phase, trace=profiler.trace_path, kernel_events=len(kernels),
+              device_events=profiler.device_events, cpu_matmuls=matmuls, warned=warned,
+              kernels=sorted({e.get("name", "")[:60] for e in kernels})[:5]))
+    recorded = len(kernels) >= 2 and profiler.device_events >= len(kernels) and not warned
+    check(matmuls >= 2 and (recorded or not strict and profiler.device_events == 0 and warned),
+          f"{phase}: {len(kernels)} CUDA kernel events in the trace, "
+          f"{profiler.device_events} counted by the hook, {matmuls} CPU matmuls, "
+          f"warned {warned}")
+
+
+def cls_phases():
+    """Classification and part segmentation, then the last losses:
+    cls_agree, cls_test, cls_timing (K1 at cls_test's shapes, per
+    classifier forward), partseg_test, loss_agree. Returns the counts by
+    phase and cls_timing's sums."""
+    register_object_set()
+    cls_cfg = write_cls_objects()
+    counts = {}
+    counts["cls_agree"] = phase_cls_agree(cls_cfg)
+    shapes, counts["cls_test"] = phase_cls_test(cls_cfg)
+    timing = phase_timing(shapes, phase="cls_timing")
+    counts["partseg_test"] = phase_partseg_test(write_partseg_objects())
+    counts["loss_agree"] = phase_loss_agree()
+    return counts, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6535,6 +7202,7 @@ def main() -> int:
         worst32 = phase_kernel()
         text = load_text_embeddings("builtin:scannet200")
         shapes, launches, serve_variants = phase_serve(text)
+        phase_profiler_hook(work)
         tot = phase_timing(shapes)
         phase_shipped(text)
         phase_agree(text)
@@ -6551,12 +7219,13 @@ def main() -> int:
         # the older phases at a cut depth, to leave time for the later
         # paths' phases: one test scene where there were two, 3 train steps
         # where there were 4 to 6 (semseg, insseg, cac; ssl and msc keep 4,
-        # an even count: their loaders pass whole over 4 rooms), 3 PPT
+        # an even count: their loaders pass whole over 4 rooms, and ssl's
+        # steps 1 and 2 its unprofiled warm ones), 3 PPT
         # steps (A A B) where there were 6 (ppt, ppt over SpUNet), 3 PT-v2m2
-        # steps where there were 5, test rooms of 200,001 Gaussians where
-        # there were 320,001 (semseg, ppt, cac and ptv2 test), one timed rep
-        # of each plain backward where there were two, MSC-v1m2's agree step
-        # at one block a stage
+        # steps where there were 5, test rooms of 100,001 Gaussians where
+        # there were 200,001 (semseg, ppt, cac, ptv2 and mink test; 320,001
+        # before that), one timed rep of each plain backward where
+        # there were two, MSC-v1m2's agree step at one block a stage
         sort_calls, sort_kernels, fragments, sort_sizes, test_variants, test_shapes = \
             phase_test(work, checkpoint, meta_root, n_scenes=1)
         tot_sort = phase_timing_sort(sort_sizes)
@@ -6571,7 +7240,7 @@ def main() -> int:
         semseg_bwd = phase_timing_bwd(semseg_shapes, phase="semseg_timing_bwd")
         phase_semseg_agree()
         semseg_on, semseg_fragments, semseg_sort_sizes, semseg_calls = \
-            phase_semseg_test(work, semseg_checkpoint, n_voxels=100000, n_scenes=1)
+            phase_semseg_test(work, semseg_checkpoint, n_voxels=50000, n_scenes=1)
         semseg_fwd = phase_timing_test(semseg_calls, phase="semseg_timing_test")
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
         # the two-rank checks: each reference step here, their ranks in one
@@ -6582,7 +7251,7 @@ def main() -> int:
             phase_ppt_train(work, steps=3)
         ppt_bwd = phase_timing_bwd(ppt_shapes, phase="ppt_timing_bwd")
         ppt_test_variants, ppt_fragments, ppt_calls = phase_ppt_test(work, ppt_checkpoint,
-                                                                     n_voxels=100000)
+                                                                     n_voxels=50000)
         ppt_fwd = phase_timing_test(ppt_calls, phase="ppt_timing_test")
         phase_ppt_agree()
         ddp_pending.append(prepare_ppt_ddp_agree(work))
@@ -6595,7 +7264,7 @@ def main() -> int:
         phase_msc_agree()
         phase_msc_train(work, steps=4)
         cac_config_path, cac_best = phase_cac_train(work, steps=3)
-        phase_cac_test(work, cac_config_path, cac_best, n_voxels=100000)
+        phase_cac_test(work, cac_config_path, cac_best, n_voxels=50000)
         cac_kernels = phase_cac_agree()
         ddp_pending += [prepare_task_ddp_agree(work, task) for task in ("msc", "cac")]
         ddp = phase_shared_ddp_agree(work, ddp_pending)
@@ -6607,13 +7276,15 @@ def main() -> int:
         ptv2_counts = dict(ptv2_agree=phase_ptv2_agree())
         ptv2_config_path, ptv2_best, ptv2_counts["ptv2_train"] = phase_ptv2_train(work)
         ptv2_sorts, ptv2_counts["ptv2_test"] = phase_ptv2_test(work, ptv2_config_path, ptv2_best,
-                                                                n_voxels=100000)
+                                                                n_voxels=50000)
         ptv2_counts["ptv1_agree"] = phase_ptv1_agree()
         ptv2_counts["ppt_ptv2_train"] = phase_ppt_ptv2_train(work, steps=3)
         with tempfile.TemporaryDirectory() as rooms:
             root, data_s = write_sparse_rooms(rooms)
             sparse_counts, mink_sorts = sparse_phases(work, root, data_s)
             fps_times, st_counts, st_sorts = st_phases(work, root, data_s)
+        cls_counts, cls_timing = cls_phases()
+        phase_profiler_hook(work, phase="profiler_hook_last", strict=False)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     source = "scenesplat_tpu_torch/csrc/flash_window_attn.cu"
@@ -6713,6 +7384,17 @@ def main() -> int:
         by_phase = {phase: c[kernel] for phase, c in st_counts.items()}
         return dict(path="st-v1m2", launches=sum(by_phase.values()), phase_launches=by_phase)
 
+    # "cls": DefaultClassifier over PT-v3m1 in cls_mode (cls_agree in fp32,
+    # cls_test in bf16: 14 K1 launches a classifier forward), PTv1 PartSeg50
+    # (partseg_test: the FPS kernel 4 times a forward) and the losses
+    # (loss_agree): each phase counts every kernel from 0
+
+    def cls_path(kernel):
+        by_phase = {phase: c[kernel] if kernel in c else sum(r[kernel] for r in c.values())
+                    for phase, c in cls_counts.items()}
+        return dict(path="cls, partseg, losses", launches=sum(by_phase.values()),
+                    phase_launches=by_phase)
+
     teacher_large = ssl_teacher["by_variant"]["bf16_large"]
     teacher_small = ssl_teacher["by_variant"]["bf16_small"]
     emit({"kernels": [
@@ -6729,7 +7411,13 @@ def main() -> int:
                               launches=ssl_counts["teacher"]["bf16_large"],
                               **times(teacher_large)),
              ppt=dict(ppt_test, launches=ppt_test_variants["bf16_large"],
-                      **times(ppt_fwd["by_variant"]["bf16_large"]))),
+                      **times(ppt_fwd["by_variant"]["bf16_large"])),
+             cls=dict(cls_path("k1"), ms_per="classifier forward (bf16, 14 launches at "
+                      "windows of 1024, the shapes of one cls_test object)",
+                      test_launches=sum(r["k1_variants"]["bf16_large"]
+                                        for r in cls_counts["cls_test"].values()),
+                      agree_fp32_launches=cls_counts["cls_agree"]["k1_variants"]["fp32"],
+                      **times(cls_timing))),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source_small,
              sources=[source_small, source_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
@@ -6765,7 +7453,8 @@ def main() -> int:
                          agree_variant_launches=insseg_kernels["k1_lse_variants"]),
              spunet_tasks=dict(spunet_tasks, agree_launches=cac_kernels["k1_lse"],
                                agree_variant_launches=cac_kernels["k1_lse_variants"]),
-             ptv2=ptv2_path("k1"), sparse=sparse_path("k1"), st=st_path("k1")),
+             ptv2=ptv2_path("k1"), sparse=sparse_path("k1"), st=st_path("k1"),
+             cls=cls_path("k1_lse")),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -6822,7 +7511,8 @@ def main() -> int:
              spunet_tasks=dict(spunet_tasks, spunet_two_rank_launches=sum(
                  d["k2"] for d in spunet_ddp.values()), agree_launches=cac_kernels["k2"],
                  agree_variant_launches=cac_kernels["k2_variants"]),
-             ptv2=ptv2_path("k2"), sparse=sparse_path("k2"), st=st_path("k2")),
+             ptv2=ptv2_path("k2"), sparse=sparse_path("k2"), st=st_path("k2"),
+             cls=cls_path("k2")),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -6849,7 +7539,8 @@ def main() -> int:
              st=dict(path=f"st test (ST-v1m2's {ST_SORTS} window-table sorts a fragment forward, "
                           "switch on)", ms_per="fragment forward",
                      launches=st_sorts["sort_calls"], kernel_launches=st_sorts["sort_kernels"],
-                     fragment_forwards=st_sorts["fragments"])),
+                     fragment_forwards=st_sorts["fragments"]),
+             cls=cls_path("k3")),
         # not a TPU kernel: the JAX package's FPS is an XLA lax.fori_loop;
         # ms and the other times: the 5 calls of one ST forward at the train
         # rows' levels (fps_kernel), launches: st_train's run
@@ -6867,7 +7558,8 @@ def main() -> int:
                        samples=fps_times["ptv1"]["samples"], ms=fps_times["ptv1"]["ms"],
                        plain_ms=fps_times["ptv1"]["plain_ms"],
                        bound_ms=fps_times["ptv1"]["bound_ms"],
-                       bound_by=fps_times["ptv1"]["bound_by"]))]})
+                       bound_by=fps_times["ptv1"]["bound_by"]),
+             partseg=dict(cls_path("fps"), ms_per="PTv1 PartSeg50 forward (4 calls)"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -41,8 +41,13 @@ class DefaultDataset:
         self.is_train = is_train
         if test_mode:
             if test_cfg.get("crop"):
-                raise NotImplementedError("test_cfg.crop is not ported (the zero-shot "
-                                          "test pipelines set crop=None)")
+                # the JAX dataset extends the fragment list by what the crop
+                # returns (scenesplat_tpu/data/defaults.py:196-198), and every
+                # registered transform returns a dict: the list gains its keys
+                raise NotImplementedError(
+                    "test_cfg.crop is refused: no registered transform returns the list of "
+                    "fragments it needs (each returns a dict, SphereCrop(mode='all') its "
+                    "input), and the JAX dataset's fragment list then gains the dict's keys")
             voxelize = test_cfg.get("voxelize")
             self.test_voxelize = TRANSFORMS.build(dict(voxelize)) if voxelize else None
             self.post_transform = Compose(test_cfg.get("post_transform"))

@@ -1,12 +1,15 @@
-"""3D Gaussian Splatting datasets of the flagship config (the port's copy of
-part of ``scenesplat_tpu/data/gs_datasets.py``): each scene holds the 3DGS
+"""3D Gaussian Splatting datasets (the port's copy of
+``scenesplat_tpu/data/gs_datasets.py``): each scene holds the 3DGS
 attributes (xyz, color, wxyz quaternion, scale, opacity), per-Gaussian
-SigLIP2 ``lang_feat`` with its ``valid_feat_mask``, and labels."""
+SigLIP2 ``lang_feat`` with its ``valid_feat_mask``, and labels. ScanNet's
+datasets carry ``class2id``, the benchmark ids the submission writers
+map their predictions to."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import metadata
 from .defaults import DATASETS, DefaultDataset
 
 
@@ -49,6 +52,7 @@ class ScanNetGSDataset(_GSDatasetBase):
     EVAL_PC_ASSETS = ["pc_coord", "pc_segment20"]
     SEGMENT_KEYS = ("segment20", "segment200", "segment")
     PC_SEGMENT_KEYS = ("pc_segment20", "pc_segment200", "pc_segment")
+    class2id = metadata.scannet_class_ids(20)
 
 
 @DATASETS.register_module()
@@ -58,6 +62,7 @@ class ScanNet200GSDataset(ScanNetGSDataset):
     EVAL_PC_ASSETS = ["pc_coord", "pc_segment200"]
     SEGMENT_KEYS = ("segment200", "segment20", "segment")
     PC_SEGMENT_KEYS = ("pc_segment200", "pc_segment20", "pc_segment")
+    class2id = metadata.scannet_class_ids(200)
 
 
 @DATASETS.register_module()
@@ -87,6 +92,13 @@ class Matterport3D_160_GSDataset(Matterport3DGSDataset):
 
 @DATASETS.register_module()
 class HoliCityGSDataset(_GSDatasetBase):
+    VALID_ASSETS = ["coord", "color", "segment", "quat", "scale", "opacity", "lang_feat",
+                    "valid_feat_mask"]
+    EVAL_PC_ASSETS = ["pc_coord", "pc_segment"]
+
+
+@DATASETS.register_module()
+class KITTI360GSDataset(_GSDatasetBase):
     VALID_ASSETS = ["coord", "color", "segment", "quat", "scale", "opacity", "lang_feat",
                     "valid_feat_mask"]
     EVAL_PC_ASSETS = ["pc_coord", "pc_segment"]

@@ -2,7 +2,9 @@
 (copied from ``scenesplat_tpu/data/metadata``). Configs name a table as
 ``builtin:<name>``. ScanNet-20 and ScanNet++ top-100 have their class names
 only (Point Prompt Training matches them to the ScanNet200 table's rows by
-name, models/ppt.py:valid_index_by_name)."""
+name, models/ppt.py:valid_index_by_name). ``scannet_class_ids`` gives
+the ScanNet benchmark ids that the submission writers map train indices
+to."""
 
 from __future__ import annotations
 
@@ -39,3 +41,17 @@ def text_embeddings(name: str) -> np.ndarray:
     emb = emb[: len(class_labels(name))]
     emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
     return emb
+
+
+#: ScanNet-20's benchmark id of each train index
+SCANNET20_CLASS_IDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39)
+
+
+def scannet_class_ids(num_classes: int = 20) -> np.ndarray:
+    """Benchmark submission ids (train index -> raw ScanNet id) of
+    ScanNet-20 or ScanNet200."""
+    if num_classes == 20:
+        return np.asarray(SCANNET20_CLASS_IDS)
+    if num_classes == 200:
+        return np.loadtxt(_ROOT / "scannet200_class_ids.txt", dtype=np.int64)
+    raise KeyError(f"no ScanNet benchmark id table for {num_classes} classes")

@@ -11,13 +11,17 @@ voxel blur ``GSGaussianBlurVoxelOpc`` (scipy's ``gaussian_filter`` on the
 host, as the JAX package runs it). Masked Scene Contrast's two views
 come from ``ContrastiveViewsGenerator``, with ``RandomColorDrop``,
 ``HueSaturationTranslation`` and ``ShufflePoint`` of its view pipeline.
+The object and outdoor pipelines' ``NormalizeCoord``, ``PositiveShift``,
+``RandomShift``, ``PointClip``, ``ClipGaussianJitter``, ``CropBoundary``
+and the box-kernel colour blur ``GSGaussianBlurVoxelGPU`` (scipy's
+``uniform_filter`` on the host) complete the JAX package's set.
 
 All transforms run in numpy on the host and draw from a per-thread
 generator that the loader seeds per sample (``seed_transforms``), so
 augmentation is a pure function of (seed, epoch, sample index). 3DGS
 behaviour is kept: rotations and flips also transform the wxyz quaternion,
 RandomScale scales the per-Gaussian ``scale``, GridSample keeps the FNV-1a
-voxel hash, SphereCrop crops every per-point key including ``lang_feat``.
+voxel hash (or the ravel one), SphereCrop crops every per-point key including ``lang_feat``.
 """
 
 from __future__ import annotations
@@ -311,6 +315,63 @@ class CenterShift:
 
 
 @TRANSFORMS.register_module()
+class NormalizeCoord:
+    """Coordinates centred on their mean and scaled into the unit ball (by
+    the largest norm); a per-Gaussian ``scale`` scales with them."""
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            data_dict["coord"] = data_dict["coord"] - np.mean(data_dict["coord"], axis=0)
+            m = np.max(np.sqrt(np.sum(data_dict["coord"] ** 2, axis=1)))
+            data_dict["coord"] = data_dict["coord"] / m
+            if "scale" in data_dict:
+                data_dict["scale"] = data_dict["scale"] / m
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class PositiveShift:
+    """Coordinates shifted so that each axis starts at 0."""
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            data_dict["coord"] = data_dict["coord"] - np.min(data_dict["coord"], 0)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomShift:
+    """Coordinates shifted by one draw of U(lo, hi) an axis; ``shift`` is
+    three (lo, hi) pairs, or three magnitudes s for (-s, s)."""
+
+    def __init__(self, shift=((-0.2, 0.2), (-0.2, 0.2), (0, 0))):
+        if len(shift) == 3 and isinstance(shift[0], (int, float)):
+            shift = tuple((-s, s) for s in shift)
+        self.shift = shift
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            s = [trng().uniform(lo, hi) for lo, hi in self.shift]
+            data_dict["coord"] = data_dict["coord"] + np.asarray(s)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class PointClip:
+    """Coordinates clipped into ``point_cloud_range`` (x, y, z minima, then
+    maxima)."""
+
+    def __init__(self, point_cloud_range=(-80, -80, -3, 80, 80, 1)):
+        self.point_cloud_range = point_cloud_range
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            data_dict["coord"] = np.clip(data_dict["coord"], a_min=self.point_cloud_range[:3],
+                                         a_max=self.point_cloud_range[3:])
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class RandomDropout:
     subset_keys = PER_POINT_KEYS
 
@@ -447,6 +508,26 @@ class RandomJitter:
 
 
 @TRANSFORMS.register_module()
+class ClipGaussianJitter:
+    """Each point moved by ``scalar`` times a standard normal draw over 1.96,
+    clipped to [-1, 1] (``store_jitter`` keeps the offsets as ``jitter``)."""
+
+    def __init__(self, scalar=0.02, store_jitter=False):
+        self.scalar = scalar
+        self.store_jitter = store_jitter
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            jitter = trng().multivariate_normal(np.zeros(3), np.identity(3),
+                                                data_dict["coord"].shape[0])
+            jitter = self.scalar * np.clip(jitter / 1.96, -1, 1)
+            data_dict["coord"] = data_dict["coord"] + jitter
+            if self.store_jitter:
+                data_dict["jitter"] = jitter
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class ElasticDistortion:
     def __init__(self, distortion_params=None):
         self.distortion_params = (
@@ -544,6 +625,16 @@ class ChromaticJitter:
 
 
 @TRANSFORMS.register_module()
+class CropBoundary:
+    """Drops the points labeled 0 (a dataset's boundary class)."""
+
+    def __call__(self, data_dict):
+        if "segment" not in data_dict:
+            raise KeyError("CropBoundary needs a segment")
+        return _subset(data_dict, np.nonzero(data_dict["segment"] != 0)[0])
+
+
+@TRANSFORMS.register_module()
 class SphereCrop:
     """Crop to at most point_max points around a random/center point
     (reference transform.py:1420+)."""
@@ -589,10 +680,27 @@ def fnv_hash_vec(arr: np.ndarray) -> np.ndarray:
     return hashed
 
 
+def ravel_hash_vec(arr: np.ndarray) -> np.ndarray:
+    """Row-major rank of integer coordinate rows in the box they span (each
+    axis shifted to start at 0): distinct cells get distinct keys."""
+    assert arr.ndim == 2
+    arr = arr - arr.min(0)
+    arr = arr.astype(np.uint64, copy=False)
+    arr_max = arr.max(0).astype(np.uint64) + 1
+    keys = np.zeros(arr.shape[0], dtype=np.uint64)
+    for j in range(arr.shape[1] - 1):
+        keys += arr[:, j]
+        keys *= arr_max[j + 1]
+    keys += arr[:, -1]
+    return keys
+
+
 @TRANSFORMS.register_module()
 class GridSample:
     """Voxel grid sampling. Cells are grouped by the FNV-1a hash of their
-    integer coordinates. Train mode: one uniformly random point per occupied
+    integer coordinates (``hash_type="fnv"``) or by their row-major rank
+    (``"ravel"``); the two order cells, and so a test mode's fragments,
+    differently. Train mode: one uniformly random point per occupied
     cell. Test mode: as many complementary fragments as the fullest cell has
     points, each covering every occupied cell once. A full-resolution
     evaluation point cloud (``pc_coord``) is subsampled to one point per
@@ -608,8 +716,7 @@ class GridSample:
                  return_grid_coord=False, return_min_coord=False, apply_to_pc=True):
         if mode not in ("train", "test"):
             raise ValueError(f"GridSample mode {mode!r}")
-        if hash_type != "fnv":
-            raise NotImplementedError(f"GridSample hash {hash_type} is not ported")
+        self.hash = fnv_hash_vec if hash_type == "fnv" else ravel_hash_vec
         self.grid_size = grid_size
         self.mode = mode
         self.keys = keys
@@ -631,7 +738,7 @@ class GridSample:
         # sort kind, as the JAX package: test-mode fragment membership
         # follows its tie order), mark the head of each run
         n = cell.shape[0]
-        cell_hash = fnv_hash_vec(cell)
+        cell_hash = self.hash(cell)
         order = np.argsort(cell_hash)
         sorted_hash = cell_hash[order]
         run_head = np.ones(n, dtype=bool)
@@ -689,7 +796,7 @@ class GridSample:
         cell's first labeled point where it has one."""
         pc_grid = np.floor(data_dict["pc_coord"] / np.asarray(self.grid_size)).astype(int)
         pc_grid -= pc_grid.min(0)
-        pc_key = fnv_hash_vec(pc_grid)
+        pc_key = self.hash(pc_grid)
         pc_segment = data_dict.get("pc_segment", None)
         if pc_segment is not None:
             unlabeled = (np.asarray(pc_segment) == -1).astype(np.uint8)
@@ -1050,4 +1157,42 @@ class GSGaussianBlurVoxelOpc:
             if k == "quat":
                 flat /= np.maximum(np.linalg.norm(flat, axis=1, keepdims=True), 1e-9)
             data_dict[k] = flat.reshape(np.asarray(data_dict[k]).shape)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class GSGaussianBlurVoxelGPU:
+    """Box-kernel voxel blur of the colour: with probability ``p``, every
+    Gaussian's colour and an occupancy weight go into a dense grid of its
+    ``grid_coord`` cells, a uniform filter of 2 r + 1 cells (r =
+    round(4 sigma), sigma ~ U(sigma[0], sigma[1]); none at r = 0) blurs
+    them, and each Gaussian reads back its cell's colour over its weight.
+    The reference runs it in torch on the card; the port, as the JAX
+    package, on the host with scipy."""
+
+    def __init__(self, p=0.5, sigma=(0.1, 2, 0)):
+        self.p = p
+        self.sigma = sigma
+
+    def __call__(self, data_dict):
+        if trng().random() >= self.p:
+            return data_dict
+        import scipy.ndimage
+
+        if "grid_coord" not in data_dict:
+            raise KeyError("GSGaussianBlurVoxelGPU needs GridSample(return_grid_coord=True)")
+        grid_coord = np.asarray(data_dict["grid_coord"])
+        color = np.asarray(data_dict["color"], np.float32)
+        radius = round(4.0 * trng().uniform(self.sigma[0], self.sigma[1]))
+        if radius <= 0:
+            return data_dict
+        gmin = grid_coord.min(axis=0)
+        gsize = grid_coord.max(axis=0) - gmin + 1
+        idx = tuple((grid_coord - gmin).astype(int).T)
+        grid = np.zeros((*gsize, color.shape[1] + 1), np.float32)
+        grid[idx] = np.concatenate([color, np.ones((len(color), 1), np.float32)], axis=1)
+        picked = scipy.ndimage.uniform_filter(grid, size=2 * radius + 1, axes=(0, 1, 2),
+                                              mode="constant")[idx]
+        data_dict["color"] = (picked[:, :-1] / (picked[:, -1:] + 1e-7)).astype(
+            data_dict["color"].dtype)
         return data_dict

@@ -18,6 +18,10 @@ space; each condition's mIoU is logged, and their mean is the metric.
 ``InsSegEvaluator``: PointGroup proposals scored with the ScanNet AP
 protocol; AP50 is the checkpoint metric.
 
+``ClsEvaluator``: a classifier's argmax over each validation object;
+per-class IoU and accuracy, ``val/allAcc`` (the checkpoint metric) and
+``val/mAcc``.
+
 Under data parallel each process evaluates its round-robin share of the
 scenes (``parallel/dist_eval.py``) with the module itself, not its DDP
 wrapper (whose forward syncs buffers across processes, which run different
@@ -283,3 +287,68 @@ class InsSegEvaluator(HookBase):
         trainer.storage.put_scalar("val/mAP", m_ap)
         trainer.storage.put_scalar("val/AP50", ap50)
         trainer.storage.put_scalar("val/AP25", ap25)
+
+
+@HOOKS.register_module()
+class ClsEvaluator(HookBase):
+    """Object classification over ``cfg.data.val``: after every epoch each
+    validation object (its transforms seeded by (seed, index)) runs whole
+    through the classifier on the model's device, and the argmax of its
+    logits meets its ``category``. Per class, IoU (a wrong prediction adds
+    to the predicted class's union) and accuracy add up over every
+    process's objects; logs mIoU / mAcc / allAcc, ``val/allAcc`` and
+    ``val/mAcc``. allAcc is the checkpoint metric."""
+
+    def __init__(self, max_scenes: Optional[int] = None, batch_points: int = 0):
+        # batch_points is taken and unused only so that configs written for
+        # the JAX hook, which pads every object to that many points for its
+        # compiles, still build; the port's attention takes a ragged last
+        # window and runs each object at its bucket
+        self.max_scenes = max_scenes
+        self.dataset = None
+
+    def before_train(self):
+        cfg = self.trainer.cfg
+        val_cfg = cfg.data.get("val")
+        if val_cfg is None:
+            return
+        self.dataset = build_dataset(dict(val_cfg))
+        self.num_classes = cfg.data.get("num_classes")
+        backbone_cfg = cfg.model.get("backbone", cfg.model)
+        self.extractor = FeatureExtractor(
+            self.trainer.model, patch_size=max(backbone_cfg.get("enc_patch_size", [1024])),
+            device=self.trainer.device)
+
+    def after_epoch(self):
+        if self.dataset is None:
+            return
+        trainer = self.trainer
+        trainer.model.eval()  # the next train step puts it back into training
+        n_scenes = len(self.dataset)
+        if self.max_scenes:
+            n_scenes = min(n_scenes, self.max_scenes)
+        inter, union, target = (np.zeros(self.num_classes) for _ in range(3))
+        for i in partition_indices(n_scenes):
+            seed_transforms((self._seed(), i))
+            sample = self.dataset[i]
+            pred = int(self.extractor(sample).argmax(-1))
+            label = int(np.asarray(sample["category"]).reshape(-1)[0])
+            if 0 <= label < self.num_classes:
+                target[label] += 1
+                union[label] += 1
+                if pred == label:
+                    inter[label] += 1
+                elif 0 <= pred < self.num_classes:
+                    union[pred] += 1
+        inter, union, target = allreduce_sum_arrays((inter, union, target))
+        iou = inter / np.maximum(union, 1e-10)
+        acc = inter / np.maximum(target, 1e-10)
+        seen = target > 0
+        m_iou = float(iou[seen].mean()) if seen.any() else 0.0
+        m_acc = float(acc[seen].mean()) if seen.any() else 0.0
+        all_acc = float(inter.sum() / max(target.sum(), 1e-10))
+        trainer.logger.info(f"Val result: mIoU/mAcc/allAcc {m_iou:.4f}/{m_acc:.4f}/{all_acc:.4f}")
+        trainer.comm_info["current_metric_value"] = all_acc
+        trainer.comm_info["current_metric_name"] = "allAcc"
+        trainer.storage.put_scalar("val/allAcc", all_acc)
+        trainer.storage.put_scalar("val/mAcc", m_acc)

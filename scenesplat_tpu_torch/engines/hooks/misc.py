@@ -2,12 +2,14 @@
 the iteration timer, the metrics writer, checkpoint save and load as torch
 state dicts (model, optimizer, scheduler, the training generator's state,
 step, epoch and best metric), the evaluators' run before training and the
-testers' run after it. Under data parallel rank 0 alone writes the metrics
-file and the checkpoints, which hold the module's own names (no DDP
-``module.`` prefix), and every rank loads them."""
+testers' run after it, a profiler trace of a few steps and the page-cache
+warm-up of the training data. Under data parallel rank 0 alone writes the
+metrics file and the checkpoints, which hold the module's own names (no
+DDP ``module.`` prefix), and every rank loads them."""
 
 from __future__ import annotations
 
+import glob
 import math
 import os
 import shutil
@@ -17,7 +19,7 @@ import torch
 
 from scenesplat_tpu_torch.engines.test import build_tester
 from scenesplat_tpu_torch.parallel.dist import barrier, rank
-from scenesplat_tpu_torch.utils.events import JSONWriter
+from scenesplat_tpu_torch.utils.events import JSONWriter, TensorboardWriter
 
 from .default import HOOKS, HookBase
 
@@ -46,15 +48,18 @@ class IterationTimer(HookBase):
 @HOOKS.register_module()
 class InformationWriter(HookBase):
     """Logs loss, grad_norm, timings, the loss terms and lr every
-    ``log_interval`` steps and appends them to ``<save_path>/metrics.json``."""
+    ``log_interval`` steps and appends them to ``<save_path>/metrics.json``
+    and, with tensorboardX installed, to TensorBoard events under
+    ``<save_path>/tb``."""
 
     def __init__(self, log_interval: int = 10):
         self.log_interval = log_interval
-        self.json_writer = None
+        self.json_writer = self.tb_writer = None
 
     def before_train(self):
         save_path = self.trainer.cfg.get("save_path", "exp/default")
         self.json_writer = JSONWriter(os.path.join(save_path, "metrics.json"))
+        self.tb_writer = TensorboardWriter(os.path.join(save_path, "tb"))
 
     def after_step(self):
         storage = self.trainer.storage
@@ -71,12 +76,15 @@ class InformationWriter(HookBase):
             msgs.append(f"lr: {storage.latest['lr']:.3e}")
         self.trainer.logger.info("  ".join(msgs))
         self.json_writer.write(storage)
+        self.tb_writer.write(storage)
 
     def after_epoch(self):
         self.json_writer.write(self.trainer.storage)
+        self.tb_writer.write(self.trainer.storage)
 
     def after_train(self):
         self.json_writer.close()
+        self.tb_writer.close()
 
 
 def training_state(trainer, epoch: int) -> dict:
@@ -259,3 +267,91 @@ class BeginningEvaluator(HookBase):
                 self.trainer.epoch = -1
                 h.after_epoch()
                 self.trainer.epoch = self.trainer.start_epoch
+
+
+@HOOKS.register_module()
+class RuntimeProfiler(HookBase):
+    """A torch.profiler trace of ``num_steps`` training steps from step
+    ``start_step``: CPU activity, and the card's kernels when the trainer
+    runs on one. The trace goes to ``<save_path>/profile/trace_rank<r>.json``
+    (Chrome's trace format, which Perfetto reads; ``trace_path``); with
+    ``exit_after`` the run then ends (``SystemExit(0)``). ``device_events``
+    counts the trace's events on the card; a card trainer's trace without
+    any is logged as a warning."""
+
+    def __init__(self, start_step: int = 3, num_steps: int = 2, exit_after: bool = False):
+        self.start_step = start_step
+        self.num_steps = num_steps
+        self.exit_after = exit_after
+        self.trace_path = None
+        self.device_events = None
+        self._profile = None
+
+    def before_step(self):
+        if self.trainer.storage.iter != self.start_step:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.device(self.trainer.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profile = profile(activities=activities)
+        self._profile.start()
+        self.trainer.logger.info(f"profiler trace started at step {self.start_step}")
+
+    def after_step(self):
+        if self._profile is not None and \
+                self.trainer.storage.iter >= self.start_step + self.num_steps - 1:
+            self._stop()
+            if self.exit_after:
+                raise SystemExit(0)
+
+    def after_train(self):
+        if self._profile is not None:  # training ended inside the window
+            self._stop()
+
+    def _stop(self):
+        on_card = torch.device(self.trainer.device).type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.trainer.device)
+        self._profile.stop()
+        path = os.path.join(self.trainer.cfg.get("save_path", "exp/default"), "profile")
+        os.makedirs(path, exist_ok=True)
+        self.trace_path = os.path.join(path, f"trace_rank{rank()}.json")
+        self._profile.export_chrome_trace(self.trace_path)
+        self.device_events = sum(str(e.device_type).endswith("CUDA")
+                                 for e in self._profile.events())
+        self._profile = None
+        self.trainer.logger.info(f"profiler trace -> {self.trace_path}")
+        if on_card and not self.device_events:
+            self.trainer.logger.warning(
+                "the profiler trace holds no event on the card: torch.profiler recorded "
+                "no CUDA activity in this session")
+
+
+@HOOKS.register_module()
+class DataCacheOperator(HookBase):
+    """Reads every ``<root>/<split>/<scene>/*.npy`` of the training data
+    once before training, so that the first epoch's loads come from the
+    page cache (the reference copies the scenes into shared memory; the
+    JAX package, as the port, warms the page cache). ``data_root`` and
+    ``split`` default to ``cfg.data.train``'s."""
+
+    def __init__(self, data_root=None, split=None):
+        self.data_root = data_root
+        self.split = split
+
+    def before_train(self):
+        train = self.trainer.cfg.data.train
+        root = self.data_root or train.get("data_root")
+        splits = self.split or train.get("split", "train")
+        if isinstance(splits, str):
+            splits = [splits]
+        n = 0
+        for split in splits:
+            for path in glob.glob(os.path.join(root, split, "*", "*.npy")):
+                with open(path, "rb") as f:
+                    while f.read(1 << 22):
+                        pass
+                n += 1
+        self.trainer.logger.info(f"page-cache warmed for {n} asset files")

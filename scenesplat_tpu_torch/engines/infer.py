@@ -46,10 +46,14 @@ def bucket_size(n: int, patch_size: int,
 
 
 class FeatureExtractor:
-    """Runs ``model`` (a module taking and returning a PointBatch) on one
-    scene at a time on ``device``. ``output_fn`` maps the model output to
-    one [B, N, C] tensor (default: its ``feat``). A sample that names its
-    dataset's ``condition`` (Point Prompt Training) hands it to the model."""
+    """Runs ``model`` (a module taking a PointBatch) on one scene at a time
+    on ``device``. ``output_fn`` maps the model output to one [B, N, C]
+    tensor of per-point outputs, or to a classifier's [B, C] logits (by
+    default: a PointBatch's ``feat``, a bare tensor as it is). A
+    classifier's logits come back whole, [C]: they have no point axis to
+    cut the padding from. A sample that names its dataset's ``condition``
+    (Point Prompt Training) or its shape category's ``cls_token`` (part
+    segmentation) hands it to the model."""
 
     def __init__(self, model: torch.nn.Module, patch_size: int = 1024,
                  buckets: Optional[Sequence[int]] = None, chunk_size: int = 524288,
@@ -58,7 +62,8 @@ class FeatureExtractor:
         self.patch_size = patch_size
         self.buckets = sorted(buckets) if buckets else None
         self.chunk_size = chunk_size
-        self.output_fn = output_fn or (lambda out: out.feat)
+        self.output_fn = output_fn or (
+            lambda out: out.feat if isinstance(out, PointBatch) else out)
         self.device = torch.device(device)
 
     def _bucket(self, n: int) -> int:
@@ -84,15 +89,22 @@ class FeatureExtractor:
                            mask=torch.from_numpy(mask)[None].to(self.device))
         with torch.inference_mode():
             out = self.output_fn(self.model(point, **kwargs))
-        return out[0, :n].float().cpu().numpy()
+        out = out[0] if out.dim() == 2 else out[0, :n]  # a classifier's [1, C]: whole
+        return out.float().cpu().numpy()
 
     def __call__(self, sample: Dict[str, np.ndarray]) -> np.ndarray:
-        """sample: dict with coord [n, 3], feat [n, C], grid_coord [n, 3]."""
+        """sample: dict with coord [n, 3], feat [n, C], grid_coord [n, 3].
+        Returns [n, C] per-point outputs, or a classifier's [C] logits; a
+        classifier's sample above ``chunk_size`` points raises, since the
+        chunks' logits would be no one object's."""
         coord = np.asarray(sample["coord"], np.float32)
         feat = np.asarray(sample["feat"], np.float32)
         grid_coord = np.asarray(sample["grid_coord"], np.int64)
         n = coord.shape[0]
         kwargs = {"condition": sample["condition"]} if "condition" in sample else {}
+        if sample.get("cls_token") is not None:
+            kwargs["cls_token"] = torch.from_numpy(
+                np.asarray(sample["cls_token"], np.int64).reshape(1)).to(self.device)
         if n <= self.chunk_size:
             return self._run_chunk(coord, feat, grid_coord, kwargs)
         outs = []
@@ -101,4 +113,7 @@ class FeatureExtractor:
             gc = grid_coord[sl]
             gc = gc - gc.min(axis=0)  # chunks re-quantize independently
             outs.append(self._run_chunk(coord[sl], feat[sl], gc, kwargs))
+            if outs[-1].ndim == 1:
+                raise ValueError(f"a classifier's sample of {n} points is above chunk_size "
+                                 f"{self.chunk_size}: its chunks' logits are no one object's")
         return np.concatenate(outs, axis=0)

@@ -12,7 +12,14 @@ scenes (``parallel/dist_eval.py``), writes its scenes' predictions, and the
 per-scene records or the confusion sums are merged over the processes as
 in the JAX package, so every process reports the one-process metrics; rank
 0 writes ``eval_results.txt`` and ``scene_log.json`` (every process's
-scenes). The other testers of the JAX package are not ported yet.
+scenes). With ``save_submission`` both write each scene's benchmark file
+(``_write_submission``) under ``<save_path>/submit``.
+
+``ClsTester``, ``ClsVotingTester`` (softmax probabilities summed over
+repeats of the test augmentations, the best repeat's record) and
+``PartSegTester`` (instance and category mIoU over each shape category's
+parts) score a classifier's or a part segmenter's objects as the JAX
+package's testers do.
 """
 
 from __future__ import annotations
@@ -127,8 +134,6 @@ class ZeroShotSemSegTester(TesterBase):
                  save_path: Optional[str] = None, save_submission: bool = False,
                  max_scenes: Optional[int] = None, **kwargs):
         super().__init__(**kwargs)
-        if save_submission:
-            raise NotImplementedError("the submission writers are not ported")
         self.class_names = load_class_names(class_names)
         self.text_emb = load_text_embeddings(text_embeddings)
         if self.text_emb.shape[0] != len(self.class_names):
@@ -147,6 +152,7 @@ class ZeroShotSemSegTester(TesterBase):
         self.save_feat = save_feat
         self.skip_eval = skip_eval
         self.save_path = save_path
+        self.save_submission = save_submission
         self.max_scenes = max_scenes
         # per scene: name, points, fragments and the seconds spent fetching,
         # extracting features, scoring them and voting; written to
@@ -244,6 +250,10 @@ class ZeroShotSemSegTester(TesterBase):
                 for src_label, dst in self.pred_label_mapping.items():
                     pred[pred == int(src_label)] = int(dst)
 
+            if self.save_submission and self.save_path:
+                _write_submission(self.save_path, name, pred, type(self.dataset).__name__,
+                                  getattr(self.dataset, "class2id", None))
+
             if self.top3 and pred.ndim > 1:
                 pred = np.ascontiguousarray(pred[:, 0])  # top-1 for voting and metrics
 
@@ -330,18 +340,17 @@ class SemSegTester(TesterBase):
     inverse to ``origin_segment``, and intersection and union add up over
     the scenes. With ``save_path`` each scene's scored prediction goes to
     ``<name>_pred.npy`` and the per-scene seconds (fetch, extract, vote)
-    to ``scene_log.json``. A Point Prompt Training model runs each fragment
-    on the ``condition`` its pipeline's ``Add`` names and gives logits in
-    that condition's class space, padded to its widest condition with
-    -1e9: the first ``num_classes`` columns are scored, and the others
-    must be that padding."""
+    to ``scene_log.json``; with ``save_submission`` too, the benchmark file
+    of the prediction before the top-1 is taken. A Point Prompt Training
+    model runs each fragment on the ``condition`` its pipeline's ``Add``
+    names and gives logits in that condition's class space, padded to its
+    widest condition with -1e9: the first ``num_classes`` columns are
+    scored, and the others must be that padding."""
 
     def __init__(self, num_classes: int, ignore_index: int = -1,
                  max_scenes: Optional[int] = None, top3: Optional[bool] = None,
                  save_path: Optional[str] = None, save_submission: bool = False, **kwargs):
         super().__init__(**kwargs)
-        if save_submission:
-            raise NotImplementedError("the submission writers are not ported")
         self.num_classes = num_classes
         self.ignore_index = ignore_index
         self.max_scenes = max_scenes
@@ -349,6 +358,7 @@ class SemSegTester(TesterBase):
             top3 = "ScanNetPP" in type(self.dataset).__name__
         self.top3 = bool(top3)
         self.save_path = save_path
+        self.save_submission = save_submission
         self.scene_log = []
 
     def test(self):
@@ -387,6 +397,10 @@ class SemSegTester(TesterBase):
             if "origin_segment" in scene and "inverse" in scene:
                 pred = pred[np.asarray(scene["inverse"]).reshape(-1)]
                 segment = np.asarray(scene["origin_segment"]).reshape(-1)
+            if self.save_submission and self.save_path:
+                _write_submission(self.save_path, name, pred, type(self.dataset).__name__,
+                                  getattr(self.dataset, "class2id", None),
+                                  getattr(self.dataset, "learning_map_inv", None))
             if pred.ndim > 1:
                 pred = np.ascontiguousarray(pred[:, 0])  # the top-1 is scored
             i_, u_, t_ = intersection_and_union(pred, segment, self.num_classes,
@@ -414,6 +428,201 @@ class SemSegTester(TesterBase):
         miou = float(iou[seen].mean()) if seen.any() else 0.0
         self.logger.info(f"test mIoU {miou:.4f}")
         return {"mIoU": miou, "iou_per_class": iou}
+
+
+def _softmax(logits: np.ndarray) -> np.ndarray:
+    """Softmax over the last axis, in the JAX testers' arithmetic."""
+    logits = logits - logits.max(-1, keepdims=True)
+    e = np.exp(logits)
+    return e / e.sum(-1, keepdims=True)
+
+
+def _object_logits(logits: np.ndarray) -> np.ndarray:
+    """One object's [C] logits: a classifier's as they are, per-point
+    logits [n, C] averaged over the points."""
+    if logits.ndim == 2 and logits.shape[0] > 1:
+        return logits.mean(axis=0)
+    return logits
+
+
+def _category(sample) -> int:
+    return int(np.asarray(sample["category"]).reshape(-1)[0])
+
+
+@TESTERS.register_module()
+class ClsTester(TesterBase):
+    """Object classification: each sample (its transforms seeded by (seed,
+    index)) through the model, the argmax of its logits against its
+    ``category``; reports ``allAcc``, the share right over every process's
+    samples."""
+
+    def __init__(self, num_classes: int, max_scenes: Optional[int] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.num_classes = num_classes
+        self.max_scenes = max_scenes
+
+    def test(self):
+        correct = total = 0
+        n = len(self.dataset)
+        if self.max_scenes:
+            n = min(n, self.max_scenes)
+        self.model.eval()
+        for i in partition_indices(n):
+            seed_transforms((self.seed, i))
+            sample = self.dataset[i]
+            pred = int(np.argmax(_object_logits(self.extractor(sample))))
+            correct += int(pred == _category(sample))
+            total += 1
+        correct, total = (int(v) for v in allreduce_sum_arrays((correct, total)))
+        acc = correct / max(total, 1)
+        self.logger.info(f"cls accuracy: {acc:.4f} ({correct}/{total})")
+        return {"allAcc": acc}
+
+
+@TESTERS.register_module()
+class ClsVotingTester(TesterBase):
+    """Classification by voting over ``num_repeat`` repeats of the test
+    augmentations: repeat r draws sample i's transforms from (seed, r, i)
+    (or the sample's ``voting_list`` gives its variants), each object's
+    softmax probabilities add up over the repeats, and after each repeat
+    ``allAcc`` and ``mAcc`` of the running sums are taken over every
+    process's objects; returns the record of the repeat best by
+    ``metric``."""
+
+    def __init__(self, num_classes: int, num_repeat: int = 100, metric: str = "allAcc",
+                 max_scenes: Optional[int] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.num_classes = num_classes
+        self.num_repeat = num_repeat
+        self.metric = metric
+        self.max_scenes = max_scenes
+
+    def _scene_prob(self, sample):
+        def prob_of(s):
+            return _softmax(_object_logits(self.extractor(s)))
+
+        if "voting_list" in sample:
+            return np.sum([prob_of(s) for s in sample["voting_list"]], axis=0)
+        return prob_of(sample)
+
+    def test(self):
+        n = len(self.dataset)
+        if self.max_scenes:
+            n = min(n, self.max_scenes)
+        prob_acc = {}
+        best = {self.metric: -1.0}
+        shard = partition_indices(n)
+        self.model.eval()
+        for rep in range(self.num_repeat):
+            inter = np.zeros(self.num_classes)
+            target = np.zeros(self.num_classes)
+            for i in shard:
+                seed_transforms((self.seed, rep, i))
+                sample = self.dataset[i]
+                prob_acc[i] = prob_acc.get(i, 0) + self._scene_prob(sample)
+                pred, label = int(np.argmax(prob_acc[i])), _category(sample)
+                if 0 <= label < self.num_classes:
+                    target[label] += 1
+                    if pred == label:
+                        inter[label] += 1
+            inter, target = allreduce_sum_arrays((inter, target))
+            acc_cls = inter / np.maximum(target, 1e-10)
+            record = {
+                "allAcc": float(inter.sum() / max(target.sum(), 1e-10)),
+                "mAcc": float(acc_cls[target > 0].mean()) if (target > 0).any() else 0.0,
+            }
+            if record[self.metric] > best[self.metric]:
+                best = record
+            self.logger.info(f"vote {rep + 1}/{self.num_repeat}: allAcc {record['allAcc']:.4f} "
+                             f"mAcc {record['mAcc']:.4f} "
+                             f"(best {self.metric} {best[self.metric]:.4f})")
+        return best
+
+
+@TESTERS.register_module()
+class PartSegTester(TesterBase):
+    """Part segmentation: per object the softmax probabilities of its
+    variants (``voting_list``, or the sample itself) add up by point, and
+    each part of its shape category (the dataset's ``categories`` and
+    ``category2part``, the sample's ``cls_token``) scores its IoU, 1 where
+    neither label nor prediction holds it. Reports ``ins_mIoU`` (over the
+    objects) and ``cat_mIoU`` (over the categories' means), the sums over
+    every process's objects. The reference's ``pred_part.total`` (no such
+    method) is a sum, as the JAX package has it."""
+
+    def __init__(self, num_classes: int, max_scenes: Optional[int] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.num_classes = num_classes
+        self.max_scenes = max_scenes
+
+    def test(self):
+        ds = self.dataset
+        categories = list(ds.categories)
+        category2part = dict(ds.category2part)
+        iou_category = np.zeros(len(categories))
+        iou_count = np.zeros(len(categories))
+        n = len(ds)
+        if self.max_scenes:
+            n = min(n, self.max_scenes)
+        self.model.eval()
+        for i in partition_indices(n):
+            sample = ds[i]
+            label = np.asarray(sample["segment"]).reshape(-1)
+            prob = np.zeros((label.shape[0], self.num_classes), np.float32)
+            for v in sample.get("voting_list", [sample]):
+                prob += _softmax(self.extractor(v))
+            pred = prob.argmax(-1)
+            cat_idx = int(np.asarray(sample["cls_token"]).reshape(-1)[0])
+            parts = category2part[categories[cat_idx]]
+            parts_iou = np.zeros(len(parts))
+            for j, part in enumerate(parts):
+                if (label == part).sum() == 0 and (pred == part).sum() == 0:
+                    parts_iou[j] = 1.0
+                else:
+                    inter = ((label == part) & (pred == part)).sum()
+                    union = ((label == part) | (pred == part)).sum()
+                    parts_iou[j] = inter / (union + 1e-10)
+            iou_category[cat_idx] += parts_iou.mean()
+            iou_count[cat_idx] += 1
+        iou_category, iou_count = allreduce_sum_arrays((iou_category, iou_count))
+        ins_miou = iou_category.sum() / (iou_count.sum() + 1e-10)
+        cat_miou = float((iou_category / (iou_count + 1e-10)).mean())
+        self.logger.info(f"part seg ins.mIoU/cat.mIoU {ins_miou:.4f}/{cat_miou:.4f}")
+        return {"ins_mIoU": float(ins_miou), "cat_mIoU": cat_miou}
+
+
+def _write_submission(save_path, name, pred, dataset_type, class2id=None,
+                      learning_map_inv=None):
+    """One scene's benchmark file under ``<save_path>/submit``, byte for byte
+    the JAX package's: ScanNet-20 and ScanNet200 a text column of benchmark
+    ids; KITTI-360 a uint32 ``.label``; SemanticKITTI
+    ``sequences/<seq>/predictions/<frame>.label`` through the inverse
+    label map; nuScenes ``lidarseg/test/<name>_lidarseg.bin``, classes from
+    1 in uint8; the others (ScanNet++, Matterport3D, HoliCity) the labels
+    as text, a ScanNet++ top-3 prediction three comma-separated columns."""
+    submit_dir = os.path.join(save_path, "submit")
+    os.makedirs(submit_dir, exist_ok=True)
+    if dataset_type in ("ScanNetGSDataset", "ScanNet200GSDataset") and class2id is not None:
+        mapped = np.where(pred >= 0, class2id[np.clip(pred, 0, len(class2id) - 1)], 0)
+        np.savetxt(os.path.join(submit_dir, f"{name}.txt"), mapped.reshape(-1, 1), fmt="%d")
+    elif dataset_type == "KITTI360GSDataset":
+        pred.astype(np.uint32).tofile(os.path.join(submit_dir, f"{name}.label"))
+    elif dataset_type == "SemanticKITTIDataset":
+        seq, frame = name.split("_")
+        d = os.path.join(submit_dir, "sequences", seq, "predictions")
+        os.makedirs(d, exist_ok=True)
+        out = pred.astype(np.uint32)
+        if learning_map_inv is not None:
+            out = np.vectorize(learning_map_inv.__getitem__)(out).astype(np.uint32)
+        out.tofile(os.path.join(d, f"{frame}.label"))
+    elif dataset_type == "NuScenesDataset":
+        d = os.path.join(submit_dir, "lidarseg", "test")
+        os.makedirs(d, exist_ok=True)
+        (pred.astype(np.int64) + 1).astype(np.uint8).tofile(
+            os.path.join(d, f"{name}_lidarseg.bin"))
+    else:
+        np.savetxt(os.path.join(submit_dir, f"{name}.txt"), pred.astype(np.int32),
+                   delimiter=",", fmt="%d")
 
 
 def build_tester(cfg, model, dataset_cfg, patch_size=1024, seed=0,

@@ -399,8 +399,10 @@ class PointTransformerV3(nn.Module):
     passed to ops.window_attention. ``remat_blocks`` recomputes each
     block in the backward instead of keeping its activations
     (``_block``). ``enable_rpe`` and the ``pdnorm_*`` switches are the
-    reference's (see the module docstring). Parameters are drawn from
-    ``seed``."""
+    reference's (see the module docstring). ``cls_mode`` builds the
+    encoder alone (no ``dec.*`` module): the forward returns the coarsest
+    stage's features, coordinates, mask and serialization, for a
+    classification head. Parameters are drawn from ``seed``."""
 
     def __init__(
         self,
@@ -431,6 +433,7 @@ class PointTransformerV3(nn.Module):
         enable_mask_token: bool = False,
         remat_blocks: bool = False,
         enable_rpe: bool = False,
+        cls_mode: bool = False,
         pdnorm_conditions: Optional[Sequence[str]] = None,
         pdnorm_bn: bool = True,
         pdnorm_ln: bool = True,
@@ -454,7 +457,9 @@ class PointTransformerV3(nn.Module):
         self.serialization_depth = serialization_depth
         self.num_stages = len(enc_depths)
         self.enc_channels = tuple(enc_channels)
-        self.out_channels = dec_channels[0]  # the decoder output's width
+        self.cls_mode = cls_mode
+        # the width of the output: the decoder's, or the coarsest stage's
+        self.out_channels = enc_channels[-1] if cls_mode else dec_channels[0]
         self.shuffle_orders = shuffle_orders
         self.stage_capacity = tuple(
             stage_capacity or (0.5 ** s for s in range(1, self.num_stages)))
@@ -490,7 +495,7 @@ class PointTransformerV3(nn.Module):
             self.enc[f"enc{s}"] = _Stage(blocks, **down)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         self.dec = nn.ModuleDict()
-        for s in reversed(range(self.num_stages - 1)):
+        for s in reversed(range(0 if cls_mode else self.num_stages - 1)):
             up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], pd=pd,
                                      dtype=dtype)
             rates = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
@@ -547,7 +552,8 @@ class PointTransformerV3(nn.Module):
     def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None,
                 token_mask: Optional[torch.Tensor] = None, return_enc: bool = False,
                 condition=None, context: Optional[torch.Tensor] = None):
-        """Returns the decoder output at the input points; ``plans`` holds
+        """Returns the decoder output at the input points (with
+        ``cls_mode``, the coarsest encoder stage's output); ``plans`` holds
         the pooling plans (their ``n_overflow`` counts clusters lost to the
         stage capacities). In training, ``generator`` (on the points'
         device) draws the curve shuffle and the dropout masks; a point that
@@ -597,7 +603,7 @@ class PointTransformerV3(nn.Module):
                 feat = self._block(blk, feat, state, None, generator, cond)
         enc_feat, enc_mask = feat, state.mask
 
-        for s in reversed(range(self.num_stages - 1)):
+        for s in reversed(range(0 if self.cls_mode else self.num_stages - 1)):
             parent_feat, parent_state, plan = skips.pop()
             stage = self.dec[f"dec{s}"]
             feat, skip_feat = stage.up(feat, parent_feat, parent_state.mask,

@@ -1,6 +1,6 @@
-"""Training event storage and the JSON-lines metrics writer (the port's copy
-of ``scenesplat_tpu/utils/events.py``; its optional TensorBoard writer is
-left out). Under data parallel only rank 0 writes the metrics file."""
+"""Training event storage, the JSON-lines metrics writer and the optional
+TensorBoard writer (the port's copy of ``scenesplat_tpu/utils/events.py``).
+Under data parallel only rank 0 writes."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from collections import defaultdict
 from typing import Dict, Optional
 
 from scenesplat_tpu_torch.parallel.dist import rank
+from scenesplat_tpu_torch.utils.logger import get_root_logger
 
 
 class HistoryBuffer:
@@ -103,3 +104,40 @@ class JSONWriter:
     def close(self):
         if self._file is not None:
             self._file.close()
+
+
+_TENSORBOARD_WARNED = []
+
+
+class TensorboardWriter:
+    """Scalars through tensorboardX's ``SummaryWriter`` under ``log_dir``
+    when tensorboardX is installed and this is rank 0; otherwise it writes
+    nothing, and a process without tensorboardX logs that once."""
+
+    def __init__(self, log_dir: str):
+        self._writer = None
+        if rank() != 0:
+            return
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            if not _TENSORBOARD_WARNED:
+                _TENSORBOARD_WARNED.append(True)
+                get_root_logger().warning("tensorboardX is not installed: no TensorBoard "
+                                          f"events under {log_dir}")
+            return
+        self._writer = SummaryWriter(log_dir)
+
+    def write_scalar(self, name: str, value: float, step: int):
+        if self._writer is not None:
+            self._writer.add_scalar(name, value, step)
+
+    def write(self, storage: EventStorage):
+        if self._writer is None:
+            return
+        for name, value in storage.latest.items():
+            self._writer.add_scalar(name, value, storage.iter)
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()

@@ -100,9 +100,11 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
                          teacher_params=None, teacher_batch_stats=None,
                          constants=None, pdnorm_decouple: bool = True,
                          kp_sigma_radius: float = 0.02) -> Dict[str, np.ndarray]:
-    """Flax PTv3, SpUNet, PTv2, PTv1, MinkUNet, SPVCNN, OACNNs or
-    OctFormer (or LangPretrainer, DefaultSegmentorV2,
-    DefaultSegmentor, DefaultSegmentorSkip, DefaultPretrainer, SimDINOSSL,
+    """Flax PTv3 (a ``cls_mode`` one has no ``dec*`` entries, and the
+    port's builds no ``dec.*`` module), SpUNet, PTv2, PTv1, MinkUNet,
+    SPVCNN, OACNNs or OctFormer (or LangPretrainer, DefaultSegmentorV2,
+    DefaultSegmentor, DefaultSegmentorSkip, DefaultPretrainer,
+    DefaultClassifier, SimDINOSSL,
     PPT-v1m1, PPT-v1m2, PG-v1m1, MSC-v1m1, MSC-v1m2, CAC-v1m1)
     variables -> Pointcept-layout
     numpy state dict;
@@ -124,7 +126,7 @@ def state_dict_from_flax(params, batch_stats, backbone_prefix: str = "backbone."
     head = params.get("seg_head")
     if head is not None:  # DefaultSegmentorV2's linear head, outside the backbone
         _put_dense(out, "seg_head", head)
-    if "ln1" in params:  # DefaultSegmentorSkip's head
+    if "fc1" in params:  # DefaultSegmentorSkip's head (with ln1, ln2) or DefaultClassifier's
         w = _Writer(out, params, batch_stats, "")
         for name in ("fc1", "fc2", "fc3"):
             w.dense(name, (name,))

@@ -10,8 +10,9 @@ over gloo with one torch thread each.
    rows of unequal counts, and its backward (each rank keeps its slot's
    cotangents summed over the ranks).
 2. The losses whose reductions span the batch: CE + Lovasz (the semseg
-   files' criteria), Lovasz alone, the class-weighted CE, MCR and the iBOT
-   cosine loss; two ranks hold the JAX loss of the global batch (1e-5
+   files' criteria), Lovasz alone, the class-weighted CE, MCR, the iBOT
+   cosine loss and the legacy DINOLoss over 3 steps (with its centre);
+   two ranks hold the JAX loss of the global batch (1e-5
    relative), and each rank's gradient of its rows, divided by the ranks'
    count (DDP's mean), is JAX's for those rows.
 3. One semseg train step (CE + Lovasz, and the weighted CE) and one SSL
@@ -96,7 +97,8 @@ def _loss_cases():
     """name -> (kind, config, global inputs): logits [4, 300, C] with
     ignored points, absent classes and a padding tail (tied errors in the
     first rows); MCR's 5 student and 2 teacher crops of 4 rows; 40 iBOT
-    tokens with their weights."""
+    tokens with their weights; DINOLoss's 2 student and 2 teacher views of
+    4 rows over 3 steps."""
     rng = np.random.default_rng(5)
     pred = (2 * rng.normal(size=(4, 300, NUM_CLASSES))).astype(np.float32)
     pred[:, :60] = pred[0, 0]
@@ -108,7 +110,9 @@ def _loss_cases():
     seg = (pred, target, mask)
     tokens = (_unit_rows(rng, 40, 8), _unit_rows(rng, 40, 8),
               ((rng.random(40) < 0.4) * rng.uniform(0.1, 1, 40)).astype(np.float32))
+    dino = tuple((2 * rng.normal(size=(3, 2, 4, 16))).astype(np.float32) for _ in range(2))
     return {
+        "dino": ("dino", dict(student_temp=0.1, center_momentum=0.8), dino),
         "ce_lovasz": ("criteria", _semseg_criteria(), seg),
         "lovasz": ("criteria", _semseg_criteria()[1:], seg),
         "ce_weighted": ("criteria", _semseg_criteria(CLASS_WEIGHTS, lovasz=False), seg),
@@ -157,6 +161,33 @@ def test_two_ranks_loss_equals_jax_global_batch(two_rank_losses, name):
     scale = np.abs(want_grad).max()
     assert scale > 0
     np.testing.assert_allclose(grad, want_grad, rtol=0, atol=GRAD_RTOL * scale)
+
+
+def test_two_ranks_dino_loss_and_centre_equal_jax_global_batch(two_rank_losses):
+    """DINOLoss over 3 steps on two ranks of 2 rows each: every step's loss
+    is JAX's over the 4 rows on both ranks, each rank's student gradient
+    over the ranks' count (DDP's mean) is JAX's at its rows, and the centre,
+    the teacher views' mean over the global batch through the EMA, is
+    JAX's on both ranks (1e-6)."""
+    from scenesplat_tpu.models.losses.dino_legacy import DINOLoss
+
+    cases, ranks = two_rank_losses
+    _, cfg, (students, teachers) = cases["dino"]
+    module = DINOLoss(out_dim=16, **cfg)
+    state = module.init(jax.random.PRNGKey(0), list(students[0]), list(teachers[0]), 0.05)
+    for step in range(3):
+        (want, state), want_grad = jax.value_and_grad(
+            lambda s, state=state: module.apply(state, list(s), list(jnp.asarray(teachers[step])),
+                                                0.05, mutable=["state"]), has_aux=True)(
+            jnp.asarray(students[step]))
+        assert ranks[0]["dino"]["loss"][step] == ranks[1]["dino"]["loss"][step]
+        np.testing.assert_allclose(ranks[0]["dino"]["loss"][step], float(want), rtol=LOSS_RTOL)
+        grad = np.concatenate([r["dino"]["grads"][step].numpy() for r in ranks], axis=1) / 2
+        np.testing.assert_allclose(grad, np.asarray(want_grad), rtol=0,
+                                   atol=GRAD_RTOL * np.abs(want_grad).max())
+    for r in ranks:
+        np.testing.assert_allclose(r["dino"]["center"].numpy(),
+                                   np.asarray(state["state"]["center"]), rtol=1e-6, atol=1e-7)
 
 
 # ---- one step: two ranks against one process ---------------------------------------

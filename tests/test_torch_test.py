@@ -312,8 +312,8 @@ def _stub_tester(tmp_path, calls, fingerprint=None):
         class_names=[f"c{i}" for i in range(c)], text_emb=text, excluded_classes=(),
         enable_voting=False, vote_k=3, confidence_threshold=0.0, ignore_index=-1,
         pred_label_mapping=None, top3=False, save_feat=False, skip_eval=False,
-        save_path=str(tmp_path), max_scenes=None, verbose=False, scene_log=[],
-        weights_fingerprint=fingerprint)
+        save_path=str(tmp_path), save_submission=False, max_scenes=None, verbose=False,
+        scene_log=[], weights_fingerprint=fingerprint)
     for k, v in attrs.items():
         setattr(t, k, v)
     return t
@@ -341,10 +341,71 @@ def test_zero_shot_pred_cache_weights_fingerprint(tmp_path):
     assert (tmp_path / "pred_cache_weights.txt").read_text().strip() == "ckptB:2"
 
 
-def test_save_submission_raises(gs_root):
-    with pytest.raises(NotImplementedError):
-        ttest.build_tester(_tester_cfg(gs_root, save_submission=True), torch.nn.Identity(),
-                           _test_data_cfg(gs_root), device="cpu")
+def _submitting_testers(tmp_path, kind, dataset_type):
+    """The port's and the JAX package's ``kind`` tester with
+    ``save_submission`` over one scene of two fragments, the dataset a list
+    of ``dataset_type``'s name (its ``class2id`` where ScanNet's), fed the
+    same features or logits; each writes under tmp_path/<package>."""
+    from scenesplat_tpu.engines import test as jtest
+    from scenesplat_tpu_torch.data import metadata
+
+    n, c, d = 60, 5, 8
+    rng = np.random.default_rng(13)
+    text = rng.normal(size=(c, d)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=1, keepdims=True)
+    frags = [dict(index=np.arange(0, n, 2)), dict(index=np.arange(1, n, 2))]
+    table = [rng.normal(size=(n // 2, d if kind == "ZeroShotSemSegTester" else c)).astype(
+        np.float32) for _ in frags]
+    scene = dict(name="scene0007_00", segment=rng.integers(0, c, n).astype(np.int32),
+                 coord=rng.normal(size=(n, 3)), fragment_list=frags)
+    ds_class = type(dataset_type, (list,), dict(
+        class2id=metadata.scannet_class_ids(200)) if "ScanNet200" in dataset_type else {})
+    testers = []
+    for module, package in ((ttest, "port"), (jtest, "jax")):
+        t = module.TESTERS.get(kind).__new__(module.TESTERS.get(kind))
+        attrs = dict(dataset=ds_class([scene]), model=torch.nn.Identity(), variables={}, seed=0,
+                     device=torch.device("cpu"), logger=logging.getLogger("test"),
+                     ignore_index=-1, top3="ScanNetPP" in dataset_type, max_scenes=None,
+                     save_path=str(tmp_path / package), save_submission=True, scene_log=[],
+                     verbose=False, weights_fingerprint=None)
+        if kind == "ZeroShotSemSegTester":
+            attrs.update(class_names=[f"c{i}" for i in range(c)], text_emb=text,
+                         excluded_classes=(), enable_voting=False, vote_k=3,
+                         confidence_threshold=0.0, pred_label_mapping=None, save_feat=False,
+                         skip_eval=False)
+        else:
+            attrs.update(num_classes=c)
+        for k, v in attrs.items():
+            setattr(t, k, v)
+        # the fragment's position in the list picks its outputs
+        pick = lambda frag: table[int(frag["index"][0])]  # noqa: E731
+        t.extractor = pick if package == "port" else (lambda variables, frag: pick(frag))
+        testers.append(t)
+    return testers
+
+
+@pytest.mark.parametrize("kind,dataset_type", [
+    ("ZeroShotSemSegTester", "ScanNet200GSDataset"),
+    ("ZeroShotSemSegTester", "ScanNetPPGSDataset"),
+    ("SemSegTester", "ScanNet200GSDataset"),
+    ("SemSegTester", "KITTI360GSDataset")])
+def test_save_submission_raises(gs_root, tmp_path, kind, dataset_type):
+    """``save_submission`` once raised here; the port's testers now write
+    the JAX package's submission files, byte for byte (ScanNet200's
+    benchmark ids, ScanNet++'s three comma-separated top-3 columns,
+    KITTI-360's uint32 labels), and the builder takes the option."""
+    tester = ttest.build_tester(_tester_cfg(gs_root, save_submission=True,
+                                            save_path=str(tmp_path / "built")),
+                                torch.nn.Identity(), _test_data_cfg(gs_root), device="cpu")
+    assert tester.save_submission
+    port, jax_tester = _submitting_testers(tmp_path, kind, dataset_type)
+    port.test()
+    jax_tester.test()
+    files = sorted(p.relative_to(tmp_path / "port")
+                   for p in (tmp_path / "port" / "submit").rglob("*") if p.is_file())
+    assert len(files) == 1
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
 
 
 # ---- the whole slice --------------------------------------------------------

@@ -239,12 +239,12 @@ def test_train_entry_two_epochs_checkpoints_and_resume(gs_root, tmp_path):
 
 
 def test_unported_hook_raises(gs_root, tmp_path):
-    """A hook the port does not have (the classification ClsEvaluator waits
-    for its slice): building the trainer with one raises instead of
+    """A hook type that no registry holds (the port registers every hook of
+    the JAX package): building the trainer with one raises instead of
     skipping it."""
     from scenesplat_tpu_torch.engines.train import build_trainer
 
     cfg = _tiny_flagship(gs_root, str(tmp_path / "exp"))
-    cfg.hooks = cfg.hooks + [dict(type="ClsEvaluator")]
+    cfg.hooks = cfg.hooks + [dict(type="NoSuchEvaluator")]
     with pytest.raises(KeyError):
         build_trainer(cfg, device="cpu")

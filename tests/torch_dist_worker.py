@@ -171,14 +171,28 @@ def losses(job) -> dict:
     of its inputs: the value and the gradients with respect to the rank's
     inputs. Kinds: "criteria" (pred, target, mask through ``build_criteria``),
     "mcr" (student and teacher crops x [M, D] rows), "cosine" (tokens and
-    weights)."""
+    weights), "dino" (student and teacher views [steps, views, rows, K]:
+    one DINOLoss called once a step, its values, the gradients of each
+    step and the centre after the last update)."""
     from scenesplat_tpu_torch.models import build_criteria
+    from scenesplat_tpu_torch.models.losses.dino_legacy import DINOLoss
     from scenesplat_tpu_torch.models.ssl import cosine_patch_loss, mcr_loss
 
     pdist.init_distributed("cpu")
     out = {}
     for name, (kind, cfg, inputs) in job["losses"].items():
-        rows = pdist.local_batch_slice(inputs[0].shape[0 if kind != "mcr" else 1])
+        rows = pdist.local_batch_slice(inputs[0].shape[{"mcr": 1, "dino": 2}.get(kind, 0)])
+        if kind == "dino":
+            dino = DINOLoss(inputs[0].shape[-1], **cfg)
+            record = dict(loss=[], grads=[])
+            for student, teacher in zip(*inputs):
+                s = torch.from_numpy(student[:, rows]).requires_grad_(True)
+                loss = dino(list(s), list(torch.from_numpy(teacher[:, rows])), 0.05)
+                loss.backward()
+                record["loss"].append(float(loss))
+                record["grads"].append(s.grad)
+            out[name] = dict(record, center=dino.center.clone())
+            continue
         if kind == "criteria":
             pred = torch.from_numpy(inputs[0][rows]).requires_grad_(True)
             loss = build_criteria(cfg)(pred, torch.from_numpy(inputs[1][rows]).long(),
