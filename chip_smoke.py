@@ -63,7 +63,7 @@ Phases, one JSON line each:
      step at 49,152 points under DDP against the same step without it
      (losses to 1e-5, gradients to 1e-4 relative);
  12. ddp_agree: two ranks on the one card over gloo (NCCL refuses two ranks
-     on one card), spawned after the kernels are built: one fp32 step of a
+     on one card), run in phase 39's shared spawn: one fp32 step of a
      global batch of 2 rows of 49,152 points (drop-path 0.3, the
      contrastive term on) against one process's step over both rows (the
      loss to 1e-5, the gradient norm, every gradient and every BatchNorm
@@ -253,11 +253,28 @@ Phases, one JSON line each:
      1e-4 or under the noise floor of 3 point-permuted kernel steps);
  39. msc_ddp_agree and cac_ddp_agree: phase 34's check for MSC (the card's
      draws injected, the pairs global) and CAC (global class sums): the
-     loss to 1e-6. Phases 23, 28, 34 and 39 take their one-process
-     reference step where they stand, and their ranks run here, after
-     cac_agree, in one spawn (shared_ddp_agree: each job in turn in one
-     process group; a spawn each cost 21-33 s of process start, imports
-     and a group); each check is made then;
+     loss to 1e-6. Phases 12, 23, 28, 34 and 39 take their one-process
+     reference step (12: and test) where they stand, and their ranks run
+     here, after cac_agree, in one spawn (shared_ddp_agree: each job in
+     turn in one process group; a spawn each cost 21-33 s of process
+     start, imports and a group); each check is made then;
+ 39a. tp_agree, cp_agree and cp_serve, jobs of the same spawn (their
+     one-process references taken beside phase 39's): tensor parallel at
+     (data 1, model 2), both ranks holding ddp_agree's two rows of 49,152
+     points, the flagship file's fp32 model with each block's qkv, proj,
+     fc1 and fc2 cut in two (K1 and K2 at H / 2 heads) under DDP over the
+     points group, drop-path 0.3, the contrastive term on, clipped at 1.0:
+     held to ddp_agree's one-process step with its gradients clipped by its
+     own norm (loss 1e-5, every gathered gradient and the norm 1e-4, the
+     BatchNorm statistics 1e-4, equal gradients on both ranks); context
+     parallel at (data 1, seq 2), each rank half of each row's slots, the
+     same step and bounds (K1 and K2 on the rank's whole windows); and
+     cp_serve, one bf16 forward of the serve phase's model over a room of
+     98,304 Gaussians at seq 2 against one process's (2.5 times the
+     one-process bf16 forward's distance from its fp32 one, relative to
+     the fp32 features' largest magnitude). Each rank's K1 and K2 launches
+     (18 each a step, 18 K1 on bf16_large in cp_serve), local heads,
+     gathered bytes, peak memory and seconds;
  40. ppt_spunet_train: ppt_train's run with PPT-v1m1 over SpUNet-v1m3
      (published widths, adaptive PDNorm, context 256): each step's
      condition and only its norms' statistics moved, each condition's val
@@ -387,7 +404,7 @@ take rooms of 200,001 Gaussians where they took 320,001, the flagship
 rooms are written once for train and ddp_train, MSC-v1m2's agree step
 runs one block a stage, the agree phases copy one built model where they
 built one a run, each timing phase times the plain backward once where
-it timed it twice, and the six two-rank checks of phases 23-39 share one
+it timed it twice, and the two-rank checks of phases 12 and 23-39 share one
 spawn; for phases 55-58 the CPU witness steps of the agree phases take
 fewer points (ptv2_agree 8,192 where it took 49,152; ptv1_agree 2 rows
 of 4,096 where they were 16,384; spunet_agree, msc_agree and the insseg,
@@ -414,7 +431,7 @@ encoder stage shapes (25,600 to 2,048 slots, whole windows of 1024).
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises; without a CUDA card the script exits non-zero.
 
-    python3 chip_smoke.py --cards N [flagship] [semseg] [ssl] [fit]
+    python3 chip_smoke.py --cards N [flagship] [semseg] [ssl] [fit] [tp] [cp]
 
 runs data parallel across N cards of one host instead (not the one-card
 smoke test): the kernels' build, then the phases named (all but fit by
@@ -428,7 +445,11 @@ batches of 48 and 24 (12 and 6 rows a card on 4), remat_blocks as
 CARDS_REMAT says, for a few steps over 4 rooms (every card's warm step,
 peak memory, loader wait and NCCL time; the same losses on every rank);
 fit, cards_fit, on one card, those rows a card with remat_blocks off and
-on, down to the largest batch that fits.
+on, down to the largest batch that fits; tp and cp, cards_grid_tp and
+cards_grid_cp, the flagship file's bf16 model under (data 2, model 2) and
+(data 2, seq 2) over NCCL at 2 rows of 196,608 points a data rank, beside
+cards_grid_dp, plain data parallel at 2 rows a card (cold and warm step
+ms, a profiled step's NCCL and busy ms, peak memory per card).
 """
 
 from __future__ import annotations
@@ -495,14 +516,19 @@ from scenesplat_tpu_torch.ops import pointops
 from scenesplat_tpu_torch.ops import window_attention as window_attention_module
 from scenesplat_tpu_torch.ops.knn import knn
 from scenesplat_tpu_torch.ops.serialization import SENTINEL, take_along_points
+from scenesplat_tpu_torch.parallel import context
+from scenesplat_tpu_torch.parallel.context import context_groups, shard_point_batch
 from scenesplat_tpu_torch.parallel.dist import (
     all_reduce_sum,
     data_parallel,
     init_distributed,
+    layout,
     local_batch_slice,
     process_group,
+    set_layout,
     world,
 )
+from scenesplat_tpu_torch.parallel.tp import gather_whole, shard_model_tp, tp_groups
 from scenesplat_tpu_torch.utils.config import Config
 
 FLAGSHIP_CONFIG = "configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py"
@@ -689,7 +715,10 @@ SIGNATURES = sorted({
   | {(4160, 32, 2)}
   # the semseg files' backbone: 32 heads at encoder stage 4, and the
   # decoder's 4 heads at C = 64 and 8 at C = 128 at windows of 48
-  | {(1024, 512, 32), (48, 64, 4), (48, 128, 8)})
+  | {(1024, 512, 32), (48, 64, 4), (48, 128, 8)}
+  # the flagship's blocks on a tensor-parallel rank at model 2 (tp_agree):
+  # H / 2 heads at the unchanged head width
+  | {(1024, 16, 1), (48, 384, 8), (48, 256, 8)})
 # the encoder stages of a local crop of the SSL file (25,600 points, windows
 # of 1024: whole windows, two at stage 4): (N, K, C, H), checked beside
 # SIGNATURES at their own N
@@ -1771,13 +1800,14 @@ def torchrun_env(rank, world, port, local_rank=0):
 
 
 def train_step_fp32(batch, wrap=lambda m: m, build=flagship_fp32_model, task="lang", seed=11,
-                    **backbone):
+                    clip_grad=None, **backbone):
     """One train_step of task ``task`` of ``build(**backbone)``'s fp32 model
     (the flagship file's by default; drop-path 0.3, the curve shuffle and
     the contrastive split drawn from a generator seeded ``seed``; SGD at lr
     0, so the step leaves the weights) on ``batch``, the model wrapped by
-    ``wrap``. Returns (loss, grad_norm, gradients and BatchNorm running
-    statistics by name, each stage's pooling overflow)."""
+    ``wrap``, the gradient clipped at ``clip_grad``. Returns (loss,
+    grad_norm, gradients and BatchNorm running statistics by name, each
+    stage's pooling overflow)."""
     model, criteria = build(**backbone)
     overflow, forward = [], model.forward
 
@@ -1792,7 +1822,7 @@ def train_step_fp32(batch, wrap=lambda m: m, build=flagship_fp32_model, task="la
     model.forward = recording
     metrics = train_step(wrap(model), criteria, torch.optim.SGD(model.parameters(), lr=0.0),
                          None, batch, generator=torch.Generator(device="cuda").manual_seed(seed),
-                         epoch_progress=1.0, task=task)
+                         epoch_progress=1.0, clip_grad=clip_grad, task=task)
     stats = {k: v.detach().clone() for k, v in model.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
     return (metrics["loss"].item(), metrics["grad_norm"].item(),
@@ -1881,57 +1911,69 @@ def spawn_ranks(target, world, job_file, timeout_s=600):
     return time.perf_counter() - t0
 
 
+def ddp_agree_job(rank, job):
+    """A rank's part of ddp_agree: its row of the global batch through the
+    fp32 step under DDP, then the zero-shot test entry on its share of the
+    scenes; writes what it saw, with its K1 and K2 launches, to the job's
+    ``out`` file. On one card the ranks share it over gloo, on CUDA tensors
+    (NCCL refuses two ranks on one card), as a job of the shared spawn
+    (phase_shared_ddp_agree); on several, each has its own over NCCL
+    (ddp_agree_rank)."""
+    reset_k1_counts()
+    reset_k2_counts()
+    rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
+    loss, norm, grads, stats, overflow = train_step_fp32(cuda_batch(rows), data_parallel)
+    out = dict(loss=loss, grad_norm=norm, overflow=overflow,
+               grads={k: g.cpu() for k, g in grads.items()},
+               stats={k: v.cpu() for k, v in stats.items()},
+               k1_step=fwa.flash_window_attention.launches,
+               k1_step_variants=k1_lse_variants(),
+               k2_step=fwa.flash_window_attention_bwd.launches,
+               k2_step_variants=dict(fwa.flash_window_attention_bwd.variant_launches))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_k1_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (out["test"],) = test_entry.main(job["test_argv"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out.update(k1_test=fwa.flash_window_attention.launches, k1_test_variants=k1_variants())
+    torch.save(out, job["out"].format(rank=rank))
+
+
 def ddp_agree_rank(rank, world, port, job_file):
-    """One rank of phase_ddp_agree (a spawned process): its row of the
-    global batch through the fp32 step under DDP, then the zero-shot test
-    entry on its share of the scenes; writes what it saw, with its K1 and
-    K2 launches, to the job's ``out`` file. On one card the ranks share it
-    over gloo, on CUDA tensors (NCCL refuses two ranks on one card); on
-    several, each has its own over NCCL."""
+    """One rank of ddp_cards_agree (a spawned process on its own card over
+    NCCL): ddp_agree_job."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     job = torch.load(job_file, weights_only=False)
-    cards = job["cards"]
-    with torchrun_env(rank, world, port, local_rank=rank if cards > 1 else 0):
-        init_distributed("cuda", backend="nccl" if cards > 1 else "gloo")
+    with torchrun_env(rank, world, port, local_rank=rank):
+        init_distributed("cuda", backend="nccl")
         try:
-            reset_k1_counts()
-            reset_k2_counts()
-            rows = {k: v[local_batch_slice(len(v))] for k, v in job["rows"].items()}
-            loss, norm, grads, stats, overflow = train_step_fp32(cuda_batch(rows),
-                                                                  data_parallel)
-            out = dict(loss=loss, grad_norm=norm, overflow=overflow,
-                       grads={k: g.cpu() for k, g in grads.items()},
-                       stats={k: v.cpu() for k, v in stats.items()},
-                       k1_step=fwa.flash_window_attention.launches,
-                       k1_step_variants=k1_lse_variants(),
-                       k2_step=fwa.flash_window_attention_bwd.launches,
-                       k2_step_variants=dict(fwa.flash_window_attention_bwd.variant_launches))
-            del grads
-            gc.collect()
-            torch.cuda.empty_cache()
-            reset_k1_counts()
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            (out["test"],) = test_entry.main(job["test_argv"])
-            out.update(k1_test=fwa.flash_window_attention.launches, k1_test_variants=k1_variants())
-            torch.save(out, job["out"].format(rank=rank))
+            ddp_agree_job(rank, job)
         finally:
             torch.distributed.destroy_process_group()
 
 
-def phase_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, world=2, cards=1):
+def prepare_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, world=2, cards=1):
     """``world`` ranks (one row each) against one process on the first
     card: the fp32 step of a global batch of ``world`` rows of ``n`` points
     (drop-path 0.3, the contrastive term on) and the zero-shot test entry
-    over 3 scenes with ``checkpoint`` (at 4 ranks one draws no scene). The
-    ranks share the one card over gloo, or with ``cards`` > 1 each has a
-    card over NCCL. Returns the ranks' K1 and K2 launches."""
+    over 3 scenes with ``checkpoint`` (at 4 ranks one draws no scene). This
+    process's step and test run now; returns the ranks' job (on one card a
+    job of phase_shared_ddp_agree's spawn, the ranks sharing the card over
+    gloo; with ``cards`` > 1 phase_ddp_agree spawns them, a card each over
+    NCCL), with finish_ddp_agree's check, and the one-process step (rows,
+    loss, norm, gradients, statistics: tp_agree's and cp_agree's
+    reference)."""
     phase = "ddp_agree" if cards == 1 else "ddp_cards_agree"
-    backend = "gloo" if cards == 1 else "nccl"
     rows = agree_rows(n, tuple(range(7, 7 + world)))
     loss, norm, grads, stats, overflow = train_step_fp32(cuda_batch(rows))
-    ref = (loss, {k: g.cpu() for k, g in grads.items()}, overflow)
-    del grads
+    ref = dict(rows=rows, loss=loss, grad_norm=norm, grads={k: g.cpu() for k, g in grads.items()},
+               overflow=overflow, stats={k: v.cpu() for k, v in stats.items()})
+    del grads, stats
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1953,21 +1995,41 @@ def phase_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, world=
     finally:
         torch.use_deterministic_algorithms(False)
 
-    job_file = os.path.join(work, f"{phase}_job.pt")
-    torch.save(dict(rows=rows, test_argv=argv + [f"test.save_path={two_dir}"], cards=cards,
-                    out=os.path.join(work, f"{phase}_rank{{rank}}.pt")), job_file)
-    ranks_s = spawn_ranks(ddp_agree_rank, world, job_file)
-    ranks = [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False)
-             for r in range(world)]
+    job = dict(kind="ddp", rows=rows, test_argv=argv + [f"test.save_path={two_dir}"],
+               out=os.path.join(work, f"{phase}_rank{{rank}}.pt"))
+    test = dict(one=one, k1_one=k1_one, one_dir=one_dir, two_dir=two_dir, n_points=n_points)
+    return dict(phase=phase, job=job, finish=lambda ranks, ranks_s, world: finish_ddp_agree(
+        phase, ranks, ranks_s, world, cards, ref, test)), ref
 
+
+def phase_ddp_agree(work, checkpoint, meta_root, world, cards):
+    """ddp_cards_agree: prepare_ddp_agree's check with a card a rank over
+    NCCL, its ranks in a spawn of their own. Returns their launches."""
+    pending, _ = prepare_ddp_agree(work, checkpoint, meta_root, world=world, cards=cards)
+    job_file = os.path.join(work, f"{pending['phase']}_job.pt")
+    torch.save(pending["job"], job_file)
+    ranks_s = spawn_ranks(ddp_agree_rank, world, job_file)
+    ranks = [torch.load(pending["job"]["out"].format(rank=r), weights_only=False)
+             for r in range(world)]
+    return pending["finish"](ranks, ranks_s, world)
+
+
+def finish_ddp_agree(phase, ranks, ranks_s, world, cards, ref, test):
+    """prepare_ddp_agree's check of the ranks' outputs ``ranks``; returns
+    their K1 and K2 launches."""
+    n, loss, norm, stats = ref["rows"]["mask"].shape[1], ref["loss"], ref["grad_norm"], \
+        ref["stats"]
+    one, k1_one, one_dir, two_dir = test["one"], test["k1_one"], test["one_dir"], test["two_dir"]
+    backend = "gloo" if cards == 1 else "nccl"
     blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
     for r, got in enumerate(ranks):
-        compare_steps(f"{phase}_rank{r}", (got["loss"], got["grads"], got["overflow"]), ref,
+        compare_steps(f"{phase}_rank{r}", (got["loss"], got["grads"], got["overflow"]),
+                      (loss, ref["grads"], ref["overflow"]),
                       names=("ranks", "one"), points=n, rows=world, world=world,
                       backend=backend, grad_norm=[got["grad_norm"], norm])
         check(abs(got["grad_norm"] - norm) <= TRAIN_GRAD_RTOL * norm,
               f"{phase}: rank {r}'s gradient norm {got['grad_norm']} against {norm}")
-        stat_err = {k: rel_l2(v, stats[k].cpu()) for k, v in got["stats"].items()}
+        stat_err = {k: rel_l2(v, stats[k]) for k, v in got["stats"].items()}
         check(sorted(stat_err) == sorted(stats) and max(stat_err.values()) <= TRAIN_GRAD_RTOL,
               f"{phase}: rank {r}'s BatchNorm statistics differ by {max(stat_err.values())}")
         check(got["k1_step"] == got["k2_step"] == blocks,
@@ -2004,7 +2066,7 @@ def phase_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, world=
               stat_tensors=len(stats), ranks_s=ranks_s,
               k1_step=[got["k1_step"] for got in ranks],
               k2_step=[got["k2_step"] for got in ranks],
-              test_scenes=3, test_points_per_scene=n_points,
+              test_scenes=3, test_points_per_scene=test["n_points"],
               test_metrics={k: one[k] for k in ("mIoU", "fg_mIoU", "mAcc", "allAcc")},
               test_metrics_equal=True, predictions_equal=True,
               k1_test=[got["k1_test"] for got in ranks], k1_test_one_process=k1_one))
@@ -2246,6 +2308,108 @@ def phase_cards_fit(work, cards):
               largest_rows_per_card=largest))
 
 
+# the grids of ``--cards 4 tp|cp`` (cards_grid): the flagship file's model
+# (bf16) and AdamW at its lr, rows of TRAIN_POINTS points; one cold step,
+# two warm ones and a profiled one
+CARDS_GRID_STEPS = 4
+CARDS_GRID_ROOM_M = 4.4  # a cube whose floor and walls hold TRAIN_POINTS 2 cm voxels
+
+
+def cards_grid_rank(rank, world, port, job_file):
+    """One rank of phase_cards_grid (its own card, NCCL): the layout of
+    the job's ``kind`` ("dp": plain data parallel, 2 rows a card; "tp":
+    (data 2, model 2), each model group's 2 rows on both its cards; "cp":
+    (data 2, seq 2), each seq group's 2 rows split by slots), its rows (made
+    here from their seeds), CARDS_GRID_STEPS train steps under DDP over the
+    points group; writes the step times, the profiled step's NCCL and busy
+    device time, the peak memory, the losses and K1 / K2 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    job = torch.load(job_file, weights_only=False)
+    kind = job["kind"]
+    with torchrun_env(rank, world, port, local_rank=rank):
+        init_distributed("cuda")
+        try:
+            if kind != "dp":
+                set_layout(tp_groups(2, world // 2) if kind == "tp" else context_groups(2))
+            grid = layout()
+            per = 2 * world // grid.data // grid.seq // grid.model  # rows a data rank holds
+            seeds = [100 + grid.data_rank * per + i for i in range(per)]
+            rows = agree_rows(TRAIN_POINTS, seeds, size_m=CARDS_GRID_ROOM_M)
+            if kind == "cp":
+                n = TRAIN_POINTS // grid.seq
+                rows = {k: v[:, grid.seq_rank * n:(grid.seq_rank + 1) * n] for k, v in rows.items()}
+            batch = cuda_batch(rows)
+            cfg = Config.fromfile(FLAGSHIP_CONFIG)
+            model = build_model(dict(type="LangPretrainer",
+                                     backbone=dict(cfg.model.backbone, seed=1))).cuda()
+            if kind == "tp":
+                shard_model_tp(model)
+            criteria = build_criteria(cfg.model.criteria)
+            optimizer = torch.optim.AdamW(model.parameters(), lr=cfg.optimizer.lr,
+                                          weight_decay=cfg.optimizer.weight_decay)
+            ddp = data_parallel(model)
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            reset_k1_counts()
+            reset_k2_counts()
+            context.GATHERED.update(forward=0, backward=0)
+            torch.cuda.reset_peak_memory_stats()
+            step_ms, losses, prof = [], [], None
+            for i in range(CARDS_GRID_STEPS):
+                if i == CARDS_GRID_STEPS - 1:
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.__enter__()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = train_step(ddp, criteria, optimizer, None, batch, generator=gen,
+                                     epoch_progress=1.0, clip_grad=cfg.clip_grad)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(metrics["loss"].item())
+            prof.__exit__(None, None, None)
+            kernels = device_kernels(prof)
+            torch.save(dict(
+                step_ms=step_ms, loss=losses, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                nccl_ms=sum(e.self_device_time_total for e in kernels
+                            if "nccl" in e.key.lower()) / 1e3,
+                device_busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+                k1=fwa.flash_window_attention.launches,
+                k2=fwa.flash_window_attention_bwd.launches,
+                gathered_gib=sum(context.GATHERED.values()) / CARDS_GRID_STEPS / 2 ** 30,
+                coords=(grid.data_rank, grid.seq_rank, grid.model_rank)),
+                job["out"].format(rank=rank))
+        finally:
+            set_layout(None)
+            torch.distributed.destroy_process_group()
+
+
+def phase_cards_grid(work, cards, kind):
+    """cards_grid_<kind> on ``cards`` cards over NCCL (see cards_grid_rank):
+    per card the cold and warm step ms, the profiled step's NCCL ms and
+    device busy ms, the peak memory and K1 / K2 launches; the losses equal
+    on the ranks of one model or seq group (the same global loss)."""
+    job_file = os.path.join(work, f"cards_grid_{kind}_job.pt")
+    torch.save(dict(kind=kind, out=os.path.join(work, f"cards_grid_{kind}_rank{{rank}}.pt")),
+               job_file)
+    ranks_s = spawn_ranks(cards_grid_rank, cards, job_file, timeout_s=900)
+    ranks = [torch.load(os.path.join(work, f"cards_grid_{kind}_rank{r}.pt"), weights_only=False)
+             for r in range(cards)]
+    blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
+    for r, got in enumerate(ranks):
+        check(all(math.isfinite(v) for v in got["loss"]), f"cards_grid_{kind}: rank {r}'s "
+              f"losses {got['loss']}")
+        check(got["k1"] == got["k2"] == blocks * CARDS_GRID_STEPS,
+              f"cards_grid_{kind}: rank {r} launched K1 {got['k1']} and K2 {got['k2']} times")
+    emit(dict(phase=f"cards_grid_{kind}", cards=cards, backend="nccl", points=TRAIN_POINTS,
+              grid=dict(dp="(data 4)", tp="(data 2, model 2)", cp="(data 2, seq 2)")[kind],
+              rows_per_card=2, slots_per_row_per_card=TRAIN_POINTS // (2 if kind == "cp" else 1),
+              global_batch=dict(dp=8, tp=4, cp=4)[kind],
+              ranks_s=ranks_s, steps=CARDS_GRID_STEPS,
+              per_rank=[dict(got, cold_step_ms=got["step_ms"][0],
+                             warm_step_ms=got["step_ms"][1:-1]) for got in ranks]))
+    return dict(k1=sum(got["k1"] for got in ranks), k2=sum(got["k2"] for got in ranks))
+
+
 def main_cards(cards, phases=()) -> int:
     """``python3 chip_smoke.py --cards N [phase ...]``: data parallel across
     ``N`` cards of one host (not the one-card smoke test): the kernels'
@@ -2256,9 +2420,11 @@ def main_cards(cards, phases=()) -> int:
     checkpoint); ``semseg`` and ``ssl``, those files at their global
     batches of 48 and 24 (cards_semseg, cards_ssl); ``fit``, on one card,
     the rows a card those batches give on N cards, with remat_blocks off
-    and on (cards_fit)."""
+    and on (cards_fit); ``tp`` and ``cp``, the flagship file's model under
+    (data 2, model 2) and (data 2, seq 2) beside plain data parallel at 2
+    rows a card (cards_grid_dp, cards_grid_tp, cards_grid_cp)."""
     phases = tuple(phases) or ("flagship", "semseg", "ssl")
-    unknown = set(phases) - {"flagship", "semseg", "ssl", "fit"}
+    unknown = set(phases) - {"flagship", "semseg", "ssl", "fit", "tp", "cp"}
     check(not unknown, f"--cards: unknown phases {sorted(unknown)}")
     if set(phases) - {"fit"}:
         check(torch.cuda.device_count() >= cards,
@@ -2280,6 +2446,9 @@ def main_cards(cards, phases=()) -> int:
         for task in ("semseg", "ssl"):
             if task in phases:
                 launches[task] = phase_cards_task(work, cards, task)
+        for kind in ("dp", "tp", "cp"):
+            if {"tp", "cp"} & set(phases) and (kind == "dp" or kind in phases):
+                launches[f"grid_{kind}"] = phase_cards_grid(work, cards, kind)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(smi, flush=True)
     emit(dict(cards=cards, phases=list(phases), launches=launches))
@@ -4263,12 +4432,218 @@ def finish_ppt_ddp_agree(ranks, ranks_s, world, conditions, ref_steps, ref_stats
     return dict(k1_lse=sum(record["k1_lse"]), k2=sum(record["k2"]))
 
 
-RANK_JOBS = dict(task=task_agree_job, ppt=ppt_agree_job)
+# ---- tensor and context parallel ---------------------------------------------
+
+GRID_CLIP = 1.0  # the flagship file's clip_grad
+CP_SERVE_POINTS = 98304
+
+
+def whole_grads(model, grads):
+    """``grads`` (by name) of a model whose tensor-parallel shares
+    (``shard_model_tp``) are gathered whole over its model group, on the
+    host; the others as they are."""
+    return {k: g.cpu() for k, g in gather_whole(grads.items(), model).items()}
+
+
+def tp_fp32_model(**backbone):
+    """flagship_fp32_model cut over the layout's model group."""
+    model, criteria = flagship_fp32_model(**backbone)
+    return shard_model_tp(model), criteria
+
+
+def grid_step_job(rank, job):
+    """A rank's part of tp_agree or cp_agree (phase_shared_ddp_agree's
+    spawn): the fp32 step of ddp_agree's two rows clipped at GRID_CLIP, on
+    (data 1, model 2) with both rows (``kind`` "tp") or on (data 1, seq 2)
+    with half of each row's slots ("cp"), under DDP over the points group;
+    writes the step, the whole gradients and the rank's K1 / K2 launches,
+    heads, gathered bytes, peak memory and seconds."""
+    kind = job["kind"]
+    grid = tp_groups(1, 2) if kind == "tp" else context_groups(1)
+    set_layout(grid)
+    try:
+        rows = job["rows"] if kind == "tp" else shard_point_batch(job["rows"])
+        reset_path_counts()
+        context.GATHERED.update(forward=0, backward=0)
+        torch.cuda.reset_peak_memory_stats()
+        built = []
+
+        def build(**backbone):
+            model, criteria = (tp_fp32_model if kind == "tp" else flagship_fp32_model)(**backbone)
+            built.append(model)
+            return model, criteria
+
+        t0 = time.perf_counter()
+        loss, norm, grads, stats, overflow = train_step_fp32(
+            cuda_batch(rows), data_parallel, build=build, clip_grad=GRID_CLIP)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        model = built[0]
+        heads = [m.num_heads // m.tp_degree for m in model.modules()
+                 if type(m).__name__ == "SerializedAttention"]
+        out = dict(loss=loss, grad_norm=norm, overflow=overflow, seconds=seconds,
+                   grads=whole_grads(model, grads), stats={k: v.cpu() for k, v in stats.items()},
+                   k1_lse=k1_lse_variants(), k1=k1_variants(),
+                   k2=dict(fwa.flash_window_attention_bwd.variant_launches),
+                   k3=bs.bitonic_sort.launches, heads=heads, gathered=dict(context.GATHERED),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   sharded=sum(getattr(p, "tp_sharded", False) for p in model.parameters()))
+        torch.save(out, job["out"].format(rank=rank))
+    finally:
+        set_layout(None)
+
+
+def serve_point(rows):
+    return PointBatch(coord=rows["coord"], feat=rows["feat"],
+                      grid_coord=rows["grid_coord"], mask=rows["mask"])
+
+
+def cp_serve_job(rank, job):
+    """A rank's part of cp_serve: the flagship LangPretrainer in bf16 (seed
+    0, as the serve phase builds it) on its half of the room's slots at
+    (data 1, seq 2), one forward; writes its block of the features, its K1
+    launches by variant, the bytes gathered and the forward's seconds."""
+    set_layout(context_groups(1))
+    try:
+        model = build_lang_model(dict(FLAGSHIP_BACKBONE), dtype="bfloat16", device="cuda",
+                                 seed=0)
+        point = serve_point(cuda_batch(shard_point_batch(job["rows"])))
+        reset_path_counts()
+        context.GATHERED.update(forward=0, backward=0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            feat = model(point).feat.float().cpu()
+        seconds = time.perf_counter() - t0
+        torch.save(dict(feat=feat, k1=k1_variants(), k1_lse=k1_lse_variants(),
+                        k3=bs.bitonic_sort.launches,
+                        gathered=dict(context.GATHERED), seconds=seconds,
+                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30),
+                   job["out"].format(rank=rank))
+    finally:
+        set_layout(None)
+
+
+def prepare_grid_agree(work, ref):
+    """tp_agree, cp_agree and cp_serve, run by phase_shared_ddp_agree.
+
+    tp_agree: the flagship file's fp32 model (its widths: heads 2, 4, 8, 16
+    in the encoder, 16 in the decoder, every block cut in two) on (data 1,
+    model 2), both ranks holding ddp_agree's two rows of 49,152 points:
+    drop-path 0.3, the contrastive term on, clipped at the file's 1.0,
+    against ddp_agree's one-process step over the same rows (``ref``),
+    whose gradients clipped by its own norm are the reference: the loss to
+    1e-5, every whole gradient to 1e-4 of its norm, the norm to 1e-4,
+    equal gradients on both ranks. Each rank launches K1 with lse and K2 on
+    every block, at its H / 2 heads. cp_agree: the same step on (data 1,
+    seq 2), each rank holding half of each row's slots, the same reference
+    and bounds; each rank runs K1 and K2 on its whole windows of every
+    stage. cp_serve: one bf16 forward of the flagship LangPretrainer (the
+    serve phase's model, seed 0) over one room of 98,304 Gaussians at seq
+    2, against one process's bf16 forward of the room: within 2.5 times the
+    one-process bf16 forward's own distance from its fp32 forward, each
+    relative to the fp32 features' largest magnitude; K1 on bf16_large."""
+    coef = min(1.0, GRID_CLIP / (ref["grad_norm"] + 1e-6))  # torch's clip_grad_norm_
+    clipped = (ref["loss"], {k: g * coef for k, g in ref["grads"].items()}, ref["overflow"])
+    pending = []
+    for kind in ("tp", "cp"):
+        phase = f"{kind}_agree"
+        job = dict(kind=kind, rows=ref["rows"], out=os.path.join(work, f"{phase}_rank{{rank}}.pt"))
+        pending.append(dict(phase=phase, job=job, finish=lambda ranks, ranks_s, world, kind=kind:
+                            finish_grid_agree(kind, ranks, ranks_s, world, clipped, ref, coef)))
+
+    rng = np.random.default_rng(5)
+    coord, feat_in, grid = room_scene(rng, CP_SERVE_POINTS, (4.0, 4.0, 3.0))
+    rows = dict(coord=coord[None], feat=feat_in[None], grid_coord=grid[None],
+                mask=np.ones((1, CP_SERVE_POINTS), bool))
+    one = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_lang_model(dict(FLAGSHIP_BACKBONE), dtype=dtype, device="cuda", seed=0)
+        with torch.inference_mode():
+            one[dtype] = model(serve_point(cuda_batch(rows))).feat.float().cpu()
+        del model
+        torch.cuda.empty_cache()
+    job = dict(kind="cp_serve", rows=rows, out=os.path.join(work, "cp_serve_rank{rank}.pt"))
+    pending.append(dict(phase="cp_serve", job=job, finish=lambda ranks, ranks_s, world:
+                        finish_cp_serve(ranks, ranks_s, world, one)))
+    return pending
+
+
+def finish_grid_agree(kind, ranks, ranks_s, world, clipped, ref, coef):
+    """prepare_grid_agree's check of tp_agree's or cp_agree's ranks;
+    returns their K1 and K2 launches."""
+    phase = f"{kind}_agree"
+    blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
+    record = dict(phase=phase, grid="(data 1, model 2)" if kind == "tp" else "(data 1, seq 2)",
+                  world=world, backend="gloo", rows=2, points=ref["rows"]["mask"].shape[1],
+                  dtype="float32", drop_path=0.3, clip_grad=GRID_CLIP, clip_coef=coef,
+                  ranks_s=ranks_s, loss_one=ref["loss"], grad_norm_one=ref["grad_norm"])
+    for r, got in enumerate(ranks):
+        compare_steps(f"{phase}_rank{r}", (got["loss"], got["grads"], got["overflow"]), clipped,
+                      names=("grid", "one"), world=world, grid=record["grid"],
+                      grad_norm=[got["grad_norm"], ref["grad_norm"]])
+        check(abs(got["grad_norm"] - ref["grad_norm"]) <= TRAIN_GRAD_RTOL * ref["grad_norm"],
+              f"{phase}: rank {r}'s gradient norm {got['grad_norm']} against {ref['grad_norm']}")
+        stat_err = {k: rel_l2(v, ref["stats"][k]) for k, v in got["stats"].items()}
+        stat = max(stat_err.values())
+        check(sorted(stat_err) == sorted(ref["stats"]) and stat <= TRAIN_GRAD_RTOL,
+              f"{phase}: rank {r}'s BatchNorm statistics differ by {stat}")
+        k1_lse, k2 = sum(got["k1_lse"].values()), sum(got["k2"].values())
+        check(k1_lse == k2 == blocks and sum(got["k1"].values()) == k1_lse,
+              f"{phase}: rank {r} launched K1 {got['k1']} ({k1_lse} with lse) and K2 "
+              f"{got['k2']} times, expected {blocks} each")
+        check(got["k3"] == 0, f"{phase}: rank {r} launched K3 {got['k3']} times (switch off)")
+        if kind == "tp":
+            check(got["sharded"] == 6 * blocks, f"{phase}: rank {r} holds {got['sharded']} "
+                  "shares")
+        for key, g in ranks[0]["grads"].items():
+            check(torch.equal(g, got["grads"][key]),
+                  f"{phase}: rank {r}'s {key} gradient differs from rank 0's")
+        for key in ("loss", "grad_norm", "seconds", "peak_mem_gib", "gathered", "heads", "k3"):
+            record.setdefault(key, []).append(got[key])
+        record.setdefault("stat_worst_rel_l2", []).append(stat)
+        record.setdefault("k1_lse", []).append(got["k1_lse"])
+        record.setdefault("k2", []).append(got["k2"])
+    emit(record)
+    return dict(k1_lse=[sum(c.values()) for c in record["k1_lse"]],
+                k2=[sum(c.values()) for c in record["k2"]], k3=record["k3"],
+                k1_lse_variants=sum_counts(record["k1_lse"]), k2_variants=sum_counts(record["k2"]))
+
+
+def finish_cp_serve(ranks, ranks_s, world, one):
+    """prepare_grid_agree's check of cp_serve's ranks; returns their K1
+    launches."""
+    got = torch.cat([r["feat"] for r in ranks], dim=1)
+    ref16, ref32 = one["bfloat16"], one["float32"]
+    scale = ref32.abs().max().item()
+    own = (ref16 - ref32).abs().max().item() / scale
+    err = (got - ref16).abs().max().item() / scale
+    check(got.shape == ref16.shape and torch.isfinite(got).all().item(),
+          f"cp_serve: features {tuple(got.shape)}, one process {tuple(ref16.shape)}")
+    for r, rank_out in enumerate(ranks):
+        check(rank_out["k1"].get("bf16_large", 0) == sum(rank_out["k1"].values()) == 18,
+              f"cp_serve: rank {r} launched K1 {rank_out['k1']}, expected 18 on bf16_large")
+        check(rank_out["k3"] == 0, f"cp_serve: rank {r} launched K3 {rank_out['k3']} times")
+    emit(dict(phase="cp_serve", grid="(data 1, seq 2)", world=world, backend="gloo",
+              points=got.shape[1], dtype="bfloat16", ranks_s=ranks_s, max_rel_err=err,
+              one_bf16_vs_fp32_max_rel_err=own, bound=BF16_NOISE_FACTOR * own,
+              k1=[r["k1"] for r in ranks], k3=[r["k3"] for r in ranks],
+              gathered=[r["gathered"] for r in ranks],
+              seconds=[r["seconds"] for r in ranks],
+              peak_mem_gib=[r["peak_mem_gib"] for r in ranks]))
+    check(err <= BF16_NOISE_FACTOR * own,
+          f"cp_serve: {err} from one process's bf16 features (bound {BF16_NOISE_FACTOR * own})")
+    return dict(k1=[r["k1"]["bf16_large"] for r in ranks], k3=[r["k3"] for r in ranks])
+
+
+RANK_JOBS = dict(ddp=ddp_agree_job, task=task_agree_job, ppt=ppt_agree_job, tp=grid_step_job,
+                 cp=grid_step_job, cp_serve=cp_serve_job)
 
 
 def phase_shared_ddp_agree(work, pending, world=2):
-    """The two-rank checks prepared by prepare_task_ddp_agree and
-    prepare_ppt_ddp_agree, their ranks in one spawn (shared_agree_rank:
+    """The two-rank checks prepared by prepare_ddp_agree,
+    prepare_task_ddp_agree, prepare_ppt_ddp_agree and prepare_grid_agree,
+    their ranks in one spawn (shared_agree_rank:
     each job in turn in one process group, where a spawn each cost a
     process start, the imports and a group each); then each check in
     turn. Returns each phase's launches by phase name."""
@@ -7214,7 +7589,9 @@ def main() -> int:
         tot_bwd = phase_timing_bwd(train_shapes)
         phase_train_agree()
         ddp_record, ddp_checkpoint = phase_ddp_train(work, plain, flagship_data)
-        ddp_ranks = phase_ddp_agree(work, ddp_checkpoint, meta_root)
+        # the two ranks run in the shared spawn below; grid_ref is tp_agree's
+        # and cp_agree's reference
+        ddp_agree_pending, grid_ref = prepare_ddp_agree(work, ddp_checkpoint, meta_root)
         worst_sort = phase_kernel_sort()
         # the older phases at a cut depth, to leave time for the later
         # paths' phases: one test scene where there were two, 3 train steps
@@ -7245,7 +7622,8 @@ def main() -> int:
         semseg_sort = phase_timing_sort(semseg_sort_sizes, phase="semseg_timing_sort")
         # the two-rank checks: each reference step here, their ranks in one
         # spawn after cac_agree (phase_shared_ddp_agree)
-        ddp_pending = [prepare_task_ddp_agree(work, task) for task in ("semseg", "ssl")]
+        ddp_pending = [ddp_agree_pending] + [prepare_task_ddp_agree(work, task)
+                                             for task in ("semseg", "ssl")]
         remat = phase_remat_agree()
         ppt_shapes, ppt_k1, ppt_k1_variants, ppt_k2_variants, ppt_checkpoint = \
             phase_ppt_train(work, steps=3)
@@ -7267,8 +7645,12 @@ def main() -> int:
         phase_cac_test(work, cac_config_path, cac_best, n_voxels=50000)
         cac_kernels = phase_cac_agree()
         ddp_pending += [prepare_task_ddp_agree(work, task) for task in ("msc", "cac")]
+        ddp_pending += prepare_grid_agree(work, grid_ref)
+        del grid_ref
         ddp = phase_shared_ddp_agree(work, ddp_pending)
         del ddp_pending
+        ddp_ranks = ddp["ddp_agree"]
+        tp_ranks, cp_ranks, cp_serve = ddp["tp_agree"], ddp["cp_agree"], ddp["cp_serve"]
         tasks_ddp = {task: ddp[f"{task}_ddp_agree"] for task in ("semseg", "ssl")}
         ppt_ddp, insseg_ddp = ddp["ppt_ddp_agree"], ddp["insseg_ddp_agree"]
         spunet_ddp = {task: ddp[f"{task}_ddp_agree"] for task in ("msc", "cac")}
@@ -7412,6 +7794,9 @@ def main() -> int:
                               **times(teacher_large)),
              ppt=dict(ppt_test, launches=ppt_test_variants["bf16_large"],
                       **times(ppt_fwd["by_variant"]["bf16_large"])),
+             cp_serve=dict(path="cp_serve (seq 2, two ranks on the card)",
+                           ms_per="not timed (the serve phase's forward is)",
+                           rank_launches=cp_serve["k1"]),
              cls=dict(cls_path("k1"), ms_per="classifier forward (bf16, 14 launches at "
                       "windows of 1024, the shapes of one cls_test object)",
                       test_launches=sum(r["k1_variants"]["bf16_large"]
@@ -7454,7 +7839,13 @@ def main() -> int:
              spunet_tasks=dict(spunet_tasks, agree_launches=cac_kernels["k1_lse"],
                                agree_variant_launches=cac_kernels["k1_lse_variants"]),
              ptv2=ptv2_path("k1"), sparse=sparse_path("k1"), st=st_path("k1"),
-             cls=cls_path("k1_lse")),
+             cls=cls_path("k1_lse"),
+             tp_cp=dict(path="tp_agree (model 2: each rank's H / 2 heads), cp_agree (seq 2: "
+                             "each rank's whole windows); fp32, two ranks on the card",
+                        ms_per="not timed (fp32 agree steps)",
+                        tp_rank_launches=tp_ranks["k1_lse"], cp_rank_launches=cp_ranks["k1_lse"],
+                        tp_variant_launches=tp_ranks["k1_lse_variants"],
+                        cp_variant_launches=cp_ranks["k1_lse_variants"])),
         dict(name="flash_window_attention_fwd_small", route="cuda", source=source_small,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="test",
              launches=test_variants["bf16_small"], variant_launches=test_variants,
@@ -7512,7 +7903,12 @@ def main() -> int:
                  d["k2"] for d in spunet_ddp.values()), agree_launches=cac_kernels["k2"],
                  agree_variant_launches=cac_kernels["k2_variants"]),
              ptv2=ptv2_path("k2"), sparse=sparse_path("k2"), st=st_path("k2"),
-             cls=cls_path("k2")),
+             cls=cls_path("k2"),
+             tp_cp=dict(path="tp_agree, cp_agree (fp32, two ranks on the card)",
+                        ms_per="not timed (fp32 agree steps)",
+                        tp_rank_launches=tp_ranks["k2"], cp_rank_launches=cp_ranks["k2"],
+                        tp_variant_launches=tp_ranks["k2_variants"],
+                        cp_variant_launches=cp_ranks["k2_variants"])),
         dict(name="bitonic_sort", route="cuda",
              source="scenesplat_tpu_torch/csrc/bitonic_sort.cu",
              replaces="scenesplat_tpu/ops/pallas_sort.py:146", path="test",
@@ -7540,7 +7936,10 @@ def main() -> int:
                           "switch on)", ms_per="fragment forward",
                      launches=st_sorts["sort_calls"], kernel_launches=st_sorts["sort_kernels"],
                      fragment_forwards=st_sorts["fragments"]),
-             cls=cls_path("k3")),
+             cls=cls_path("k3"),
+             tp_cp=dict(path="tp_agree, cp_agree, cp_serve (the switch off), counted a rank",
+                        tp_rank_launches=tp_ranks["k3"], cp_rank_launches=cp_ranks["k3"],
+                        cp_serve_rank_launches=cp_serve["k3"])),
         # not a TPU kernel: the JAX package's FPS is an XLA lax.fori_loop;
         # ms and the other times: the 5 calls of one ST forward at the train
         # rows' levels (fps_kernel), launches: st_train's run

@@ -19,6 +19,7 @@ import torch
 
 from scenesplat_tpu_torch.engines.test import build_tester
 from scenesplat_tpu_torch.parallel.dist import barrier, rank
+from scenesplat_tpu_torch.parallel.tp import gather_state_dict_tp
 from scenesplat_tpu_torch.utils.events import JSONWriter, TensorboardWriter
 
 from .default import HOOKS, HookBase
@@ -88,9 +89,13 @@ class InformationWriter(HookBase):
 
 
 def training_state(trainer, epoch: int) -> dict:
-    """What a checkpoint holds: the trainer's state after ``epoch`` epochs."""
+    """What a checkpoint holds: the trainer's state after ``epoch`` epochs;
+    a tensor-parallel model's whole state dict (``parallel/tp.py:
+    gather_state_dict_tp``, a collective over its model group), which loads
+    strictly into one process's model. The optimizer's state is this
+    rank's."""
     return dict(
-        state_dict=trainer.model.state_dict(),
+        state_dict=gather_state_dict_tp(trainer.model),
         optimizer=trainer.optimizer.state_dict(),
         scheduler=None if trainer.scheduler is None else trainer.scheduler.state_dict(),
         generator=trainer.generator.get_state(),
@@ -118,9 +123,9 @@ class CheckpointSaver(HookBase):
         if rank() == 0:
             os.makedirs(self.ckpt_dir, exist_ok=True)
 
-    def _save(self, name: str):
+    def _save(self, name: str, state: dict):
         path = os.path.join(self.ckpt_dir, name)
-        torch.save(training_state(self.trainer, self.trainer.epoch + 1), path + ".tmp")
+        torch.save(state, path + ".tmp")
         os.replace(path + ".tmp", path)
 
     def after_epoch(self):
@@ -131,14 +136,16 @@ class CheckpointSaver(HookBase):
             comm["best_metric_value"] = metric
             self.trainer.logger.info(f"new best {comm.get('current_metric_name', 'metric')}: "
                                      f"{metric:.4f} (epoch {self.trainer.epoch + 1})")
+        # on every rank: a tensor-parallel model's state is gathered
+        state = training_state(self.trainer, self.trainer.epoch + 1)
         if rank() == 0:
-            self._save("model_last.pth")
+            self._save("model_last.pth", state)
             if is_best:
                 best = os.path.join(self.ckpt_dir, "model_best.pth")
                 shutil.copyfile(os.path.join(self.ckpt_dir, "model_last.pth"), best + ".tmp")
                 os.replace(best + ".tmp", best)
             if self.save_freq and (self.trainer.epoch + 1) % self.save_freq == 0:
-                self._save(f"epoch_{self.trainer.epoch + 1}.pth")
+                self._save(f"epoch_{self.trainer.epoch + 1}.pth", state)
         barrier()
 
 

@@ -32,7 +32,7 @@ import torch
 
 from scenesplat_tpu_torch.models.point_group import pointgroup_loss
 from scenesplat_tpu_torch.models.structure import PointBatch
-from scenesplat_tpu_torch.parallel.dist import check_same_on_ranks
+from scenesplat_tpu_torch.parallel.dist import all_reduce_, check_same_on_ranks, layout
 
 _INT_KEYS = ("grid_coord", "segment")
 
@@ -148,16 +148,51 @@ def train_step(model, criteria, optimizer, scheduler, batch: Dict[str, torch.Ten
     return metrics
 
 
+def global_grad_norm(params) -> torch.Tensor:
+    """The L2 norm of the whole gradient. Under tensor parallel
+    (``parallel/tp.py``) a rank holds its share of each sharded parameter
+    (``tp_sharded``): their squares are summed over the model group, the
+    replicated parameters' counted once, so every rank holds one process's
+    norm."""
+    norms = [torch.linalg.vector_norm(p.grad.float()) for p in params]
+    if layout().model == 1:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sharded = [n for p, n in zip(params, norms) if getattr(p, "tp_sharded", False)]
+    whole = [n for p, n in zip(params, norms) if not getattr(p, "tp_sharded", False)]
+    zero = norms[0].new_zeros(())
+    sq = all_reduce_(sum((n * n for n in sharded), zero)[None], layout().model_group)
+    return (sq[0] + sum((n * n for n in whole), zero)).sqrt()
+
+
+def average_replicated_grads(params) -> None:
+    """Under tensor parallel, the mean over the model group of the
+    gradients of the parameters every model rank holds whole (norms, CPE,
+    pooling, heads): equal in exact arithmetic, they differ in their last
+    bits where a kernel sums in an order of its own (the card's scatter-adds),
+    and the replicated weights must not drift apart."""
+    grid = layout()
+    grads = [p.grad for p in params if not getattr(p, "tp_sharded", False)]
+    if grid.model == 1 or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat, grid.model_group).div_(grid.model)
+    for g, mean in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(mean.view_as(g))
+
+
 def apply_gradients(optimizer, scheduler, clip_grad: Optional[float] = None) -> torch.Tensor:
     """Clip the gradients' global norm to ``clip_grad`` (torch divides by
     norm + 1e-6, optax by the norm), step the optimizer and the schedule;
-    returns the norm before clipping."""
+    returns the norm before clipping (``global_grad_norm``: under tensor
+    parallel every rank clips by one process's norm, after
+    ``average_replicated_grads``)."""
     params = [p for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
-    if clip_grad is not None and clip_grad > 0:
-        grad_norm = torch.nn.utils.clip_grad_norm_(params, clip_grad)
-    else:
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad.float()) for p in params]))
+    average_replicated_grads(params)
+    grad_norm = global_grad_norm(params)
+    if clip_grad is not None and clip_grad > 0:  # torch's clip_grad_norm_ arithmetic
+        coef = (clip_grad / (grad_norm + 1e-6)).clamp(max=1.0)
+        for p in params:
+            p.grad.mul_(coef.to(p.grad.dtype))
     optimizer.step()
     if scheduler is not None:
         scheduler.step()

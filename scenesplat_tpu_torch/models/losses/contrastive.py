@@ -56,7 +56,8 @@ class AggregatedContrastiveLoss:
         if split is not None:
             in_a = split.reshape(-1).bool()
         elif generator is not None:
-            in_a = batch_rand(segment.shape, generator, seg.device).reshape(-1) < 0.5
+            in_a = batch_rand(segment.shape, generator, seg.device,
+                              points=True).reshape(-1) < 0.5
         else:
             raise ValueError("AggregatedContrastiveLoss needs a split or a torch.Generator")
 

@@ -8,7 +8,9 @@ torch's fused norms, which keep one fp32 copy of the input for the
 backward (a norm written out op by op keeps three to five, several GB per
 norm at the flagship dec0). Under data parallel the BatchNorm moments are
 those of the global batch (``_GlobalMaskedBatchNorm``), as in the JAX
-package, whose step spans the whole batch.
+package, whose step spans the whole batch; under tensor or context
+parallel, the batch of the layout's points group (``parallel/dist.py``),
+whose ranks hold distinct points.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from scenesplat_tpu_torch.ops.segops import at_least_fp32
-from scenesplat_tpu_torch.parallel.dist import world
+from scenesplat_tpu_torch.parallel.dist import all_reduce_, group_size
 
 
 class _GlobalMaskedBatchNorm(torch.autograd.Function):
@@ -34,14 +36,12 @@ class _GlobalMaskedBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         stats = torch.cat([x.sum(0), x.new_full((1,), x.shape[0])])
-        if world() > 1:
-            torch.distributed.all_reduce(stats)
+        all_reduce_(stats)
         count = stats[-1].clamp(min=1.0)
         mean = stats[:-1] / count
         xc = x - mean
         sq = (xc * xc).sum(0)
-        if world() > 1:
-            torch.distributed.all_reduce(sq)
+        all_reduce_(sq)
         var = sq / count
         invstd = torch.rsqrt(var + eps)
         xhat = xc.mul_(invstd)
@@ -55,8 +55,7 @@ class _GlobalMaskedBatchNorm(torch.autograd.Function):
         dbias = dy.sum(0)
         dweight = (dy * xhat).sum(0)
         sums = torch.cat([dbias * weight, dweight * weight])
-        if world() > 1:
-            torch.distributed.all_reduce(sums)
+        all_reduce_(sums)
         c = weight.shape[0]
         dx = (dy * weight - sums[:c] / count - xhat * (sums[c:] / count)) * invstd
         return dx, dweight, dbias, None
@@ -89,7 +88,7 @@ class MaskedBatchNorm(nn.Module):
             # batch moments of the valid points; padding rows come out as
             # zeros (every consumer masks them: attention keys, conv
             # neighbours, pooling's discard bin, the losses)
-            if world() > 1:
+            if group_size() > 1:
                 valid = self._global(xf[mask])
             else:
                 valid = F.batch_norm(xf[mask], self.running_mean, self.running_var,
@@ -131,14 +130,12 @@ class _PointBatchNormFn(torch.autograd.Function):
         # move the normalized values by 1e-3 between the card and the CPU
         mc = m[:, None]
         stats = torch.cat([(x * mc).sum(0), m.sum()[None]])
-        if world() > 1:
-            torch.distributed.all_reduce(stats)
+        all_reduce_(stats)
         count = stats[-1].clamp(min=1.0)
         mean = stats[:-1] / count
         xc = x - mean
         sq = (xc * xc * mc).sum(0)
-        if world() > 1:
-            torch.distributed.all_reduce(sq)
+        all_reduce_(sq)
         var = sq / count
         invstd = torch.rsqrt(var + eps)
         xhat = xc.mul_(invstd)
@@ -152,8 +149,7 @@ class _PointBatchNormFn(torch.autograd.Function):
         dbias = dy.sum(0)
         dweight = (dy * xhat).sum(0)
         sums = torch.cat([dbias * weight, dweight * weight])
-        if world() > 1:
-            torch.distributed.all_reduce(sums)
+        all_reduce_(sums)
         c = weight.shape[0]
         centre = (sums[:c] + xhat * sums[c:]) / count
         dx = (dy * weight - m[:, None] * centre) * invstd

@@ -31,6 +31,16 @@ models/ppt.py). ``enable_rpe`` adds the relative-position bias table to
 every attention, which then takes the plain dense path
 (ops/window_attention.py:window_attention_rpe) and not the flash-window
 kernels, as in the JAX package and the reference.
+
+Under tensor parallel (``parallel/tp.py:shard_model_tp``) a block's qkv and
+fc1 are column-parallel and its attention proj and fc2 row-parallel
+``Linear``s over the layout's model group: the attention runs K1 and K2 on
+the rank's H / tp heads, and the MLP on its share of the hidden width.
+Under context parallel (a layout with a seq axis, ``parallel/context.py``)
+a rank holds a block of each stage's slots (``StageState.part``): the
+forward gathers the geometry once, runs the per-point layers on its block
+and K1 and K2 on its whole windows, and gathers features at the ops that
+mix points; its output is the rank's block of the input's slots.
 """
 
 from __future__ import annotations
@@ -55,15 +65,23 @@ from scenesplat_tpu_torch.ops.serialization import Serialization, take_along_poi
 from scenesplat_tpu_torch.ops.subm_conv import (
     SubMConvPlan,
     build_subm_conv_plan,
+    plan_rows,
     subm_conv_apply,
     subplan,
 )
 from scenesplat_tpu_torch.ops.window_attention import (
+    rank_windows,
     rpe_pos_bnd,
     window_attention,
     window_attention_rpe,
 )
-from scenesplat_tpu_torch.parallel.dist import batch_rand
+from scenesplat_tpu_torch.parallel.context import Part, seq_gather
+from scenesplat_tpu_torch.parallel.dist import (
+    batch_rand,
+    copy_to_group,
+    layout,
+    reduce_from_group,
+)
 
 from .builder import MODELS
 from .norm import LayerNorm, MaskedBatchNorm, PDNorm
@@ -75,12 +93,15 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
-            per_point: bool = False) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability 1 - p and scale kept
-    values by 1 / (1 - p). ``per_point`` draws one value per point and
-    broadcasts it over channels (drop-path, flax ``broadcast_dims=(2,)``).
-    Under data parallel the masks are this process's rows of one draw at
-    the global batch's shape (``parallel/dist.py:batch_rand``)."""
+            per_point: bool = False, channels=None) -> torch.Tensor:
+    """flax ``nn.Dropout`` on ``x`` [B, N, ...] (axis 1 the points): keep
+    with probability 1 - p and scale kept values by 1 / (1 - p).
+    ``per_point`` draws one value per point and broadcasts it over channels
+    (drop-path, flax ``broadcast_dims=(2,)``). Under data parallel the
+    masks are this process's rows of one draw at the global batch's shape
+    (``parallel/dist.py:batch_rand``; under context parallel its points of
+    it too), and ``channels`` (a tensor-parallel share of the hidden width)
+    its columns."""
     if p <= 0.0:
         return x
     if generator is None:
@@ -89,7 +110,7 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
     if p >= 1.0:
         return torch.zeros_like(x)
     shape = x.shape[:-1] + (1,) if per_point else x.shape
-    keep = batch_rand(shape, generator, x.device) < 1.0 - p
+    keep = batch_rand(shape, generator, x.device, points=True, channels=channels) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
 
@@ -128,17 +149,44 @@ def apply_norm(norm: nn.Module, x, cond=None, mask=None):
 
 @dataclass(frozen=True)
 class StageState:
-    """Per-stage geometry shared by all blocks of the stage."""
+    """Per-stage geometry shared by all blocks of the stage. Under context
+    parallel ``part`` is the rank's block of the stage's slots: the
+    geometry is the whole stage's, ``conv_plan`` the block's rows of it."""
 
     coord: torch.Tensor
     grid_coord: torch.Tensor
     mask: torch.Tensor
     ser: Serialization
     conv_plan: SubMConvPlan
+    part: Optional[Part] = None
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's slots of a whole-stage tensor (all of it without
+        context parallel)."""
+        return x if self.part is None else self.part.own(x)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The stage's features from every rank's block (``x`` itself
+        without context parallel)."""
+        return x if self.part is None else self.part.whole(x)
+
+
+def stage_state(coord, grid_coord, mask, ser, plan: SubMConvPlan, cp: bool) -> StageState:
+    """The StageState of a stage; under context parallel (``cp``) with the
+    rank's block of its slots and of its conv plan's rows."""
+    if not cp:
+        return StageState(coord, grid_coord, mask, ser, plan)
+    part = Part.of(mask.shape[1])
+    return StageState(coord, grid_coord, mask, ser, plan_rows(plan, part.lo, part.hi), part)
 
 
 class Linear(nn.Module):
-    """Dense layer: fp32 parameters cast to the compute dtype per call."""
+    """Dense layer: fp32 parameters cast to the compute dtype per call.
+    ``tp`` (set by ``Block.shard_tp``) makes it a share of a
+    tensor-parallel layer over a process group: ("column", group) holds
+    some output features (its input summed over the group in the
+    backward), ("row", group) some input features (its partial products
+    summed in the forward, then the bias added once)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -146,6 +194,7 @@ class Linear(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.tp = None
 
     def reset_parameters(self, gen: torch.Generator):
         bound = 1.0 / math.sqrt(self.weight.shape[1])
@@ -156,7 +205,13 @@ class Linear(nn.Module):
     def forward(self, x):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        kind, group = self.tp
+        if kind == "column":
+            return F.linear(copy_to_group(x.to(dt), group), self.weight.to(dt), b)
+        y = reduce_from_group(F.linear(x.to(dt), self.weight.to(dt)), group)
+        return y if b is None else y + b
 
 
 class SubMConv(nn.Module):
@@ -186,17 +241,28 @@ class SubMConv(nn.Module):
 
 
 class MLP(nn.Module):
+    """fc1 - GELU - dropout - fc2 - dropout. Under tensor parallel
+    ``hidden_span`` = (hidden width, first, end) is the rank's share of the
+    hidden features, whose dropout mask is cut from a draw at the whole
+    width."""
+
     def __init__(self, channels: int, mlp_ratio: float = 4.0, drop: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = int(channels * mlp_ratio)
+        self.hidden = hidden
         self.drop = drop
         self.fc1 = Linear(channels, hidden, dtype=dtype)
         self.fc2 = Linear(hidden, channels, dtype=dtype)
+        self.hidden_span = None
 
     def forward(self, x, generator=None):
         p = self.drop if self.training else 0.0
-        x = dropout(F.gelu(self.fc1(x)), p, generator)
+        x = F.gelu(self.fc1(x))
+        if self.hidden_span is None:
+            x = dropout(x, p, generator)
+        else:  # the rank's columns of a draw at the whole hidden width
+            x = dropout(x, p, generator, channels=self.hidden_span)
         return dropout(self.fc2(x), p, generator)
 
 
@@ -216,7 +282,11 @@ class RPE(nn.Module):
 
 class SerializedAttention(nn.Module):
     """Window attention over one curve order; with ``enable_rpe``, plus the
-    relative-position bias of the points' grid coordinates (``rpe``)."""
+    relative-position bias of the points' grid coordinates (``rpe``).
+    Under tensor parallel (``tp_degree`` > 1) qkv, proj and the RPE table
+    hold the rank's num_heads / tp_degree heads; ``scale`` stays that of
+    the whole layer's head width. Under context parallel the rank runs its
+    whole windows of the curve order (``_forward_windows``)."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int = 0, qkv_bias: bool = True,
@@ -231,25 +301,46 @@ class SerializedAttention(nn.Module):
         self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, dtype=dtype)
         self.rpe = RPE(patch_size, num_heads) if enable_rpe else None
         self.proj = Linear(channels, channels, dtype=dtype)
+        self.tp_degree = 1
+
+    def _attend(self, qkv, valid, grid):
+        """Window attention of curve-sorted qkv [B, M, 3 * C_rank] of the
+        rank's heads -> [B, M, C_rank]."""
+        b, m = qkv.shape[:2]
+        c, heads = self.channels // self.tp_degree, self.num_heads // self.tp_degree
+        qkv = qkv.view(b, m, 3, c)
+        if m == 0:  # a context-parallel rank without windows at this stage
+            return qkv[:, :, 0]
+        if self.rpe is not None:
+            return window_attention_rpe(qkv, valid, grid, self.rpe.rpe_table, self.patch_size,
+                                        heads, scale=self.scale)
+        return window_attention(qkv, valid, self.patch_size, heads, scale=self.scale,
+                                use_kernel=self.use_kernel)
 
     def forward(self, feat, state: StageState, generator=None):
-        c = self.channels
         order = state.ser.curve_order(self.order_index)
         inverse = state.ser.curve_inverse(self.order_index)
-        qkv = self.qkv(feat)
-        b, n = qkv.shape[:2]
-        qkv_sorted = take_along_points(qkv, order).view(b, n, 3, c)
-        valid_sorted = take_along_points(state.mask, order)
-        if self.rpe is not None:
-            out_sorted = window_attention_rpe(
-                qkv_sorted, valid_sorted, take_along_points(state.grid_coord, order),
-                self.rpe.rpe_table, self.patch_size, self.num_heads, scale=self.scale)
+        if state.part is not None:
+            out = self._forward_windows(feat, state, order, inverse)
         else:
-            out_sorted = window_attention(
-                qkv_sorted, valid_sorted, self.patch_size, self.num_heads,
-                scale=self.scale, use_kernel=self.use_kernel)
-        out = self.proj(take_along_points(out_sorted, inverse))
+            grid = None if self.rpe is None else take_along_points(state.grid_coord, order)
+            out_sorted = self._attend(take_along_points(self.qkv(feat), order),
+                                      take_along_points(state.mask, order), grid)
+            out = self.proj(take_along_points(out_sorted, inverse))
         return dropout(out, self.proj_drop if self.training else 0.0, generator)
+
+    def _forward_windows(self, feat, state: StageState, order, inverse):
+        """Context parallel: the stage's features gathered, this rank's
+        whole windows of the curve order through qkv, the attention and
+        proj, every rank's windows gathered and the rank's slots kept."""
+        n = state.mask.shape[1]
+        grid = layout()
+        lo, hi = rank_windows(n, self.patch_size, grid.seq, grid.seq_rank)
+        mine = order[:, lo:hi]
+        coords = None if self.rpe is None else take_along_points(state.grid_coord, mine)
+        out = self.proj(self._attend(self.qkv(take_along_points(state.whole(feat), mine)),
+                                     take_along_points(state.mask, mine), coords))
+        return take_along_points(seq_gather(out, n, lo, hi), state.own(inverse))
 
 
 class Block(nn.Module):
@@ -280,12 +371,30 @@ class Block(nn.Module):
         self.norm2 = nn.ModuleList([make_norm(c, "ln", dtype, pd)])
         self.mlp = nn.ModuleList([MLP(c, mlp_ratio, drop=proj_drop, dtype=dtype)])
 
+    def tp_divides(self, degree: int) -> bool:
+        """Whether tensor parallel at ``degree`` cuts this block: its heads
+        and its hidden width split evenly (else it stays whole)."""
+        return self.attn.num_heads % degree == 0 and self.mlp[0].hidden % degree == 0
+
+    def shard_tp(self, degree: int, index: int, group) -> None:
+        """Makes the block model rank ``index``'s share of a tensor-parallel
+        block over ``group`` (``parallel/tp.py:shard_model_tp`` cuts its
+        parameters): qkv and fc1 column-parallel, proj and fc2
+        row-parallel, the attention on num_heads / degree heads, the MLP's
+        dropout on the rank's share of the hidden width."""
+        attn, mlp = self.attn, self.mlp[0]
+        attn.tp_degree = degree
+        attn.qkv.tp = mlp.fc1.tp = ("column", group)
+        attn.proj.tp = mlp.fc2.tp = ("row", group)
+        mlp.hidden_span = (mlp.hidden, index * mlp.hidden // degree,
+                           (index + 1) * mlp.hidden // degree)
+
     def forward(self, feat, state: StageState, cpe_feat=None, generator=None, cond=None):
         # cpe_feat: the first block after unpooling convolves the proj_skip
         # features (see SerializedUnpooling); cond: (condition, context)
         # for PDNorms
         conv, linear, norm = self.cpe
-        x = conv(feat if cpe_feat is None else cpe_feat, state.conv_plan)
+        x = conv(state.whole(feat if cpe_feat is None else cpe_feat), state.conv_plan)
         feat = feat + apply_norm(norm, linear(x), cond)
 
         dp = self.drop_path if self.training else 0.0
@@ -308,7 +417,9 @@ class Block(nn.Module):
 
 
 class SerializedPooling(nn.Module):
-    """Grid pooling by right-shifted curve-0 codes."""
+    """Grid pooling by right-shifted curve-0 codes. Under context parallel
+    the stage's features are gathered and pooled whole; the features
+    returned are the rank's block of the clusters (``Part.of``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 2,
                  reduce: str = "mean", pd: Optional[PDCfg] = None,
@@ -322,11 +433,15 @@ class SerializedPooling(nn.Module):
     def forward(self, feat, state: StageState, out_capacity: int, cond=None):
         depth = self.pooling_depth
         plan = build_pooling_plan(state.ser, state.mask, out_capacity, depth)
-        x = pool_values(plan, self.proj(feat), self.reduce)
+        x = pool_values(plan, self.proj(state.whole(feat)), self.reduce)
         coord = pool_values(plan, state.coord, "mean")
         grid_coord = take_along_points(state.grid_coord, plan.head_index) >> depth
         ser = pool_serialization(plan, state.ser, depth)
-        x = F.gelu(apply_norm(self.norm[0], x, cond, plan.out_mask))
+        mask = plan.out_mask
+        if state.part is not None:
+            part = Part.of(out_capacity)
+            x, mask = part.own(x), part.own(mask)
+        x = F.gelu(apply_norm(self.norm[0], x, cond, mask))
         return x, coord, grid_coord, plan.out_mask, ser, plan
 
 
@@ -335,7 +450,10 @@ class SerializedUnpooling(nn.Module):
 
     Returns (unpooled_feat, skip_feat). The reference assigns the summed
     feature without re-syncing its sparse-conv feature, so the first
-    decoder block's xCPE conv reads the proj_skip output, not the sum."""
+    decoder block's xCPE conv reads the proj_skip output, not the sum.
+    ``coarse`` and ``parent`` are the two stages' StageStates: under
+    context parallel the pooled features are gathered and the rank's
+    parent slots kept."""
 
     def __init__(self, in_channels: int, skip_channels: int, out_channels: int,
                  pd: Optional[PDCfg] = None, dtype: torch.dtype = torch.float32):
@@ -346,11 +464,12 @@ class SerializedUnpooling(nn.Module):
             Linear(skip_channels, out_channels, dtype=dtype),
             make_norm(out_channels, "bn", dtype, pd)])
 
-    def forward(self, feat, parent_feat, parent_mask, mask, plan: PoolingPlan, cond=None):
-        x = F.gelu(apply_norm(self.proj[1], self.proj[0](feat), cond, mask))
+    def forward(self, feat, parent_feat, coarse: StageState, parent: StageState,
+                plan: PoolingPlan, cond=None):
+        x = F.gelu(apply_norm(self.proj[1], self.proj[0](feat), cond, coarse.own(coarse.mask)))
         skip = F.gelu(apply_norm(self.proj_skip[1], self.proj_skip[0](parent_feat), cond,
-                                 parent_mask))
-        return skip + unpool_values(x, plan.cluster_of_point), skip
+                                 parent.own(parent.mask)))
+        return skip + unpool_values(coarse.whole(x), parent.own(plan.cluster_of_point)), skip
 
 
 class Embedding(nn.Module):
@@ -567,9 +686,26 @@ class PointTransformerV3(nn.Module):
 
         With ``pdnorm_conditions``, ``condition`` names the batch's dataset
         (a name, or one name a row, all equal) and ``context`` [B,
-        context_channels] feeds the adaptive PDNorms."""
+        context_channels] feeds the adaptive PDNorms.
+
+        Under context parallel (the layout has a seq axis) ``point`` holds
+        the rank's block of each row's slots (``parallel/context.py:
+        shard_point_batch``) and arrives unserialized; the output and
+        ``token_mask`` are of that block, the serialization and the plans
+        of whole rows."""
         cond = None if self.pdnorm_conditions is None else (condition, context)
         depth = self.serialization_depth
+        cp = layout().seq > 1
+        feat_in = point.feat
+        if cp:
+            if point.ser is not None:
+                raise ValueError("under context parallel the backbone serializes the "
+                                 "gathered rows itself: pass the points unserialized")
+            part = Part.of(point.num_points * layout().seq)
+            point = point.replace(coord=part.whole_exact(point.coord),
+                                  grid_coord=part.whole_exact(point.grid_coord),
+                                  mask=part.whole_exact(point.mask))
+            feat_in = part.whole(feat_in)
         if point.ser is None:
             shuffle = self.training and self.shuffle_orders and len(self.order) > 1
             if shuffle and generator is None:
@@ -579,9 +715,11 @@ class PointTransformerV3(nn.Module):
                                      generator=generator if shuffle else None)
         n0 = point.num_points
         stem_plan = build_subm_conv_plan(point.grid_coord, point.mask, 5, depth)
-        state = StageState(point.coord, point.grid_coord, point.mask, point.ser,
-                           subplan(stem_plan, 3))
-        feat = self.embedding(point.feat.to(self.dtype), stem_plan, state.mask, cond)
+        state = stage_state(point.coord, point.grid_coord, point.mask, point.ser,
+                            subplan(stem_plan, 3), cp)
+        if cp:
+            stem_plan = plan_rows(stem_plan, state.part.lo, state.part.hi)
+        feat = self.embedding(feat_in.to(self.dtype), stem_plan, state.own(state.mask), cond)
         if token_mask is not None:
             if self.mask_token is None:
                 raise ValueError("token_mask needs enable_mask_token=True")
@@ -597,22 +735,22 @@ class PointTransformerV3(nn.Module):
                 skips.append((feat, state, plan))
                 plans.append(plan)
                 feat = x
-                state = StageState(coord, grid_coord, mask, ser,
-                                   build_subm_conv_plan(grid_coord, mask, 3, depth))
+                state = stage_state(coord, grid_coord, mask, ser,
+                                    build_subm_conv_plan(grid_coord, mask, 3, depth), cp)
             for blk in stage.blocks():
                 feat = self._block(blk, feat, state, None, generator, cond)
-        enc_feat, enc_mask = feat, state.mask
+        enc_feat, enc_mask = feat, state.own(state.mask)
 
         for s in reversed(range(0 if self.cls_mode else self.num_stages - 1)):
             parent_feat, parent_state, plan = skips.pop()
             stage = self.dec[f"dec{s}"]
-            feat, skip_feat = stage.up(feat, parent_feat, parent_state.mask,
-                                       state.mask, plan, cond)
+            feat, skip_feat = stage.up(feat, parent_feat, state, parent_state, plan, cond)
             state = parent_state
             for i, blk in enumerate(stage.blocks()):
                 feat = self._block(blk, feat, state, skip_feat if i == 0 else None, generator,
                                    cond)
 
-        out = point.replace(feat=feat, coord=state.coord, grid_coord=state.grid_coord,
-                            mask=state.mask, ser=state.ser, plans=tuple(plans))
+        out = point.replace(feat=feat, coord=state.own(state.coord),
+                            grid_coord=state.own(state.grid_coord), mask=state.own(state.mask),
+                            ser=state.ser, plans=tuple(plans))
         return (out, enc_feat, enc_mask) if return_enc else out

@@ -152,7 +152,7 @@ def draw_token_mask_randoms(generator: Optional[torch.Generator], shape: Tuple[i
     lo, hi = mask_ratio_min_max
     rate = lo + (hi - lo) * batch_rand((b, 1), generator, device)
     if mask_type == "splats":
-        unit = batch_rand((b, n), generator, device)
+        unit = batch_rand((b, n), generator, device, points=True)
     elif mask_type == "patch":
         unit = batch_randint(0, 2 ** 30, (b, 1), generator, device, dtype=torch.int32)
     else:

@@ -59,6 +59,14 @@ def subplan(plan: SubMConvPlan, kernel_size: int) -> SubMConvPlan:
     )
 
 
+def plan_rows(plan: SubMConvPlan, lo: int, hi: int) -> SubMConvPlan:
+    """The plan of query points [lo, hi) alone (its indices still address
+    the whole stage): a context-parallel rank's output slots."""
+    return SubMConvPlan(neighbor_index=plan.neighbor_index[..., lo:hi],
+                        neighbor_valid=plan.neighbor_valid[..., lo:hi],
+                        kernel_size=plan.kernel_size)
+
+
 def _voxel_key(grid: torch.Tensor) -> torch.Tensor:
     """[B, ..., 3] int64 in-range coords -> [B, ...] int64 keys with the
     batch index in the bits above the three coordinate fields."""
@@ -178,7 +186,9 @@ class _SubMConv(torch.autograd.Function):
 
 def subm_conv_apply(feat: torch.Tensor, plan: SubMConvPlan, weight: torch.Tensor,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
-    """feat [B, N, Cin], weight [K3, Cin, Cout] -> [B, N, Cout].
+    """feat [B, N, Cin], weight [K3, Cin, Cout] -> [B, M, Cout] at the
+    plan's M query points (M = N but for a plan cut to some of a stage's
+    points, whose indices still address all N: context parallel).
 
     Gathers the K3 neighbour rows of each point (zeros where invalid) and
     contracts them with the flattened weight in one matmul per chunk of
@@ -188,14 +198,15 @@ def subm_conv_apply(feat: torch.Tensor, plan: SubMConvPlan, weight: torch.Tensor
     bias (see ``_SubMConv``)."""
     b, n, cin = feat.shape
     k3, _, cout = weight.shape
+    m = plan.neighbor_index.shape[2]
     if k3 != plan.neighbor_index.shape[1]:
         raise ValueError(f"weight has {k3} offsets, plan has "
                          f"{plan.neighbor_index.shape[1]}")
     base = torch.arange(b, device=feat.device).view(b, 1, 1) * n
     idx = torch.where(plan.neighbor_valid, plan.neighbor_index + base, b * n)
-    idx = idx.transpose(1, 2).reshape(b * n, k3)  # point-major
+    idx = idx.transpose(1, 2).reshape(b * m, k3)  # point-major
     out = _SubMConv.apply(feat.reshape(b * n, cin), weight, bias, idx)
-    return out.view(b, n, cout)
+    return out.view(b, m, cout)
 
 
 class _SubMDWConv(torch.autograd.Function):

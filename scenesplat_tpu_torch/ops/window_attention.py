@@ -43,6 +43,17 @@ def window_attention(qkv_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                                   num_heads, scale)
 
 
+def rank_windows(n: int, patch_size: int, parts: int, index: int):
+    """[lo, hi) of the sorted positions of part ``index`` of the ceil(n /
+    patch_size) windows of a row cut into ``parts`` contiguous blocks of
+    whole windows (context parallel: a window never straddles two ranks;
+    with fewer windows than parts the last parts are empty)."""
+    windows = -(-n // patch_size)
+    per = -(-windows // parts)
+    lo = min(index * per, windows) * patch_size
+    return min(lo, n), min(lo + per * patch_size, n)
+
+
 def rpe_pos_bnd(patch_size: int) -> int:
     """PTv3's clip of relative grid coordinates for a window of
     ``patch_size`` (the reference's RPE.pos_bnd)."""

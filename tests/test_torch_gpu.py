@@ -401,6 +401,78 @@ def test_backward_fp32_matches_plain_autograd(cuda, k, c, h):
     assert dead.any() and (g[dead] == 0).all()
 
 
+# the flagship's attention signatures on a tensor-parallel rank at model 2:
+# H / 2 heads of the unchanged head width (encoder windows of 1024, the
+# flagship file's decoder windows of 48)
+TP_LOCAL = [(1024, 16, 1), (1024, 32, 2), (1024, 64, 4), (1024, 128, 8),
+            (48, 384, 8), (48, 256, 8), (48, 128, 8)]
+
+
+@pytest.mark.parametrize("k,c,h", TP_LOCAL)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_local_heads_match_plain(cuda, k, c, h, dtype):
+    """K1 and K2 at a tensor-parallel rank's heads: fp32 within 1e-4 of
+    the plain version's output and of autograd through it (of each
+    gradient's largest magnitude); bf16 within 2.5 times the plain bf16
+    version's own distance from the fp32 truth, output and gradients."""
+    n = 2 * k + k // 3 + 1
+    qkv, valid = _inputs(cuda, 2, n, c, k, seed=4)
+    dout = torch.randn(2, n, c, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(5))
+    f0, b0 = fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches
+    out, g = _grads(fwa.flash_window_attention, qkv.to(dtype), valid, k, h, dout.to(dtype))
+    assert (fwa.flash_window_attention.launches, fwa.flash_window_attention_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    if dtype == torch.float32:
+        ref_out, ref = _grads(fwa.flash_window_attention_plain, qkv, valid, k, h, dout)
+        assert (out[valid] - ref_out[valid]).abs().max().item() <= 1e-4
+        for i in range(3):
+            assert (g[:, :, i] - ref[:, :, i]).abs().max().item() <= (
+                1e-4 * ref[:, :, i].abs().max().item()), i
+        return
+    x16, d16 = qkv.bfloat16(), dout.bfloat16()
+    truth_out, truth = _grads(fwa.flash_window_attention_plain, x16.float(), valid, k, h,
+                              d16.float())
+    floor_out, floor = _grads(fwa.flash_window_attention_plain, x16, valid, k, h, d16)
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    assert rel(out[valid], truth_out[valid]) <= 2.5 * rel(floor_out[valid], truth_out[valid])
+    assert rel(g, truth) <= 2.5 * rel(floor, truth)
+
+
+@pytest.mark.parametrize("n,k,c,h", [(49152, 1024, 32, 2), (6144, 1024, 256, 16),
+                                     (49152, 48, 768, 16), (3000, 1024, 64, 4)])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_cp_rank_windows_match_whole_row(cuda, n, k, c, h, parts):
+    """Context parallel: K1 and K2 on each seq rank's whole windows
+    (``rank_windows``; at 3,000 slots and 4 parts the last rank has none)
+    give, put together, the whole row's kernel output and gradients (to
+    1e-6 of their largest magnitude), and
+    each part's launch matches the plain version on that part within
+    1e-4 (fp32)."""
+    qkv, valid = _inputs(cuda, 2, n, c, k, seed=6)
+    dout = torch.randn(2, n, c, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(7))
+    whole_out, whole = _grads(fwa.flash_window_attention, qkv, valid, k, h, dout)
+    outs, grads = [], []
+    for i in range(parts):
+        lo, hi = wa.rank_windows(n, k, parts, i)
+        if hi == lo:
+            continue
+        part = [t[:, lo:hi].contiguous() for t in (qkv, valid, dout)]
+        out, g = _grads(fwa.flash_window_attention, *part[:2], k, h, part[2])
+        ref_out, ref = _grads(fwa.flash_window_attention_plain, *part[:2], k, h, part[2])
+        assert (out[part[1]] - ref_out[part[1]]).abs().max().item() <= 1e-4
+        assert (g - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+        outs.append(out)
+        grads.append(g)
+    got_out, got = torch.cat(outs, 1), torch.cat(grads, 1)
+    assert (got_out[valid] - whole_out[valid]).abs().max().item() <= 1e-6
+    assert (got - whole).abs().max().item() <= 1e-6 * whole.abs().max().item()
+
+
 BWD_FP32_RTOL = 1e-4  # fp32 gradients: max abs error over the largest plain gradient
 
 

@@ -240,9 +240,109 @@ def trainer(job) -> dict:
                 losses=t.storage.history("loss").values())
 
 
+def _whole_grads(model) -> dict:
+    """Every parameter's gradient; a tensor-parallel share gathered whole
+    over its model group."""
+    from scenesplat_tpu_torch.parallel.tp import gather_whole
+
+    whole = gather_whole(((k, p.grad) for k, p in model.named_parameters()), model)
+    return {k: g.clone() for k, g in whole.items()}
+
+
+def _grid_batch(batch: dict, kind) -> dict:
+    """This rank's part of the global batch: its rows (``kind`` "tp" or
+    None: whole rows) and under "cp" its block of each row's slots."""
+    from scenesplat_tpu_torch.parallel.context import shard_point_batch
+
+    if kind == "cp":
+        return _tensors(shard_point_batch(batch))
+    return _tensors({k: v[pdist.local_batch_slice(len(v))] for k, v in batch.items()})
+
+
+def _grid_model(config: dict, state: dict, kind):
+    from scenesplat_tpu_torch.models import build_model
+    from scenesplat_tpu_torch.parallel.tp import shard_model_tp
+
+    model = build_model(dict(config))
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+                          strict=True)
+    return shard_model_tp(model) if kind == "tp" else model
+
+
+def grid_eval(job, kind=None) -> dict:
+    """The backbone ``job["backbone"]`` in eval mode (as the JAX tensor and
+    context parallel tests hold it) on this rank's part of ``job["batch"]``
+    under DDP: its output, and the gradient of the masked squared distance
+    to ``target`` summed over the points group and divided by
+    ``loss_scale``. ``kind`` None: one process over the whole batch."""
+    from scenesplat_tpu_torch.models.structure import PointBatch
+    from scenesplat_tpu_torch.parallel import context
+
+    model = _grid_model(job["backbone"], job["state"], kind).eval()
+    batch = _grid_batch(job["batch"], kind)
+    context.GATHERED.update(forward=0, backward=0)
+    ddp = pdist.data_parallel(model)  # held through the backward, whose sums it makes
+    out = ddp(PointBatch(coord=batch["coord"], feat=batch["feat"],
+                         grid_coord=batch["grid_coord"], mask=batch["mask"]))
+    d = (out.feat - batch["target"]) * out.mask[..., None]
+    loss = pdist.all_reduce_sum((d * d).sum()) / job["loss_scale"]
+    loss.backward()
+    return dict(loss=loss.item(), feat=out.feat.detach().clone(), grads=_whole_grads(model),
+                gathered=dict(context.GATHERED))
+
+
+def grid_train(job, kind=None) -> dict:
+    """One ``train_step`` of the LangPretrainer ``job["train_model"]`` with
+    its drop-path and dropout, the curve shuffle and the contrastive split
+    drawn from a generator seeded ``seed``, clipped at ``clip_grad`` (SGD at
+    lr 0) on this rank's part of ``job["train_batch"]`` under DDP: the loss,
+    the gradient norm, the clipped gradients and the running statistics;
+    under tensor parallel also the whole state dict
+    (``gather_state_dict_tp``)."""
+    from scenesplat_tpu_torch.engines.train_step import train_step
+    from scenesplat_tpu_torch.models import build_criteria
+    from scenesplat_tpu_torch.parallel.tp import gather_state_dict_tp
+
+    model = _grid_model(job["train_model"], job["train_state"], kind)
+    ddp = pdist.data_parallel(model)
+    metrics = train_step(ddp, build_criteria(job["criteria"]),
+                         torch.optim.SGD(model.parameters(), lr=0.0), None,
+                         _grid_batch(job["train_batch"], kind),
+                         generator=torch.Generator().manual_seed(job["seed"]),
+                         epoch_progress=1.0, clip_grad=job["clip_grad"], task="lang")
+    record = _step_record(model, metrics["loss"], metrics["grad_norm"])
+    record["grads"] = _whole_grads(model)
+    if kind == "tp":
+        record["state"] = gather_state_dict_tp(model)
+        record["shards"] = {k: tuple(p.shape) for k, p in model.named_parameters()
+                            if getattr(p, "tp_sharded", False)}
+    return record
+
+
+def grids(job) -> dict:
+    """Both grids of a group of 4 in turn, each in its own layout: (data 2,
+    model 2) under tensor parallel, then (data 2, seq 2) under context
+    parallel; on each ``grid_eval`` and ``grid_train``."""
+    from scenesplat_tpu_torch.parallel import context, tp
+
+    pdist.init_distributed("cpu")
+    out = {}
+    for kind, make in (("tp", lambda: tp.tp_groups(2, 2)), ("cp", lambda: context.context_groups(2))):
+        grid = make()
+        pdist.set_layout(grid)
+        try:
+            out[kind] = dict(eval=grid_eval(job, kind), train=grid_train(job, kind),
+                             coords=(grid.data_rank, grid.seq_rank, grid.model_rank))
+            if kind == "cp":  # a stage with fewer windows than seq ranks
+                out[kind]["eval_wide"] = grid_eval(dict(job, backbone=job["wide_backbone"]), kind)
+        finally:
+            pdist.set_layout(None)
+    return out
+
+
 JOBS = dict(step=step, semseg_step=semseg_step, ppt_steps=ppt_steps, ssl_step=ssl_step,
             gather=gather,
-            losses=losses, reductions=reductions, entry=entry, trainer=trainer)
+            losses=losses, reductions=reductions, entry=entry, trainer=trainer, grids=grids)
 
 
 def main(job_file: str, result_file: str) -> int:
