@@ -340,9 +340,11 @@ Phases, one JSON line each:
      bit-equal, at the 5 FPS calls of an ST forward over the train rows
      (2 rows of 205,824 slots: a room's lattice, where distances tie
      everywhere, and a jittered one with a padding tail and its first
-     slots masked; each level the previous one's samples) and at PTv1's 4
-     (ptv1_agree's rows): kernel and plain CUDA-event times, M, and the
-     bound (the valid points' operations of the M steps at the fp32 rate);
+     slots masked; each level the previous one's samples), at PTv1's 4
+     (ptv1_agree's rows) and at PartSeg50's 4 (an object of 2,048 points):
+     kernel and plain CUDA-event times, M, each level's blocks a row,
+     whether it spilled and us a step, and the bound (the valid points'
+     operations of the M steps at the fp32 rate);
  56. st_agree: one fp32 semseg train step of DefaultSegmentor over ST-v1m2
      at its default widths (channels 48-384, depths 3/9/3/3, the KPConv
      stem, the three RPE tables), 2 rows of 4,096 points, on the card
@@ -6667,17 +6669,18 @@ def fps_bound_ms(m, n_valid, n):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def fps_levels(coord, mask, depth, samples):
+def fps_levels(coord, mask, depth, samples, reps=3):
     """The FPS calls of a chain of levels, each the previous one's samples
     (``samples(n)`` of a level of n slots, the valid ones
     ``samples(n_valid)`` as a transition down keeps them): for each, the
     level's coordinates, mask and the kernel's ids, checked bit-equal to the
-    plain loop's on the card, and the two's CUDA-event ms."""
+    plain loop's on the card, the two's CUDA-event ms, the kernel's blocks a
+    row, whether a row spills past them and the kernel's us a step."""
     out = []
     for _ in range(depth):
         b, n = mask.shape
         m = samples(n)
-        kernel_ms = cuda_ms(lambda: pointops.farthest_point_sampling(coord, mask, m), reps=3,
+        kernel_ms = cuda_ms(lambda: pointops.farthest_point_sampling(coord, mask, m), reps=reps,
                             warmup=1)
         ids, _ = pointops.farthest_point_sampling(coord, mask, m)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -6688,26 +6691,24 @@ def fps_levels(coord, mask, depth, samples):
         check(torch.equal(ids, plain), f"fps_kernel: ids differ from the plain loop at {n} "
               f"slots, {m} samples")
         n_valid = [int(v) for v in mask.sum(1)]
-        out.append(dict(slots=n, samples=m, valid=n_valid, ms=kernel_ms,
-                        plain_ms=start.elapsed_time(end)))
+        out.append(dict(rows=b, slots=n, samples=m, valid=n_valid, ms=kernel_ms,
+                        plain_ms=start.elapsed_time(end), blocks=fps_ops.blocks_per_row(n),
+                        spills=fps_ops.spills(n), us_per_step=kernel_ms * 1e3 / m))
         keep = torch.tensor([samples(v) for v in n_valid], device=coord.device)
         coord = take_along_points(coord, ids)
         mask = torch.arange(m, device=coord.device) < keep.clamp(max=m)[:, None]
     return out
 
 
-def phase_fps_kernel():
-    """The FPS kernel against its plain loop on the card, ids bit-equal: at
-    ST's levels of the train rows (2 rows of the semseg file's 205,824
-    slots, one of a room's lattice voxels, where distances tie everywhere,
-    the other jittered by 3 mm with a padding tail of 40,000 slots and its
-    first 5 slots masked; each level the previous one's int(n / 4) + 1
-    samples, as ST's transition downs take them) and at PTv1's (2 rows of
-    PTV1_AGREE_POINTS, as ptv1_agree's, n // 4 a level); each call's kernel
-    and plain times by CUDA events, and the bound: the valid points'
-    operations of the M steps at the fp32 rate. Returns the ST forward's
-    sums."""
-    fps_launches = fps_ops.farthest_point_sampling_cuda.launches
+def fps_level_sets():
+    """name -> (coord, mask, levels, samples) of the FPS kernel's row sets:
+    ST's train rows (2 rows of the semseg file's 205,824 slots, one of a
+    room's lattice voxels, where distances tie everywhere, the other
+    jittered by 3 mm with a padding tail of 40,000 slots and its first 5
+    slots masked; each level the previous one's int(n / 4) + 1 samples, as
+    ST's transition downs take them), PTv1's (ptv1_agree's 2 rows of
+    PTV1_AGREE_POINTS, n // 4 a level) and PartSeg50's (one object of
+    PARTSEG_POINTS, as partseg_test's forwards take them)."""
     n = 205824
     rows = semseg_rows(n, (61, 62), size_m=(5.0, 5.0, 3.0))
     rows = dict(rows, coord=np.stack([rows["coord"][0], jittered(rows, 63)["coord"][1]]))
@@ -6715,25 +6716,57 @@ def phase_fps_kernel():
     mask = torch.ones(2, n, dtype=torch.bool, device="cuda")
     mask[1, :5] = False
     mask[1, n - 40000:] = False
-    st = fps_levels(coord, mask, ST_FPS_CALLS, lambda v: int(v * ST_DOWN_RATIO) + 1)
     p1 = torch.from_numpy(jittered(semseg_rows(PTV1_AGREE_POINTS, (31, 32)), 33)["coord"]).cuda()
-    ptv1 = fps_levels(p1, torch.ones(p1.shape[:2], dtype=torch.bool, device="cuda"), 4,
-                      lambda v: max(1, v // 4))
-    result = {}
-    for name, levels in (("st", st), ("ptv1", ptv1)):
-        bound, by = fps_bound_ms([lv["samples"] for lv in levels],
-                                 [sum(lv["valid"]) for lv in levels],
-                                 [lv["slots"] * len(lv["valid"]) for lv in levels])
-        result[name] = dict(ms=sum(lv["ms"] for lv in levels),
-                            plain_ms=sum(lv["plain_ms"] for lv in levels), bound_ms=bound,
-                            bound_by=by, samples=[lv["samples"] for lv in levels], levels=levels)
+    obj = shape_object(0, SHAPE_PARTS[0][1], PARTSEG_POINTS, 700)[0]
+    obj = torch.from_numpy(obj.astype(np.float32))[None].cuda()
+
+    def ptv1_samples(v):
+        return max(1, v // 4)
+
+    return dict(st=(coord, mask, ST_FPS_CALLS, lambda v: int(v * ST_DOWN_RATIO) + 1),
+                ptv1=(p1, torch.ones(p1.shape[:2], dtype=torch.bool, device="cuda"), 4,
+                      ptv1_samples),
+                partseg=(obj, torch.ones(obj.shape[:2], dtype=torch.bool, device="cuda"), 4,
+                         ptv1_samples))
+
+
+def fps_sums(levels):
+    """A row set's sums over its levels: kernel and plain ms, the bound and
+    what bounds it, M a level, and the levels."""
+    bound, by = fps_bound_ms([lv["samples"] for lv in levels],
+                             [sum(lv["valid"]) for lv in levels],
+                             [lv["slots"] * lv["rows"] for lv in levels])
+    return dict(ms=sum(lv["ms"] for lv in levels), plain_ms=sum(lv["plain_ms"] for lv in levels),
+                bound_ms=bound, bound_by=by, samples=[lv["samples"] for lv in levels],
+                levels=levels)
+
+
+def fps_record(r):
+    """A row set's sums as the kernels line gives them: M, the times and
+    the bound, and each level's blocks a row and us a step."""
+    return dict(samples=r["samples"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], blocks=[lv["blocks"] for lv in r["levels"]],
+                us_per_step=[lv["us_per_step"] for lv in r["levels"]])
+
+
+def phase_fps_kernel():
+    """The FPS kernel against its plain loop on the card, ids bit-equal, at
+    fps_level_sets' levels (ST's 5, PTv1's 4, PartSeg50's 4); each call's
+    kernel and plain times by CUDA events, its blocks a row and us a step,
+    and the bound: the valid points' operations of the M steps at the fp32
+    rate. Returns each set's sums."""
+    fps_launches = fps_ops.farthest_point_sampling_cuda.launches
+    result = {name: fps_sums(fps_levels(*args)) for name, args in fps_level_sets().items()}
     emit(dict(phase="fps_kernel", ids_equal=True, max_abs_err=0,
               phase_launches=fps_ops.farthest_point_sampling_cuda.launches - fps_launches,
               **result))
-    r = result["st"]
-    print(f"fps_kernel: ST forward {r['ms']:.2f} ms (M = {r['samples']}) against a bound of "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain loop {r['plain_ms']:.1f} ms; PTv1 "
-          f"{result['ptv1']['ms']:.2f} ms", flush=True)
+    for name, r in result.items():
+        by_level = [(lv["blocks"], lv["spills"], round(lv["us_per_step"], 3))
+                    for lv in r["levels"]]
+        print(f"fps_kernel: {name} {r['ms']:.2f} ms a forward (M = {r['samples']}) against a "
+              f"bound of {r['bound_ms']:.4f} ms ({r['bound_by']}); plain loop "
+              f"{r['plain_ms']:.1f} ms; by level, blocks a row, spilled, us a step: {by_level}",
+              flush=True)
     return result
 
 
@@ -7942,23 +7975,20 @@ def main() -> int:
                         cp_serve_rank_launches=cp_serve["k3"])),
         # not a TPU kernel: the JAX package's FPS is an XLA lax.fori_loop;
         # ms and the other times: the 5 calls of one ST forward at the train
-        # rows' levels (fps_kernel), launches: st_train's run
+        # rows' levels (fps_kernel), launches: st_train's run; ptv1 and
+        # partseg: their forwards' 4 calls at fps_kernel's levels
         dict(name="farthest_point_sampling", route="cuda",
              source="scenesplat_tpu_torch/csrc/farthest_point_sampling.cu",
              replaces="none: scenesplat_tpu/ops/pointops.py:205 (farthest_point_sampling, an "
                       "XLA lax.fori_loop, not a Pallas kernel)",
              path="st train", launches=st_counts["st_train"]["fps"],
              phase_launches=st_path("fps")["phase_launches"],
-             ms_per=f"ST train forward ({ST_FPS_CALLS} calls, M = {fps_times['st']['samples']})",
-             max_abs_err=0, ms=fps_times["st"]["ms"], plain_ms=fps_times["st"]["plain_ms"],
-             bound_ms=fps_times["st"]["bound_ms"], bound_by=fps_times["st"]["bound_by"],
-             library_ms=None,
+             ms_per=f"ST train forward ({ST_FPS_CALLS} calls)", max_abs_err=0,
+             library_ms=None, **fps_record(fps_times["st"]),
              ptv1=dict(path="ptv1 (ptv1_agree's transitions)", ms_per="PTv1 forward (4 calls)",
-                       samples=fps_times["ptv1"]["samples"], ms=fps_times["ptv1"]["ms"],
-                       plain_ms=fps_times["ptv1"]["plain_ms"],
-                       bound_ms=fps_times["ptv1"]["bound_ms"],
-                       bound_by=fps_times["ptv1"]["bound_by"]),
-             partseg=dict(cls_path("fps"), ms_per="PTv1 PartSeg50 forward (4 calls)"))]})
+                       **fps_record(fps_times["ptv1"])),
+             partseg=dict(cls_path("fps"), ms_per="PTv1 PartSeg50 forward (4 calls)",
+                          **fps_record(fps_times["partseg"])))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

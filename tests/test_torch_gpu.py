@@ -831,15 +831,23 @@ def test_pointgroup_cluster_on_card_equals_cpu(cuda, monkeypatch):
         assert n_got == n_ref > 10 and torch.equal(got.cpu(), ref)
 
 
-def _fps_rows(cuda, b, n, seed, pad=0, spread=4.0):
+def _fps_rows(cuda, b, n, seed, pad=0, spread=4.0, lattice=False):
     """Rows of n points uniform in a ``spread`` metre cube (one point
     duplicated: a tie), the last ``pad`` slots of the last row padded and
     a few slots at the start of row 0 padded (its first valid point is not
-    slot 0)."""
-    gen = torch.Generator(device=cuda).manual_seed(seed)
-    coord = torch.rand(b, n, 3, generator=gen, device=cuda) * spread
-    if n > 7:
-        coord[:, 7] = coord[:, 3]
+    slot 0). ``lattice``: the points of a 12.5 cm lattice (exact in fp32),
+    slot by slot along its rows, where distances tie everywhere (row 1
+    shifted by 3 slots)."""
+    if lattice:
+        side = round(n ** (1 / 3)) + 1
+        g = torch.arange(n + 3, device=cuda)
+        cells = torch.stack([g // (side * side), (g // side) % side, g % side], -1) * 0.125
+        coord = torch.stack([cells[:n], cells[3:]]).float()[:b]
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        coord = torch.rand(b, n, 3, generator=gen, device=cuda) * spread
+        if n > 7:
+            coord[:, 7] = coord[:, 3]
     mask = torch.ones(b, n, dtype=torch.bool, device=cuda)
     mask[0, :3] = False
     if pad:
@@ -847,18 +855,35 @@ def _fps_rows(cuda, b, n, seed, pad=0, spread=4.0):
     return coord, mask
 
 
-@pytest.mark.parametrize("b,n,m,pad", [
-    (2, 102912, 25729, 0),  # the Stratified Transformer's stem at the train rows
-    (2, 25729, 6433, 1000),  # its first stage (about 6,433 of 25,729 valid)
-    (2, 1609, 403, 100), (1, 5, 9, 0),  # a later stage; more samples than points
-    (2, 120000, 2000, 3),  # beyond the shared memory: points in the spill row
-    (3, 4096, 1024, 256),  # PTv1's first transition at a test size
-])
-def test_fps_kernel_ids_equal_plain_loop(cuda, b, n, m, pad):
+def _edges():
+    """(b, n, m, pad, lattice) at each block count's capacity and one point
+    more (the kernel's blocks a row: ops/fps.py:blocks_per_row), and past
+    16 blocks' into the scratch row."""
+    from scenesplat_tpu_torch.ops import fps
+
+    cases = []
+    for blocks in fps.CLUSTER_SIZES:
+        for extra in (0, 1):
+            cases.append((2, blocks * fps.BLOCK_POINTS + extra, 300, 17, False))
+    cases.append((2, 16 * fps.BLOCK_POINTS + 40000, 400, 3, False))
+    return cases
+
+
+@pytest.mark.parametrize("b,n,m,pad,lattice", [
+    (2, 102912, 25729, 0, False),  # the Stratified Transformer's stem at the train rows
+    (2, 25729, 6433, 1000, False),  # its first stage (about 6,433 of 25,729 valid)
+    (2, 1609, 403, 100, False), (1, 5, 9, 0, False),  # a later stage; more samples than points
+    (2, 120000, 2000, 3, False),  # 8 blocks a row
+    (3, 4096, 1024, 256, False),  # PTv1's first transition at a test size
+    (2, 4097, 300, 17, False),  # one block of 1024 threads; 4,096 and below take 256
+    # lattice rows: every distance ties, a padded tail; 16 blocks, 4 and 1
+    (2, 205824, 600, 40000, True), (2, 51457, 600, 2000, True), (2, 4096, 600, 96, True),
+] + _edges())
+def test_fps_kernel_ids_equal_plain_loop(cuda, b, n, m, pad, lattice):
     from scenesplat_tpu_torch.ops import fps
     from scenesplat_tpu_torch.ops import pointops as po
 
-    coord, mask = _fps_rows(cuda, b, n, seed=n, pad=pad)
+    coord, mask = _fps_rows(cuda, b, n, seed=n, pad=pad, lattice=lattice)
     before = fps.farthest_point_sampling_cuda.launches
     got, got_mask = po.farthest_point_sampling(coord, mask, m)
     assert fps.farthest_point_sampling_cuda.launches == before + 1
@@ -866,6 +891,14 @@ def test_fps_kernel_ids_equal_plain_loop(cuda, b, n, m, pad):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got_mask.cpu(), po._sample_mask(mask.cpu(), m))
+
+
+def test_fps_kernel_block_points(cuda):
+    """The source's points a block equal the wrapper's, which picks the
+    blocks a row by them."""
+    from scenesplat_tpu_torch.ops import fps
+
+    assert fps.LIBRARY.load().fps_block_points() == fps.BLOCK_POINTS
 
 
 def test_fps_kernel_row_without_valid_points(cuda):

@@ -236,6 +236,38 @@ def test_farthest_point_sampling_equals_jax():
     assert gi[1, 0] == 5 and gm[2].sum() == 60
 
 
+@pytest.mark.parametrize("points_of_blocks,extra,blocks,spill", [
+    (1, 0, 1, False), (1, 1, 2, False), (2, 0, 2, False), (2, 1, 4, False),
+    (4, 0, 4, False), (4, 1, 8, False), (8, 0, 8, False), (8, 1, 16, False),
+    (16, 0, 16, False), (16, 1, 16, True), (40, 0, 16, True),
+])
+def test_fps_blocks_per_row_at_each_edge(points_of_blocks, extra, blocks, spill):
+    """The FPS kernel's blocks a row: the fewest of 1, 2, 4, 8, 16 whose
+    shared memory holds the row (``BLOCK_POINTS`` a block), 16 with the
+    rest in the scratch row past that; at each count's capacity and one
+    point more."""
+    from scenesplat_tpu_torch.ops import fps
+
+    n = points_of_blocks * fps.BLOCK_POINTS + extra
+    assert (fps.blocks_per_row(n), fps.spills(n)) == (blocks, spill)
+
+
+def test_fps_blocks_per_row_on_the_model_rows():
+    """ST's five levels of the train rows (205,824 slots), PTv1's 4,096 and
+    PartSeg's 2,048: the stem's row whole in 16 blocks, the next level's in
+    4, every other row in one block; no row spills. The wrapper takes CUDA
+    tensors only."""
+    from scenesplat_tpu_torch.ops import fps
+
+    st = [205824, 51457, 12865, 3217, 805]
+    assert [fps.blocks_per_row(n) for n in st] == [16, 4, 1, 1, 1]
+    assert [fps.blocks_per_row(n) for n in (4096, 1024, 2048, 512, 1)] == [1] * 5
+    assert not any(fps.spills(n) for n in st + [4096, 2048])
+    with pytest.raises(ValueError, match="CUDA"):
+        fps.farthest_point_sampling_cuda(torch.zeros(1, 4, 3), torch.ones(1, 4, dtype=torch.bool),
+                                         2)
+
+
 def _idw64(src, dst, feat, idx):
     """float64 inverse-distance interpolation over given neighbours."""
     b, m, k = idx.shape

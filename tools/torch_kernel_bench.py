@@ -2,7 +2,7 @@
 card, without the model: the quick loop while a kernel is being worked on
 (chip_smoke.py is the whole proof).
 
-    python3 tools/torch_kernel_bench.py [attn] [sort] [bwd] [--reps N]
+    python3 tools/torch_kernel_bench.py [attn] [sort] [bwd] [fps] [--reps N]
 
 attn: the flash-window attention forward (K1) in bf16 against its plain
 version (noise-floor rule, lse against the plain log-sum-exp, zeros in
@@ -26,6 +26,14 @@ both sides of its variants' threshold, then its time per call and per step
 at the seven stage shapes of a flagship train step at 196,608 points, batch
 2, beside the backward of scaled_dot_product_attention and the bound
 (chip_smoke.py's arithmetic). O and lse come from the plain version.
+fps: the farthest point sampling kernel against its plain loop (ids
+bit-equal, one launch a call) at each block count's edge (the capacity of
+1, 2, 4, 8 and 16 blocks and one point more), past 16 blocks into the
+scratch row, on both sides of the small one-block row (4,096 points) and on
+lattice rows where distances tie everywhere; then its
+time at chip_smoke.py's fps_kernel levels (ST's five at the train rows,
+PTv1's four, PartSeg50's four), each level checked against the plain loop,
+with its blocks a row, whether it spilled and us a step.
 One JSON line per phase; the card's name and power limit first.
 """
 
@@ -46,6 +54,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from scenesplat_tpu_torch.ops import bitonic_sort as bs  # noqa: E402
 from scenesplat_tpu_torch.ops import flash_window_attn as fwa  # noqa: E402
+from scenesplat_tpu_torch.ops import fps as fps_ops  # noqa: E402
+from scenesplat_tpu_torch.ops import pointops  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 # (N, valid, K, C, H, launches) of a flagship serve forward at 196,608 points
@@ -449,6 +459,53 @@ def sort_profile():
     os.environ[bs.ENV_SWITCH] = "0"
 
 
+def fps_rows(gen, n, lattice):
+    """2 rows of n points, the first 3 slots of row 0 and the last 17 of
+    row 1 padded: uniform in a 4 m cube, or a 12.5 cm lattice (exact in
+    fp32) slot by slot, row 1 shifted by 3 slots, where distances tie
+    everywhere."""
+    if lattice:
+        side = round(n ** (1 / 3)) + 1
+        g = torch.arange(n + 3, device="cuda")
+        cells = torch.stack([g // (side * side), (g // side) % side, g % side], -1) * 0.125
+        coord = torch.stack([cells[:n], cells[3:]]).float()
+    else:
+        coord = torch.rand(2, n, 3, generator=gen, device="cuda") * 4.0
+    mask = torch.ones(2, n, dtype=torch.bool, device="cuda")
+    mask[0, :3] = False
+    mask[1, n - 17:] = False
+    return coord, mask
+
+
+def fps_check(m=200):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sizes = [blocks * fps_ops.BLOCK_POINTS + extra for blocks in fps_ops.CLUSTER_SIZES
+             for extra in (0, 1)] + [16 * fps_ops.BLOCK_POINTS + 40000, 4096, 4097]
+    cases = [(n, False) for n in sizes] + [(n, True) for n in (4096, 51457, 205824)]
+    rows = []
+    for n, lattice in cases:
+        coord, mask = fps_rows(gen, n, lattice)
+        before = fps_ops.farthest_point_sampling_cuda.launches
+        got, _ = pointops.farthest_point_sampling(coord, mask, m)
+        launches = fps_ops.farthest_point_sampling_cuda.launches - before
+        want = pointops.farthest_point_sampling_reference(coord, mask, m)
+        torch.cuda.synchronize()
+        rows.append(dict(n=n, lattice=lattice, blocks=fps_ops.blocks_per_row(n),
+                         spills=fps_ops.spills(n), launches=launches,
+                         ids_equal=torch.equal(got, want)))
+        if not (rows[-1]["ids_equal"] and launches == 1):
+            emit(dict(phase="fps_check", failed=rows[-1]))
+            raise AssertionError(rows[-1])
+    emit(dict(phase="fps_check", samples=m, cases=rows))
+
+
+def fps_time(reps):
+    for name, args in chip_smoke.fps_level_sets().items():
+        levels = chip_smoke.fps_levels(*args, reps=reps)
+        emit(dict(phase="fps_time", rows=name, **chip_smoke.fps_record(chip_smoke.fps_sums(levels)),
+                  levels=[{k: v for k, v in lv.items() if k != "valid"} for lv in levels]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("what", nargs="*", default=["attn", "sort"])
@@ -466,6 +523,8 @@ def main() -> int:
         libraries.append(bs.LIBRARY)
     if "bwd" in args.what:
         libraries.append(fwa.LIBRARY_BWD)
+    if "fps" in args.what:
+        libraries.append(fps_ops.LIBRARY)
     build(libraries)
     if "sort" in args.what:
         sort_check()
@@ -478,6 +537,9 @@ def main() -> int:
     if "bwd" in args.what:
         bwd_check()
         bwd_time(args.reps)
+    if "fps" in args.what:
+        fps_check()
+        fps_time(args.reps)
     return 0
 
 
