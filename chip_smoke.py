@@ -33,7 +33,16 @@ Phases, one JSON line each:
      Function) against autograd through the plain version at every
      signature of phase 2, fp32 and bf16 (both bf16 variants: windows on
      both sides of the backward's threshold of 64), with zero gradients in
-     padded windows;
+     padded windows; then kernel_widths: K1 and K2 at head widths 8, 24, 40
+     (padded to 16, 32, 48 by the wrapper), 64, 96 and 128 in fp32, bf16
+     and fp16 (fp16 also at 16, 32 and 48), at windows of 48, 64, 65, 128,
+     1024 and 4160 (every variant on both sides of its threshold), partly
+     and fully padded windows and a ragged last one, against the plain
+     version (fp32 1e-4; bf16 and fp16 within 2.5 times the plain
+     version's own error in that type; lse 1e-4), each call counted on
+     its variant and padded width; every variant timed at width 64 beside
+     the plain version, scaled_dot_product_attention and the bound, and the
+     wrapper pad's time at the padded widths;
   8. train: scenesplat_tpu_torch.train's trainer on the flagship config
      (configs/concat_dataset/lang-pretrain-concat-gs-contrastive.py, read
      through the port's Config) over a synthetic 3DGS dataset written to a
@@ -41,9 +50,10 @@ Phases, one JSON line each:
      transforms, Mix3D and 196,608 points, batch 2, epoch 1 so the
      contrastive term is live, and the file's own hooks (the evaluator
      over one small validation scene per dataset logs val*/fg_mIoU, the
-     saver writes model_best.pth, PreciseEvaluator finds no tester); 1 + 5
-     steps with K1 and K2 launches counted (and each variant's: the
-     decoder's windows of 48 on bf16_small, the encoder's on bf16_large),
+     saver writes model_best.pth, PreciseEvaluator finds no tester); 1 + 2
+     steps (2 rooms of write_flagship_data's) with K1 and K2 launches
+     counted (and each variant's: the decoder's windows of 48 on
+     bf16_small, the encoder's on bf16_large),
      step times, loader waits, peak memory and one profiled step;
   9. timing_bwd: at the train step's stage shapes, the forward with
      log-sum-exp and the backward kernel against the plain version (bf16
@@ -52,19 +62,32 @@ Phases, one JSON line each:
      (the library yardstick, used nowhere in the port) and the least time
      the card could take;
  10. train_agree: one fp32 train step of the flagship config file's model at
-     49,152 points with the kernels and one with the plain attention, same
+     24,576 points with the kernels and one with the plain attention, same
      weights and generator seeds;
  11. ddp_train: data parallel, the train phase's run once more through
      DistributedDataParallel under a one-process NCCL group, as torchrun
-     starts one (the same data, batch 2, 1 + 5 steps, the file's hooks with
+     starts one (the same data, batch 2, 1 + 2 steps, the file's hooks with
      the evaluator on the scene-sharded path, K1 and K2 launches, step
      times, loader waits, peak memory, beside the train phase's), its
      checkpoint loaded strictly into a one-process model; then one fp32
-     step at 49,152 points under DDP against the same step without it
-     (losses to 1e-5, gradients to 1e-4 relative);
+     step at 24,576 points under DDP against the same step without it
+     (losses to 1e-5, gradients to 1e-4 relative); then the wide heads:
+     wide_serve, the flagship's channels with heads of width 64 (32 at
+     encoder stage 0, WIDE_HEADS) served at 196,608 Gaussians in bf16,
+     every K1 launch on bf16_large at widths 32 and 64, and wide_timing
+     (phase 4 at its shapes); wide_train, the flagship file's trainer
+     with those heads for 1 + 2 steps over the train phase's rooms with
+     its hooks, K1 and K2 launches by variant and width, and
+     wide_timing_bwd (phase 9 at its shapes); fp16_serve, the flagship in
+     float16 served once, every K1 launch on bf16_large in fp16, its
+     features within a mean cosine of 0.99 of the fp32 forward's; then
+     tools: entry.py --save-features --results-dir, the PCA tool (through
+     the model and from the saved features) and the scene viewer as a
+     user runs them over a synthetic scene of 40,000 Gaussians, the files
+     read back and checked, K1 launched 18 times a model run;
  12. ddp_agree: two ranks on the one card over gloo (NCCL refuses two ranks
      on one card), run in phase 39's shared spawn: one fp32 step of a
-     global batch of 2 rows of 49,152 points (drop-path 0.3, the
+     global batch of 2 rows of 24,576 points (drop-path 0.3, the
      contrastive term on) against one process's step over both rows (the
      loss to 1e-5, the gradient norm, every gradient and every BatchNorm
      running statistic to 1e-4 relative, equal gradients on both ranks),
@@ -260,7 +283,7 @@ Phases, one JSON line each:
      start, imports and a group); each check is made then;
  39a. tp_agree, cp_agree and cp_serve, jobs of the same spawn (their
      one-process references taken beside phase 39's): tensor parallel at
-     (data 1, model 2), both ranks holding ddp_agree's two rows of 49,152
+     (data 1, model 2), both ranks holding ddp_agree's two rows of 24,576
      points, the flagship file's fp32 model with each block's qkv, proj,
      fc1 and fc2 cut in two (K1 and K2 at H / 2 heads) under DDP over the
      points group, drop-path 0.3, the contrastive term on, clipped at 1.0:
@@ -541,6 +564,11 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 GRID = 0.02  # metres per voxel
 FP32_ATOL = 1e-4
 BF16_NOISE_FACTOR = 2.5
+# the timing phases time the plain version (the attention's yardstick) once
+# each way after one untimed warm-up (so no call that is timed pays first-use
+# set-up): at the train shapes its calls took most of each phase's seconds
+# (they took a warm-up and three timed forwards, a warm-up and one backward)
+PLAIN_REPS = dict(reps=1, warmup=1)
 # fp32 features with the kernel vs the plain attention, unit-norm 768-d rows:
 # each attention call agrees to ~1e-6 (fp32 summation order), and 18 blocks
 # of LayerNorm'd residual updates carry that far below this bound
@@ -590,12 +618,8 @@ def check(cond, msg):
 
 
 def reset_k1_counts():
-    """K1's launch count and each variant's to 0, as just before a path is
-    driven."""
-    fwa.flash_window_attention.launches = 0
-    for counts in (fwa.flash_window_attention.variant_launches,
-                   fwa.flash_window_attention.lse_variant_launches):
-        counts.update(dict.fromkeys(counts, 0))
+    """K1's launch counts to 0, as just before a path is driven."""
+    fwa.flash_window_attention.reset()
 
 
 def k1_variants():
@@ -657,8 +681,8 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libraries = (fwa.LIBRARY, fwa.LIBRARY_SMALL, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD, bs.LIBRARY,
-                 fps_ops.LIBRARY)
+    libraries = (fwa.LIBRARY, fwa.LIBRARY_SMALL, fwa.LIBRARY_LARGE, fwa.LIBRARY_BWD,
+                 fwa.LIBRARY_BWD_LARGE, bs.LIBRARY, fps_ops.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         build_s = dict(zip((lib.source.name for lib in libraries),
@@ -677,18 +701,19 @@ def phase_device():
     return smi
 
 
-def check_noise_floor(err, floor, what, shape):
+def check_noise_floor(err, floor, what, shape, least=1e-4):
     """The noise-floor rule of tests/test_attention.py: the kernel's relative
-    error on bf16 input against the plain version run in fp32 may be at
-    most BF16_NOISE_FACTOR times the plain bf16 version's own."""
-    check(floor > 1e-4, f"bf16 path not exercised ({what}) at {shape}")
+    error on bf16 (or fp16) input against the plain version run in fp32 may
+    be at most BF16_NOISE_FACTOR times the plain version's own in that
+    type, which must lie above ``least`` (the path ran in that type)."""
+    check(floor > least, f"low-precision path not exercised ({what}) at {shape}")
     check(err <= BF16_NOISE_FACTOR * floor,
-          f"bf16 {what} error {err} > {BF16_NOISE_FACTOR} x {floor} at {shape}")
+          f"low-precision {what} error {err} > {BF16_NOISE_FACTOR} x {floor} at {shape}")
 
 
 def check_bf16(x16, valid, k, h, out=None):
-    """The kernel's bf16 output (``out``, else the inference launch's) under
-    the noise-floor rule. Returns both errors."""
+    """The kernel's bf16 (or fp16) output (``out``, else the inference
+    launch's) under the noise-floor rule. Returns both errors."""
     chunk = max(8, 16384 // k)  # windows per plain chunk: the result is the same
     truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h,
                                              patch_chunk=chunk)[valid]
@@ -700,7 +725,8 @@ def check_bf16(x16, valid, k, h, out=None):
         out = fwa.flash_window_attention(x16, valid, k, h)
     err = rel(out)
     floor = rel(fwa.flash_window_attention_plain(x16, valid, k, h, patch_chunk=chunk))
-    check_noise_floor(err, floor, "output", ("N, K, C, H", x16.shape[1], k, x16.shape[3], h))
+    check_noise_floor(err, floor, "output", ("N, K, C, H", x16.shape[1], k, x16.shape[3], h),
+                      least=LOW_PRECISION_FLOOR.get(x16.dtype, 1e-4))
     return err, floor
 
 
@@ -782,7 +808,7 @@ def phase_kernel():
 
         x16 = qkv.bfloat16()
         variant = fwa.forward_variant(x16.dtype, k, c // h)
-        out16, lse16 = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+        out16, lse16 = fwa._forward(x16, valid, k, h, (c // h) ** -0.5, True)[:2]
         err16, floor16 = check_bf16(x16, valid, k, h, out=out16)
         check((out16[dead] == 0).all().item(), f"bf16 padded windows not zero at {k, c, h}")
         check(torch.equal(out16, fwa.flash_window_attention(x16, valid, k, h)),
@@ -941,11 +967,11 @@ def bound_ms(n, n_valid, k, c):
     return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def phase_timing(shapes, phase="timing"):
-    """Kernel against plain (bf16 noise-floor rule), then kernel, plain and
-    library times per call at the main path's shapes, and the times' sums
-    over one forward. A shape's valid count is one row's, or a list of the
-    rows' (a batch)."""
+def phase_timing(shapes, phase="timing", dtype=torch.bfloat16):
+    """Kernel against plain (bf16 noise-floor rule; fp16 with ``dtype``),
+    then kernel, plain and library times per call at the main path's
+    shapes, and the times' sums over one forward. A shape's valid count is
+    one row's, or a list of the rows' (a batch)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
@@ -953,14 +979,14 @@ def phase_timing(shapes, phase="timing"):
     for n, n_valid, k, c, h, count in shapes:
         valids = n_valid if isinstance(n_valid, (list, tuple)) else [n_valid]
         b = len(valids)
-        qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").bfloat16()
+        qkv = torch.randn(b, n, 3, c, generator=gen, device="cuda").to(dtype)
         valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
         for i, nv in enumerate(valids):
             valid[i, :nv] = True
         err16, floor16 = check_bf16(qkv, valid, k, h)
         ms = cuda_ms(lambda: fwa.flash_window_attention(qkv, valid, k, h), reps=10)
         plain_ms = cuda_ms(lambda: fwa.flash_window_attention_plain(qkv, valid, k, h),
-                           reps=3, warmup=1)
+                           **PLAIN_REPS)
         p, d = -(-n // k), c // h
         pad = p * k - n
         qkv_w = torch.cat([qkv, qkv.new_zeros(b, pad, 3, c)], 1) if pad else qkv
@@ -989,7 +1015,8 @@ def phase_timing(shapes, phase="timing"):
         t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
     tot["by_variant"] = by_variant
-    emit(dict(phase=phase, dtype="bfloat16", per_call=rows, per_forward=tot))
+    emit(dict(phase=phase, dtype=str(dtype).removeprefix("torch."), per_call=rows,
+              per_forward=tot))
     return tot
 
 
@@ -1103,6 +1130,194 @@ def phase_kernel_bwd():
     emit(dict(phase="kernel_bwd", fp32_rtol=BWD_FP32_RTOL,
               bf16_noise_factor=BF16_NOISE_FACTOR, cases=rows))
     return worst, worst_fwd
+
+
+# kernel_widths: head widths off the instantiated ones (8, 24, 40: padded to
+# 16, 32, 48) and the new instantiated ones (64, 96, 128) in every storage
+# type, fp16 also at the shipped widths, at windows on both sides of every
+# variant's threshold (forward 64 and 128 and 4096, backward 64)
+WIDTH_CASES = [(d, dt) for d in (8, 24, 40, 64, 96, 128)
+               for dt in (torch.float32, torch.bfloat16, torch.float16)] + [
+    (d, torch.float16) for d in (16, 32, 48)]
+WIDTH_WINDOWS = (48, 64, 65, 128, 1024, 4160)
+WIDTH_HEADS = 2
+# the noise-floor rule's check that the low-precision path ran: the plain
+# version's own relative error lies above this (fp16 rounds 8 times finer
+# than bf16)
+LOW_PRECISION_FLOOR = {torch.bfloat16: 1e-4, torch.float16: 1e-5}
+# kernel_widths times every variant at head width 64 (the wide path's) at
+# these windows: bf16_small and the one-pass backward, bf16_large and the
+# two-kernel backward, bf16_tiled past 4096; fp32 at each
+WIDTH_TIMED = (64, (48, 1024, 4160))
+PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def typed_bound_ms(n, valids, k, c, dtype, backward=False):
+    """Least time of one call in ``dtype``, as (ops_ms, bytes_ms): 4 v^2 C
+    operations a window of v valid slots forward, 10 v^2 C backward, at the
+    type's peak (fp32 outside the tensor cores); the bytes of the function,
+    each read or written once: qkv of live windows (and dO backward) read,
+    the output (dqkv) written, the mask read."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    ops, rows_live = 0, 0
+    for nv in valids:
+        for w0 in range(0, n, k):
+            v = max(0, min(nv, w0 + k) - w0)
+            ops += (10 if backward else 4) * v * v * c
+            rows_live += min(k, n - w0) if v else 0
+    if backward:
+        nbytes = rows_live * esz * 4 * c + len(valids) * n * (esz * 3 * c + 1)
+    else:
+        nbytes = rows_live * esz * 3 * c + len(valids) * n * (esz * c + 1)
+    return ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def time_width_case(x, valid, dout, k, h):
+    """K1 and K2 at one case: kernel, plain and scaled_dot_product_attention
+    times (the library yardstick, used nowhere in the port), forward and
+    backward, with the bound of each."""
+    b, n, _, c = x.shape
+    d = c // h
+    valids = valid.sum(1).tolist()
+    row = dict(fwd_ms=cuda_ms(lambda: fwa.flash_window_attention(x, valid, k, h), reps=10),
+               fwd_plain_ms=cuda_ms(lambda: fwa.flash_window_attention_plain(x, valid, k, h),
+                                    **PLAIN_REPS))
+    out, lse = fwa._forward(x, valid, k, h, d ** -0.5, True)[:2]
+    row["bwd_ms"] = cuda_ms(lambda: fwa.flash_window_attention_bwd(
+        x, valid, out, lse, dout, k, h, d ** -0.5), reps=10)
+    xg = x.detach().clone().requires_grad_(True)
+    row["bwd_plain_ms"] = backward_ms(lambda: fwa.flash_window_attention_plain(xg, valid, k, h),
+                                      [xg], dout, **PLAIN_REPS)[0]
+    p = -(-n // k)
+    pad = p * k - n
+    x_w = torch.cat([x, x.new_zeros(b, pad, 3, c)], 1) if pad else x
+    valid_w = torch.cat([valid, valid.new_zeros(b, pad)], 1) if pad else valid
+    q, kk, v = [t.detach().requires_grad_(True) for t in
+                x_w.view(b * p, k, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()]
+    mask = valid_w.view(b * p, 1, 1, k)
+    dout_w = torch.cat([dout, dout.new_zeros(b, pad, c)], 1) if pad else dout
+    dout_w = dout_w.view(b * p, k, h, d).transpose(1, 2).contiguous()
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(q, kk, v, attn_mask=mask)
+
+    with torch.no_grad():
+        row["fwd_library_ms"] = cuda_ms(library, reps=5)
+    row["bwd_library_ms"] = backward_ms(library, [q, kk, v], dout_w, reps=3)[0]
+    for pre, backward in (("fwd_", False), ("bwd_", True)):
+        ops_ms, bytes_ms = typed_bound_ms(n, valids, k, c, x.dtype, backward)
+        row[pre + "bound_ms"] = max(ops_ms, bytes_ms)
+        row[pre + "bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    return row
+
+
+def width_counts():
+    """K1's and K2's launches by (variant, storage type, instantiated
+    width) since the last reset, and the launches the wrapper padded."""
+    f, b = fwa.flash_window_attention, fwa.flash_window_attention_bwd
+    return dict(k1={"/".join(map(str, key)): n for key, n in sorted(f.width_launches.items())},
+                k2={"/".join(map(str, key)): n for key, n in sorted(b.width_launches.items())},
+                k1_padded=f.padded_launches, k2_padded=b.padded_launches)
+
+
+def phase_kernel_widths():
+    """K1 and K2 at every WIDTH_CASES width and type and every WIDTH_WINDOWS
+    window against the plain version (forward and autograd through it):
+    fp32 to FP32_ATOL (the forward) and BWD_FP32_RTOL (each gradient), bf16
+    and fp16 under the noise-floor rule against the plain version in the
+    same type, the log-sum-exp to LSE_ATOL, zeros in windows of padding,
+    each call on the variant and padded width forward_variant and
+    backward_variant name, and counted there; with the wrapper pad's time
+    at a window of 1024 where the width is padded. Returns the largest fp32
+    error."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst32, rows = 0.0, []
+    fwa.reset_counts()
+    for d, dtype in WIDTH_CASES:
+        h, dp = WIDTH_HEADS, fwa.padded_head_dim(d)
+        c = h * d
+        name = str(dtype).removeprefix("torch.")
+        for k in WIDTH_WINDOWS:
+            shape = (name, d, k)
+            n, qkv, valid, dead = signature_inputs(gen, k, c, batch=4 if k < 1024 else 2)
+            x = qkv.to(dtype)
+            dout = torch.randn(x.shape[0], n, c, generator=gen, device="cuda").to(dtype)
+            fwd_v = fwa.forward_variant(dtype, k, d)
+            bwd_v = fwa.backward_variant(dtype, k, d)
+            before = dict(fwa.flash_window_attention.width_launches)
+            before_b = dict(fwa.flash_window_attention_bwd.width_launches)
+            out, lse = fwa._forward(x, valid, k, h, d ** -0.5, True)[:2]
+            out_g, g = grads_of(fwa.flash_window_attention, x, valid, k, h, dout)
+            torch.cuda.synchronize()
+            key = (fwd_v, name, dp)
+            check(fwa.flash_window_attention.width_launches.get(key, 0)
+                  == before.get(key, 0) + 2, f"K1 not on {key} at {shape}")
+            key_b = (bwd_v, name, dp)
+            check(fwa.flash_window_attention_bwd.width_launches.get(key_b, 0)
+                  == before_b.get(key_b, 0) + 1, f"K2 not on {key_b} at {shape}")
+            check(torch.isfinite(out).all().item() and torch.isfinite(g).all().item(),
+                  f"non-finite output or gradient at {shape}")
+            check(torch.equal(out, out_g), f"output differs with and without the graph at "
+                  f"{shape}")
+            check((out[dead] == 0).all().item() and (g[dead] == 0).all().item(),
+                  f"windows of padding not zero at {shape}")
+            lse_err = (lse - plain_lse(x, valid, k, h))[~dead].abs().max().item()
+            check(lse_err <= LSE_ATOL, f"log-sum-exp error {lse_err} at {shape}")
+            row = dict(dtype=name, D=d, padded_D=dp, K=k, C=c, H=h, N=n, fwd_variant=fwd_v,
+                       bwd_variant=bwd_v, lse_max_abs_err=lse_err)
+            if dtype == torch.float32:
+                ref_out, ref = grads_of(fwa.flash_window_attention_plain, x, valid, k, h, dout)
+                err = (out - ref_out)[valid].abs().max().item()
+                errs = [(g[:, :, i] - ref[:, :, i]).abs().max().item() for i in range(3)]
+                mags = [ref[:, :, i].abs().max().item() for i in range(3)]
+                check(err <= FP32_ATOL, f"fp32 error {err} at {shape}")
+                for part, e, m in zip(("dq", "dk", "dv"), errs, mags):
+                    check(e <= BWD_FP32_RTOL * m, f"fp32 {part} error {e} > {BWD_FP32_RTOL} x "
+                          f"{m} at {shape}")
+                worst32 = max(worst32, err, *errs)
+                row.update(fp32_max_abs_err=err, fp32_max_abs_err_dq_dk_dv=errs,
+                           fp32_max_abs_grad=mags)
+            else:
+                t_out, truth = grads_of(fwa.flash_window_attention_plain, x.float(), valid, k,
+                                        h, dout.float())
+                p_out, p_g = grads_of(fwa.flash_window_attention_plain, x, valid, k, h, dout)
+
+                def rel(a, b, m=valid):
+                    return ((a[m].float() - b[m]).norm() / b[m].norm()).item()
+
+                errs = dict(output=(rel(out, t_out), rel(p_out, t_out)),
+                            gradient=(rel(g, truth), rel(p_g, truth)))
+                for what, (err, floor) in errs.items():
+                    check(floor > LOW_PRECISION_FLOOR[dtype],
+                          f"{name} path not exercised ({what}) at {shape}")
+                    check(err <= BF16_NOISE_FACTOR * floor,
+                          f"{name} {what} error {err} > {BF16_NOISE_FACTOR} x {floor} at {shape}")
+                row.update(rel_err=errs["output"][0], plain_rel_err=errs["output"][1],
+                           grad_rel_err=errs["gradient"][0],
+                           grad_plain_rel_err=errs["gradient"][1])
+            if dp != d and k == 1024:  # the wrapper's copy into [B, N, 3, H, Dp] and back
+                row["pad_ms"] = cuda_ms(lambda: fwa.unpad_heads(fwa.pad_heads(x, h, dp), h, d),
+                                        reps=10)
+                row["fwd_ms"] = cuda_ms(lambda: fwa.flash_window_attention(x, valid, k, h),
+                                        reps=10)
+            if (d, k) in [(WIDTH_TIMED[0], kt) for kt in WIDTH_TIMED[1]]:
+                row["times"] = time_width_case(x, valid, dout, k, h)
+            rows.append(row)
+            del qkv, x, dout, g
+    check({r["fwd_variant"] for r in rows} == set(fwa.VARIANTS)
+          and {r["bwd_variant"] for r in rows} == set(fwa.BWD_VARIANTS),
+          "the width cases do not reach every variant")
+    counts = width_counts()
+    emit(dict(phase="kernel_widths", fp32_atol=FP32_ATOL, fp32_rtol=BWD_FP32_RTOL,
+              noise_factor=BF16_NOISE_FACTOR, lse_atol=LSE_ATOL, counts=counts,
+              cases=rows))
+    timed = {f"{r['dtype']}/K{r['K']}": dict(
+        D=r["D"], N=r["N"], C=r["C"], H=r["H"], fwd_variant=r["fwd_variant"],
+        bwd_variant=r["bwd_variant"], **r["times"]) for r in rows if "times" in r}
+    pads = {f"{r['dtype']}/D{r['D']}": dict(pad_ms=r["pad_ms"], fwd_ms=r["fwd_ms"])
+            for r in rows if "pad_ms" in r}
+    return worst32, dict(counts=counts, timed=timed, pads=pads)
 
 
 def shell_normals(grid, extent, thickness):
@@ -1297,24 +1512,37 @@ def run_training(cfg, before=None):
     return trainer, probe, records, k1
 
 
-def write_flagship_data(tmp, scene_points=200000, room=(3.6, 3.6, 2.6), val_points=40000,
-                        copies=1):
-    """The flagship file's three training sets over 4 synthetic rooms (each
-    listed ``copies`` times) and one small validation scene each, under
-    ``tmp``; returns the data roots by dataset type and the seconds the
-    writing took."""
+# the flagship trainer phases' rooms: Mix3D puts about 98,000 points of
+# each of two rooms in a row of 196,608, whose first pooling holds 98,304
+# clusters (4 cm cells), so a room's shell must span fewer than about
+# 49,000 cells after the file's rotation, scaling and distortion. Over 2
+# rooms of 2.4 x 2.4 x 2.6 m (130,000 of their 149,632 surface voxels)
+# tools/flagship_pooling_replay.py, the seeded loader replayed on the CPU,
+# finds at most 73,706 first-pooling clusters at seeds 0 to 7 (16,851 of
+# 49,152 and 3,826 of 24,576 at the next two poolings); 3.6 m rooms of
+# 200,000 reached 103,709 (98,494 at the file's seed 0)
+FLAGSHIP_SCENE_POINTS, FLAGSHIP_ROOM_M = 130000, (2.4, 2.4, 2.6)
+
+
+def write_flagship_data(tmp, scene_points=FLAGSHIP_SCENE_POINTS, room=FLAGSHIP_ROOM_M,
+                        val_points=40000, copies=1, rooms=2):
+    """The flagship file's three training sets over ``rooms`` synthetic
+    rooms (each listed ``copies`` times) and one small validation scene
+    each, under ``tmp``; returns the data roots by dataset type and the
+    seconds the writing took."""
     t0 = time.perf_counter()
-    scenes = write_gs_scenes(os.path.join(tmp, "scenes"), 4, scene_points, seed=4,
+    scenes = write_gs_scenes(os.path.join(tmp, "scenes"), rooms, scene_points, seed=4,
                              size_m=room)
     (val_scene,) = write_gs_scenes(os.path.join(tmp, "val_scenes"), 1, val_points, seed=9,
                                    size_m=(2.4, 2.4, 2.0), pc_points=val_points // 4)
-    # Matterport (loop 3): 4 scenes -> 3 batches; ScanNet++ (loop 2): 4
-    # -> 2; ScanNet200 (loop 2): 2 -> 1 (Mix3D: 4 samples a batch). One
-    # validation scene per dataset.
+    # Matterport (loop 3): every room; ScanNet++ (loop 2): every room;
+    # ScanNet200 (loop 2): 2 rooms. Each dataset fills its own batches of 4
+    # Mix3D samples: at 2 rooms 1 + 1 + 1 batches, at 4 rooms 3 + 2 + 1.
+    # One validation scene per dataset.
     root, splits = {}, {"Matterport3D_160_GSDataset": (
-        "train_grid1.0cm_chunk6x6_stride3x3_filtered", 4,
+        "train_grid1.0cm_chunk6x6_stride3x3_filtered", rooms,
         "test_grid1.0cm_chunk6x6_stride3x3_filtered"),
-        "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 4, "val"),
+        "ScanNetPPGSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", rooms, "val"),
         "ScanNet200GSDataset": ("train_grid1.0cm_chunk6x6_stride3x3", 2, "val")}
     for name, (split, count, val_split) in splits.items():
         root[name] = os.path.join(tmp, name)
@@ -1329,14 +1557,12 @@ def write_flagship_data(tmp, scene_points=200000, room=(3.6, 3.6, 2.6), val_poin
 
 
 def reset_k2_counts():
-    fwa.flash_window_attention_bwd.launches = 0
-    counts = fwa.flash_window_attention_bwd.variant_launches
-    counts.update(dict.fromkeys(counts, 0))
+    fwa.flash_window_attention_bwd.reset()
 
 
 def check_flagship_run(phase, trainer, probe, records, k1_counts):
-    """What both flagship trainer phases hold of run_training's run (the
-    counts reset just before it): at least 1 + 5 finite steps, K1 with lse
+    """What the flagship trainer phases hold of run_training's run (the
+    counts reset just before it): at least 1 + 2 finite steps, K1 with lse
     and K2 once a block in every step's forward and backward, K1 without
     lse once a block in one validation forward per set (the encoder's on
     bf16_large, the decoder's windows of 48 on bf16_small), no pooling
@@ -1356,7 +1582,7 @@ def check_flagship_run(phase, trainer, probe, records, k1_counts):
     hist = trainer.storage.history
     losses, grad_norms = hist("loss").values(), hist("grad_norm").values()
     steps = len(losses)
-    check(steps >= 6, f"{phase}: {steps} train steps, expected at least 1 + 5")
+    check(steps >= 3, f"{phase}: {steps} train steps, expected at least 1 + 2")
     check(all(math.isfinite(v) for v in losses + grad_norms),
           f"{phase}: non-finite loss or grad_norm: {losses} {grad_norms}")
     check(k1_counts["train_forwards"] == steps and k1 == blocks * steps
@@ -1415,7 +1641,7 @@ def check_flagship_run(phase, trainer, probe, records, k1_counts):
 
 
 def phase_train(work, data):
-    """The flagship trainer, its own hooks included, for 1 + 5 steps and one
+    """The flagship trainer, its own hooks included, for 1 + 2 steps and one
     validation over ``data`` (write_flagship_data's roots and seconds);
     returns the train-step stage shapes, the K1 / K2 launch counts, the
     best checkpoint, copied into ``work``, and the run's record."""
@@ -1477,19 +1703,19 @@ def fwd_lse_bound_ms(n, valids, k, c, h):
     return ops_ms, bytes_ms + len(valids) * n * 4 * h / PEAK_BYTES * 1e3
 
 
-def backward_ms(make_out, x_list, dout, reps):
+def backward_ms(make_out, x_list, dout, reps, warmup=1):
     """Device time of the backward alone: a fresh forward per rep outside the
-    timed span, CUDA events around torch.autograd.grad. Returns the time and
-    the last rep's gradients."""
+    timed span, CUDA events around torch.autograd.grad, after ``warmup``
+    untimed reps. Returns the time and the last rep's gradients."""
     total = 0.0
-    for i in range(reps + 1):
+    for i in range(reps + warmup):
         out = make_out()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         grads = torch.autograd.grad(out, x_list, dout)
         end.record()
         torch.cuda.synchronize()
-        if i:  # the first is a warm-up
+        if i >= warmup:
             total += start.elapsed_time(end)
         del out
     return total / reps, grads
@@ -1525,7 +1751,7 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
         for i, nv in enumerate(valids):
             valid[i, :nv] = True
             dead[i, -(-nv // k) * k:] = True
-        out, lse = fwa._launch_fwd(qkv, valid, k, h, scale, True)
+        out, lse = fwa._forward(qkv, valid, k, h, scale, True)[:2]
         dqkv = fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h, scale)
         torch.cuda.synchronize()
         check(torch.isfinite(dqkv).all().item(), f"non-finite gradient at {shape}")
@@ -1533,16 +1759,15 @@ def phase_timing_bwd(shapes, phase="timing_bwd"):
               f"padded windows' output or gradients not zero at {shape}")
         fwd_err, fwd_floor = check_bf16(qkv, valid, k, h, out=out)
 
-        fwd_ms = cuda_ms(lambda: fwa._launch_fwd(qkv, valid, k, h, scale, True), reps=10)
+        fwd_ms = cuda_ms(lambda: fwa._forward(qkv, valid, k, h, scale, True), reps=10)
+        # the plain version once each way after a warm-up (PLAIN_REPS)
         fwd_plain_ms = cuda_ms(lambda: fwa.flash_window_attention_plain(qkv, valid, k, h),
-                               reps=2, warmup=1)
+                               **PLAIN_REPS)
         ms = cuda_ms(lambda: fwa.flash_window_attention_bwd(qkv, valid, out, lse, dout, k, h,
                                                             scale), reps=10)
         x = qkv.detach().clone().requires_grad_(True)
-        # one timed rep of the plain backward, after its warm-up (the
-        # script's time limit)
         plain_ms, (g_plain,) = backward_ms(
-            lambda: fwa.flash_window_attention_plain(x, valid, k, h), [x], dout, reps=1)
+            lambda: fwa.flash_window_attention_plain(x, valid, k, h), [x], dout, **PLAIN_REPS)
         chunk = max(8, 16384 // k)  # windows per plain chunk: the result is the same
         _, truth = grads_of(
             lambda t, m, kk, hh: fwa.flash_window_attention_plain(t, m, kk, hh,
@@ -1724,6 +1949,14 @@ def compare_steps(phase, got, ref, names=("kernel", "plain"), floor=None, zero=Z
     check(not any(overflow_k + overflow_p), f"{phase}: pooling overflow {overflow_k}")
 
 
+# the flagship file's fp32 agree steps (train_agree, ddp_train_agree,
+# ddp_agree and the tp and cp grids against its reference, remat_agree):
+# 24,576 points a row in a 1.7 m room, whose 4 cm cells fill the first
+# pooling as a 2.4 m room's 49,152 points did (all but remat_agree took
+# 49,152 before)
+AGREE_ROOM_M = 1.7
+
+
 def agree_rows(n, seeds, size_m=2.4):
     """One batch row of ``n`` points per seed: a cube room of ``size_m``
     small enough that its 4 cm cells fit the first pooling's capacity (a 3
@@ -1760,12 +1993,12 @@ def flagship_fp32_model(**backbone):
     return model.cuda().train(), build_criteria(cfg.model.criteria)
 
 
-def phase_train_agree(n=49152):
+def phase_train_agree(n=24576):
     """One fp32 train step of the flagship config file's model (decoder
     windows of 48, ragged) at ``n`` points with the kernels and one with the
     plain attention, from the same weights and generator seeds."""
     backbone = dict(Config.fromfile(FLAGSHIP_CONFIG).model.backbone)
-    batch = cuda_batch(agree_rows(n, (7,)))
+    batch = cuda_batch(agree_rows(n, (7,), size_m=AGREE_ROOM_M))
 
     def step(use_kernel):
         model, criteria = flagship_fp32_model(use_kernel=use_kernel)
@@ -1831,8 +2064,8 @@ def train_step_fp32(batch, wrap=lambda m: m, build=flagship_fp32_model, task="la
             {k: p.grad for k, p in model.named_parameters()}, stats, overflow)
 
 
-def phase_ddp_train(work, plain, data, n_agree=49152):
-    """The flagship trainer as phase_train runs it (its data, batch 2, 1 + 5
+def phase_ddp_train(work, plain, data, n_agree=24576):
+    """The flagship trainer as phase_train runs it (its data, batch 2, 1 + 2
     steps, its own hooks with the evaluator on the scene-sharded path),
     under a one-process NCCL group, so through DistributedDataParallel,
     beside phase_train's plain trainer; then one fp32 step at ``n_agree``
@@ -1868,7 +2101,7 @@ def phase_ddp_train(work, plain, data, n_agree=49152):
                       "peak_mem_gib")}, warm_step_ms_mean=plain_warm),
                   ddp_over_plain_warm_step=warm / plain_warm))
 
-        batch = cuda_batch(agree_rows(n_agree, (7,)))
+        batch = cuda_batch(agree_rows(n_agree, (7,), size_m=AGREE_ROOM_M))
         loss, norm, grads, _, overflow = train_step_fp32(
             batch, data_parallel)
         got = (loss, grads, overflow)
@@ -1879,6 +2112,200 @@ def phase_ddp_train(work, plain, data, n_agree=49152):
               f"ddp_train_agree: gradient norms {norm} and {plain_norm}")
     return record, checkpoint
 
+
+
+# ---- wide heads and float16 (K1 and K2 at widths past the shipped ones) -----
+
+# the flagship's channels with heads of width 64 (32 at encoder stage 0):
+# C / H = 32, 64, 64, 64 in the encoder and 64, 64, 64 in the decoder
+WIDE_HEADS = dict(enc_num_head=(1, 1, 2, 4), dec_num_head=(12, 8, 4))
+# float16 serve forward against the fp32 one from the same weights: the
+# mean cosine of each Gaussian's features
+FP16_MIN_COSINE = 0.99
+
+
+def head_widths(backbone):
+    """The K1 launches of one forward by head width: {C / H: launches}."""
+    widths = {}
+    for side in ("enc", "dec"):
+        for c, h, depth in zip(backbone[f"{side}_channels"], backbone[f"{side}_num_head"],
+                               backbone[f"{side}_depths"]):
+            widths[c // h] = widths.get(c // h, 0) + depth
+    return widths
+
+
+def check_widths(phase, counts, dtype, variants, widths, forwards):
+    """A path's K1 or K2 launches (width_launches since the last reset)
+    all on ``variants`` in ``dtype`` at the head widths ``widths`` ({width:
+    launches a forward}, instantiated widths: nothing padded), ``forwards``
+    times over."""
+    got = {}
+    for (variant, name, dp), n in counts.items():
+        check(name == dtype and variant in variants,
+              f"{phase}: {n} launches on {variant} in {name}, expected {variants} in {dtype}")
+        got[dp] = got.get(dp, 0) + n
+    want = {d: n * forwards for d, n in widths.items()}
+    check(got == want, f"{phase}: launches by head width {got}, expected {want}")
+
+
+def phase_wide_heads(data, text):
+    """The flagship LangPretrainer at its channels with heads of width 64
+    (WIDE_HEADS): one serve forward at 196,608 Gaussians in bf16 (and one
+    warm), K1 against its plain version at its shapes with their times; the
+    flagship config file's trainer with those heads, 1 + 2 steps at batch 2
+    over the train phase's rooms with its hooks, K1 and K2 launches counted
+    by variant and head width, and timing_bwd at its shapes; then one
+    float16 serve forward of the unchanged flagship against the fp32 one.
+    Every launch must fall on a kernel at an instantiated width. Returns
+    the kernels line's record."""
+    n = 196608
+    rng = np.random.default_rng(0)
+    coord, feat_in, grid = room_scene(rng, n, (6.0, 6.0, 3.0))
+    sample = dict(coord=coord, feat=feat_in, grid_coord=grid)
+    backbone = dict(FLAGSHIP_BACKBONE, **WIDE_HEADS)
+    widths = head_widths(backbone)
+    check(set(widths) == {32, 64}, f"wide heads: widths {widths}")
+    model = build_lang_model(backbone, dtype="bfloat16", device="cuda", seed=0)
+    reset_k1_counts()
+    fwa.reset_counts()
+    feat, pred, plans, times = serve(model, sample, text, reps=1)
+    check_features(feat, n, "wide_serve")
+    check_widths("wide_serve", fwa.flash_window_attention.width_launches, "bfloat16",
+                 {"bf16_large"}, widths, 2)
+    serve_counts = width_counts()
+    overflow = [int(p.n_overflow.max()) for p in plans]
+    check(all(o == 0 for o in overflow), f"wide_serve: pooling overflow {overflow}")
+    emit(dict(phase="wide_serve", points=n, dtype="bfloat16", heads=WIDE_HEADS,
+              head_widths=widths, extract_ms=[t[0] for t in times], counts=serve_counts,
+              n_overflow=overflow, classes_predicted=int(len(np.unique(pred)))))
+    sizes = [(n, n)] + [(p.out_mask.shape[1], int(p.out_mask.sum())) for p in plans]
+    serve_tot = phase_timing(stage_shapes(backbone, sizes), phase="wide_timing")
+    del model
+
+    root, _ = data
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = flagship_train_config(root, os.path.join(tmp, "exp"), 2)
+        cfg.merge_from_options({f"model.backbone.{k}": v for k, v in WIDE_HEADS.items()})
+        train_bb = dict(cfg.model.backbone)
+        reset_k1_counts()
+        reset_k2_counts()
+        fwa.reset_counts()
+        trainer, probe, records, k1_counts = run_training(cfg)
+        record = check_flagship_run("wide_train", trainer, probe, records, k1_counts)
+        steps, val_forwards = record["steps"], record["validation_forwards"]
+        train_widths = head_widths(train_bb)
+        check_widths("wide_train (K1)", fwa.flash_window_attention.width_launches, "bfloat16",
+                     {"bf16_large", "bf16_small"}, train_widths, steps + val_forwards)
+        check_widths("wide_train (K2)", fwa.flash_window_attention_bwd.width_launches,
+                     "bfloat16", {"bf16_large", "bf16_small"}, train_widths, steps)
+        train_counts = width_counts()
+        emit(dict(phase="wide_train", heads=WIDE_HEADS, head_widths=train_widths,
+                  counts=train_counts, **{k: v for k, v in record.items() if k != "profile"},
+                  profile=record["profile"]))
+        del trainer
+    torch.cuda.empty_cache()
+    train_shapes = stage_shapes(train_bb, [(nn, v.tolist()) for nn, v in records[-1]["sizes"]])
+    train_tot = phase_timing_bwd(train_shapes, phase="wide_timing_bwd")
+
+    # float16: the unchanged flagship, against fp32 from the same weights
+    model = build_lang_model(FLAGSHIP_BACKBONE, dtype="float16", device="cuda", seed=0)
+    fwa.reset_counts()
+    feat16, _, plans16, times16 = serve(model, sample, text, reps=0)
+    check_features(feat16, n, "fp16_serve")
+    check_widths("fp16_serve", fwa.flash_window_attention.width_launches, "float16",
+                 {"bf16_large"}, head_widths(FLAGSHIP_BACKBONE), 1)
+    fp16_counts = width_counts()
+    del model
+    model = build_lang_model(FLAGSHIP_BACKBONE, dtype="float32", device="cuda", seed=0)
+    feat32 = serve(model, sample, text, reps=0)[0]
+    del model
+    torch.cuda.empty_cache()
+    cosine = float(np.mean(np.sum(feat16 * feat32, axis=1)))
+    emit(dict(phase="fp16_serve", points=n, dtype="float16", extract_ms=times16[0][0],
+              counts=fp16_counts, mean_cosine_to_fp32=cosine, min_cosine=FP16_MIN_COSINE))
+    check(cosine >= FP16_MIN_COSINE, f"fp16_serve: mean cosine {cosine} to the fp32 forward")
+    sizes16 = [(n, n)] + [(p.out_mask.shape[1], int(p.out_mask.sum())) for p in plans16]
+    fp16_tot = phase_timing(stage_shapes(FLAGSHIP_BACKBONE, sizes16), phase="fp16_timing",
+                            dtype=torch.float16)
+    return dict(serve=serve_tot, serve_counts=serve_counts, train=train_tot,
+                train_counts=train_counts, train_steps=steps, fp16_counts=fp16_counts,
+                fp16_mean_cosine=cosine, fp16=fp16_tot)
+
+
+def write_tool_scene(root, n, seed):
+    """A scene directory of the .npy assets the single-scene tools read
+    (coord, uint8 colour, opacity, quaternion, scale) from room_scene."""
+    rng = np.random.default_rng(seed)
+    coord, feat, _ = room_scene(rng, n, (3.0, 3.0, 2.4))
+    os.makedirs(root)
+    assets = dict(coord=coord, color=((feat[:, :3] + 1) * 127.5).round().astype(np.uint8),
+                  opacity=feat[:, 3], quat=feat[:, 4:8], scale=feat[:, 8:11])
+    for name, x in assets.items():
+        np.save(os.path.join(root, f"{name}.npy"), x)
+    return root
+
+
+def phase_tools(work):
+    """The single-scene tools on the card, as a user runs them, over a
+    synthetic scene of 40,000 Gaussians written to a temporary directory:
+    entry.py --save-features --results-dir (the flagship in bf16; the files
+    read back: L2-normalized features, the shifted coordinates, the input
+    features, the pickled output), the PCA tool through the model and from
+    the saved features (--feat-file), and the scene viewer's PLY of both
+    modes; the K1 launches of each model run counted."""
+    from scenesplat_tpu_torch import entry
+    from scenesplat_tpu_torch.tools import visualize_features_pca, visualize_scene
+    from scenesplat_tpu_torch.utils.save_features import load_simple_results
+
+    n = 40000
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        scene = write_tool_scene(os.path.join(tmp, "scene0000_00"), n, seed=31)
+        out = os.path.join(tmp, "results")
+        reset_k1_counts()
+        t0 = time.perf_counter()
+        check(entry.main(["--scene", scene, "--save-features", "--results-dir", out]) == 0,
+              "tools: entry.py failed")
+        entry_s = time.perf_counter() - t0
+        entry_k1 = k1_variants()
+        run = load_simple_results(out, scene_name="scene0000_00")
+        coord, feat = entry.load_scene(scene)
+        check(sorted(os.listdir(out)) == sorted(
+            f"{os.path.basename(run['prefix'])}_{tag}" for tag in (
+                "features.npy", "coords.npy", "input_geom.npy", "full_output.pkl")),
+            f"tools: entry.py wrote {sorted(os.listdir(out))}")
+        check_features(run["features"], n, "tools/entry")
+        check(np.array_equal(run["coords"], coord - coord.min(axis=0))
+              and np.array_equal(run["input_geom"], feat),
+              "tools: saved coordinates or input features differ from the scene's")
+        check(np.array_equal(run["full_output"]["point_feat"], run["features"]),
+              "tools: the pickled output differs from the saved features")
+        check(sum(entry_k1.values()) == 18 and entry_k1["bf16_large"] == 18,
+              f"tools: entry.py's K1 launches {entry_k1}, expected 18 bf16_large")
+        plys = {}
+        reset_k1_counts()
+        for name, extra in (("model", []),
+                            ("feat_file", ["--feat-file", f"{run['prefix']}_features.npy"])):
+            plys[name] = os.path.join(tmp, f"pca_{name}.ply")
+            check(visualize_features_pca.main(["--scene", scene, "--output", plys[name],
+                                               *extra]) == 0, f"tools: PCA tool ({name})")
+        pca_k1 = k1_variants()
+        check(pca_k1["bf16_large"] == 18 and sum(pca_k1.values()) == 18,
+              f"tools: the PCA tool's K1 launches {pca_k1}, expected one forward's 18")
+        for path in plys.values():
+            with open(path, "rb") as f:
+                head = f.read(400)
+            check(head.startswith(b"ply\n") and f"element vertex {n}\n".encode() in head,
+                  f"tools: {path} is not a PLY of {n} points")
+        check(visualize_scene.main([scene, "--mode", "both", "--out",
+                                    os.path.join(tmp, "viz", "scene")]) == 0,
+              "tools: the scene viewer failed")
+        viz = sorted(os.listdir(os.path.join(tmp, "viz")))
+        check(viz == ["scene_gaussians.ply", "scene_points.ply"], f"tools: viewer wrote {viz}")
+        emit(dict(phase="tools", points=n, entry_s=entry_s, entry_k1=entry_k1, pca_k1=pca_k1,
+                  saved=sorted(os.listdir(out)), pca_plys=sorted(os.path.basename(p)
+                                                                for p in plys.values()),
+                  viewer=viz))
+    return dict(entry_k1=entry_k1, pca_k1=pca_k1)
 
 def rel_l2(got, ref):
     return ((got.float() - ref.float()).norm() / ref.float().norm().clamp(min=1e-30)).item()
@@ -1959,7 +2386,7 @@ def ddp_agree_rank(rank, world, port, job_file):
             torch.distributed.destroy_process_group()
 
 
-def prepare_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, world=2, cards=1):
+def prepare_ddp_agree(work, checkpoint, meta_root, n=24576, n_voxels=20000, world=2, cards=1):
     """``world`` ranks (one row each) against one process on the first
     card: the fp32 step of a global batch of ``world`` rows of ``n`` points
     (drop-path 0.3, the contrastive term on) and the zero-shot test entry
@@ -1971,7 +2398,7 @@ def prepare_ddp_agree(work, checkpoint, meta_root, n=49152, n_voxels=20000, worl
     loss, norm, gradients, statistics: tp_agree's and cp_agree's
     reference)."""
     phase = "ddp_agree" if cards == 1 else "ddp_cards_agree"
-    rows = agree_rows(n, tuple(range(7, 7 + world)))
+    rows = agree_rows(n, tuple(range(7, 7 + world)), size_m=AGREE_ROOM_M)
     loss, norm, grads, stats, overflow = train_step_fp32(cuda_batch(rows))
     ref = dict(rows=rows, loss=loss, grad_norm=norm, grads={k: g.cpu() for k, g in grads.items()},
                overflow=overflow, stats={k: v.cpu() for k, v in stats.items()})
@@ -2125,7 +2552,7 @@ def phase_ddp_cards_train(work, cards):
     file's first capacity (497 over 98,304 in one run), as one card would
     with these draws."""
     with tempfile.TemporaryDirectory() as tmp:
-        root, data_s = write_flagship_data(tmp, copies=4)
+        root, data_s = write_flagship_data(tmp, copies=4, rooms=4)
         exp = os.path.join(tmp, "exp")
         job_file = os.path.join(work, "ddp_cards_train_job.pt")
         torch.save(dict(root=root, exp=exp, batch_size=2 * cards,
@@ -2971,7 +3398,7 @@ def phase_timing_test(shapes, phase="timing_test"):
         worst = max(worst, (out.float() - plain16.float())[valid].abs().max().item())
         ms = cuda_ms(lambda: fwa.flash_window_attention(qkv, valid, k, h), reps=10)
         plain_ms = cuda_ms(lambda: fwa.flash_window_attention_plain(qkv, valid, k, h),
-                           reps=3, warmup=1)
+                           **PLAIN_REPS)
         p = -(-n // k)
         pad = p * k - n
         qkv_w = torch.nn.functional.pad(qkv, (0, 0, 0, 0, 0, pad))
@@ -3039,9 +3466,7 @@ def phase_semseg_train(work, weight, steps=6, scene_points=200000, room=(3.6, 3.
                         size_m=(2.4, 2.4, 2.0), semseg=True)
         data_s = time.perf_counter() - t0
         reset_k1_counts()
-        fwa.flash_window_attention_bwd.launches = 0
-        k2_variants = fwa.flash_window_attention_bwd.variant_launches
-        k2_variants.update(dict.fromkeys(k2_variants, 0))
+        reset_k2_counts()
         cfg = semseg_train_config(root, os.path.join(tmp, "exp"), 2, steps, 4)
         cfg.weight = weight
         source = torch.load(weight, map_location="cpu", weights_only=False)["state_dict"]
@@ -3071,6 +3496,7 @@ def phase_semseg_train(work, weight, steps=6, scene_points=200000, room=(3.6, 3.
               and k2 == blocks * steps,
               f"semseg: {k1} forward and {k2} backward kernel launches in {steps} steps, "
               f"expected {blocks} each per step")
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
         check(k2_variants == dict(k2_variants, bf16_small=dec * steps, bf16_large=enc * steps),
               f"semseg: backward variant launches {k2_variants}, expected {dec} bf16_small "
               f"(windows of 48) and {enc} bf16_large (windows of 1024) a step")
@@ -3315,27 +3741,26 @@ def ssl_stage_shapes(backbone, student, local_crop_num):
     return shapes
 
 
-def phase_ssl_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6)):
+def phase_ssl_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), rooms=4):
     """The SSL trainer on configs/scannet/ssl-pretrain-scannet-all-base.py as
     it is (SimDINOSSL at the shipped widths: 5 stages, windows of 1024 in
     the encoder, 48 in the decoder, 3 local crops, patch masks, MAE; AdamW,
     OneCycle, the EMA teacher, the multi-crop transforms with the voxel
     blur, 102,400 / 25,600 points a global / local crop, its own hooks) at
-    batch 2 for ``steps`` steps over 4 synthetic unlabeled rooms of
-    ``scene_points`` 2 cm voxels. Returns the timing phase's shapes and the
+    batch 2 for ``steps`` steps over ``rooms`` synthetic unlabeled rooms of
+    ``scene_points`` 2 cm voxels (2 samples a step: steps * 2 must split
+    over the rooms). Returns the timing phase's shapes and the
     launch counts."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         root = os.path.join(tmp, "ssl_gs")
-        write_gs_scenes(os.path.join(root, "train"), 4, scene_points, seed=31, size_m=room,
+        write_gs_scenes(os.path.join(root, "train"), rooms, scene_points, seed=31, size_m=room,
                         semseg=True)
         data_s = time.perf_counter() - t0
         batch = 2  # the reference's 8 a card cut to 2
         reset_k1_counts()
-        fwa.flash_window_attention_bwd.launches = 0
-        k2_variants = fwa.flash_window_attention_bwd.variant_launches
-        k2_variants.update(dict.fromkeys(k2_variants, 0))
-        cfg = ssl_train_config(root, os.path.join(tmp, "exp"), batch, steps, 4)
+        reset_k2_counts()
+        cfg = ssl_train_config(root, os.path.join(tmp, "exp"), batch, steps, rooms)
         trainer = build_trainer(cfg, device="cuda")
         probe, ema = StepProbe(profile_step=steps - 1), EmaProbe()
         for hook in (probe, ema):
@@ -3377,6 +3802,7 @@ def phase_ssl_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6)):
               f"ssl: K1 launched {k1} times, not all inside the backbones' forwards")
         # K2: the globals' encoder and decoder, the locals' encoder (their
         # decoder output takes no gradient)
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
         k2_want = dict(bf16_large=enc * (2 + locals_) * steps, bf16_small=dec * 2 * steps)
         got = {v: n for v, n in k2_variants.items() if n}
         check(got == k2_want, f"ssl: K2 variant launches {got}, expected {k2_want}")
@@ -3966,7 +4392,7 @@ def phase_remat_agree(n=24576):
     recompute in the backward launches K1 with lse once more); then each
     model's step again without the deterministic mode for its time (CUDA
     events) and peak memory (the model's parameters included)."""
-    batch = cuda_batch(agree_rows(n, (7, 8), size_m=1.7))
+    batch = cuda_batch(agree_rows(n, (7, 8), size_m=AGREE_ROOM_M))
     blocks = sum(depth_split(Config.fromfile(FLAGSHIP_CONFIG).model.backbone))
     runs = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -4149,7 +4575,6 @@ def phase_ppt_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), va
         data_s = time.perf_counter() - t0
         reset_k1_counts()
         reset_k2_counts()
-        k2_variants = fwa.flash_window_attention_bwd.variant_launches
         cfg = ppt_train_config(root, os.path.join(tmp, "exp"), 2, loop=steps // 3)
         probes = []
 
@@ -4183,6 +4608,7 @@ def phase_ppt_train(work, steps=6, scene_points=200000, room=(3.6, 3.6, 2.6), va
         got = {v: n for v, n in k1_counts["train_variants"].items() if n}
         check(got == dict(bf16_large=enc * steps, bf16_small=dec * steps),
               f"ppt_train: train K1 variant launches {got}")
+        k2_variants = fwa.flash_window_attention_bwd.variant_launches
         check(k2_variants == dict(k2_variants, bf16_small=dec * steps, bf16_large=enc * steps),
               f"ppt_train: K2 variant launches {k2_variants}")
         val_forwards, k1_val = k1_counts["val_forwards"], k1_counts["val_launches"]
@@ -4531,7 +4957,7 @@ def prepare_grid_agree(work, ref):
 
     tp_agree: the flagship file's fp32 model (its widths: heads 2, 4, 8, 16
     in the encoder, 16 in the decoder, every block cut in two) on (data 1,
-    model 2), both ranks holding ddp_agree's two rows of 49,152 points:
+    model 2), both ranks holding ddp_agree's two rows of 24,576 points:
     drop-path 0.3, the contrastive term on, clipped at the file's 1.0,
     against ddp_agree's one-process step over the same rows (``ref``),
     whose gradients clipped by its own norm are the reference: the loss to
@@ -4662,7 +5088,7 @@ def phase_shared_ddp_agree(work, pending, world=2):
     return results
 
 
-def phase_rpe_agree(n=205824, n_train=49152, reps=3):
+def phase_rpe_agree(n=205824, n_train=49152, reps=1):
     """enable_rpe on the semseg file's backbone at its widths (bf16, 5
     stages, encoder windows of 1024, decoder 48), one row of ``n`` points:
     with every rpe_table zero the RPE path (plain dense attention with the
@@ -7615,6 +8041,7 @@ def main() -> int:
         phase_shipped(text)
         phase_agree(text)
         worst_bwd, worst_fwd_lse = phase_kernel_bwd()
+        worst_widths, widths = phase_kernel_widths()
         # the flagship rooms, written once for train and ddp_train
         flagship_data = write_flagship_data(os.path.join(work, "flagship_data"))
         train_shapes, k1_train, k1_val, k1_variants_train, k2_variants, checkpoint, plain = \
@@ -7622,6 +8049,8 @@ def main() -> int:
         tot_bwd = phase_timing_bwd(train_shapes)
         phase_train_agree()
         ddp_record, ddp_checkpoint = phase_ddp_train(work, plain, flagship_data)
+        wide = phase_wide_heads(flagship_data, text)
+        tools = phase_tools(work)
         # the two ranks run in the shared spawn below; grid_ref is tp_agree's
         # and cp_agree's reference
         ddp_agree_pending, grid_ref = prepare_ddp_agree(work, ddp_checkpoint, meta_root)
@@ -7640,7 +8069,11 @@ def main() -> int:
             phase_test(work, checkpoint, meta_root, n_scenes=1)
         tot_sort = phase_timing_sort(sort_sizes)
         tot_test = phase_timing_test(test_shapes)
-        ssl_shapes, ssl_counts, ssl_checkpoint, teacher_shapes = phase_ssl_train(work, steps=4)
+        # 1 + 2 steps over 2 rooms (it took 4 over 4): a CPU replay of
+        # its loader puts every pooling past the first 2,089 clusters or more
+        # under its capacity, where 4 over 4 came within 73
+        ssl_shapes, ssl_counts, ssl_checkpoint, teacher_shapes = phase_ssl_train(
+            work, steps=3, rooms=2)
         ssl_bwd = phase_timing_bwd(ssl_shapes, phase="ssl_timing_bwd")
         ssl_teacher = phase_timing(teacher_shapes, phase="ssl_timing_teacher")
         phase_ssl_agree()
@@ -7706,12 +8139,14 @@ def main() -> int:
     # bf16 at windows of at most 64: the decoder's launches of the train and
     # test paths
     source_small = "scenesplat_tpu_torch/csrc/flash_window_attn_fwd_small.cu"
-    # the bf16 backward; flash_window_attn.cu holds its fp32 twin
+    # the bf16 and fp16 backward (the one-pass variant; the two-kernel one in
+    # _bwd_large.cu); flash_window_attn.cu holds its fp32 twin
     source_bwd = "scenesplat_tpu_torch/csrc/flash_window_attn_bwd.cu"
+    source_bwd_large = "scenesplat_tpu_torch/csrc/flash_window_attn_bwd_large.cu"
     # bf16 at windows of 128 and more: every launch of the serve path, and
     # the encoder's launches of the train path
     source_large = "scenesplat_tpu_torch/csrc/flash_window_attn_fwd.cu"
-    # launches: the count of the path's run (4 serve forwards, 6 train
+    # launches: the count of the path's run (4 serve forwards, 3 train
     # steps, the test run's fragment forwards with the sort switch on); ms
     # and the other times: per forward or per step (18 attention launches, 8
     # sorts; the small forward: the decoder's 6 launches of a test fragment
@@ -7743,7 +8178,7 @@ def main() -> int:
     ssl_train = dict(path="ssl train", ms_per="train step", steps=ssl_counts["steps"])
     ssl_small = ssl_bwd["fwd_by_variant"]["bf16_small"]
     # "ddp": data parallel, the flagship trainer under DDP at one process
-    # (NCCL, 6 steps and one validation, as "train") and the two ranks of
+    # (NCCL, 3 steps and one validation, as "train") and the two ranks of
     # ddp_agree on the one card (gloo: one fp32 step each, then their share
     # of the 3 test scenes' fragment forwards), launches summed over ranks
     ddp = dict(path="ddp train", ms_per="train step", world1_steps=ddp_record["steps"])
@@ -7812,11 +8247,29 @@ def main() -> int:
 
     teacher_large = ssl_teacher["by_variant"]["bf16_large"]
     teacher_small = ssl_teacher["by_variant"]["bf16_small"]
+    # "wide": the flagship's channels with heads of width 64 (32 at encoder
+    # stage 0), bf16: its serve forward (2 forwards counted) and its trainer
+    # (1 + 2 steps and the validation's forwards counted), K1 and K2
+    # launches by (variant, type, instantiated width); ms per serve forward
+    # or train step at its shapes. "fp16": one float16 serve forward of the
+    # flagship. "widths": kernel_widths' launches by (variant, type,
+    # instantiated width) at head widths 8 to 128, the variants' times at
+    # width 64 (per call, "<type>/K<window>") and the wrapper pad's time at
+    # the padded widths (per call at a window of 1024, beside the call)
+    wide_serve = dict(path="wide_serve (heads of width 64, bf16, 196,608 Gaussians)",
+                      ms_per="serve forward", launches=sum(wide["serve_counts"]["k1"].values()),
+                      width_launches=wide["serve_counts"]["k1"], **times(wide["serve"]))
+    fp16_serve = dict(path="fp16_serve (the flagship in float16, 196,608 Gaussians)",
+                      ms_per="serve forward", launches=sum(wide["fp16_counts"]["k1"].values()),
+                      width_launches=wide["fp16_counts"]["k1"],
+                      mean_cosine_to_fp32=wide["fp16_mean_cosine"], **times(wide["fp16"]))
+    wide_train = dict(path="wide_train (heads of width 64, the flagship file's trainer)",
+                      ms_per="train step", steps=wide["train_steps"])
     emit({"kernels": [
         dict(name="flash_window_attention_fwd", route="cuda", source=source_large,
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="serve",
              launches=launches, variant_launches=serve_variants,
-             ms_per="serve forward", max_abs_err=worst32, ms=tot["ms"],
+             ms_per="serve forward", max_abs_err=max(worst32, worst_widths), ms=tot["ms"],
              plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
              library_ms=tot["library_ms"],
              semseg=dict(semseg_test, launches=semseg_on["k1_variants"]["bf16_large"],
@@ -7835,7 +8288,16 @@ def main() -> int:
                       test_launches=sum(r["k1_variants"]["bf16_large"]
                                         for r in cls_counts["cls_test"].values()),
                       agree_fp32_launches=cls_counts["cls_agree"]["k1_variants"]["fp32"],
-                      **times(cls_timing))),
+                      **times(cls_timing)),
+             wide=wide_serve, fp16=fp16_serve,
+             tools=dict(path="tools (entry.py --save-features, the PCA tool; 40,000 "
+                             "Gaussians)", entry_launches=tools["entry_k1"],
+                        pca_launches=tools["pca_k1"]),
+             widths=dict(path="kernel_widths (head widths 8 to 128, fp32, bf16, fp16)",
+                         width_launches=widths["counts"]["k1"],
+                         padded_launches=widths["counts"]["k1_padded"],
+                         ms_per="call", max_abs_err_fp32=worst_widths,
+                         timed=widths["timed"], pad=widths["pads"])),
         dict(name="flash_window_attention_fwd_lse", route="cuda", source=source_small,
              sources=[source_small, source_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:68", path="train",
@@ -7873,6 +8335,9 @@ def main() -> int:
                                agree_variant_launches=cac_kernels["k1_lse_variants"]),
              ptv2=ptv2_path("k1"), sparse=sparse_path("k1"), st=st_path("k1"),
              cls=cls_path("k1_lse"),
+             wide=dict(wide_train, launches=sum(wide["train_counts"]["k1"].values()),
+                       width_launches=wide["train_counts"]["k1"],
+                       **times(wide["train"], "fwd_")),
              tp_cp=dict(path="tp_agree (model 2: each rank's H / 2 heads), cp_agree (seq 2: "
                              "each rank's whole windows); fp32, two ranks on the card",
                         ms_per="not timed (fp32 agree steps)",
@@ -7907,7 +8372,7 @@ def main() -> int:
                       train_step=ppt_bwd["fwd_by_variant"]["bf16_small"],
                       **times(ppt_fwd["by_variant"]["bf16_small"]))),
         dict(name="flash_window_attention_bwd", route="cuda", source=source_bwd,
-             sources=[source_bwd, source],
+             sources=[source_bwd, source_bwd_large, source],
              replaces="scenesplat_tpu/ops/pallas_attn.py:98", path="train",
              launches=sum(k2_variants.values()), variant_launches=k2_variants,
              ms_per="train step", max_abs_err=worst_bwd,
@@ -7937,6 +8402,12 @@ def main() -> int:
                  agree_variant_launches=cac_kernels["k2_variants"]),
              ptv2=ptv2_path("k2"), sparse=sparse_path("k2"), st=st_path("k2"),
              cls=cls_path("k2"),
+             wide=dict(wide_train, launches=sum(wide["train_counts"]["k2"].values()),
+                       width_launches=wide["train_counts"]["k2"], **times(wide["train"])),
+             widths=dict(path="kernel_widths (head widths 8 to 128, fp32, bf16, fp16)",
+                         width_launches=widths["counts"]["k2"],
+                         padded_launches=widths["counts"]["k2_padded"],
+                         ms_per="call (the times: the forward entry's widths.timed)"),
              tp_cp=dict(path="tp_agree, cp_agree (fp32, two ranks on the card)",
                         ms_per="not timed (fp32 agree steps)",
                         tp_rank_launches=tp_ranks["k2"], cp_rank_launches=cp_ranks["k2"],

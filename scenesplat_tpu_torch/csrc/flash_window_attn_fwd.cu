@@ -1,17 +1,18 @@
-// K1 at large windows: the flash-window attention forward in bf16 for
-// windows of 128 to 4096 slots, for NVIDIA Hopper (sm_90a).
+// K1 at large windows: the flash-window attention forward in bf16 or fp16
+// for windows of 128 to 4096 slots, for NVIDIA Hopper (sm_90a).
 //
 // Replaces, like the forward in flash_window_attn.cu, the TPU kernel
 // scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel (entered through _fwa_fwd),
-// and computes the same function on the same layout: qkv [B, N, 3, C] bf16,
-// key validity [B, N] (one byte per slot), output [B, N, C] bf16 and, when
+// and computes the same function on the same layout: qkv [B, N, 3, C] (bf16
+// or fp16), key validity [B, N] (one byte per slot), output [B, N, C] in
+// qkv's type and, when
 // training, lse [B, N, H] fp32, the natural-log log-sum-exp of each row's
 // scaled scores (the backward K2 recomputes P = exp(S - lse) from it). Per
 // window of K consecutive slots (the last one ragged) and head of width D:
 //
 //   S = round(q * scale) . k^T          (fp32 accumulation)
 //   P = masked softmax(S)               (fp32; invalid keys get weight 0)
-//   O = round(P) . V                    (fp32 accumulation, stored in bf16)
+//   O = round(P) . V                    (fp32 accumulation, stored in qkv's type)
 //
 // A window whose slot 0 is padding writes zeros; a row without valid keys
 // gives zeros.
@@ -54,11 +55,21 @@
 // integer pipes take turns instead of working at once. Two wgmma versions
 // of this kernel (products waited for at once; products queued under the
 // softmax of the tile before) gave the same results and no better times.
+//
+// Types and widths. bf16 and fp16 run the same code (Elem: how two values
+// pack into a register, and mma.sync's .bf16 or .f16 form). Head widths 16,
+// 32, 48, 64, 96 and 128 are instantiated; ops/flash_window_attn.py pads any
+// other width up to 128 with zero lanes to the next of them. From 64 on a
+// warp holds one m16 tile (LargeCfg), and the ring lives in dynamic shared
+// memory (104 KB at 128).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fwa_common.cuh"
 
 namespace {
 
@@ -66,78 +77,41 @@ constexpr int MQ = 128;        // query rows per block
 constexpr int MK = 64;         // keys per shared-memory tile
 constexpr int STAGES = 3;      // tiles in flight
 constexpr int MAX_TILES = 64;  // key tiles per window: windows up to 4096 slots
-constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// d += a . b for one m16n8k16 tile (bf16 inputs, fp32 accumulators)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes from device to shared memory, or 16 zero bytes when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = +0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr int MT = 2;  // m16 row tiles per warp: the block has MQ / 32 = 4 warps
-
+// The block's shape at head width D: MT m16 row tiles a warp (MQ / (16 MT)
+// warps), and the blocks an SM should hold. Up to 48, two tiles a warp, so
+// every K and V fragment feeds two products, three blocks an SM; from 64 on
+// the O accumulators alone (4 D fp32 registers a thread at two tiles) would
+// spill, so one tile a warp in 8 warps, two blocks an SM (one at 128).
 template <int D>
-__global__ void __launch_bounds__(MQ / (16 * MT) * 32, 3)
-fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __restrict__ valid,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int C,
+struct LargeCfg {
+  static constexpr int MT = D <= 48 ? 2 : 1;
+  static constexpr int NTHREADS = MQ / (16 * MT) * 32;
+  static constexpr int MIN_BLOCKS = D <= 48 ? 3 : (D <= 96 ? 2 : 1);
+  static constexpr int STR = D + 8;  // padded row stride: conflict-free ldmatrix
+  static constexpr int BYTES = STAGES * 2 * MK * STR * 2;  // the K and V ring, dynamic
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(LargeCfg<D>::NTHREADS, LargeCfg<D>::MIN_BLOCKS)
+fwa_fwd_large_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ valid,
+                     T* __restrict__ out, float* __restrict__ lse, int N, int C,
                      int H, int K, int P, int NQ, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int NTHREADS = MQ / (16 * MT) * 32;
+  using E = Elem<T>;
+  constexpr int MT = LargeCfg<D>::MT;
+  constexpr int NTHREADS = LargeCfg<D>::NTHREADS;
   constexpr int NWARPS = NTHREADS / 32;
   constexpr int KSTEPS = D / 16;  // k-steps of q . k over the head dim
   constexpr int NKEY = MK / 8;    // 8-key column tiles of S
   constexpr int NDIM = D / 8;     // 8-wide column tiles of O
-  constexpr int STR = D + 8;      // padded row stride: conflict-free ldmatrix
+  constexpr int STR = LargeCfg<D>::STR;
   constexpr int CHUNKS = D / 8;   // 16-byte chunks per row
-  __shared__ __align__(128) __nv_bfloat16 kv[STAGES][2][MK * STR];  // k, v rows [key][d]
+  // k, v rows [key][d] of STAGES tiles: tile s's k at kv + 2 s TILE, its v
+  // one TILE on; 104 KB at D = 128, past the 48 KB a static array may take
+  constexpr int TILE = MK * STR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* const kv = reinterpret_cast<T*>(smem);
   __shared__ unsigned long long vbits[MAX_TILES];                   // validity of a tile's keys
   __shared__ int live[MAX_TILES];                                   // tiles with a valid key
   __shared__ int n_live;
@@ -189,13 +163,12 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
 
   auto load_tile = [&](int li) {
     const int t0 = live[li] * MK;
-    __nv_bfloat16* ks = kv[li % STAGES][0];
-    __nv_bfloat16* vs = kv[li % STAGES][1];
+    T* ks = kv + (li % STAGES) * 2 * TILE;
+    T* vs = ks + TILE;
     for (int i = tid; i < MK * CHUNKS; i += NTHREADS) {
       const int j = i / CHUNKS, part = i - j * CHUNKS;
       const bool ok = t0 + j < wlen;
-      const __nv_bfloat16* src =
-          qkv + (tok0 + (ok ? t0 + j : 0)) * stride + C + h * D + part * 8;
+      const T* src = qkv + (tok0 + (ok ? t0 + j : 0)) * stride + C + h * D + part * 8;
       cp_async16(&ks[j * STR + part * 8], src, ok);
       cp_async16(&vs[j * STR + part * 8], src + C, ok);
     }
@@ -220,12 +193,12 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
         const int d = t * 16 + c2 + ((r & 2) ? 8 : 0);
         float x0 = 0.f, x1 = 0.f;
         if (row < wlen) {
-          const __nv_bfloat162 q2 = *reinterpret_cast<const __nv_bfloat162*>(
-              qkv + (tok0 + row) * stride + h * D + d);
-          x0 = __low2float(q2) * scale;
-          x1 = __high2float(q2) * scale;
+          const float2 q2 = E::unpack(
+              *reinterpret_cast<const uint32_t*>(qkv + (tok0 + row) * stride + h * D + d));
+          x0 = q2.x * scale;
+          x1 = q2.y * scale;
         }
-        qa[mt][t][r] = pack_bf16(x0, x1);
+        qa[mt][t][r] = E::pack(x0, x1);
       }
     }
   }
@@ -249,8 +222,8 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
     __syncthreads();              // everyone's have, and everyone is done with tile it - 1
     if (it + STAGES - 1 < nl) load_tile(it + STAGES - 1);
     cp_async_commit();
-    const __nv_bfloat16* ks = kv[it % STAGES][0];
-    const __nv_bfloat16* vs = kv[it % STAGES][1];
+    const T* ks = kv + (it % STAGES) * 2 * TILE;
+    const T* vs = ks + TILE;
     const unsigned long long bits = vbits[live[it]];
 
     // S = q . k^T for this warp's rows and the tile's 64 keys
@@ -267,8 +240,8 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
         ldmatrix_x4(kb, &ks[(np * 16 + k_key) * STR + t * 16 + k_d]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], qa[mt][t], kb[0], kb[1]);
-          mma_bf16(s[mt][2 * np + 1], qa[mt][t], kb[2], kb[3]);
+          E::mma(s[mt][2 * np], qa[mt][t], kb[0], kb[1]);
+          E::mma(s[mt][2 * np + 1], qa[mt][t], kb[2], kb[3]);
         }
       }
     }
@@ -326,10 +299,10 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
       uint32_t pa[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = pack_bf16(s[mt][2 * kt][0], s[mt][2 * kt][1]);
-        pa[mt][1] = pack_bf16(s[mt][2 * kt][2], s[mt][2 * kt][3]);
-        pa[mt][2] = pack_bf16(s[mt][2 * kt + 1][0], s[mt][2 * kt + 1][1]);
-        pa[mt][3] = pack_bf16(s[mt][2 * kt + 1][2], s[mt][2 * kt + 1][3]);
+        pa[mt][0] = E::pack(s[mt][2 * kt][0], s[mt][2 * kt][1]);
+        pa[mt][1] = E::pack(s[mt][2 * kt][2], s[mt][2 * kt][3]);
+        pa[mt][2] = E::pack(s[mt][2 * kt + 1][0], s[mt][2 * kt + 1][1]);
+        pa[mt][3] = E::pack(s[mt][2 * kt + 1][2], s[mt][2 * kt + 1][3]);
       }
 #pragma unroll
       for (int np = 0; np < NDIM / 2; ++np) {
@@ -337,8 +310,8 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
         ldmatrix_x4_trans(vb, &vs[(kt * 16 + v_key) * STR + np * 16 + v_d]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(o[mt][2 * np], pa[mt], vb[0], vb[1]);
-          mma_bf16(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
+          E::mma(o[mt][2 * np], pa[mt], vb[0], vb[1]);
+          E::mma(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
         }
       }
     }
@@ -346,7 +319,7 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
 
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring: it now holds the output tile
-  __nv_bfloat16* ot = kv[0][0];  // [MQ][STR]
+  T* ot = kv;  // [MQ][STR]
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -361,7 +334,7 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
 #pragma unroll
       for (int n = 0; n < NDIM; ++n)
         *reinterpret_cast<uint32_t*>(&ot[lrow * STR + n * 8 + c2]) =
-            pack_bf16(o[mt][n][2 * r] * inv, o[mt][n][2 * r + 1] * inv);
+            E::pack(o[mt][n][2 * r] * inv, o[mt][n][2 * r + 1] * inv);
     }
   }
   __syncthreads();
@@ -373,34 +346,52 @@ fwa_fwd_large_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __res
   }
 }
 
-template <int D>
-cudaError_t launch(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
-                   int C, int H, int K, float scale, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_t(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
+                     int C, int H, int K, float scale, cudaStream_t stream) {
+  using L = LargeCfg<D>;
+  static cudaError_t set = cudaFuncSetAttribute(
+      fwa_fwd_large_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (set) return set;
   const int P = (N + K - 1) / K;
   const int NQ = (K + MQ - 1) / MQ;
   const long long blocks = (long long)B * P * H * NQ;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  fwa_fwd_large_kernel<D><<<(unsigned)blocks, MQ / (16 * MT) * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const uint8_t*>(valid),
-      static_cast<__nv_bfloat16*>(out), lse, N, C, H, K, P, NQ, scale);
+  fwa_fwd_large_kernel<T, D><<<(unsigned)blocks, L::NTHREADS, L::BYTES, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const uint8_t*>(valid), static_cast<T*>(out),
+      lse, N, C, H, K, P, NQ, scale);
   return cudaGetLastError();
+}
+
+// head width D in the storage type `dtype` (1 bf16, 2 fp16)
+template <int D>
+cudaError_t launch(int dtype, const void* qkv, const void* valid, void* out, float* lse, int B,
+                   int N, int C, int H, int K, float scale, cudaStream_t s) {
+  if (dtype == 1) return launch_t<bf16, D>(qkv, valid, out, lse, B, N, C, H, K, scale, s);
+  if (dtype == 2) return launch_t<fp16, D>(qkv, valid, out, lse, B, N, C, H, K, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// bf16 only; head widths 16, 32 and 48; windows of at most 4096 slots. lse may
-// be null (inference). Returns a cudaError_t (0 on success),
-// cudaErrorInvalidValue for what it was not built for.
-extern "C" int fwa_fwd_large(const void* qkv, const void* valid, void* out, void* lse, int B,
-                             int N, int C, int H, int K, float scale, void* stream) {
+// bf16 (dtype 1) or fp16 (dtype 2); head widths 16, 32, 48, 64, 96 and 128
+// (the wrapper pads any other width up to 128 to the next of them); windows
+// of at most 4096 slots. lse may be null (inference). Returns a cudaError_t
+// (0 on success), cudaErrorInvalidValue for what it was not built for.
+extern "C" int fwa_fwd_large(const void* qkv, const void* valid, void* out, void* lse,
+                             int dtype, int B, int N, int C, int H, int K, float scale,
+                             void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || K <= 0 || C % H != 0) return cudaErrorInvalidValue;
   if (K > MAX_TILES * MK) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (C / H) {
-    case 16: return launch<16>(qkv, valid, out, l, B, N, C, H, K, scale, s);
-    case 32: return launch<32>(qkv, valid, out, l, B, N, C, H, K, scale, s);
-    case 48: return launch<48>(qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 16: return launch<16>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 32: return launch<32>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 48: return launch<48>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 64: return launch<64>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 96: return launch<96>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, s);
+    case 128: return launch<128>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

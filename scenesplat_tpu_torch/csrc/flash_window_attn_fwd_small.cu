@@ -1,18 +1,19 @@
-// K1 at small windows: the flash-window attention forward in bf16 for
-// windows of at most 64 slots (the flagship decoder's 48), for NVIDIA Hopper
-// (sm_90a).
+// K1 at small windows: the flash-window attention forward in bf16 or fp16
+// for windows of at most 64 slots (the flagship decoder's 48), for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces, like the other forwards, the TPU kernel
 // scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel (entered through _fwa_fwd),
-// and computes the same function on the same layout: qkv [B, N, 3, C] bf16,
-// key validity [B, N] (one byte per slot), output [B, N, C] bf16 and, when
+// and computes the same function on the same layout: qkv [B, N, 3, C] (bf16
+// or fp16), key validity [B, N] (one byte per slot), output [B, N, C] in
+// qkv's type and, when
 // training, lse [B, N, H] fp32, the natural-log log-sum-exp of each row's
 // scaled scores (the backward K2 recomputes P = exp(S - lse) from it). Per
 // window of K consecutive slots (the last one ragged) and head of width D:
 //
 //   S = round(q * scale) . k^T          (fp32 accumulation)
 //   P = masked softmax(S)               (fp32; invalid keys get weight 0)
-//   O = round(P) . V                    (fp32 accumulation, stored in bf16)
+//   O = round(P) . V                    (fp32 accumulation, stored in qkv's type)
 //
 // A window whose slot 0 is padding writes zeros (and no lse); rows past a
 // ragged window's end are neither read as keys nor written; a row without a
@@ -59,80 +60,28 @@
 //    leaves as 16-byte row stores. lse is one 4-byte store a row: the rows
 //    of one head lie H * 4 bytes apart, so no two rows of a unit share a
 //    sector; the heads of a row, in neighbouring units, do.
+//
+// Types and widths. bf16 and fp16 run the same code (Elem: how two values
+// pack into a register, and mma.sync's .bf16 or .f16 form); every sum and
+// the softmax stay fp32. Head widths 16, 32, 48, 64, 96 and 128 are
+// instantiated; ops/flash_window_attn.py pads any other width up to 128 with
+// zero lanes to the next of them (exact: zeros add nothing to S, and the
+// extra output lanes are dropped). At D = 128 and a window of 64 a block's
+// two stages take 102 KB, so two blocks share an SM (small_min_blocks).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "fwa_common.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int SMALL_MAX = 64;  // the largest window: 4 m16 tiles
 constexpr int MAX_CHUNK = 1024;  // the longest run of units dealt to a block at once
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the two bf16 of x times s, rounded to bf16
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
-  return pack_bf16(__low2float(v) * s, __high2float(v) * s);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// d += a . b for one m16n8k16 tile (bf16 inputs, fp32 accumulators)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes from device to shared memory, or 16 zero bytes when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = +0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Shared memory: two stages of q, k, v rows [R][DS]. Rows padded by 16 bytes.
 template <int D, int MT>
@@ -143,6 +92,15 @@ struct SmallLayout {
   static constexpr int STAGE = 3 * TILE * 2;  // bytes: q, k, v
   static constexpr int BYTES = 2 * STAGE;
 };
+
+// The blocks an SM should hold, for __launch_bounds__: 3 of 4 warps, 16 / MT
+// of fewer, and no more than the shared memory holds (two at D = 128 and a
+// window of 64), so that wide heads get the registers a block can use
+constexpr int small_min_blocks(int D, int MT) {
+  const int want = MT == 4 ? 3 : 16 / MT;
+  const int fit = (227 * 1024) / (2 * 3 * 16 * MT * (D + 8) * 2);
+  return want < fit ? want : (fit > 0 ? fit : 1);
+}
 
 // The units a block walks: unit(i) for i < count. Runs of `chunk`
 // consecutive units are dealt to the blocks in turn, block b taking runs b,
@@ -169,13 +127,14 @@ __device__ __forceinline__ Walk walk_of(int chunk, int units) {
   return Walk{b, grid, chunk, count};
 }
 
-template <int D, int MT>
-__global__ void __launch_bounds__(32 * MT, MT == 4 ? 3 : 16 / MT)
-fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ valid,
-                     bf16* __restrict__ out, float* __restrict__ lse, int N, int C, int H,
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(32 * MT, small_min_blocks(D, MT))
+fwa_fwd_small_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ valid,
+                     T* __restrict__ out, float* __restrict__ lse, int N, int C, int H,
                      int K, int P, int units, int chunk, float scale) {
   static_assert(D % 16 == 0 && MT >= 1 && MT <= SMALL_MAX / 16, "shape");
   using L = SmallLayout<D, MT>;
+  using E = Elem<T>;
   constexpr int NT = 32 * MT;  // threads
   constexpr int KS = D / 16;   // k-steps over the head dim, and pairs of 8-wide O tiles
   constexpr int CH = D / 8;    // 16-byte chunks a row
@@ -204,12 +163,12 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
     return Unit{(size_t)b * N + w0, h, min(K, N - w0)};
   };
   auto load = [&](const Unit& t, int s) {
-    bf16* qs = reinterpret_cast<bf16*>(smem + s * L::STAGE);
+    T* qs = reinterpret_cast<T*>(smem + s * L::STAGE);
     for (int i = tid; i < L::R * CH; i += NT) {
       const int j = i / CH, part = i - j * CH;
       const bool ok = j < t.wlen;
-      const bf16* src = qkv + (t.tok0 + (ok ? j : 0)) * stride + t.h * D + part * 8;
-      bf16* dst = qs + j * DS + part * 8;
+      const T* src = qkv + (t.tok0 + (ok ? j : 0)) * stride + t.h * D + part * 8;
+      T* dst = qs + j * DS + part * 8;
       cp_async16(dst, src, ok);
       cp_async16(dst + TILE, src + C, ok);
       cp_async16(dst + 2 * TILE, src + 2 * C, ok);
@@ -254,7 +213,7 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
     }
 
     const int wlen = cur.wlen;
-    bf16* out0 = out + cur.tok0 * C + cur.h * D;
+    T* out0 = out + cur.tok0 * C + cur.h * D;
     if (!live) {  // a window of padding writes zeros
       for (int j = tid; j < wlen * CH; j += NT) {
         const int r = j / CH, part = j - r * CH;
@@ -263,9 +222,9 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
     } else {
       cp_async_wait<1>();  // this thread's copies of this unit have landed
       __syncthreads();     // everyone's have
-      bf16* qs = reinterpret_cast<bf16*>(smem + s * L::STAGE);
-      const bf16* ks = qs + TILE;
-      const bf16* vs = qs + 2 * TILE;
+      T* qs = reinterpret_cast<T*>(smem + s * L::STAGE);
+      const T* ks = qs + TILE;
+      const T* vs = qs + 2 * TILE;
       const unsigned long long bits =
           ((unsigned long long)__ballot_sync(0xffffffffu, vhi != 0) << 32) |
           __ballot_sync(0xffffffffu, vlo != 0);
@@ -280,13 +239,13 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
         uint32_t qa[4];
         ldmatrix_x4(qa, &qs[(r0 + lr) * DS + t * 16 + lc]);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) qa[r] = scale_bf16x2(qa[r], scale);
+        for (int r = 0; r < 4; ++r) qa[r] = scale2<T>(qa[r], scale);
 #pragma unroll
         for (int np = 0; np < MT; ++np) {
           uint32_t kb[4];  // (b0, b1) of key tiles 2 np and 2 np + 1
           ldmatrix_x4(kb, &ks[(np * 16 + xr) * DS + t * 16 + xc]);
-          mma_bf16(sc[2 * np], qa, kb[0], kb[1]);
-          mma_bf16(sc[2 * np + 1], qa, kb[2], kb[3]);
+          E::mma(sc[2 * np], qa, kb[0], kb[1]);
+          E::mma(sc[2 * np + 1], qa, kb[2], kb[3]);
         }
       }
       if (bits != ALL) {  // warp-uniform: some key is invalid or past the end
@@ -342,16 +301,16 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
 #pragma unroll
       for (int kt = 0; kt < MT; ++kt) {
         const uint32_t pa[4] = {
-            pack_bf16(sc[2 * kt][0] * inv[0], sc[2 * kt][1] * inv[0]),
-            pack_bf16(sc[2 * kt][2] * inv[1], sc[2 * kt][3] * inv[1]),
-            pack_bf16(sc[2 * kt + 1][0] * inv[0], sc[2 * kt + 1][1] * inv[0]),
-            pack_bf16(sc[2 * kt + 1][2] * inv[1], sc[2 * kt + 1][3] * inv[1])};
+            E::pack(sc[2 * kt][0] * inv[0], sc[2 * kt][1] * inv[0]),
+            E::pack(sc[2 * kt][2] * inv[1], sc[2 * kt][3] * inv[1]),
+            E::pack(sc[2 * kt + 1][0] * inv[0], sc[2 * kt + 1][1] * inv[0]),
+            E::pack(sc[2 * kt + 1][2] * inv[1], sc[2 * kt + 1][3] * inv[1])};
 #pragma unroll
         for (int np = 0; np < KS; ++np) {
           uint32_t vb[4];  // (b0, b1) of output column tiles 2 np and 2 np + 1
           ldmatrix_x4_trans(vb, &vs[(kt * 16 + lr) * DS + np * 16 + lc]);
-          mma_bf16(o[2 * np], pa, vb[0], vb[1]);
-          mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+          E::mma(o[2 * np], pa, vb[0], vb[1]);
+          E::mma(o[2 * np + 1], pa, vb[2], vb[3]);
         }
       }
 
@@ -359,8 +318,8 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
 #pragma unroll
       for (int n = 0; n < 2 * KS; ++n) {
         const int d = n * 8 + c2;
-        *reinterpret_cast<uint32_t*>(&qs[row0 * DS + d]) = pack_bf16(o[n][0], o[n][1]);
-        *reinterpret_cast<uint32_t*>(&qs[row1 * DS + d]) = pack_bf16(o[n][2], o[n][3]);
+        *reinterpret_cast<uint32_t*>(&qs[row0 * DS + d]) = E::pack(o[n][0], o[n][1]);
+        *reinterpret_cast<uint32_t*>(&qs[row1 * DS + d]) = E::pack(o[n][2], o[n][3]);
       }
       __syncwarp();
       for (int j = lane; j < 16 * CH; j += 32) {
@@ -384,7 +343,7 @@ fwa_fwd_small_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ v
 
 // blocks resident on one SM, and the SMs: found once per instance (the grid
 // is one wave of persistent blocks)
-template <int D, int MT>
+template <typename T, int D, int MT>
 cudaError_t residency(int& blocks_per_sm, int& sms) {
   static int bps = 0, n_sm = 0;
   if (!bps) {
@@ -393,14 +352,14 @@ cudaError_t residency(int& blocks_per_sm, int& sms) {
     cudaError_t e = cudaGetDevice(&dev);
     if (!e) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (!e)
-      e = cudaFuncSetAttribute(fwa_fwd_small_kernel<D, MT>,
+      e = cudaFuncSetAttribute(fwa_fwd_small_kernel<T, D, MT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (!e)
-      e = cudaFuncSetAttribute(fwa_fwd_small_kernel<D, MT>,
+      e = cudaFuncSetAttribute(fwa_fwd_small_kernel<T, D, MT>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (!e)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fwa_fwd_small_kernel<D, MT>,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fwa_fwd_small_kernel<T, D, MT>,
                                                         32 * MT, BYTES);
     if (e) return e;
     if (!bps) return cudaErrorInvalidConfiguration;
@@ -410,68 +369,84 @@ cudaError_t residency(int& blocks_per_sm, int& sms) {
   return cudaSuccess;
 }
 
-template <int D, int MT>
+template <typename T, int D, int MT>
 cudaError_t launch(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
                    int C, int H, int K, float scale, int chunk, cudaStream_t stream) {
   int blocks_per_sm = 0, sms = 0;
-  if (cudaError_t e = residency<D, MT>(blocks_per_sm, sms)) return e;
+  if (cudaError_t e = residency<T, D, MT>(blocks_per_sm, sms)) return e;
   const int P = (N + K - 1) / K;
   const long long units = (long long)B * P * H;
   if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
   const long long resident = (long long)blocks_per_sm * sms;
   const int grid = (int)(units < resident ? units : resident);
-  fwa_fwd_small_kernel<D, MT><<<grid, 32 * MT, SmallLayout<D, MT>::BYTES, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(valid),
-      static_cast<bf16*>(out), lse, N, C, H, K, P, (int)units, chunk, scale);
+  fwa_fwd_small_kernel<T, D, MT><<<grid, 32 * MT, SmallLayout<D, MT>::BYTES, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const uint8_t*>(valid), static_cast<T*>(out),
+      lse, N, C, H, K, P, (int)units, chunk, scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_d(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
+template <typename T, int D>
+cudaError_t launch_t(const void* qkv, const void* valid, void* out, float* lse, int B, int N,
                      int C, int H, int K, float scale, int chunk, cudaStream_t s) {
   switch ((K + 15) / 16) {
-    case 1: return launch<D, 1>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
-    case 2: return launch<D, 2>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
-    case 3: return launch<D, 3>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
-    case 4: return launch<D, 4>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
+    case 1: return launch<T, D, 1>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
+    case 2: return launch<T, D, 2>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
+    case 3: return launch<T, D, 3>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
+    case 4: return launch<T, D, 4>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// head width D in the storage type `dtype` (1 bf16, 2 fp16)
+template <int D>
+cudaError_t launch_d(int dtype, const void* qkv, const void* valid, void* out, float* lse,
+                     int B, int N, int C, int H, int K, float scale, int chunk, cudaStream_t s) {
+  if (dtype == 1) return launch_t<bf16, D>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
+  if (dtype == 2) return launch_t<fp16, D>(qkv, valid, out, lse, B, N, C, H, K, scale, chunk, s);
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
 cudaError_t residency_d(int K, int& blocks_per_sm, int& sms) {
   switch ((K + 15) / 16) {
-    case 1: return residency<D, 1>(blocks_per_sm, sms);
-    case 2: return residency<D, 2>(blocks_per_sm, sms);
-    case 3: return residency<D, 3>(blocks_per_sm, sms);
-    case 4: return residency<D, 4>(blocks_per_sm, sms);
+    case 1: return residency<bf16, D, 1>(blocks_per_sm, sms);
+    case 2: return residency<bf16, D, 2>(blocks_per_sm, sms);
+    case 3: return residency<bf16, D, 3>(blocks_per_sm, sms);
+    case 4: return residency<bf16, D, 4>(blocks_per_sm, sms);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// bf16 only; windows of 1 to 64 slots; head widths 16, 32 and 48; units
-// dealt to the blocks in runs of `chunk` (0: a contiguous share a block, at
-// most MAX_CHUNK). lse may be null (inference). Returns a cudaError_t (0 on
-// success), cudaErrorInvalidValue for what it was not built for.
-extern "C" int fwa_fwd_small(const void* qkv, const void* valid, void* out, void* lse, int B,
-                             int N, int C, int H, int K, float scale, int chunk, void* stream) {
+// bf16 (dtype 1) or fp16 (dtype 2); windows of 1 to 64 slots; head widths
+// 16, 32, 48, 64, 96 and 128 (the wrapper pads any other width to the next
+// of them); units dealt to the blocks in runs of `chunk` (0: a contiguous
+// share a block, at most MAX_CHUNK). lse may be null (inference). Returns a
+// cudaError_t (0 on success), cudaErrorInvalidValue for what it was not
+// built for.
+extern "C" int fwa_fwd_small(const void* qkv, const void* valid, void* out, void* lse,
+                             int dtype, int B, int N, int C, int H, int K, float scale,
+                             int chunk, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || K <= 0 || K > SMALL_MAX || C % H != 0)
     return cudaErrorInvalidValue;
   if (chunk < 0 || chunk > MAX_CHUNK) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (C / H) {
-    case 16: return launch_d<16>(qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
-    case 32: return launch_d<32>(qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
-    case 48: return launch_d<48>(qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
+    case 16: return launch_d<16>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
+    case 32: return launch_d<32>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
+    case 48: return launch_d<48>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
+    case 64: return launch_d<64>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
+    case 96: return launch_d<96>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
+    case 128: return launch_d<128>(dtype, qkv, valid, out, l, B, N, C, H, K, scale, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The kernel's resident blocks per SM at head width D and window K (the
-// report of tools/torch_kernel_bench.py), or -1 for a shape it lacks.
+// The kernel's resident blocks per SM at head width D and window K in bf16
+// (fp16's are the same; the report of tools/torch_kernel_bench.py), or -1
+// for a shape it lacks.
 extern "C" int fwa_fwd_small_residency(int D, int K) {
   int bps = 0, sms = 0;
   cudaError_t e = cudaErrorInvalidValue;
@@ -479,6 +454,9 @@ extern "C" int fwa_fwd_small_residency(int D, int K) {
     if (D == 16) e = residency_d<16>(K, bps, sms);
     if (D == 32) e = residency_d<32>(K, bps, sms);
     if (D == 48) e = residency_d<48>(K, bps, sms);
+    if (D == 64) e = residency_d<64>(K, bps, sms);
+    if (D == 96) e = residency_d<96>(K, bps, sms);
+    if (D == 128) e = residency_d<128>(K, bps, sms);
   }
   return e ? -1 : bps;
 }

@@ -3,11 +3,16 @@ repo's ``test_single_scene_lang.py`` and of ``FLAGSHIP_BACKBONE`` in
 ``__graft_entry__.py``).
 
 Loads one scene's ``.npy`` assets (or takes arrays), builds the flagship
-LangPretrainer with weights drawn from a seed, extracts L2-normalized
-per-Gaussian features through the bucketed FeatureExtractor and predicts
-classes against SigLIP2 text embeddings.
+LangPretrainer with weights drawn from a seed (or loads a Pointcept-layout
+``.pth``), extracts L2-normalized per-Gaussian features through the
+bucketed FeatureExtractor and predicts classes against SigLIP2 text
+embeddings; with ``--save-features`` it writes the features, coordinates
+and inputs as that script does (``utils/save_features.py``).
 
     python -m scenesplat_tpu_torch.entry --scene DIR [--device cpu]
+        [--dtype bfloat16|float16|float32] [--save-features --results-dir DIR]
+
+Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from scenesplat_tpu_torch.engines.eval import load_text_embeddings, zero_shot_predict
 from scenesplat_tpu_torch.engines.infer import FeatureExtractor
 from scenesplat_tpu_torch.models import build_model
+from scenesplat_tpu_torch.utils.save_features import save_inference_output_simple
 
 # the flagship PT-v3m1 LangPretrainer backbone (scenesplat_tpu's
 # __graft_entry__.FLAGSHIP_BACKBONE, without its TPU-only dense_extent)
@@ -108,16 +114,25 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return model
 
 
-def zero_shot_scene(model: torch.nn.Module, coord: np.ndarray, feat: np.ndarray,
-                    text_emb: np.ndarray, device="cuda", grid_size: float = 0.02):
+def scene_features(model: torch.nn.Module, coord: np.ndarray, feat: np.ndarray,
+                   device="cuda", grid_size: float = 0.02) -> np.ndarray:
     """One scene's arrays (coord [N, 3], feat [N, 11]) -> L2-normalized
-    features [N, C] and zero-shot predictions [N] against ``text_emb``."""
+    features [N, C] (fp32 numpy), the coordinates shifted to their least
+    corner first."""
     coord = coord - coord.min(axis=0)
     extractor = FeatureExtractor(model, patch_size=1024, device=device)
     out = extractor(dict(coord=coord, feat=feat,
                          grid_coord=grid_coords(coord, grid_size)))
     if not np.allclose(np.linalg.norm(out, axis=1), 1.0, atol=1e-2):
         raise RuntimeError("features are not L2-normalized")
+    return out
+
+
+def zero_shot_scene(model: torch.nn.Module, coord: np.ndarray, feat: np.ndarray,
+                    text_emb: np.ndarray, device="cuda", grid_size: float = 0.02):
+    """One scene's arrays (coord [N, 3], feat [N, 11]) -> L2-normalized
+    features [N, C] and zero-shot predictions [N] against ``text_emb``."""
+    out = scene_features(model, coord, feat, device, grid_size)
     pred, _ = zero_shot_predict(out, text_emb)
     return out, pred
 
@@ -126,13 +141,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scene", required=True, help="scene dir of .npy assets")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float16", "float32"))
     parser.add_argument("--seed", type=int, default=0, help="seed of the weights")
     parser.add_argument("--weight", default=None,
                         help="Pointcept-layout .pth checkpoint (default: seeded weights)")
     parser.add_argument("--text-embeddings", default="builtin:scannet200")
     parser.add_argument("--subsample", type=int, default=100000)
     parser.add_argument("--grid-size", type=float, default=0.02)
+    parser.add_argument("--save-features", action="store_true",
+                        help="write the features, coordinates and inputs (utils/save_features.py)")
+    parser.add_argument("--results-dir", default="results")
     args = parser.parse_args(argv)
 
     coord, feat = load_scene(args.scene)
@@ -141,6 +160,7 @@ def main(argv=None) -> int:
     if args.subsample and n > args.subsample:
         keep = np.random.default_rng(42).choice(n, args.subsample, replace=False)
         coord, feat = coord[keep], feat[keep]
+    coord = coord - coord.min(axis=0)
     model = build_lang_model(dtype=args.dtype, device=args.device, seed=args.seed)
     if args.weight:
         load_weights(model, args.weight)
@@ -151,6 +171,11 @@ def main(argv=None) -> int:
     print(f"features {out.shape} in {time.perf_counter() - t0:.2f} s", flush=True)
     uniq, counts = np.unique(pred, return_counts=True)
     print(f"classes predicted: {dict(zip(uniq.tolist(), counts.tolist()))}")
+    if args.save_features:
+        save_inference_output_simple(dict(point_feat=out, coord=coord),
+                                     dict(feat=feat, coord=coord),
+                                     os.path.basename(os.path.normpath(args.scene)),
+                                     results_dir=args.results_dir)
     return 0
 
 

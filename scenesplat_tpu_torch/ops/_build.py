@@ -3,9 +3,10 @@
 Each kernel is one source file under ``csrc/`` with a plain C interface. It
 is compiled with ``nvcc`` for ``sm_90a`` at first use into a shared library
 under ``build/kernels/`` at the root of the checkout, named by a hash of its
-source and the compiler flags (an edited source rebuilds), and loaded with
-``ctypes``. The compiler's register and spill report (``-Xptxas -v``) goes
-to a ``.log`` file beside the library.
+source, the headers it includes from ``csrc/`` and the compiler flags (an
+edited source or header rebuilds), and loaded with ``ctypes``. The
+compiler's register and spill report (``-Xptxas -v``) goes to a ``.log``
+file beside the library.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,8 +48,12 @@ class KernelLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def path(self) -> Path:
-        """The shared library's path, keyed by a hash of source and flags."""
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        """The shared library's path, keyed by a hash of the source, the
+        headers it includes from its own directory and the flags."""
+        text = self.source.read_bytes()
+        headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
+        text += b"".join((self.source.parent / h.decode()).read_bytes() for h in headers)
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
     def log_path(self) -> Path:

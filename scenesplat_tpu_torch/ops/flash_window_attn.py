@@ -4,7 +4,8 @@ kernels and their plain PyTorch version.
 The forward kernel K1 replaces the TPU kernel
 ``scenesplat_tpu/ops/pallas_attn.py:_fwd_kernel`` (entered through
 ``_fwa_fwd``), the backward K2 (``csrc/flash_window_attn.cu`` for fp32,
-``csrc/flash_window_attn_bwd.cu`` for bf16) replaces ``_bwd_kernel``
+``csrc/flash_window_attn_bwd.cu`` and ``_bwd_large.cu`` for bf16 and fp16)
+replaces ``_bwd_kernel``
 (through ``_fwa_bwd``). Their work, 4*N*K*C (forward) and 10*N*K*C
 (backward) operations against about 4*N*C and 7*N*C elements moved per
 call, makes both bound by operations at windows of 1024 and by bytes at
@@ -17,9 +18,11 @@ softmax in fp32 registers and, when training, writes each row's
 log-sum-exp; the backward recomputes the probabilities from it. Keys past
 the end of a ragged last window are masked, and a window whose slot 0 is
 padding writes zeros. bf16 runs its products on the tensor cores
-(mma.sync); fp32 runs scalar FMAs, which keeps it exact to the plain
-version. The forward has four variants, chosen by ``forward_variant`` from
-the storage type and the window: fp32 (``csrc/flash_window_attn.cu``); bf16
+(mma.sync); fp16 takes the bf16 variants through the same code with the
+``.f16`` form of the products; fp32 runs scalar FMAs, which keeps it exact
+to the plain version. The forward has four variants, chosen by
+``forward_variant`` from the storage type and the window: fp32
+(``csrc/flash_window_attn.cu``); bf16 or fp16
 at windows of at most ``FWD_SMALL_MAX`` = 64 slots, ``bf16_small``
 (``csrc/flash_window_attn_fwd_small.cu``, a source and a library of its
 own: one pass per window and head in persistent blocks of K/16 warps, the
@@ -37,6 +40,17 @@ pass per window and head, as the small forward); bf16 at larger windows (a
 dQ kernel and a dK/dV kernel). The C functions refuse what they were not
 built for and the wrapper raises: no variant stands in for another.
 
+Head widths. Every kernel is instantiated for D in ``HEAD_DIMS`` = 16, 32,
+48, 64, 96 and 128, the multiples of 16 that the m16n8k16 products tile.
+Any other width from 1 to ``MAX_HEAD_DIM`` = 128 runs on the next of them
+(``padded_head_dim``) with its lanes past D zero, as the JAX package's
+``_head_pad_dim`` pads: the wrapper copies qkv (and, in the backward, O and
+dO) into a zero [B, N, 3, H, Dp] buffer and slices the output and dqkv
+back. That is exact: the zero lanes add nothing to S, lse is unchanged, the
+extra lanes of O, dQ, dK and dV are dropped, and the scale stays
+D ** -0.5. A wider head, or a storage type other than fp32, bf16 and fp16,
+raises.
+
 ``flash_window_attention`` is differentiable: while grad is enabled and qkv
 requires grad it runs as a ``torch.autograd.Function`` whose forward
 launches K1 (with the log-sum-exp) and whose backward launches K2; otherwise
@@ -51,6 +65,7 @@ the build and binding code the port's kernels share.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -61,10 +76,15 @@ SOURCE = CSRC / "flash_window_attn.cu"
 SOURCE_SMALL = CSRC / "flash_window_attn_fwd_small.cu"
 SOURCE_LARGE = CSRC / "flash_window_attn_fwd.cu"
 SOURCE_BWD = CSRC / "flash_window_attn_bwd.cu"
-# head widths the kernel is instantiated for: those of the flagship and the
-# shipped configs (16 in every encoder stage and dec2, 32 in dec1, 48 in dec0)
-HEAD_DIMS = (16, 32, 48)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SOURCE_BWD_LARGE = CSRC / "flash_window_attn_bwd_large.cu"
+# head widths every kernel is instantiated for: the shipped configs' 16, 32
+# and 48 and the multiples of 16 up to 128 that a user's PT-v3m1 may give;
+# any other width up to MAX_HEAD_DIM runs zero-padded on the next of them
+HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+# the storage types and their code in the C functions; fp16 takes the bf16
+# variants' kernels with the .f16 products
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # bf16 windows of at most this many slots take the one-pass forward (four
 # m16 tiles: the whole window's rows in shared memory)
 FWD_SMALL_MAX = 64
@@ -87,9 +107,11 @@ FWD_SMALL_ORDER = "A2"
 # (four m16 tiles: the whole window's rows in shared memory)
 BWD_SMALL_MAX = 64
 BWD_VARIANTS = {"fp32": (SOURCE, "fwa_bwd"), "bf16_small": (SOURCE_BWD, "fwa_bwd_small"),
-                "bf16_large": (SOURCE_BWD, "fwa_bwd_large")}
+                "bf16_large": (SOURCE_BWD_LARGE, "fwa_bwd_large")}
 
 
+# Every C entry takes the storage type's code (_DTYPES) after its pointers,
+# the fp32 backward excepted (fp32 only)
 def _declare(lib: ctypes.CDLL) -> None:
     lib.fwa_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
@@ -100,7 +122,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _declare_small(lib: ctypes.CDLL) -> None:
-    lib.fwa_fwd_small.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    lib.fwa_fwd_small.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.fwa_fwd_small.restype = ctypes.c_int
     lib.fwa_fwd_small_residency.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -108,39 +130,56 @@ def _declare_small(lib: ctypes.CDLL) -> None:
 
 
 def _declare_large(lib: ctypes.CDLL) -> None:
-    lib.fwa_fwd_large.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    lib.fwa_fwd_large.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.fwa_fwd_large.restype = ctypes.c_int
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
-    lib.fwa_bwd_small.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    lib.fwa_bwd_small.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.fwa_bwd_small.restype = ctypes.c_int
-    lib.fwa_bwd_large.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.fwa_bwd_large.restype = ctypes.c_int
     lib.fwa_bwd_small_residency.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fwa_bwd_small_residency.restype = ctypes.c_int
+
+
+def _declare_bwd_large(lib: ctypes.CDLL) -> None:
+    lib.fwa_bwd_large.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fwa_bwd_large.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary(SOURCE, _declare)
 LIBRARY_SMALL = KernelLibrary(SOURCE_SMALL, _declare_small)
 LIBRARY_LARGE = KernelLibrary(SOURCE_LARGE, _declare_large)
 LIBRARY_BWD = KernelLibrary(SOURCE_BWD, _declare_bwd)
+LIBRARY_BWD_LARGE = KernelLibrary(SOURCE_BWD_LARGE, _declare_bwd_large)
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The instantiated width a head of ``head_dim`` lanes runs on: the
+    least of ``HEAD_DIMS`` that holds it. Raises for a width below 1 or
+    above ``MAX_HEAD_DIM``."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim}: the kernels take head widths of 1 to "
+                         f"{MAX_HEAD_DIM}")
+    return next(d for d in HEAD_DIMS if d >= head_dim)
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in _DTYPES:
+        raise TypeError(f"qkv dtype {dtype} is not float32, bfloat16 or float16")
 
 
 def forward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
     """Which forward kernel a call takes, a key of ``VARIANTS``: ``"fp32"``
-    for float32; for bfloat16 ``"bf16_small"`` at windows of at most
-    ``FWD_SMALL_MAX`` slots, ``"bf16_large"`` at windows of
+    for float32; for bfloat16 and float16 ``"bf16_small"`` at windows of at
+    most ``FWD_SMALL_MAX`` slots, ``"bf16_large"`` at windows of
     ``LARGE_WINDOW_MIN`` to ``LARGE_WINDOW_MAX`` slots and ``"bf16_tiled"``
-    at the others. Raises for a storage type or a head width without a
-    kernel."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"qkv dtype {dtype} is not float32 or bfloat16")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
+    at the others, each at ``padded_head_dim(head_dim)``. Raises for a
+    storage type or a head width without a kernel."""
+    _check_dtype(dtype)
+    padded_head_dim(head_dim)
     if patch_size <= 0:
         raise ValueError(f"patch_size must be positive, got {patch_size}")
     if dtype == torch.float32:
@@ -176,13 +215,12 @@ def small_unit_order(units: int, grid: int, chunk: int) -> list:
 
 def backward_variant(dtype: torch.dtype, patch_size: int, head_dim: int) -> str:
     """Which backward kernel a call takes, a key of ``BWD_VARIANTS``:
-    ``"fp32"`` for float32; for bfloat16 ``"bf16_small"`` at windows of at
-    most ``BWD_SMALL_MAX`` slots and ``"bf16_large"`` above. Raises for a
-    storage type or a head width without a kernel."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"qkv dtype {dtype} is not float32 or bfloat16")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
+    ``"fp32"`` for float32; for bfloat16 and float16 ``"bf16_small"`` at
+    windows of at most ``BWD_SMALL_MAX`` slots and ``"bf16_large"`` above,
+    each at ``padded_head_dim(head_dim)``. Raises for a storage type or a
+    head width without a kernel."""
+    _check_dtype(dtype)
+    padded_head_dim(head_dim)
     if patch_size <= 0:
         raise ValueError(f"patch_size must be positive, got {patch_size}")
     if dtype == torch.float32:
@@ -195,8 +233,7 @@ def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int,
     if qkv.dim() != 4 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be [B, N, 3, C], got {tuple(qkv.shape)}")
     b, n, _, c = qkv.shape
-    if qkv.dtype not in _DTYPES:
-        raise TypeError(f"qkv dtype {qkv.dtype} is not float32 or bfloat16")
+    _check_dtype(qkv.dtype)
     if valid.dtype != torch.bool or tuple(valid.shape) != (b, n):
         raise ValueError(f"valid must be a bool [{b}, {n}] tensor")
     if valid.device != qkv.device:
@@ -205,44 +242,138 @@ def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int,
         raise ValueError("qkv and valid must be contiguous")
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must be 16-byte aligned")
-    if c % num_heads or c // num_heads not in HEAD_DIMS:
-        raise ValueError(f"C={c} over {num_heads} heads: the head dim must be one "
-                         f"of {HEAD_DIMS}")
+    if c % num_heads:
+        raise ValueError(f"C={c} does not split over {num_heads} heads")
+    padded_head_dim(c // num_heads)
     if patch_size <= 0:
         raise ValueError(f"patch_size must be positive, got {patch_size}")
     return b, n, c
 
 
-def _launch_fwd(qkv, valid, patch_size, num_heads, scale, with_lse):
-    """K1: out [B, N, C] and, with ``with_lse``, lse [B, N, H] fp32."""
-    b, n, c = _check(qkv, valid, patch_size, num_heads)
+def pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
+    """x [..., H * D] -> a new contiguous [..., H * dp], each head's lanes
+    past D zero (qkv [B, N, 3, C], O and dO [B, N, C])."""
+    d = x.shape[-1] // num_heads
+    x = x.reshape(*x.shape[:-1], num_heads, d)
+    return torch.nn.functional.pad(x, (0, dp - d)).reshape(*x.shape[:-2], num_heads * dp)
+
+
+def unpad_heads(x: torch.Tensor, num_heads: int, d: int) -> torch.Tensor:
+    """The inverse of pad_heads: x [..., H * dp] -> contiguous [..., H * d]."""
+    x = x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
+    return x[..., :d].reshape(*x.shape[:-2], num_heads * d)
+
+
+class _Counted:
+    """A kernel's wrapper and its launch counter: ``width_launches`` maps
+    (variant, storage type, instantiated width) to launches and
+    ``padded_launches`` counts those whose heads the wrapper padded;
+    ``launches`` and ``variant_launches`` are sums of ``width_launches``.
+    With ``lse``, ``lse_variant_launches`` counts each variant's launches
+    that also wrote the log-sum-exp."""
+
+    def __init__(self, fn, variants, lse=False):
+        functools.update_wrapper(self, fn)
+        self._fn, self._variants = fn, variants
+        self.width_launches, self.padded_launches = {}, 0
+        self.lse_variant_launches = dict.fromkeys(variants, 0) if lse else None
+
+    def __call__(self, *args, **kwargs):
+        return self._fn(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        return sum(self.width_launches.values())
+
+    @property
+    def variant_launches(self) -> dict:
+        counts = dict.fromkeys(self._variants, 0)
+        for (variant, _, _), n in self.width_launches.items():
+            counts[variant] += n
+        return counts
+
+    def count(self, variant, dtype, dp, padded, lse=False):
+        key = (variant, str(dtype).removeprefix("torch."), dp)
+        self.width_launches[key] = self.width_launches.get(key, 0) + 1
+        self.padded_launches += padded
+        if lse:
+            self.lse_variant_launches[variant] += 1
+
+    def reset(self):
+        self.width_launches.clear()
+        self.padded_launches = 0
+        if self.lse_variant_launches is not None:
+            self.lse_variant_launches.update(dict.fromkeys(self._variants, 0))
+
+
+def _launch_fwd_kernel(qkv, valid, patch_size, num_heads, scale, with_lse):
+    """K1 on qkv at an instantiated head width: out [B, N, C], with
+    ``with_lse`` lse [B, N, H] fp32 (else None), and the variant."""
+    b, n, c = qkv.shape[0], qkv.shape[1], qkv.shape[3]
     out = torch.empty(b, n, c, dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
            if with_lse else None)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     variant = forward_variant(qkv.dtype, patch_size, c // num_heads)
+    code = _DTYPES[qkv.dtype]
     ptrs = (qkv.data_ptr(), valid.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
     with torch.cuda.device(qkv.device):
         if variant == "bf16_small":
             rc = LIBRARY_SMALL.load().fwa_fwd_small(
-                *ptrs, b, n, c, num_heads, patch_size, float(scale),
+                *ptrs, code, b, n, c, num_heads, patch_size, float(scale),
                 small_chunk(FWD_SMALL_ORDER, num_heads), stream)
         elif variant == "bf16_large":
             rc = LIBRARY_LARGE.load().fwa_fwd_large(
-                *ptrs, b, n, c, num_heads, patch_size, float(scale), stream)
+                *ptrs, code, b, n, c, num_heads, patch_size, float(scale), stream)
         else:
             rc = LIBRARY.load().fwa_fwd(
-                *ptrs, _DTYPES[qkv.dtype], b, n, c, num_heads, patch_size, float(scale),
-                stream)
+                *ptrs, code, b, n, c, num_heads, patch_size, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash-window attention ({variant}) launch failed: "
                            f"CUDA error {rc}")
-    flash_window_attention.launches += 1
-    flash_window_attention.variant_launches[variant] += 1
-    if with_lse:
-        flash_window_attention.lse_variant_launches[variant] += 1
-    return out, lse
+    return out, lse, variant
+
+
+def _forward(qkv, valid, patch_size, num_heads, scale, with_lse):
+    """K1 at any head width up to MAX_HEAD_DIM: (out, lse, the qkv and out
+    the kernel saw, padded where the width was)."""
+    c = _check(qkv, valid, patch_size, num_heads)[2]
+    d = c // num_heads
+    dp = padded_head_dim(d)
+    qkv_k = qkv if dp == d else pad_heads(qkv, num_heads, dp)
+    out_k, lse, variant = _launch_fwd_kernel(qkv_k, valid, patch_size, num_heads, scale,
+                                             with_lse)
+    flash_window_attention.count(variant, qkv.dtype, dp, dp != d, with_lse)
+    out = out_k if dp == d else unpad_heads(out_k, num_heads, d)
+    return out, lse, qkv_k, out_k
+
+
+def _launch_bwd(qkv, valid, out, lse, dout, patch_size, num_heads, scale):
+    """K2 on tensors at an instantiated head width: dqkv [B, N, 3, C]."""
+    b, n, c = qkv.shape[0], qkv.shape[1], qkv.shape[3]
+    dqkv = torch.empty_like(qkv)
+    variant = backward_variant(qkv.dtype, patch_size, c // num_heads)
+    code = _DTYPES[qkv.dtype]
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    dims = (b, n, c, num_heads, patch_size, float(scale), stream)
+    with torch.cuda.device(qkv.device):
+        if variant == "bf16_small":  # delta = rowsum(dP * P) in the kernel: no O read
+            rc = LIBRARY_BWD.load().fwa_bwd_small(
+                qkv.data_ptr(), valid.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                dqkv.data_ptr(), code, *dims)
+        else:
+            delta = torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
+            ptrs = (qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr())
+            if variant == "fp32":
+                rc = LIBRARY.load().fwa_bwd(*ptrs, *dims)
+            else:
+                rc = LIBRARY_BWD_LARGE.load().fwa_bwd_large(*ptrs, code, *dims)
+    if rc != 0:
+        raise RuntimeError(f"flash-window attention backward ({variant}) launch failed: "
+                           f"CUDA error {rc}")
+    return dqkv, variant
 
 
 def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
@@ -250,9 +381,12 @@ def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
                                dout: torch.Tensor, patch_size: int, num_heads: int,
                                scale: float) -> torch.Tensor:
     """K2: dqkv [B, N, 3, C] from the forward's inputs, its ``out`` and
-    ``lse`` and the output gradient ``dout`` [B, N, C], all on one card.
+    ``lse`` and the output gradient ``dout`` [B, N, C], all on one card, at
+    any head width up to MAX_HEAD_DIM (padded as the forward pads).
     ``flash_window_attention_bwd.launches`` counts launches,
-    ``flash_window_attention_bwd.variant_launches`` those of each variant."""
+    ``.variant_launches`` those of each variant, ``.width_launches`` those
+    of each (variant, storage type, instantiated width) and
+    ``.padded_launches`` those whose heads the wrapper padded."""
     b, n, c = _check(qkv, valid, patch_size, num_heads)
     for name, t, shape, dtype in (("out", out, (b, n, c), qkv.dtype),
                                   ("dout", dout, (b, n, c), qkv.dtype),
@@ -261,75 +395,78 @@ def flash_window_attention_bwd(qkv: torch.Tensor, valid: torch.Tensor,
             raise ValueError(f"{name} must be {dtype} {shape} on {qkv.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    dqkv = torch.empty_like(qkv)
-    variant = backward_variant(qkv.dtype, patch_size, c // num_heads)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    dims = (b, n, c, num_heads, patch_size, float(scale), stream)
-    with torch.cuda.device(qkv.device):
-        if variant == "bf16_small":  # delta = rowsum(dP * P) in the kernel: no O read
-            rc = LIBRARY_BWD.load().fwa_bwd_small(
-                qkv.data_ptr(), valid.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                dqkv.data_ptr(), *dims)
-        else:
-            delta = torch.empty(b, n, num_heads, dtype=torch.float32, device=qkv.device)
-            ptrs = (qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr())
-            lib = LIBRARY if variant == "fp32" else LIBRARY_BWD
-            rc = getattr(lib.load(), BWD_VARIANTS[variant][1])(*ptrs, *dims)
-    if rc != 0:
-        raise RuntimeError(f"flash-window attention backward ({variant}) launch failed: "
-                           f"CUDA error {rc}")
-    flash_window_attention_bwd.launches += 1
-    flash_window_attention_bwd.variant_launches[variant] += 1
-    return dqkv
+    d = c // num_heads
+    dp = padded_head_dim(d)
+    if dp != d:
+        qkv, out = (pad_heads(t, num_heads, dp) for t in (qkv, out))
+    return _backward(qkv, valid, out, lse, dout, patch_size, num_heads, scale, d)
 
 
-flash_window_attention_bwd.launches = 0
-flash_window_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
+def _backward(qkv, valid, out, lse, dout, patch_size, num_heads, scale, head_dim):
+    """K2, counted, on qkv and out at an instantiated width (the forward's
+    padded copies where ``head_dim`` is not one) and dout at ``head_dim``
+    lanes: dqkv at ``head_dim`` lanes."""
+    dp = qkv.shape[-1] // num_heads
+    if dp != head_dim:
+        dout = pad_heads(dout, num_heads, dp)
+    dqkv, variant = _launch_bwd(qkv, valid, out, lse, dout, patch_size, num_heads, scale)
+    flash_window_attention_bwd.count(variant, qkv.dtype, dp, dp != head_dim)
+    return dqkv if dp == head_dim else unpad_heads(dqkv, num_heads, head_dim)
+
+
+flash_window_attention_bwd = _Counted(flash_window_attention_bwd, BWD_VARIANTS)
 
 
 class _FlashWindowAttention(torch.autograd.Function):
     """K1 forward, K2 backward. Saves qkv, valid, the output and the
     log-sum-exp (the TPU kernel's custom_vjp saves qkv and valid only and
-    recomputes the row maxima and sums)."""
+    recomputes the row maxima and sums); at a padded head width the padded
+    qkv and output, so the backward pads only dO."""
 
     @staticmethod
     def forward(ctx, qkv, valid, patch_size, num_heads, scale):
-        out, lse = _launch_fwd(qkv, valid, patch_size, num_heads, scale, True)
-        ctx.save_for_backward(qkv, valid, out, lse)
+        out, lse, qkv_k, out_k = _forward(qkv, valid, patch_size, num_heads, scale, True)
+        ctx.save_for_backward(qkv_k, valid, out_k, lse)
         ctx.args = (patch_size, num_heads, scale)
+        ctx.head_dim = qkv.shape[-1] // num_heads
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qkv, valid, out, lse = ctx.saved_tensors
         dout = dout.to(qkv.dtype).contiguous()
-        dqkv = flash_window_attention_bwd(qkv, valid, out, lse, dout, *ctx.args)
+        dqkv = _backward(qkv, valid, out, lse, dout, *ctx.args, ctx.head_dim)
         return dqkv, None, None, None, None
 
 
 def flash_window_attention(qkv: torch.Tensor, valid: torch.Tensor,
                            patch_size: int, num_heads: int,
                            scale: float | None = None) -> torch.Tensor:
-    """qkv [B, N, 3, C] (float32 or bfloat16), valid [B, N] bool ->
-    [B, N, C]. Launches the kernels for CUDA tensors (K1, and K2 in the
-    backward when qkv requires grad); CPU tensors take the plain version.
-    ``flash_window_attention.launches`` counts K1 launches,
-    ``flash_window_attention.variant_launches`` those of each variant and
-    ``flash_window_attention.lse_variant_launches`` those that also wrote
-    the log-sum-exp (the forwards that record a graph)."""
+    """qkv [B, N, 3, C] (float32, bfloat16 or float16; C / num_heads from 1
+    to MAX_HEAD_DIM), valid [B, N] bool -> [B, N, C]. Launches the kernels
+    for CUDA tensors (K1, and K2 in the backward when qkv requires grad);
+    CPU tensors take the plain version. ``flash_window_attention.launches``
+    counts K1 launches, ``.variant_launches`` those of each variant,
+    ``.lse_variant_launches`` those that also wrote the log-sum-exp (the
+    forwards that record a graph), ``.width_launches`` those of each
+    (variant, storage type, instantiated width) and ``.padded_launches``
+    those whose heads the wrapper padded."""
     if not qkv.is_cuda:
         return flash_window_attention_plain(qkv, valid, patch_size, num_heads, scale)
     if scale is None:
         scale = (qkv.shape[-1] // num_heads) ** -0.5
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FlashWindowAttention.apply(qkv, valid, patch_size, num_heads, float(scale))
-    return _launch_fwd(qkv, valid, patch_size, num_heads, scale, False)[0]
+    return _forward(qkv, valid, patch_size, num_heads, scale, False)[0]
 
 
-flash_window_attention.launches = 0
-flash_window_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
-flash_window_attention.lse_variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_window_attention = _Counted(flash_window_attention, VARIANTS, lse=True)
+
+
+def reset_counts() -> None:
+    """Every launch counter of K1 and K2 to 0."""
+    flash_window_attention.reset()
+    flash_window_attention_bwd.reset()
 
 
 def _plain_chunk(qkv, valid, scale):

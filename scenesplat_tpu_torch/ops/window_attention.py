@@ -33,7 +33,10 @@ def window_attention(qkv_sorted: torch.Tensor, valid_sorted: torch.Tensor,
 
     ``use_kernel``: None runs the kernel on CUDA tensors and the plain
     version on CPU tensors; False runs the plain version; True runs the
-    kernel and raises for CPU tensors."""
+    kernel and raises for CPU tensors. The kernels take fp32, bf16 and fp16
+    at any head width C / H from 1 to 128 (widths off 16, 32, 48, 64, 96
+    and 128 zero-padded to the next of them); a CUDA call at another width
+    or type raises rather than falling back."""
     if use_kernel is False:
         return window_attention_reference(qkv_sorted, valid_sorted, patch_size,
                                           num_heads, scale)

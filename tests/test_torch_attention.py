@@ -126,9 +126,9 @@ def test_forward_variant_names_a_kernel_the_source_instantiates(dtype, window, h
     source, entry = tfwa.VARIANTS[variant]
     text = source.read_text()
     assert f'extern "C" int {entry}(' in text
-    instance = {"fp32": f"fwa_fwd_f32_kernel<{head_dim}>",
+    instance = {"fp32": f"launch_f32<{head_dim}>",
                 "bf16_small": f"launch_d<{head_dim}>",
-                "bf16_tiled": f"fwa_fwd_bf16_kernel<{head_dim}>",
+                "bf16_tiled": f"launch_tiled<{head_dim}>",
                 "bf16_large": f"launch<{head_dim}>"}[variant]
     assert instance in text
     if dtype == "float32":
@@ -140,10 +140,10 @@ def test_forward_variant_names_a_kernel_the_source_instantiates(dtype, window, h
 
 
 @pytest.mark.parametrize("dtype,window,head_dim,error", [
-    ("float16", 1024, 16, TypeError), ("bfloat16", 1024, 40, ValueError),
-    ("float32", 48, 8, ValueError), ("bfloat16", 0, 16, ValueError),
-    ("bfloat16", 48, 64, ValueError), ("bfloat16", 64, 8, ValueError),
-    ("float16", 48, 48, TypeError), ("bfloat16", -48, 48, ValueError)])
+    ("float64", 1024, 16, TypeError), ("bfloat16", 1024, 129, ValueError),
+    ("float32", 48, 0, ValueError), ("bfloat16", 0, 16, ValueError),
+    ("bfloat16", 48, 256, ValueError), ("float16", 64, 129, ValueError),
+    ("float64", 48, 48, TypeError), ("bfloat16", -48, 48, ValueError)])
 def test_forward_variant_refuses_what_has_no_kernel(dtype, window, head_dim, error):
     with pytest.raises(error):
         tfwa.forward_variant(getattr(torch, dtype), window, head_dim)

@@ -45,7 +45,7 @@ def test_backward_variant_names_a_kernel_the_source_instantiates(dtype, window, 
     source, entry = tfwa.BWD_VARIANTS[variant]
     text = source.read_text()
     assert f'extern "C" int {entry}(' in text
-    instance = {"fp32": f"FWA_BWD_F32({head_dim})",
+    instance = {"fp32": f"launch_bwd_f32<{head_dim}>",
                 "bf16_small": f"launch_small_d<{head_dim}>",
                 "bf16_large": f"launch_large<{head_dim}>"}[variant]
     assert instance in text
@@ -68,8 +68,8 @@ def test_backward_variant_threshold(window, variant):
 
 
 @pytest.mark.parametrize("dtype,window,head_dim,error", [
-    ("float16", 48, 16, TypeError), ("bfloat16", 48, 40, ValueError),
-    ("bfloat16", 1024, 8, ValueError), ("float32", 48, 64, ValueError),
+    ("float64", 48, 16, TypeError), ("bfloat16", 48, 129, ValueError),
+    ("float16", 1024, 0, ValueError), ("float32", 48, 256, ValueError),
     ("bfloat16", 0, 16, ValueError), ("bfloat16", -48, 48, ValueError)])
 def test_backward_variant_refuses_what_has_no_kernel(dtype, window, head_dim, error):
     with pytest.raises(error):
@@ -77,14 +77,21 @@ def test_backward_variant_refuses_what_has_no_kernel(dtype, window, head_dim, er
 
 
 def test_backward_source_and_library():
-    """The bf16 backward is a source of its own, built into a library of its
-    own; each C function refuses the other's windows."""
+    """The bf16 backward's two variants are sources of their own, each built
+    into a library of its own; each C function refuses the other's
+    windows."""
     text = tfwa.SOURCE_BWD.read_text()
+    large = tfwa.SOURCE_BWD_LARGE.read_text()
     assert tfwa.SOURCE_BWD.name == "flash_window_attn_bwd.cu"
+    assert tfwa.SOURCE_BWD_LARGE.name == "flash_window_attn_bwd_large.cu"
     assert tfwa.LIBRARY_BWD.path().name.startswith("libflash_window_attn_bwd_")
+    assert tfwa.LIBRARY_BWD_LARGE.path().name.startswith("libflash_window_attn_bwd_large_")
     assert tfwa.LIBRARY_BWD.source == tfwa.SOURCE_BWD != tfwa.LIBRARY.source
-    assert f"constexpr int SMALL_MAX = {tfwa.BWD_SMALL_MAX};" in text
-    assert "K > SMALL_MAX" in text and "K <= SMALL_MAX" in text
+    assert tfwa.LIBRARY_BWD_LARGE.source == tfwa.SOURCE_BWD_LARGE
+    for src in (text, large):
+        assert f"constexpr int SMALL_MAX = {tfwa.BWD_SMALL_MAX};" in src
+    assert "K > SMALL_MAX" in text and "K <= SMALL_MAX" in large
+    assert "fwa_bwd_large" not in text and "fwa_bwd_small" not in large
     assert "fwa_bwd_dq_bf16_kernel" not in tfwa.SOURCE.read_text()
     assert set(tfwa.flash_window_attention_bwd.variant_launches) == set(tfwa.BWD_VARIANTS)
 

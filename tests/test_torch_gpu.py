@@ -101,7 +101,7 @@ def test_large_window_bf16_variant(cuda, k, c, h):
     for row, stop in enumerate((k + 37, 2 * k + 64, 65, n)):
         valid[row, :stop] = True
     large = fwa.flash_window_attention.variant_launches["bf16_large"]
-    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    out, lse = fwa._forward(x16, valid, k, h, (c // h) ** -0.5, True)[:2]
     assert fwa.flash_window_attention.variant_launches["bf16_large"] == large + 1
     truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
 
@@ -153,7 +153,7 @@ def test_small_window_bf16_variant(cuda, k, c, h):
     assert fwa.forward_variant(torch.bfloat16, k, c // h) == "bf16_small"
     n, x16, valid, live = _small_inputs(cuda, k, c, seed=k + c)
     small = fwa.flash_window_attention.variant_launches["bf16_small"]
-    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    out, lse = fwa._forward(x16, valid, k, h, (c // h) ** -0.5, True)[:2]
     again = fwa.flash_window_attention(x16, valid, k, h)
     assert fwa.flash_window_attention.variant_launches["bf16_small"] == small + 2
     torch.cuda.synchronize()
@@ -196,7 +196,7 @@ def test_forward_variants_either_side_of_small_max(cuda, k, variant):
     assert fwa.forward_variant(torch.bfloat16, k, c // h) == variant
     n, x16, valid, live = _small_inputs(cuda, k, c, seed=k)
     before = dict(fwa.flash_window_attention.variant_launches)
-    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    out, lse = fwa._forward(x16, valid, k, h, (c // h) ** -0.5, True)[:2]
     after = fwa.flash_window_attention.variant_launches
     assert {v: after[v] - before[v] for v in after} == {
         v: int(v == variant) for v in fwa.VARIANTS}
@@ -227,7 +227,7 @@ def test_small_forward_unit_orders_agree(cuda, k, c, h):
         out = torch.empty(4, n, c, dtype=torch.bfloat16, device=cuda)
         lse = torch.empty(4, n, h, device=cuda)
         assert lib.fwa_fwd_small(x16.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                                 lse.data_ptr(), 4, n, c, h, k, (c // h) ** -0.5,
+                                 lse.data_ptr(), 1, 4, n, c, h, k, (c // h) ** -0.5,
                                  fwa.small_chunk(order, h), stream) == 0
         outs.append((out, lse))
     torch.cuda.synchronize()
@@ -238,7 +238,7 @@ def test_small_forward_unit_orders_agree(cuda, k, c, h):
     p = x16.data_ptr()
     for kk, cc, chunk in ((k, c, 1025), (k, c, -1), (fwa.FWD_SMALL_MAX + 1, c, 1),
                           (k, 40 * h, 1)):
-        assert lib.fwa_fwd_small(p, valid.data_ptr(), p, None, 4, n, cc, h, kk, 0.25, chunk,
+        assert lib.fwa_fwd_small(p, valid.data_ptr(), p, None, 1, 4, n, cc, h, kk, 0.25, chunk,
                                  stream) != 0
 
 
@@ -298,7 +298,7 @@ def test_attention_no_fallback(cuda, monkeypatch):
     assert fwa.flash_window_attention.launches == before
     # the C function refuses a window its tile list cannot hold
     rc = fwa.LIBRARY_LARGE.load().fwa_fwd_large(
-        x16.data_ptr(), valid.data_ptr(), x16.data_ptr(), None, 1, 512, 64, 4, 8192, 0.25,
+        x16.data_ptr(), valid.data_ptr(), x16.data_ptr(), None, 1, 1, 512, 64, 4, 8192, 0.25,
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0
 
@@ -312,30 +312,85 @@ def test_attention_no_fallback(cuda, monkeypatch):
         fwa_bwd_large = fwa_bwd_small
 
     dout = torch.randn(1, 512, 64, device=cuda).bfloat16()
-    for k in (48, 128):
+    for k, library in ((48, fwa.LIBRARY_BWD), (128, fwa.LIBRARY_BWD_LARGE)):
         variant = fwa.backward_variant(torch.bfloat16, k, 16)
         x = x16.detach().clone().requires_grad_(True)
         fwa.flash_window_attention(x, valid, k, 4).backward(dout)  # builds and runs
         b0 = dict(fwa.flash_window_attention_bwd.variant_launches)
         with monkeypatch.context() as patch:
-            patch.setattr(fwa.LIBRARY_BWD, "load", lambda: RefusesBwd)
+            patch.setattr(library, "load", lambda: RefusesBwd)
             with pytest.raises(RuntimeError, match=variant):
                 fwa.flash_window_attention(x, valid, k, 4).backward(dout)
         with monkeypatch.context() as patch:
-            patch.setattr(fwa.LIBRARY_BWD, "_lib", None)
-            patch.setattr(fwa.LIBRARY_BWD, "build", no_compiler)
+            patch.setattr(library, "_lib", None)
+            patch.setattr(library, "build", no_compiler)
             with pytest.raises(RuntimeError):
                 fwa.flash_window_attention(x, valid, k, 4).backward(dout)
         assert fwa.flash_window_attention_bwd.variant_launches == b0
     # each C function refuses the other's windows and head widths it lacks
-    lib, stream = fwa.LIBRARY_BWD.load(), torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream().cuda_stream
     p = x16.data_ptr()
     for k, c in ((fwa.BWD_SMALL_MAX + 1, 64), (48, 160)):
-        assert lib.fwa_bwd_small(p, valid.data_ptr(), p, p, p, 1, 512, c, 4, k, 0.25,
-                                 stream) != 0
+        assert fwa.LIBRARY_BWD.load().fwa_bwd_small(p, valid.data_ptr(), p, p, p, 1, 1, 512, c,
+                                                    4, k, 0.25, stream) != 0
     for k, c in ((fwa.BWD_SMALL_MAX, 64), (128, 160)):
-        assert lib.fwa_bwd_large(p, valid.data_ptr(), p, p, p, p, p, 1, 512, c, 4, k, 0.25,
-                                 stream) != 0
+        assert fwa.LIBRARY_BWD_LARGE.load().fwa_bwd_large(
+            p, valid.data_ptr(), p, p, p, p, p, 1, 1, 512, c, 4, k, 0.25, stream) != 0
+
+
+@pytest.mark.parametrize("k", [48, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 96, 128])
+def test_head_widths_and_float16_match_plain(cuda, d, dtype, k):
+    """K1 and K2 at head widths the wrapper pads (8, 24, 40) and the wider
+    instantiated ones, in every storage type: fp32 to 1e-4 (the forward)
+    and 1e-4 of each gradient's largest magnitude; bf16 and fp16 within 2.5
+    times the plain version's own error in that type; on the variant and
+    padded width the dispatch names."""
+    dt, h = getattr(torch, dtype), 2
+    c, n = h * d, 2 * k + k // 3 + 1
+    qkv, valid = _inputs(cuda, 2, n, c, k, seed=d)
+    x = qkv.to(dt)
+    dout = torch.randn(2, n, c, device=cuda).to(dt)
+    key = (fwa.forward_variant(dt, k, d), dtype, fwa.padded_head_dim(d))
+    before = fwa.flash_window_attention.width_launches.get(key, 0)
+
+    def grads(fn, t, g):
+        t = t.detach().clone().requires_grad_(True)
+        out = fn(t, valid, k, h)
+        out.backward(g)
+        return out.detach(), t.grad
+
+    out, g = grads(fwa.flash_window_attention, x, dout)
+    assert fwa.flash_window_attention.width_launches[key] == before + 1
+    if dt == torch.float32:
+        ref_out, ref = grads(fwa.flash_window_attention_plain, x, dout)
+        assert (out - ref_out)[valid].abs().max().item() <= 1e-4
+        for i in range(3):
+            assert (g[:, :, i] - ref[:, :, i]).abs().max() <= 1e-4 * ref[:, :, i].abs().max()
+        return
+    t_out, truth = grads(fwa.flash_window_attention_plain, x.float(), dout.float())
+    p_out, p_g = grads(fwa.flash_window_attention_plain, x, dout)
+
+    def rel(a, b):
+        return ((a[valid].float() - b[valid]).norm() / b[valid].norm()).item()
+
+    for got, plain, want in ((out, p_out, t_out), (g, p_g, truth)):
+        floor = rel(plain, want)
+        assert floor > 1e-5 and rel(got, want) <= 2.5 * floor, (rel(got, want), floor)
+
+
+def test_head_width_and_type_without_a_kernel_raise(cuda):
+    """A CUDA call at a head width above 128 or in float64 raises; nothing
+    stands in for the kernel."""
+    valid = torch.ones(1, 256, dtype=torch.bool, device=cuda)
+    before = fwa.flash_window_attention.launches
+    with pytest.raises(ValueError, match="128"):
+        fwa.flash_window_attention(torch.randn(1, 256, 3, 2 * 129, device=cuda), valid, 64, 2)
+    with pytest.raises(TypeError):
+        fwa.flash_window_attention(torch.randn(1, 256, 3, 64, device=cuda).double(), valid,
+                                   64, 2)
+    assert fwa.flash_window_attention.launches == before
 
 
 def test_padded_windows_write_zeros(cuda):
@@ -353,17 +408,17 @@ def test_dispatch_and_checks(cuda):
     wa.window_attention(qkv, valid, 64, 4)
     assert fwa.flash_window_attention.launches == before + 1
     with pytest.raises(TypeError):
-        fwa.flash_window_attention(qkv.half(), valid, 64, 4)
+        fwa.flash_window_attention(qkv.double(), valid, 64, 4)
     with pytest.raises(ValueError):
         fwa.flash_window_attention(qkv[:, ::2], valid[:, ::2], 64, 4)
     with pytest.raises(ValueError):
         fwa.flash_window_attention(qkv, valid, 64, 3)  # C % H != 0
     with pytest.raises(ValueError):
-        fwa.flash_window_attention(torch.randn(1, 256, 3, 40 * 4, device=cuda),
-                                   valid, 64, 4)  # no instance for head dim 40
+        fwa.flash_window_attention(torch.randn(1, 256, 3, 132 * 4, device=cuda),
+                                   valid, 64, 4)  # head dim 132, above the cap of 128
     with pytest.raises(ValueError):
-        fwa.flash_window_attention(torch.randn(1, 256, 3, 32, device=cuda).bfloat16(),
-                                   valid, 64, 4)  # head dim 8
+        fwa.flash_window_attention(torch.randn(1, 256, 3, 256 * 4, device=cuda).bfloat16(),
+                                   valid, 64, 4)  # head dim 256
 
 
 def _grads(fn, qkv, valid, k, h, dout):
@@ -495,11 +550,11 @@ def test_backward_variants_either_side_of_threshold(cuda, k, c, h):
     dead = torch.zeros_like(valid)
     dead[1, 2 * k:] = True
 
-    launches = fwa.flash_window_attention_bwd.variant_launches
-    f0 = launches["fp32"]
+    bwd = fwa.flash_window_attention_bwd
+    f0 = bwd.variant_launches["fp32"]
     _, g = _grads(fwa.flash_window_attention, qkv, valid, k, h, dout)
     _, ref = _grads(fwa.flash_window_attention_plain, qkv, valid, k, h, dout)
-    assert launches["fp32"] == f0 + 1
+    assert bwd.variant_launches["fp32"] == f0 + 1
     for i in range(3):
         bound = BWD_FP32_RTOL * ref[:, :, i].abs().max().item()
         assert (g[:, :, i] - ref[:, :, i]).abs().max().item() <= bound, i
@@ -514,10 +569,10 @@ def test_backward_variants_either_side_of_threshold(cuda, k, c, h):
         return ((a.float() - truth).norm() / truth.norm()).item()
 
     floor = rel(_grads(fwa.flash_window_attention_plain, x16, valid, k, h, d16)[1])
-    v0 = launches[variant]
+    v0 = bwd.variant_launches[variant]
     g16 = _grads(fwa.flash_window_attention, x16, valid, k, h, d16)[1]
     torch.cuda.synchronize()
-    assert launches[variant] == v0 + 1
+    assert bwd.variant_launches[variant] == v0 + 1
     assert torch.isfinite(g16).all() and (g16[dead] == 0).all()
     assert floor > 1e-4 and rel(g16) <= 2.5 * floor, (rel(g16), floor)
 
@@ -565,7 +620,7 @@ def test_ssl_local_crop_stages(cuda, n, c, h):
     valid[1, : k + 300] = True  # then windows of padding (one at stage 4)
     live = valid.view(2, n // k, k)[:, :, :1].expand(2, n // k, k).reshape(2, n)
     lse_before = fwa.flash_window_attention.lse_variant_launches["bf16_large"]
-    out, lse = fwa._launch_fwd(x16, valid, k, h, (c // h) ** -0.5, True)
+    out, lse = fwa._forward(x16, valid, k, h, (c // h) ** -0.5, True)[:2]
     assert fwa.flash_window_attention.lse_variant_launches["bf16_large"] == lse_before + 1
     assert torch.equal(out, fwa.flash_window_attention(x16, valid, k, h))
     assert fwa.flash_window_attention.lse_variant_launches["bf16_large"] == lse_before + 1

@@ -2,7 +2,7 @@
 card, without the model: the quick loop while a kernel is being worked on
 (chip_smoke.py is the whole proof).
 
-    python3 tools/torch_kernel_bench.py [attn] [sort] [bwd] [fps] [--reps N]
+    python3 tools/torch_kernel_bench.py [attn] [sort] [bwd] [fps] [widths] [--reps N]
 
 attn: the flash-window attention forward (K1) in bf16 against its plain
 version (noise-floor rule, lse against the plain log-sum-exp, zeros in
@@ -34,6 +34,16 @@ lattice rows where distances tie everywhere; then its
 time at chip_smoke.py's fps_kernel levels (ST's five at the train rows,
 PTv1's four, PartSeg50's four), each level checked against the plain loop,
 with its blocks a row, whether it spilled and us a step.
+widths: K1 and K2 at head widths 8 to 128 in fp32, bf16 and fp16 against
+the plain version (chip_smoke.py's kernel_widths phase, with every variant
+timed at width 64 and the wrapper pad's time at the padded widths); then
+the fp32 route (csrc/flash_window_attn.cu: K1 with lse and K2) at the
+stage shapes of the flagship file's fp32 model over one row of 49,152
+points in a 2.4 m room (the size of chip_smoke.py's semseg, PPT, insseg and
+CAC agree steps; train_agree now takes 24,576), and the bf16_tiled forward (its C
+function called in bf16 and in fp16) at the same shapes, each beside the
+plain version, scaled_dot_product_attention and the bound, per call and
+per step.
 One JSON line per phase; the card's name and power limit first.
 """
 
@@ -144,7 +154,7 @@ def attn_check():
             variant = fwa.forward_variant(qkv.dtype, k, c // h)
             truth = fwa.flash_window_attention_plain(qkv.float(), valid, k, h)
             floor = fwa.flash_window_attention_plain(qkv, valid, k, h)
-            out, lse = fwa._launch_fwd(qkv, valid, k, h, (c // h) ** -0.5, True)
+            out, lse = fwa._forward(qkv, valid, k, h, (c // h) ** -0.5, True)[:2]
             torch.cuda.synchronize()
             err = ((out.float() - truth)[valid].norm() / truth[valid].norm()).item()
             ref = ((floor.float() - truth)[valid].norm() / truth[valid].norm()).item()
@@ -193,7 +203,7 @@ def small_call(order, qkv, valid, k, h, with_lse):
     lse = torch.empty(b, n, h, device="cuda") if with_lse else None
     rc = fwa.LIBRARY_SMALL.load().fwa_fwd_small(
         qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        b, n, c, h, k, (c // h) ** -0.5, fwa.small_chunk(order, h),
+        fwa._DTYPES[qkv.dtype], b, n, c, h, k, (c // h) ** -0.5, fwa.small_chunk(order, h),
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"fwa_fwd_small failed: CUDA error {rc}")
@@ -208,7 +218,8 @@ def tiled_call(qkv, valid, k, h, with_lse):
     lse = torch.empty(b, n, h, device="cuda") if with_lse else None
     rc = fwa.LIBRARY.load().fwa_fwd(
         qkv.data_ptr(), valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        1, b, n, c, h, k, (c // h) ** -0.5, torch.cuda.current_stream().cuda_stream)
+        fwa._DTYPES[qkv.dtype], b, n, c, h, k, (c // h) ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"fwa_fwd (bf16_tiled) failed: CUDA error {rc}")
     return out, lse
@@ -234,7 +245,7 @@ def small_time(reps):
             valid = torch.zeros(b, n, dtype=torch.bool, device="cuda")
             for i, nv in enumerate(valids):
                 valid[i, :nv] = True
-            shipped = fwa._launch_fwd(qkv, valid, k, h, d ** -0.5, with_lse)
+            shipped = fwa._forward(qkv, valid, k, h, d ** -0.5, with_lse)[:2]
             live = valid.view(b, n // k, k)[:, :, :1].expand(b, n // k, k).reshape(b, n)
             for order in orders:
                 got = small_call(order, qkv, valid, k, h, with_lse)
@@ -506,6 +517,93 @@ def fps_time(reps):
                   levels=[{k: v for k, v in lv.items() if k != "valid"} for lv in levels]))
 
 
+def agree_shapes():
+    """(N, valid counts, K, C, H, launches) of every attention call of the
+    flagship file's fp32 model over one row of 49,152 points in a 2.4 m room
+    (agree_rows' default), as its forward pools them."""
+    from scenesplat_tpu_torch.utils.config import Config
+
+    backbone = dict(Config.fromfile(chip_smoke.FLAGSHIP_CONFIG).model.backbone)
+    batch = chip_smoke.cuda_batch(chip_smoke.agree_rows(49152, (7,)))
+    model, criteria = chip_smoke.flagship_fp32_model()
+    seen, forward = {}, model.forward
+
+    def recording(point, generator=None, **kwargs):
+        out = forward(point, generator=generator, **kwargs)
+        seen["sizes"] = [(point.mask.shape[1], point.mask.sum(1).tolist())] + [
+            (p.out_mask.shape[1], p.out_mask.sum(1).tolist())
+            for p in chip_smoke.points_of(out).plans]
+        return out
+
+    model.forward = recording
+    with torch.no_grad():
+        chip_smoke.lang_loss(model, criteria, batch, torch.Generator(device="cuda").manual_seed(11),
+                             epoch_progress=1.0)
+    del model
+    return chip_smoke.stage_shapes(backbone, seen["sizes"])
+
+
+def widths_time(reps):
+    """The fp32 route (K1 with lse, K2) and the bf16_tiled forward in bf16
+    and fp16 at the train_agree step's shapes, per call and per step."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, tot = [], {}
+    for n, valids, k, c, h, count in agree_shapes():
+        x = torch.randn(len(valids), n, 3, c, generator=gen, device="cuda")
+        valid = torch.zeros(len(valids), n, dtype=torch.bool, device="cuda")
+        for i, nv in enumerate(valids):
+            valid[i, :nv] = True
+        dout = torch.randn(len(valids), n, c, generator=gen, device="cuda")
+        row = dict(N=n, valid=valids, K=k, C=c, H=h, launches=count,
+                   fp32=chip_smoke.time_width_case(x, valid, dout, k, h))
+        row["fp32"]["fwd_lse_ms"] = cuda_ms(
+            lambda: fwa._forward(x, valid, k, h, (c // h) ** -0.5, True), reps)
+        for dtype in (torch.bfloat16, torch.float16):
+            x16 = x.to(dtype)
+            name = str(dtype).removeprefix("torch.")
+            ops_ms, bytes_ms = chip_smoke.typed_bound_ms(n, valids, k, c, dtype)
+            p = -(-n // k)
+            pad = p * k - n
+            x_w = torch.cat([x16, x16.new_zeros(len(valids), pad, 3, c)], 1) if pad else x16
+            v_w = torch.cat([valid, valid.new_zeros(len(valids), pad)], 1) if pad else valid
+            q, kk, v = x_w.view(len(valids) * p, k, 3, h, c // h).permute(
+                2, 0, 3, 1, 4).contiguous()
+            mask = v_w.view(len(valids) * p, 1, 1, k)
+            err, floor = _tiled_errs(x16, valid, k, h, tiled_call(x16, valid, k, h, False)[0])
+            if err > chip_smoke.BF16_NOISE_FACTOR * floor:
+                raise AssertionError(f"bf16_tiled {name} error {err} > 2.5 x {floor} at "
+                                     f"{(n, k, c, h)}")
+            row[f"tiled_{name}"] = dict(
+                rel_err=err, plain_rel_err=floor,
+                fwd_lse_ms=cuda_ms(lambda: tiled_call(x16, valid, k, h, True), reps),
+                fwd_plain_ms=cuda_ms(lambda: fwa.flash_window_attention_plain(x16, valid, k, h),
+                                     2, warmup=1),
+                fwd_library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kk, v, attn_mask=mask), reps),
+                fwd_bound_ms=max(ops_ms, bytes_ms),
+                fwd_bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        rows.append(row)
+        for route in ("fp32", "tiled_bfloat16", "tiled_float16"):
+            part = tot.setdefault(route, {})
+            for key, val in row[route].items():
+                if isinstance(val, float) and "rel_err" not in key:
+                    part[key] = part.get(key, 0.0) + count * val
+        del x, dout
+    emit(dict(phase="widths_time", shapes="flagship file, fp32, one row of 49,152 points",
+              per_call=rows, per_step=tot))
+
+
+def _tiled_errs(x16, valid, k, h, out):
+    """The tiled forward's relative error and the plain version's, both
+    against the plain version in fp32 on the same values."""
+    truth = fwa.flash_window_attention_plain(x16.float(), valid, k, h)[valid]
+
+    def rel(o):
+        return ((o[valid].float() - truth).norm() / truth.norm()).item()
+
+    return rel(out), rel(fwa.flash_window_attention_plain(x16, valid, k, h))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("what", nargs="*", default=["attn", "sort"])
@@ -522,9 +620,13 @@ def main() -> int:
     if "sort" in args.what:
         libraries.append(bs.LIBRARY)
     if "bwd" in args.what:
-        libraries.append(fwa.LIBRARY_BWD)
+        libraries += [fwa.LIBRARY_BWD, fwa.LIBRARY_BWD_LARGE]
     if "fps" in args.what:
         libraries.append(fps_ops.LIBRARY)
+    if "widths" in args.what:
+        libraries += [lib for lib in (fwa.LIBRARY_LARGE, fwa.LIBRARY, fwa.LIBRARY_SMALL,
+                                      fwa.LIBRARY_BWD, fwa.LIBRARY_BWD_LARGE)
+                      if lib not in libraries]
     build(libraries)
     if "sort" in args.what:
         sort_check()
@@ -540,6 +642,9 @@ def main() -> int:
     if "fps" in args.what:
         fps_check()
         fps_time(args.reps)
+    if "widths" in args.what:
+        chip_smoke.phase_kernel_widths()
+        widths_time(args.reps)
     return 0
 
 
